@@ -1,0 +1,221 @@
+"""``CUDAEngine(device="cpu")`` against ``TPUEngine(backend="xla")`` on the
+CPU, the port's parity gate, and the engine's guards.
+
+On the CPU the engine runs the megakernel's plain version; the kernel
+itself is held against that version on the card (``chip_smoke.py``,
+``tests/test_torch_mega.py -m cuda``).
+
+Tolerances: features, predictions and boxes equal. Pooled bins within
+1e-6 (one-ulp order of the two divisions). Probabilities within 1e-5:
+torch's and XLA's CPU matmuls sum the 1024-term logit dot in different
+orders (~10 ulp on a logit, ~1e-6 on a probability)."""
+
+import glob
+import os
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip(
+    "torch", reason="torch not installed: the PyTorch port cannot be tested")
+
+from tpu_cnn.apps.common import load_model  # noqa: E402
+from tpu_cnn.engine.cpu_ref import numpy_cnn_forward  # noqa: E402
+from tpu_cnn.engine.tpu import DetectResult as JaxDetectResult  # noqa: E402
+from tpu_cnn.engine.tpu import TPUEngine  # noqa: E402
+from tpu_cnn.head.classify import bin_pool_np  # noqa: E402
+from tpu_cnn.models.cnn import CNNConfig, FpgaCNN  # noqa: E402
+from tpu_cnn.models.registry import REGISTRY  # noqa: E402
+from tpu_cnn.utils import artifacts as art  # noqa: E402
+from tpu_cnn.utils.paths import default_artifacts  # noqa: E402
+from tpu_cnn_torch import bench_gate  # noqa: E402
+from tpu_cnn_torch.engine.cuda import CUDAEngine, DetectResult  # noqa: E402
+from tpu_cnn_torch.models.cnn import TorchFpgaCNN, params_from_numpy  # noqa: E402
+
+PROBS_ATOL = 1e-5
+ART = default_artifacts()
+
+
+@pytest.fixture(scope="module")
+def images():
+    """4 shipped test images + 2 noise images."""
+    paths = sorted(glob.glob(os.path.join(ART, "test_image_*.bin")))[:4]
+    imgs = [np.fromfile(p, np.uint8).reshape(128, 128) for p in paths]
+    rs = np.random.RandomState(41)
+    imgs += [rs.randint(0, 256, (128, 128)).astype(np.uint8) for _ in range(2)]
+    return np.stack(imgs)
+
+
+@pytest.fixture(scope="module")
+def engines():
+    """(port, reference) on separate models: set_shifts mutates its model."""
+    return (CUDAEngine(load_model(ART), device="cpu"),
+            TPUEngine(load_model(ART), backend="xla"))
+
+
+def _assert_detect_equal(got, want):
+    np.testing.assert_array_equal(got.pred, want.pred)
+    np.testing.assert_array_equal(got.bbox, want.bbox)
+    np.testing.assert_allclose(got.probs, want.probs, rtol=0, atol=PROBS_ATOL)
+    np.testing.assert_allclose(got.conf, want.conf, rtol=0, atol=PROBS_ATOL)
+    assert got.pred.dtype == np.int32 and got.bbox.dtype == np.int32
+
+
+def test_detect_result_matches_the_jax_fields():
+    import dataclasses
+
+    assert ([f.name for f in dataclasses.fields(DetectResult)]
+            == [f.name for f in dataclasses.fields(JaxDetectResult)])
+
+
+@pytest.mark.parametrize("box_mode", ["ref", "centroid", "reg"])
+def test_detect_batch_matches_tpu_engine(images, box_mode):
+    port = CUDAEngine(load_model(ART), device="cpu", box_mode=box_mode)
+    ref = TPUEngine(load_model(ART), backend="xla", box_mode=box_mode)
+    _assert_detect_equal(port.detect_batch(images), ref.detect_batch(images))
+
+
+def test_run_and_run_batch_match(images, engines):
+    port, ref = engines
+    feats, conv_ms, read_ms = port.run(images[0])
+    want, _, _ = ref.run(images[0])
+    np.testing.assert_array_equal(feats, want)
+    assert feats.shape == (64, 256) and conv_ms >= 0 and read_ms >= 0
+    np.testing.assert_array_equal(port.run_batch(images), ref.run_batch(images))
+
+
+def test_run_batch_pooled_matches(images, engines):
+    port, ref = engines
+    np.testing.assert_allclose(port.run_batch_pooled(images),
+                               ref.run_batch_pooled(images), rtol=0, atol=1e-6)
+
+
+def test_async_handles_in_flight_and_staged(images, engines):
+    port, ref = engines
+    want = ref.detect_batch(images)
+    handles = [port.detect_batch_async(images),
+               port.detect_batch_async(port.stage_batch(images)),
+               port.detect_batch_async(images[:3])]
+    results = [port.detect_resolve(h) for h in handles]
+    _assert_detect_equal(results[0], want)
+    _assert_detect_equal(results[1], want)
+    np.testing.assert_array_equal(results[2].pred, want.pred[:3])
+
+
+def test_set_shifts_is_a_runtime_register(images):
+    port = CUDAEngine(load_model(ART), device="cpu")
+    ref = TPUEngine(load_model(ART), backend="xla")
+    kernels = art.load_bundle(ART).kernels
+    for eng in (port, ref):
+        eng.set_shifts(1, 3, 5)
+    got = port.run_batch(images)
+    want = np.stack([numpy_cnn_forward(im, kernels, (1, 3, 5)) for im in images])
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(ref.run_batch(images), want)
+    _assert_detect_equal(port.detect_batch(images), ref.detect_batch(images))
+    assert port.net.shifts.tolist() == [1, 3, 5]
+    with pytest.raises(ValueError, match="one shift per layer"):
+        port.set_shifts(1, 2)
+
+
+def test_gap_head_matches_tpu_engine(images):
+    bundle = art.load_bundle(ART)
+    rs = np.random.RandomState(42)
+    w = (rs.randn(6, 64) * 0.05).astype(np.float32)
+    b = (rs.randn(6) * 0.1).astype(np.float32)
+    port = CUDAEngine(FpgaCNN(bundle.kernels, w, b), device="cpu")
+    ref = TPUEngine(FpgaCNN(bundle.kernels, w, b), backend="xla")
+    _assert_detect_equal(port.detect_batch(images), ref.detect_batch(images))
+
+
+def _gate_setup(images):
+    return (CUDAEngine(load_model(ART), device="cpu"), art.load_bundle(ART),
+            images)
+
+
+def test_gate_passes_on_the_engine(images):
+    engine, bundle, gate = _gate_setup(images)
+    assert bench_gate.run_parity_gate(engine.detect_with_features, bundle,
+                                      gate) is None
+
+
+def _corrupt_feats(o):
+    o[0][0, 0, 0] ^= 1  # one flipped bit
+
+
+def _corrupt_bins(o):
+    o[1][0, 0] += 1.0 / 4080.0  # one bin off by one feature count
+
+
+def _corrupt_pred(o):
+    o[2][:] = (o[2] + 1) % 6
+
+
+def _corrupt_bbox(o):
+    o[5][:] += 8
+
+
+@pytest.mark.parametrize("corrupt,msg", [
+    (_corrupt_feats, "features"), (_corrupt_bins, "bin pooling"),
+    (_corrupt_pred, "predictions"), (_corrupt_bbox, "bbox")])
+def test_gate_trips_on_corruption(images, corrupt, msg):
+    engine, bundle, gate = _gate_setup(images)
+
+    def corrupted(imgs):
+        out = [np.array(a) for a in engine.detect_with_features(imgs)]
+        corrupt(out)
+        return out
+
+    err = bench_gate.run_parity_gate(corrupted, bundle, gate)
+    assert err is not None and msg in err
+
+
+def test_gate_images_match_bench():
+    imgs = bench_gate.load_gate_images(ART)
+    assert imgs.shape == (32, 128, 128) and imgs.dtype == np.uint8
+    first = sorted(glob.glob(os.path.join(ART, "test_image_*.bin")))[0]
+    np.testing.assert_array_equal(imgs[0].ravel(), np.fromfile(first, np.uint8))
+
+
+def test_cuda_device_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CUDAEngine(load_model(ART), device="cuda")
+
+
+def test_engine_guards(images):
+    with pytest.raises(ValueError, match="device"):
+        CUDAEngine(load_model(ART), device="meta")
+    engine = CUDAEngine(load_model(ART), device="cpu", max_batch=4)
+    with pytest.raises(ValueError, match="max_batch"):
+        engine.detect_batch(images)
+    bundle = art.load_bundle(default_artifacts("lyr4-wide"),
+                             layer_configs=REGISTRY["lyr4-wide"].layer_configs)
+    wide = FpgaCNN(bundle.kernels, bundle.fc_weight, bundle.fc_bias,
+                   shifts=(2, 4, 6, 8), config=REGISTRY["lyr4-wide"])
+    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
+        CUDAEngine(wide, device="cpu")
+
+
+def test_torch_model_carries_the_parameters():
+    model = load_model(ART)
+    net = TorchFpgaCNN.from_fpga_cnn(model, "cpu")
+    for k, want in zip(net.kernels, model.kernels):
+        assert k.dtype == torch.int8
+        np.testing.assert_array_equal(k.numpy(), want)
+    assert net.shifts.dtype == torch.int32
+    np.testing.assert_array_equal(net.shifts.numpy(), model.shifts)
+    np.testing.assert_array_equal(net.fc_weight.numpy(), model.fc_weight)
+    np.testing.assert_array_equal(net.bbox_weight.numpy(), model.bbox_weight)
+    params = params_from_numpy(model.kernels[:2], model.fc_weight,
+                               model.fc_bias, (2, 4), device="cpu")
+    with pytest.raises(ValueError, match="kernel shapes"):
+        TorchFpgaCNN(CNNConfig(), params)
+
+
+def test_pooled_bins_equal_host_bin_pool(images, engines):
+    port, _ = engines
+    feats = port.run_batch(images)
+    np.testing.assert_allclose(port.run_batch_pooled(images),
+                               bin_pool_np(feats), rtol=0, atol=1e-6)

@@ -1,0 +1,129 @@
+"""The port's apps on the CPU: the HTTP service and the inference CLI
+against the host oracle, and the package's import hygiene (no JAX).
+
+Tolerances: predictions and boxes equal; probabilities within 1e-4 (the
+bench gate's bound: the service computes them in torch, the oracle in
+numpy, with different summation orders)."""
+
+import glob
+import http.client
+import json
+import os
+import shutil
+import subprocess
+import sys
+import threading
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip(
+    "torch", reason="torch not installed: the PyTorch port cannot be tested")
+
+from tpu_cnn.apps.serve import ServiceHTTPServer, make_handler  # noqa: E402
+from tpu_cnn.engine.cpu_ref import numpy_cnn_forward  # noqa: E402
+from tpu_cnn.head.cam import cam_bbox_fast  # noqa: E402
+from tpu_cnn.head.classify import classify_np  # noqa: E402
+from tpu_cnn.utils import artifacts as art  # noqa: E402
+from tpu_cnn.utils.paths import default_artifacts  # noqa: E402
+from tpu_cnn_torch.apps import infer, serve  # noqa: E402
+
+ART = default_artifacts()
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _oracle(body: bytes, bundle):
+    feats = numpy_cnn_forward(np.frombuffer(body, np.uint8), bundle.kernels)
+    idx, conf, probs = classify_np(feats[None], bundle.fc_weight, bundle.fc_bias)
+    return int(idx[0]), probs[0], list(cam_bbox_fast(feats, int(idx[0]),
+                                                     bundle.fc_weight))
+
+
+def test_service_answers_like_the_host_oracle():
+    bundle = art.load_bundle(ART)
+    batcher, backend = serve.build_service(ART, device="cpu", max_batch=4,
+                                           max_wait_ms=2.0)
+    srv = ServiceHTTPServer(("127.0.0.1", 0), make_handler(batcher, backend))
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+
+    def request(method, path, body=None):
+        conn = http.client.HTTPConnection("127.0.0.1", srv.server_address[1],
+                                          timeout=60)
+        try:
+            conn.request(method, path, body=body)
+            resp = conn.getresponse()
+            return resp.status, json.loads(resp.read())
+        finally:
+            conn.close()
+
+    try:
+        for p in sorted(glob.glob(os.path.join(ART, "test_image_*.bin")))[:3]:
+            body = open(p, "rb").read()
+            status, ans = request("POST", "/detect", body)
+            idx, probs, box = _oracle(body, bundle)
+            assert status == 200, ans
+            assert ans["pred"] == idx and ans["bbox"] == box
+            assert ans["name"] == bundle.class_names[idx]
+            np.testing.assert_allclose(ans["probs"], probs, rtol=0, atol=1e-4)
+        assert request("GET", "/healthz") == (
+            200, {"ok": True, "backend": "reference-cpu"})
+        assert request("POST", "/detect", b"\x00" * 100)[0] == 400
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        batcher.stop()
+        th.join(timeout=10)
+    assert not th.is_alive()
+
+
+def test_infer_cli_scores_a_directory(tmp_path, capsys):
+    bundle = art.load_bundle(ART)
+    paths = sorted(glob.glob(os.path.join(ART, "test_image_*.bin")))[:2]
+    for p in paths:
+        shutil.copy(p, tmp_path)
+    infer.main(["--artifacts", ART, "--image-dir", str(tmp_path),
+                "--device", "cpu", "--no-save"])
+    out = capsys.readouterr().out
+    want = sum(_oracle(open(p, "rb").read(), bundle)[0]
+               == art.label_from_filename(p) for p in paths)
+    assert f"Accuracy: {want}/2 " in out
+    assert "CUDAEngine (reference-cpu)" in out
+
+
+def test_infer_cli_single_image(capsys):
+    p = sorted(glob.glob(os.path.join(ART, "test_image_*.bin")))[0]
+    infer.main(["--image", p, "--device", "cpu", "--no-save"])
+    idx = _oracle(open(p, "rb").read(), art.load_bundle(ART))[0]
+    assert f"(class {idx})" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("argv", [["--multi"], ["--instances", "3"]])
+def test_infer_unported_modes_exit(argv):
+    with pytest.raises(SystemExit):
+        infer.main(argv + ["--device", "cpu"])
+
+
+@pytest.mark.parametrize("argv", [["--multi"], ["--deployable", "x.tcnnx"]])
+def test_serve_unported_modes_exit(argv):
+    with pytest.raises(SystemExit):
+        serve.main(argv + ["--device", "cpu"])
+
+
+def test_package_imports_without_jax():
+    """Every module of the port imports without pulling in JAX (the card's
+    machine need not have it)."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import tpu_cnn_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages("
+        "tpu_cnn_torch.__path__, 'tpu_cnn_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "assert len(names) >= 14, names\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
+        "assert not bad, bad\n"
+        "print(len(names))\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr

@@ -1,0 +1,239 @@
+"""CUDAEngine — batched fused detection on one CUDA device.
+
+Port of ``tpu_cnn.engine.tpu.TPUEngine`` for the single-box path. The
+JAX engine's program becomes: the whole-net megakernel
+(``ops.mega.cnn_forward_mega``) with its fused bin pooling and bf16
+feature twin, then the plain-torch head (``ops.detect_head``), all on the
+device; only (pred, conf, probs, bbox) come back to the host, through
+pinned buffers and a recorded event.
+
+The device is explicit: ``"cuda"`` runs the kernel and raises when there is
+no card; ``"cpu"`` runs the kernel's plain version (for tests on machines
+without a card). Nothing picks a device on its own.
+
+Engine protocol (``run(gray) -> (features, conv_ms, read_ms)``) and the
+serving protocol (``detect_batch_async`` / ``detect_resolve``) match
+``TPUEngine``, so ``tpu_cnn.apps.infer.run_inference`` and
+``tpu_cnn.apps.serve.DynamicBatcher`` drive it unchanged.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from tpu_cnn.models.cnn import FpgaCNN
+from tpu_cnn_torch.models.cnn import TorchFpgaCNN
+from tpu_cnn_torch.ops import detect_head, mega
+from tpu_cnn_torch.utils.failguard import wait_event
+
+
+@dataclasses.dataclass
+class DetectResult:
+    """The fields of ``tpu_cnn.engine.tpu.DetectResult`` (which cannot be
+    imported here: that module imports jax)."""
+
+    pred: np.ndarray  # (B,) int32
+    conf: np.ndarray  # (B,) float32
+    probs: np.ndarray  # (B, num_classes) float32
+    bbox: np.ndarray  # (B, 4) int32 (x1, y1, x2, y2)
+
+
+class CUDAEngine:
+    """Batched inference for the FpgaCNN contract on ``device``.
+
+    ``box_mode``: "ref" (reference CAM threshold box), "centroid" (CAM
+    mass-centroid box) or "reg" (learned regression on the pooled bins;
+    needs the bundle's bbox_weight)."""
+
+    def __init__(self, model: FpgaCNN, device: torch.device | str,
+                 max_batch: int = 4096, timeout_s: float | None = 300.0,
+                 box_mode: str = "ref"):
+        self.device = torch.device(device)
+        if self.device.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError("device='cuda' but torch finds no CUDA "
+                                   "device")
+            if torch.backends.cuda.matmul.allow_tf32:
+                raise RuntimeError(
+                    "torch.backends.cuda.matmul.allow_tf32 is on: the head's "
+                    "f32 matmuls would run in TF32 and drift from the "
+                    "reference; switch it off")
+        elif self.device.type != "cpu":
+            raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
+        if box_mode not in ("ref", "centroid", "reg"):
+            raise ValueError(f"unknown box_mode {box_mode!r}")
+        if box_mode == "reg" and model.bbox_weight is None:
+            raise ValueError("box_mode='reg' needs a bbox_weight.npy in the "
+                             "artifact bundle")
+        cfgs = model.config.layer_configs
+        if not mega.mega_fits(cfgs):
+            raise NotImplementedError(
+                f"{cfgs} does not fit the whole-net megakernel; the chained "
+                f"plan for such geometries is not ported yet (ROADMAP A.9)")
+        self.model = model
+        self.max_batch = max_batch
+        self.timeout_s = timeout_s
+        self.box_mode = box_mode
+        self.net = TorchFpgaCNN.from_fpga_cnn(model, self.device)
+        self.backend = ("mega-cuda" if self.device.type == "cuda"
+                        else "reference-cpu")
+        self.launches = 0  # kernel launches made by this engine
+
+    # ── device work ───────────────────────────────────────────────────
+
+    def _to_device(self, images):
+        """Raw (B, S, S) / flat u8 images or a stage_batch handle ->
+        (device tensor, B)."""
+        if isinstance(images, tuple) and len(images) == 3 and images[0] == "staged":
+            return images[1], images[2]
+        s = self.model.config.img_size
+        arr = np.ascontiguousarray(images, dtype=np.uint8).reshape(-1, s, s)
+        if arr.shape[0] > self.max_batch:
+            raise ValueError(f"batch {arr.shape[0]} exceeds max_batch "
+                             f"{self.max_batch}")
+        return torch.from_numpy(arr).to(self.device), arr.shape[0]
+
+    def _mega(self, x: torch.Tensor, **outputs) -> list[torch.Tensor]:
+        out = mega.cnn_forward_mega(x, self.net.kernels, self.net.shifts,
+                                    **outputs)
+        if x.is_cuda:
+            self.launches += 1
+        return list(out) if isinstance(out, tuple) else [out]
+
+    def _detect_device(self, x: torch.Tensor, with_feats: bool = False):
+        """(feats or None, pooled, pred, conf, probs, bbox) on the device.
+
+        Bins head: one kernel emits the bins (classifier, "reg" box) and,
+        for the CAM box modes, the bf16 twin; the u8 features are written
+        only when asked for. GAP head: the classifier needs global means,
+        so the kernel writes the u8 features and the head pools them."""
+        net, img = self.net, self.model.config.img_size
+        if self.model.head_mode == "bins":
+            with_twin = self.box_mode != "reg"
+            outs = self._mega(x, with_feats=with_feats, with_bins=True,
+                              with_twin=with_twin)
+            feats = outs.pop(0) if with_feats else None
+            pooled = outs.pop(0)
+            twin = outs.pop(0) if with_twin else None
+            pred, conf, probs, bbox = detect_head.detect_with_pooled(
+                None, pooled, net.fc_weight, net.fc_bias, img,
+                features_twin=twin, box_mode=self.box_mode,
+                bbox_weight=net.bbox_weight)
+        else:
+            feats, pooled = self._mega(x, with_feats=True, with_bins=True)
+            pred, conf, probs, bbox = detect_head.detect(
+                feats, net.fc_weight, net.fc_bias, "gap", img,
+                box_mode=self.box_mode, bbox_weight=net.bbox_weight)
+        return feats, pooled, pred, conf, probs, bbox
+
+    def _sync(self) -> None:
+        """Bounded wait for the work queued so far on the device."""
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+            wait_event(event, self.timeout_s,
+                       diagnostics=lambda: f"backend={self.backend}")
+
+    def _to_host_async(self, tensors):
+        """Start device->host copies into pinned buffers and record an
+        event; the handle resolves with :meth:`_fetch`."""
+        if self.device.type == "cpu":
+            return tuple(tensors), None
+        host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                     for t in tensors)
+        for h, t in zip(host, tensors):
+            h.copy_(t, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        return host, event
+
+    def _fetch(self, handle) -> tuple[np.ndarray, ...]:
+        """Bounded wait for a :meth:`_to_host_async` handle -> numpy."""
+        host, event = handle
+        if event is not None:
+            wait_event(event, self.timeout_s,
+                       diagnostics=lambda: f"backend={self.backend}")
+        return tuple(h.numpy() for h in host)
+
+    # ── public API ────────────────────────────────────────────────────
+
+    def warmup(self, batch: int = 1) -> None:
+        """Run the fused detect once at ``batch`` (on CUDA this also builds
+        and loads the kernel)."""
+        s = self.model.config.img_size
+        self.detect_batch(np.zeros((batch, s, s), np.uint8))
+
+    def set_shifts(self, *shifts: int) -> None:
+        """Runtime shift update — register semantics: an in-stream copy
+        into the device shift vector the kernel reads. Work already
+        dispatched keeps the old shifts; nothing is rebuilt and the host
+        does not wait."""
+        if len(shifts) != len(self.model.config.layer_configs):
+            raise ValueError("one shift per layer required")
+        self.model.shifts = np.asarray(shifts, np.int32)
+        src = torch.from_numpy(self.model.shifts)
+        if self.device.type == "cuda":
+            src = src.pin_memory()
+        self.net.shifts.copy_(src, non_blocking=True)
+
+    def run(self, gray: np.ndarray):
+        """Engine protocol: one image -> ((C, S'*S') u8, conv_ms, read_ms)."""
+        x, _ = self._to_device(gray)
+        t0 = time.perf_counter()
+        (feats,) = self._mega(x, with_feats=True)
+        self._sync()
+        conv_ms = (time.perf_counter() - t0) * 1e3
+        t1 = time.perf_counter()
+        host = feats[0].cpu().numpy()
+        read_ms = (time.perf_counter() - t1) * 1e3
+        return host, conv_ms, read_ms
+
+    def run_batch(self, images: np.ndarray) -> np.ndarray:
+        """(B, S, S) u8 -> (B, C, S'*S') u8 features."""
+        x, _ = self._to_device(images)
+        return self._fetch(self._to_host_async(self._mega(x, with_feats=True)))[0]
+
+    def run_batch_pooled(self, images: np.ndarray) -> np.ndarray:
+        """(B, S, S) u8 -> (B, C*16) f32 bin-pooled features, from the
+        kernel's fused bins (the feature map is never written)."""
+        x, _ = self._to_device(images)
+        out = self._mega(x, with_feats=False, with_bins=True)
+        return self._fetch(self._to_host_async(out))[0]
+
+    def detect_batch(self, images) -> DetectResult:
+        """Fused detect: only predictions and boxes return to the host."""
+        return self.detect_resolve(self.detect_batch_async(images))
+
+    def stage_batch(self, images: np.ndarray) -> tuple:
+        """Copy a batch to the device ahead of time; pass the handle to
+        :meth:`detect_batch_async` to drive device throughput alone."""
+        x, b = self._to_device(images)
+        self._sync()
+        return ("staged", x, b)
+
+    def detect_batch_async(self, images):
+        """Dispatch a fused detect without waiting; returns a handle for
+        :meth:`detect_resolve`. Several handles may be in flight. Takes raw
+        (B, S, S) u8 images or a :meth:`stage_batch` handle."""
+        x, _ = self._to_device(images)
+        _, _, pred, conf, probs, bbox = self._detect_device(x)
+        return self._to_host_async((pred, conf, probs, bbox))
+
+    def detect_resolve(self, handle) -> DetectResult:
+        return DetectResult(*self._fetch(handle))
+
+    def detect_with_features(self, images) -> tuple[np.ndarray, ...]:
+        """The fused detect path with the u8 features written as well:
+        (feats, pooled, pred, conf, probs, bbox) — what the parity gate
+        (``bench_gate.run_parity_gate``) checks."""
+        x, _ = self._to_device(images)
+        return self._fetch(self._to_host_async(self._detect_device(x, with_feats=True)))
+
+    def features_device(self, images_dev: torch.Tensor) -> torch.Tensor:
+        """Device-resident features for pipelines that keep data on the
+        device."""
+        return self._mega(images_dev, with_feats=True)[0]
