@@ -4,29 +4,42 @@
     python3 chip_smoke.py
 
 Needs one CUDA device, ``nvcc`` (CUDA toolkit) and the repository around
-this file; it fails with a non-zero exit code otherwise. Phases, one line
-each, in order; any failure raises:
+this file; it fails with a non-zero exit code otherwise. Two model families
+run: lyr3-std (128x128, the whole net in the megakernel) and lyr4-wide
+(256x256, the chained plan: the layer kernel for L0, then the megakernel
+for L1-L3). Phases, one line each, in order; any failure raises:
 
   1. header   — the card (nvidia-smi name and power limit), torch, CUDA
-  2. build    — nvcc builds csrc/mega_cnn.cu for sm_90a
-  3. kernel   — the megakernel against its plain PyTorch version on the
-                card: lyr3-std (shipped and seeded random weights, shifts
-                2/4/6 and 1/3/5, B=37, every with_feats/bins/twin
-                combination), lyr3-tiny and lyr2-small. Features and twin
-                bit-equal, bins within 1e-6.
+  2. build    — nvcc builds csrc/mega_cnn.cu and csrc/conv_pool_layer.cu
+                for sm_90a, in parallel
+  3. kernel   — each kernel against its plain PyTorch version on the card,
+                B=37. The megakernel: lyr3-std (shipped and seeded random
+                weights, shifts 2/4/6 and 1/3/5, every with_feats/bins/twin
+                combination), lyr3-tiny, lyr2-small, and lyr4-wide's L1-L3
+                tail from a (B, 16, 128, 128) input. The layer kernel:
+                lyr4-wide's L0 (shipped and seeded weights, shifts 3 and
+                0), 16->32 at 128^2 and two small odd geometries. Then the
+                lyr4-wide chain against the numpy oracle on 4 images.
+                Features and twin bit-equal, bins within 1e-6.
   4. engine   — CUDAEngine(device="cuda") through the bench's parity gate
-                on 28 shipped test images + 4 noise images
-  5. cli      — tpu_cnn_torch.apps.infer over the shipped test images;
-                accuracy equal to the numpy oracle's
-  6. server   — tpu_cnn_torch.apps.serve behind HTTP on 127.0.0.1: 8 raw
-                image POSTs, each answer equal to the host oracle's
-  7. times    — at batch 1536: the kernel and its plain version (CUDA
-                events, median), and the async-pipelined engine detect FPS
+                on 28 shipped test images + 4 noise images, per family,
+                and set_shifts against the oracle
+  5. cli      — tpu_cnn_torch.apps.infer over the shipped test images, per
+                family; accuracy equal to the numpy oracle's
+  6. server   — tpu_cnn_torch.apps.serve behind HTTP on 127.0.0.1, per
+                family: 8 raw image POSTs, each answer equal to the host
+                oracle's
+  7. times    — at batch 1536, CUDA events, median: lyr3-std's megakernel
+                and its plain version; lyr4-wide's layer kernel, tail and
+                chain and their plain versions; the async-pipelined engine
+                detect FPS of each family
 
-Phases 4-6 are the main path: every kernel launch counter is set to 0
-before them and read after, and each kernel must have launched there. The
-line before the last is a JSON object with each kernel's launches, error
-and times; the last line is {"ok": true, "device": {...}}.
+Phases 4-6 are the main path, once per family: every kernel launch
+counter is set to 0 before a family's phases 4-6 and read after them, and
+each kernel of that family's path must have launched there (lyr3-std: the
+megakernel, and never the layer kernel; lyr4-wide: both). The line before
+the last is a JSON object with each kernel's launches (summed over the
+families), error and times; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -34,6 +47,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import glob
+import hashlib
 import http.client
 import io
 import itertools
@@ -62,15 +76,29 @@ from tpu_cnn.utils.artifacts import label_from_filename  # noqa: E402
 from tpu_cnn_torch import bench_gate  # noqa: E402
 from tpu_cnn_torch.apps import infer, serve  # noqa: E402
 from tpu_cnn_torch.engine.cuda import CUDAEngine  # noqa: E402
-from tpu_cnn_torch.ops import _build, mega  # noqa: E402
+from tpu_cnn_torch.ops import _build, conv_pool, mega  # noqa: E402
 
-ART = os.path.join(ROOT, "artifacts", "pretrained")
-KERNEL_SOURCE = "tpu_cnn_torch/csrc/mega_cnn.cu"
-REPLACES = "tpu_cnn/ops/pallas_poly.py:687"  # cnn_forward_polyphase_pallas
+ARTIFACTS = {"lyr3-std": os.path.join(ROOT, "artifacts", "pretrained"),
+             "lyr4-wide": os.path.join(ROOT, "artifacts", "pretrained-lyr4")}
+KERNELS = {  # name -> (source, the TPU kernel(s) it replaces)
+    "mega_cnn": ("tpu_cnn_torch/csrc/mega_cnn.cu",
+                 "tpu_cnn/ops/pallas_poly.py:687"),  # cnn_forward_polyphase_pallas
+    "conv_pool_layer": ("tpu_cnn_torch/csrc/conv_pool_layer.cu",
+                        # conv_pool_layer_poly, conv_pool_layer_phase
+                        "tpu_cnn/ops/pallas_poly.py:957,1160"),
+}
+# each family's main path: the shifts set_shifts tries, and the kernels the
+# path must launch
+PATHS = {"lyr3-std": ((1, 3, 5), ("mega_cnn",)),
+         "lyr4-wide": ((2, 4, 6, 8), ("mega_cnn", "conv_pool_layer"))}
 BINS_TOL = 1e-6  # the kernel's bins vs the plain version's (1-ulp / order)
 BENCH_BATCH = 1536  # bench.py's batch
-MACS_PER_IMAGE = sum(oc * ic * 9 * s * s
-                     for ic, oc, s in get_config("lyr3-std").layer_configs)
+KERNEL_BATCH = 37  # the kernel cases' batch: not a multiple of any tile
+COMBOS = [c for c in itertools.product((True, False), repeat=3) if any(c)]
+
+
+def macs_per_image(layer_configs) -> int:
+    return sum(oc * ic * 9 * s * s for ic, oc, s in layer_configs)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -80,6 +108,34 @@ def check(cond: bool, msg: str) -> None:
 
 def phase(name: str, msg: str) -> None:
     print(f"[{name}] {msg}", flush=True)
+
+
+def bundle_of(variant: str):
+    return art.load_bundle(ARTIFACTS[variant],
+                           layer_configs=get_config(variant).layer_configs)
+
+
+def shipped_images(variant: str) -> list[str]:
+    return sorted(glob.glob(os.path.join(ARTIFACTS[variant], "test_image_*.bin")))
+
+
+_ORACLE: dict[bytes, np.ndarray] = {}
+
+
+def oracle_feats(images, kernels, shifts) -> np.ndarray:
+    """numpy_cnn_forward per image, (N, oc, P*P) u8. Runs on a pool of
+    threads (numpy's tensordot leaves the GIL) and remembers each result by
+    image, kernels and shifts: the lyr4-wide oracle takes ~1.5 s an image."""
+    shifts = tuple(int(s) for s in shifts)
+    wkey = b"".join(np.ascontiguousarray(k).tobytes() for k in kernels)
+    keys = [hashlib.sha256(np.ascontiguousarray(im).tobytes() + wkey
+                           + repr(shifts).encode()).digest() for im in images]
+    todo = {k: im for k, im in zip(keys, images) if k not in _ORACLE}
+    with concurrent.futures.ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        for k, f in zip(todo, pool.map(
+                lambda im: numpy_cnn_forward(im, kernels, shifts), todo.values())):
+            _ORACLE[k] = f
+    return np.stack([_ORACLE[k] for k in keys])
 
 
 def header() -> str:
@@ -98,116 +154,215 @@ def header() -> str:
 
 
 def build() -> None:
-    _lib, log, secs = _build.build("mega_cnn")
-    mega._lib()  # load it and bind its entry points
-    ptxas = " ".join(line.split("info    : ", 1)[-1] for line in log.splitlines()
-                     if "registers" in line or "stack frame" in line)
-    phase("2 build", f"nvcc sm_90a {KERNEL_SOURCE}: {secs:.2f} s; {ptxas}")
+    """One nvcc per source, all started together."""
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
+        built = dict(zip(KERNELS, pool.map(_build.build, KERNELS)))
+    mega._lib()  # load each library and bind its entry points
+    conv_pool._lib()
+    for name, (_lib, log, secs) in built.items():
+        ptxas = " ".join(line.split("info    : ", 1)[-1]
+                         for line in log.splitlines()
+                         if "registers" in line or "stack frame" in line)
+        phase("2 build", f"nvcc sm_90a {KERNELS[name][0]}: {secs:.2f} s; {ptxas}")
 
 
-def kernel_vs_plain(dev: torch.device) -> float:
-    """Every case: the kernel's outputs against mega_reference on the same
-    card tensors. Returns the largest absolute difference seen."""
-    bundle = art.load_bundle(ART)
-    gate = bench_gate.load_gate_images(ART, n_real=28, n_noise=9)  # B = 37
+def _random_kernels(rs, layer_configs):
+    return [rs.randint(-127, 128, (oc, ic, 3, 3)).astype(np.int8)
+            for ic, oc, _ in layer_configs]
+
+
+def _check_mega_outputs(tag, got, ref, flags) -> float:
+    """The wrapper's return for ``flags`` against (feats, bins, twin) of the
+    plain version. Returns the largest absolute difference."""
+    ref_feats, ref_bins, ref_twin = ref
+    got = list(got) if isinstance(got, tuple) else [got]
+    wf, wb, wt = flags
+    err = 0.0
+    if wf:
+        f = got.pop(0)
+        check(torch.equal(f, ref_feats), f"{tag}: features differ")
+        err = max(err, (f.int() - ref_feats.int()).abs().max().item())
+    if wb:
+        b = got.pop(0)
+        e = (b - ref_bins).abs().max().item()
+        check(e <= BINS_TOL, f"{tag}: bins off by {e}")
+        err = max(err, e)
+    if wt:
+        t = got.pop(0)
+        check(t.dtype == torch.bfloat16 and torch.equal(t, ref_twin)
+              and torch.equal(t.float(), ref_feats.float()),
+              f"{tag}: twin differs from the features")
+    return err
+
+
+def mega_vs_plain(dev: torch.device) -> tuple[float, int]:
+    """The megakernel against mega_reference on the same card tensors:
+    whole nets, and lyr4-wide's L1-L3 tail on a 4-D input. Returns (largest
+    absolute difference, cases)."""
+    art3 = ARTIFACTS["lyr3-std"]
+    bundle = art.load_bundle(art3)
+    gate = bench_gate.load_gate_images(art3, n_real=28, n_noise=9)  # B = 37
     rs = np.random.RandomState(7)
     setups = [(f"lyr3-std/{w}/{sh}", gate, ks, sh)
               for w, ks in (("shipped", bundle.kernels),
-                            ("seed7", _random_kernels(rs, "lyr3-std")))
+                            ("seed7", _random_kernels(
+                                rs, get_config("lyr3-std").layer_configs)))
               for sh in ((2, 4, 6), (1, 3, 5))]
     for name in ("lyr3-tiny", "lyr2-small"):
         s = get_config(name).img_size
-        setups.append((name, rs.randint(0, 256, (37, s, s)).astype(np.uint8),
-                       _random_kernels(rs, name),
+        setups.append((name, rs.randint(0, 256, (KERNEL_BATCH, s, s)).astype(np.uint8),
+                       _random_kernels(rs, get_config(name).layer_configs),
                        tuple(default_shifts(get_config(name)))))
+    tail_cfgs = get_config("lyr4-wide").layer_configs[1:]
+    x16 = rs.randint(0, 256, (KERNEL_BATCH, 16, 128, 128)).astype(np.uint8)
+    for w, ks in (("shipped", bundle_of("lyr4-wide").kernels[1:]),
+                  ("seed7", _random_kernels(rs, tail_cfgs))):
+        setups.append((f"lyr4-wide-tail/{w}", x16, ks, (5, 5, 7)))
     max_err, n_cases = 0.0, 0
-    combos = [c for c in itertools.product((True, False), repeat=3) if any(c)]
     for name, imgs_np, ks_np, sh in setups:
         imgs = torch.from_numpy(imgs_np).to(dev)
         ks = [torch.from_numpy(k).to(dev) for k in ks_np]
         shifts = torch.tensor(sh, dtype=torch.int32, device=dev)
-        ref_feats, ref_bins, ref_twin = mega.mega_reference(imgs, ks, shifts)
+        ref = mega.mega_reference(imgs, ks, shifts)
         int_feats = mega.mega_reference(imgs, ks, shifts, compute_dtype="int32")[0]
         torch.cuda.synchronize()
-        check(torch.equal(ref_feats, int_feats),
+        check(torch.equal(ref[0], int_feats),
               f"{name}: plain f32 and int32 paths disagree on the card")
-        oracle = np.stack([numpy_cnn_forward(im, ks_np, sh) for im in imgs_np[:4]])
-        check(np.array_equal(ref_feats[:4].cpu().numpy(), oracle),
-              f"{name}: plain version disagrees with the numpy oracle")
-        for wf, wb, wt in combos:
-            out = mega.cnn_forward_mega(imgs, ks, shifts, with_feats=wf,
-                                        with_bins=wb, with_twin=wt)
+        if imgs_np.ndim == 3:
+            oracle = oracle_feats(imgs_np[:4], ks_np, sh)
+            check(np.array_equal(ref[0][:4].cpu().numpy(), oracle),
+                  f"{name}: plain version disagrees with the numpy oracle")
+        for flags in COMBOS:
+            out = mega.cnn_forward_mega(imgs, ks, shifts, with_feats=flags[0],
+                                        with_bins=flags[1], with_twin=flags[2])
             torch.cuda.synchronize()
-            out = list(out) if isinstance(out, tuple) else [out]
-            tag = f"{name} feats={wf} bins={wb} twin={wt}"
-            if wf:
-                f = out.pop(0)
-                check(torch.equal(f, ref_feats), f"{tag}: features differ")
-                max_err = max(max_err, (f.int() - ref_feats.int()).abs().max().item())
-            if wb:
-                b = out.pop(0)
-                err = (b - ref_bins).abs().max().item()
-                check(err <= BINS_TOL, f"{tag}: bins off by {err}")
-                max_err = max(max_err, err)
-            if wt:
-                t = out.pop(0)
-                check(t.dtype == torch.bfloat16 and torch.equal(t, ref_twin)
-                      and torch.equal(t.float(), ref_feats.float()),
-                      f"{tag}: twin differs from the features")
+            tag = f"{name} feats={flags[0]} bins={flags[1]} twin={flags[2]}"
+            max_err = max(max_err, _check_mega_outputs(tag, out, ref, flags))
             n_cases += 1
-    phase("3 kernel", f"{n_cases} cases (B=37) bit-equal feats/twin, bins "
-                      f"within {BINS_TOL}; max_abs_err={max_err!r}")
-    return max_err
+    return max_err, n_cases
 
 
-def _random_kernels(rs, variant):
-    return [rs.randint(-127, 128, (oc, ic, 3, 3)).astype(np.int8)
-            for ic, oc, _ in get_config(variant).layer_configs]
+def layer_vs_plain(dev: torch.device) -> tuple[float, int]:
+    """The layer kernel against conv_pool_reference on the same card
+    tensors. Returns (largest absolute difference, cases)."""
+    rs = np.random.RandomState(8)
+    gate = bench_gate.load_gate_images(ARTIFACTS["lyr4-wide"], n_real=28,
+                                       n_noise=9, img_size=256)[:, None]
+    k0 = bundle_of("lyr4-wide").kernels[0]
+    setups = [(f"lyr4-wide-L0/{w}/{sh}", gate, k, sh)
+              for w, k in (("shipped", k0),
+                           ("seed8", rs.randint(-127, 128, k0.shape).astype(np.int8)))
+              for sh in (3, 0)]
+    for ic, oc, s, sh in ((16, 32, 128, 5), (20, 35, 38, 4), (3, 5, 10, 2)):
+        setups.append((f"{ic}->{oc}@{s}/{sh}",
+                       rs.randint(0, 256, (KERNEL_BATCH, ic, s, s)).astype(np.uint8),
+                       rs.randint(-127, 128, (oc, ic, 3, 3)).astype(np.int8), sh))
+    max_err = 0.0
+    for name, x_np, k_np, sh in setups:
+        x = torch.from_numpy(x_np).to(dev)
+        k = torch.from_numpy(k_np).to(dev)
+        shifts = torch.tensor([7, sh], dtype=torch.int32, device=dev)  # layer 1
+        ref = conv_pool.conv_pool_reference(x, k, shifts, 1)
+        ref_int = conv_pool.conv_pool_reference(x, k, shifts, 1,
+                                                compute_dtype="int32")
+        got = conv_pool.conv_pool_layer(x, k, shifts, 1)
+        torch.cuda.synchronize()
+        check(torch.equal(ref, ref_int),
+              f"{name}: plain f32 and int32 paths disagree on the card")
+        check(got.dtype == torch.uint8 and torch.equal(got, ref),
+              f"{name}: layer kernel differs from its plain version")
+        max_err = max(max_err, (got.int() - ref.int()).abs().max().item())
+    return max_err, len(setups)
 
 
-def engine_gate() -> None:
-    bundle = art.load_bundle(ART)
-    engine = CUDAEngine(load_model(ART), device="cuda")
-    gate = bench_gate.load_gate_images(ART)
-    err = bench_gate.run_parity_gate(engine.detect_with_features, bundle, gate)
-    check(err is None, f"engine parity gate: {err}")
+def chain_vs_oracle(dev: torch.device) -> None:
+    """The lyr4-wide chain (layer kernel, then the tail) on 4 shipped test
+    images against the numpy oracle and the plain chain."""
+    bundle = bundle_of("lyr4-wide")
+    sh = load_model(ARTIFACTS["lyr4-wide"], "lyr4-wide").shifts
+    imgs_np = np.stack([np.fromfile(p, np.uint8).reshape(256, 256)
+                        for p in shipped_images("lyr4-wide")[:4]])
+    imgs = torch.from_numpy(imgs_np).to(dev)
+    ks = [torch.from_numpy(k).to(dev) for k in bundle.kernels]
+    shifts = torch.from_numpy(np.asarray(sh, np.int32)).to(dev)
+    ref = mega.mega_reference(imgs, ks, shifts)
+    out = mega.cnn_forward_mega(imgs, ks, shifts, with_feats=True,
+                                with_bins=True, with_twin=True)
+    torch.cuda.synchronize()
+    _check_mega_outputs("lyr4-wide chain", out, ref, (True, True, True))
+    check(np.array_equal(out[0].cpu().numpy(),
+                         oracle_feats(imgs_np, bundle.kernels, sh)),
+          "lyr4-wide chain disagrees with the numpy oracle")
+
+
+def kernel_vs_plain(dev: torch.device) -> dict[str, float]:
+    mega_err, mega_cases = mega_vs_plain(dev)
+    phase("3 kernel", f"mega_cnn: {mega_cases} cases (B={KERNEL_BATCH}) "
+                      f"bit-equal feats/twin, bins within {BINS_TOL}; "
+                      f"max_abs_err={mega_err!r}")
+    layer_err, layer_cases = layer_vs_plain(dev)
+    phase("3 kernel", f"conv_pool_layer: {layer_cases} cases (B={KERNEL_BATCH}) "
+                      f"bit-equal; max_abs_err={layer_err!r}")
+    chain_vs_oracle(dev)
+    phase("3 kernel", "lyr4-wide chain on 4 shipped images: bit-equal to the "
+                      "numpy oracle and the plain chain")
+    return {"mega_cnn": mega_err, "conv_pool_layer": layer_err}
+
+
+def engine_gate(variant: str, alt_shifts: tuple[int, ...]) -> None:
+    art_dir = ARTIFACTS[variant]
+    bundle = bundle_of(variant)
+    model = load_model(art_dir, variant)
+    shifts, size = tuple(int(s) for s in model.shifts), model.config.img_size
+    engine = CUDAEngine(model, device="cuda")
+    gate = bench_gate.load_gate_images(art_dir, img_size=size)
+    err = bench_gate.run_parity_gate(engine.detect_with_features, bundle, gate,
+                                     shifts=shifts, img_size=size)
+    check(err is None, f"{variant} engine parity gate: {err}")
     res = engine.detect_batch(gate)  # the detect path proper: no u8 store
     _, _, pred, _, _, bbox = engine.detect_with_features(gate)
     check(np.array_equal(res.pred, pred) and np.array_equal(res.bbox, bbox),
-          "detect_batch disagrees with the gated path")
-    engine.set_shifts(1, 3, 5)
+          f"{variant}: detect_batch disagrees with the gated path")
+    engine.set_shifts(*alt_shifts)
     feats = engine.run_batch(gate[:4])
-    want = np.stack([numpy_cnn_forward(im, bundle.kernels, (1, 3, 5))
-                     for im in gate[:4]])
-    check(np.array_equal(feats, want), "set_shifts(1, 3, 5) features differ")
-    engine.set_shifts(2, 4, 6)
-    check(engine.launches > 0, "the engine launched no kernel")
-    phase("4 engine", f"parity gate passed on {len(gate)} images; "
-                      f"set_shifts checked; engine launches={engine.launches}")
+    want = oracle_feats(gate[:4], bundle.kernels, alt_shifts)
+    check(np.array_equal(feats, want), f"{variant}: set_shifts{alt_shifts} "
+                                       f"features differ")
+    engine.set_shifts(*shifts)
+    check(engine.launches > 0, f"{variant}: the engine launched no kernel")
+    phase("4 engine", f"{variant} ({engine.backend}, shifts {shifts}): parity "
+                      f"gate passed on {len(gate)} images; set_shifts"
+                      f"{alt_shifts} checked; engine launches={engine.launches}")
 
 
-def cli() -> None:
-    paths = sorted(glob.glob(os.path.join(ART, "test_image_*.bin")))
-    bundle = art.load_bundle(ART)
-    feats = np.stack([numpy_cnn_forward(np.fromfile(p, np.uint8), bundle.kernels)
-                      for p in paths])
+def cli(variant: str) -> None:
+    art_dir = ARTIFACTS[variant]
+    paths = shipped_images(variant)
+    bundle = bundle_of(variant)
+    shifts = load_model(art_dir, variant).shifts
+    feats = oracle_feats([np.fromfile(p, np.uint8) for p in paths],
+                         bundle.kernels, shifts)
     pred = classify_np(feats, bundle.fc_weight, bundle.fc_bias)[0]
     want = sum(int(p == label_from_filename(f)) for p, f in zip(pred, paths))
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        infer.main(["--image-dir", ART, "--device", "cuda", "--no-save"])
+        infer.main(["--variant", variant, "--image-dir", art_dir,
+                    "--device", "cuda", "--no-save"])
     line = next(ln.strip() for ln in out.getvalue().splitlines()
                 if "Accuracy:" in ln)
     check(line.startswith(f"Accuracy: {want}/{len(paths)} "),
-          f"CLI '{line}' != the oracle's {want}/{len(paths)}")
-    phase("5 cli", f"tpu_cnn_torch.apps.infer: {line} (numpy oracle: "
-                   f"{want}/{len(paths)})")
+          f"{variant} CLI '{line}' != the oracle's {want}/{len(paths)}")
+    phase("5 cli", f"tpu_cnn_torch.apps.infer --variant {variant}: {line} "
+                   f"(numpy oracle: {want}/{len(paths)})")
 
 
-def server() -> None:
-    bundle = art.load_bundle(ART)
-    paths = sorted(glob.glob(os.path.join(ART, "test_image_*.bin")))[:8]
-    batcher, backend = serve.build_service(ART, device="cuda", max_batch=8)
+def server(variant: str) -> None:
+    bundle = bundle_of(variant)
+    model = load_model(ARTIFACTS[variant], variant)
+    size = model.config.img_size
+    paths = shipped_images(variant)[:8]
+    batcher, backend = serve.build_service(ARTIFACTS[variant], device="cuda",
+                                           max_batch=8, variant=variant)
     srv = ServiceHTTPServer(("127.0.0.1", 0), make_handler(batcher, backend))
     th = threading.Thread(target=srv.serve_forever, daemon=True)
     th.start()
@@ -224,15 +379,18 @@ def server() -> None:
 
     try:
         bodies = [open(p, "rb").read() for p in paths]
+        check(all(len(b) == size * size for b in bodies),
+              f"{variant}: test images are not {size}x{size}")
+        feats = oracle_feats([np.frombuffer(b, np.uint8) for b in bodies],
+                             bundle.kernels, model.shifts)
         with concurrent.futures.ThreadPoolExecutor(8) as pool:
             answers = list(pool.map(lambda b: request("POST", "/detect", b), bodies))
-        for p, body, (status, ans) in zip(paths, bodies, answers):
-            f = numpy_cnn_forward(np.frombuffer(body, np.uint8), bundle.kernels)
+        for p, f, (status, ans) in zip(paths, feats, answers):
             idx = int(classify_np(f[None], bundle.fc_weight, bundle.fc_bias)[0][0])
-            box = list(cam_bbox_fast(f, idx, bundle.fc_weight))
+            box = list(cam_bbox_fast(f, idx, bundle.fc_weight, img_size=size))
             check(status == 200 and ans["pred"] == idx and ans["bbox"] == box,
-                  f"{os.path.basename(p)}: server {status} {ans} != oracle "
-                  f"pred {idx} bbox {box}")
+                  f"{variant} {os.path.basename(p)}: server {status} {ans} != "
+                  f"oracle pred {idx} bbox {box}")
         status, health = request("GET", "/healthz")
         check(status == 200 and health.get("ok") is True, f"/healthz: {health}")
         stats = batcher.snapshot()
@@ -241,9 +399,9 @@ def server() -> None:
         srv.server_close()
         batcher.stop()
         th.join(timeout=10)
-    phase("6 server", f"{len(paths)} POST /detect equal to the host oracle; "
-                      f"/healthz {health}; batches={stats['batches']} "
-                      f"requests={stats['requests']}")
+    phase("6 server", f"{variant}: {len(paths)} POST /detect of {size * size} "
+                      f"bytes equal to the host oracle; /healthz {health}; "
+                      f"batches={stats['batches']} requests={stats['requests']}")
 
 
 def _event_ms(fn, n: int) -> list[float]:
@@ -259,40 +417,28 @@ def _event_ms(fn, n: int) -> list[float]:
     return out
 
 
-def times(dev: torch.device, card: str) -> tuple[float, float]:
-    bundle = art.load_bundle(ART)
-    rs = np.random.RandomState(0)
-    imgs = torch.from_numpy(
-        rs.randint(0, 256, (BENCH_BATCH, 128, 128)).astype(np.uint8)).to(dev)
-    ks = [torch.from_numpy(k).to(dev) for k in bundle.kernels]
-    shifts = torch.tensor((2, 4, 6), dtype=torch.int32, device=dev)
-
-    def kernel():
-        mega.cnn_forward_mega(imgs, ks, shifts, with_feats=False,
-                              with_bins=True, with_twin=True)
-
-    def plain():
-        mega.mega_reference(imgs, ks, shifts)
-
+def _kernel_and_plain_ms(kernel, plain, n_kernel: int = 20,
+                         n_plain: int = 5) -> tuple[float, float, int, int]:
+    """Medians of CUDA-event times, in turns plain, kernel, kernel, plain,
+    so both see the same card state."""
     for fn in (kernel, plain):  # warm-up
         fn()
     torch.cuda.synchronize()
-    # plain, kernel, kernel, plain: both see the same card state
-    p_ms = _event_ms(plain, 5)
-    k_ms = _event_ms(kernel, 20) + _event_ms(kernel, 20)
-    p_ms += _event_ms(plain, 5)
-    kernel_ms, plain_ms = statistics.median(k_ms), statistics.median(p_ms)
-    tops = MACS_PER_IMAGE * BENCH_BATCH / (kernel_ms * 1e-3) / 1e12
-    phase("7 times", f"batch {BENCH_BATCH} detect outputs on {card}: kernel "
-                     f"median {kernel_ms!r} ms (n={len(k_ms)}, "
-                     f"{tops:.2f} int TMAC/s), plain median {plain_ms!r} ms "
-                     f"(n={len(p_ms)})")
+    p_ms = _event_ms(plain, n_plain)
+    k_ms = _event_ms(kernel, n_kernel) + _event_ms(kernel, n_kernel)
+    p_ms += _event_ms(plain, n_plain)
+    return statistics.median(k_ms), statistics.median(p_ms), len(k_ms), len(p_ms)
 
-    engine = CUDAEngine(load_model(ART), device="cuda")
-    pools = [engine.stage_batch(rs.randint(0, 256, (BENCH_BATCH, 128, 128))
+
+def engine_fps(variant: str, rs) -> list[float]:
+    """bench.py's async pipeline: 52 rounds over 4 staged pools, 3 passes."""
+    model = load_model(ARTIFACTS[variant], variant)
+    s = model.config.img_size
+    engine = CUDAEngine(model, device="cuda")
+    pools = [engine.stage_batch(rs.randint(0, 256, (BENCH_BATCH, s, s))
                                 .astype(np.uint8)) for _ in range(4)]
     engine.detect_resolve(engine.detect_batch_async(pools[0]))
-    rounds = 52  # bench.py's async pipeline: 52 rounds over 4 staged pools
+    rounds = 52
 
     def measure():
         t0 = time.perf_counter()
@@ -303,10 +449,74 @@ def times(dev: torch.device, card: str) -> tuple[float, float]:
               "pipelined detect returned the wrong shapes")
         return rounds * BENCH_BATCH / dt
 
-    fps = [measure() for _ in range(3)]
-    phase("7 times", f"engine detect async-pipelined batch {BENCH_BATCH} on "
-                     f"{card}: best {max(fps)!r} FPS of {fps!r}")
-    return kernel_ms, plain_ms
+    return [measure() for _ in range(3)]
+
+
+def times(dev: torch.device, card: str) -> dict[str, tuple[float, float]]:
+    """Returns {kernel name: (kernel ms, plain ms)} at batch 1536: the
+    megakernel on lyr3-std's whole net, the layer kernel on lyr4-wide's L0."""
+    rs = np.random.RandomState(0)
+    # lyr3-std: the whole net in the megakernel
+    bundle = art.load_bundle(ARTIFACTS["lyr3-std"])
+    imgs = torch.from_numpy(
+        rs.randint(0, 256, (BENCH_BATCH, 128, 128)).astype(np.uint8)).to(dev)
+    ks = [torch.from_numpy(k).to(dev) for k in bundle.kernels]
+    shifts = torch.tensor((2, 4, 6), dtype=torch.int32, device=dev)
+    kernel_ms, plain_ms, nk, np_ = _kernel_and_plain_ms(
+        lambda: mega.cnn_forward_mega(imgs, ks, shifts, with_feats=False,
+                                      with_bins=True, with_twin=True),
+        lambda: mega.mega_reference(imgs, ks, shifts))
+    tops = (macs_per_image(get_config("lyr3-std").layer_configs) * BENCH_BATCH
+            / (kernel_ms * 1e-3) / 1e12)
+    phase("7 times", f"lyr3-std batch {BENCH_BATCH} detect outputs on {card}: "
+                     f"mega_cnn median {kernel_ms!r} ms (n={nk}, {tops:.2f} int "
+                     f"TMAC/s), plain median {plain_ms!r} ms (n={np_})")
+    out = {"mega_cnn": (kernel_ms, plain_ms)}
+    del imgs
+
+    # lyr4-wide: the layer kernel (L0), the megakernel (L1-L3), the chain
+    cfgs = get_config("lyr4-wide").layer_configs
+    bundle = bundle_of("lyr4-wide")
+    imgs = torch.from_numpy(
+        rs.randint(0, 256, (BENCH_BATCH, 256, 256)).astype(np.uint8)).to(dev)
+    x = imgs[:, None]
+    ks = [torch.from_numpy(k).to(dev) for k in bundle.kernels]
+    shifts = torch.tensor((3, 5, 5, 7), dtype=torch.int32, device=dev)
+    x16 = conv_pool.conv_pool_layer(x, ks[0], shifts, 0)
+    detect = dict(with_feats=False, with_bins=True, with_twin=True)
+    stages = {
+        "layer kernel L0": (
+            lambda: conv_pool.conv_pool_layer(x, ks[0], shifts, 0),
+            lambda: conv_pool.conv_pool_reference(x, ks[0], shifts, 0),
+            cfgs[:1]),
+        "megakernel tail L1-L3": (
+            lambda: mega.cnn_forward_mega(x16, ks[1:], shifts[1:], **detect),
+            lambda: mega.mega_reference(x16, ks[1:], shifts[1:]),
+            cfgs[1:]),
+        "chain": (
+            lambda: mega.cnn_forward_mega(imgs, ks, shifts, **detect),
+            lambda: mega.mega_reference(imgs, ks, shifts),
+            cfgs),
+    }
+    for stage, (kernel, plain, stage_cfgs) in stages.items():
+        k_ms, p_ms, nk, np_ = _kernel_and_plain_ms(kernel, plain, 5, 3)
+        tops = macs_per_image(stage_cfgs) * BENCH_BATCH / (k_ms * 1e-3) / 1e12
+        phase("7 times", f"lyr4-wide {stage} batch {BENCH_BATCH} on {card}: "
+                         f"kernel median {k_ms!r} ms (n={nk}, {tops:.2f} int "
+                         f"TMAC/s, {k_ms * 1e3 / BENCH_BATCH!r} us/image), plain "
+                         f"median {p_ms!r} ms (n={np_}, "
+                         f"{p_ms * 1e3 / BENCH_BATCH!r} us/image)")
+        if stage == "layer kernel L0":
+            out["conv_pool_layer"] = (k_ms, p_ms)
+    del imgs, x, x16
+    torch.cuda.empty_cache()
+
+    for variant in ARTIFACTS:
+        fps = engine_fps(variant, rs)
+        phase("7 times", f"{variant} engine detect async-pipelined batch "
+                         f"{BENCH_BATCH} on {card}: best {max(fps)!r} FPS of "
+                         f"{fps!r}")
+    return out
 
 
 def main() -> None:
@@ -315,19 +525,28 @@ def main() -> None:
     build()
     max_err = kernel_vs_plain(dev)
 
-    mega.launches = 0  # the main path starts here
-    engine_gate()
-    cli()
-    server()
-    launches = mega.launches
-    check(launches > 0, "the main path never launched the megakernel")
+    launches = dict.fromkeys(KERNELS, 0)
+    for variant, (alt_shifts, path_kernels) in PATHS.items():
+        mega.launches = conv_pool.launches = 0  # this main path starts here
+        engine_gate(variant, alt_shifts)
+        cli(variant)
+        server(variant)
+        counts = {"mega_cnn": mega.launches,
+                  "conv_pool_layer": conv_pool.launches}
+        for name, n in counts.items():
+            check((n > 0) == (name in path_kernels),
+                  f"{variant}'s main path launched {name} {n} times")
+            launches[name] += n
+        phase("4-6 main path", f"{variant} (phases 4-6) kernel "
+                          f"launches: {counts}")
 
-    kernel_ms, plain_ms = times(dev, card)
+    ms = times(dev, card)
     check("jax" not in sys.modules, "jax was imported")
     print(json.dumps({"kernels": [{
-        "name": "mega_cnn", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "launches": launches, "max_abs_err": max_err,
-        "ms": kernel_ms, "plain_ms": plain_ms}]}))
+        "name": name, "route": "cuda", "source": src, "replaces": replaces,
+        "launches": launches[name], "max_abs_err": max_err[name],
+        "ms": ms[name][0], "plain_ms": ms[name][1]}
+        for name, (src, replaces) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,9 +1,10 @@
 """``CUDAEngine(device="cpu")`` against ``TPUEngine(backend="xla")`` on the
-CPU, the port's parity gate, and the engine's guards.
+CPU, for lyr3-std and for lyr4-wide (the chained plan: one head layer, then
+the megakernel's tail), the port's parity gate, and the engine's guards.
 
-On the CPU the engine runs the megakernel's plain version; the kernel
-itself is held against that version on the card (``chip_smoke.py``,
-``tests/test_torch_mega.py -m cuda``).
+On the CPU the engine runs the kernels' plain versions; the kernels
+themselves are held against those versions on the card (``chip_smoke.py``,
+``python -m pytest -m cuda tests/test_torch_mega.py tests/test_torch_conv_pool.py``).
 
 Tolerances: features, predictions and boxes equal. Pooled bins within
 1e-6 (one-ulp order of the two divisions). Probabilities within 1e-5:
@@ -34,6 +35,7 @@ from tpu_cnn_torch.models.cnn import TorchFpgaCNN, params_from_numpy  # noqa: E4
 
 PROBS_ATOL = 1e-5
 ART = default_artifacts()
+ART4 = default_artifacts("lyr4-wide")
 
 
 @pytest.fixture(scope="module")
@@ -190,12 +192,101 @@ def test_engine_guards(images):
     engine = CUDAEngine(load_model(ART), device="cpu", max_batch=4)
     with pytest.raises(ValueError, match="max_batch"):
         engine.detect_batch(images)
-    bundle = art.load_bundle(default_artifacts("lyr4-wide"),
-                             layer_configs=REGISTRY["lyr4-wide"].layer_configs)
-    wide = FpgaCNN(bundle.kernels, bundle.fc_weight, bundle.fc_bias,
-                   shifts=(2, 4, 6, 8), config=REGISTRY["lyr4-wide"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
-        CUDAEngine(wide, device="cpu")
+    big = CNNConfig(layer_configs=((1, 16, 512),))  # no tail fits a CTA
+    rs = np.random.RandomState(43)
+    k = rs.randint(-127, 128, (16, 1, 3, 3)).astype(np.int8)
+    with pytest.raises(ValueError, match="fits the megakernel"):
+        CUDAEngine(FpgaCNN([k], np.zeros((6, 256), np.float32),
+                           np.zeros(6, np.float32), shifts=(2,), config=big),
+                   device="cpu")
+
+
+def _lyr4_bundle():
+    return art.load_bundle(ART4,
+                           layer_configs=REGISTRY["lyr4-wide"].layer_configs)
+
+
+@pytest.fixture(scope="module")
+def images4():
+    """2 shipped lyr4-wide test images + 1 noise image, 256x256."""
+    return bench_gate.load_gate_images(ART4, n_real=2, n_noise=1,
+                                       img_size=256)
+
+
+@pytest.mark.parametrize("box_mode", ["ref", "centroid", "reg"])
+def test_lyr4_wide_detect_matches_tpu_engine(images4, box_mode):
+    port = CUDAEngine(load_model(ART4, "lyr4-wide"), device="cpu",
+                      box_mode=box_mode)
+    ref = TPUEngine(load_model(ART4, "lyr4-wide"), backend="xla",
+                    box_mode=box_mode)
+    got = port.detect_batch(images4)
+    _assert_detect_equal(got, ref.detect_batch(images4))
+    assert got.probs.shape == (3, 6)
+
+
+def test_lyr4_wide_run_batch_matches_tpu_engine(images4):
+    port = CUDAEngine(load_model(ART4, "lyr4-wide"), device="cpu")
+    ref = TPUEngine(load_model(ART4, "lyr4-wide"), backend="xla")
+    feats = port.run_batch(images4)
+    assert feats.shape == (3, 128, 256) and feats.dtype == np.uint8
+    np.testing.assert_array_equal(feats, ref.run_batch(images4))
+    one, _, _ = port.run(images4[0])
+    np.testing.assert_array_equal(one, feats[0])
+    np.testing.assert_allclose(port.run_batch_pooled(images4),
+                               bin_pool_np(feats), rtol=0, atol=1e-6)
+    assert port.backend == "reference-cpu" and port.launches == 0
+
+
+def test_lyr4_wide_set_shifts(images4):
+    port = CUDAEngine(load_model(ART4, "lyr4-wide"), device="cpu")
+    kernels = _lyr4_bundle().kernels
+    port.set_shifts(2, 4, 6, 8)
+    assert port.net.shifts.tolist() == [2, 4, 6, 8]
+    want = np.stack([numpy_cnn_forward(im, kernels, (2, 4, 6, 8))
+                     for im in images4[:2]])
+    np.testing.assert_array_equal(port.run_batch(images4[:2]), want)
+    with pytest.raises(ValueError, match="one shift per layer"):
+        port.set_shifts(2, 4, 6)
+
+
+def test_gate_takes_the_models_shifts_and_size(images4):
+    """The gate repair: on lyr4-wide the old call (stock 2/4/6 shifts, a
+    128 image size) reports a mismatch on a correct engine; with the
+    model's shifts and image size it passes."""
+    engine = CUDAEngine(load_model(ART4, "lyr4-wide"), device="cpu")
+    bundle = _lyr4_bundle()
+    shifts = engine.model.shifts
+    assert list(shifts) == [3, 5, 5, 7]  # the bundle's shifts.json
+    assert bench_gate.load_gate_images(ART4, 2, 1).shape == (3, 128, 128)
+    err = bench_gate.run_parity_gate(engine.detect_with_features, bundle,
+                                     images4)
+    assert err is not None and "features" in err
+    err = bench_gate.run_parity_gate(engine.detect_with_features, bundle,
+                                     images4, shifts=shifts)
+    assert err is not None and "bbox" in err  # boxes at 128-pixel scale
+    assert bench_gate.run_parity_gate(engine.detect_with_features, bundle,
+                                      images4, shifts=shifts,
+                                      img_size=256) is None
+    first = sorted(glob.glob(os.path.join(ART4, "test_image_*.bin")))[0]
+    np.testing.assert_array_equal(images4[0].ravel(),
+                                  np.fromfile(first, np.uint8))
+
+
+def test_torch_model_carries_the_lyr4_wide_parameters():
+    model = load_model(ART4, "lyr4-wide")
+    net = TorchFpgaCNN.from_fpga_cnn(model, "cpu")
+    assert [tuple(k.shape) for k in net.kernels] == [
+        (16, 1, 3, 3), (32, 16, 3, 3), (64, 32, 3, 3), (128, 64, 3, 3)]
+    for k, want in zip(net.kernels, model.kernels):
+        assert k.dtype == torch.int8
+        np.testing.assert_array_equal(k.numpy(), want)
+    assert net.shifts.dtype == torch.int32
+    np.testing.assert_array_equal(net.shifts.numpy(), model.shifts)
+    assert net.fc_weight.shape == (6, 2048)
+    np.testing.assert_array_equal(net.fc_weight.numpy(), model.fc_weight)
+    np.testing.assert_array_equal(net.fc_bias.numpy(), model.fc_bias)
+    assert net.bbox_weight.shape == (2049, 4)
+    np.testing.assert_array_equal(net.bbox_weight.numpy(), model.bbox_weight)
 
 
 def test_torch_model_carries_the_parameters():

@@ -1,10 +1,12 @@
 """The port's apps on the CPU: the HTTP service and the inference CLI
-against the host oracle, and the package's import hygiene (no JAX).
+against the host oracle, for lyr3-std and lyr4-wide (``--variant``), and
+the package's import hygiene (no JAX).
 
 Tolerances: predictions and boxes equal; probabilities within 1e-4 (the
 bench gate's bound: the service computes them in torch, the oracle in
 numpy, with different summation orders)."""
 
+import contextlib
 import glob
 import http.client
 import json
@@ -24,25 +26,35 @@ from tpu_cnn.apps.serve import ServiceHTTPServer, make_handler  # noqa: E402
 from tpu_cnn.engine.cpu_ref import numpy_cnn_forward  # noqa: E402
 from tpu_cnn.head.cam import cam_bbox_fast  # noqa: E402
 from tpu_cnn.head.classify import classify_np  # noqa: E402
+from tpu_cnn.models.registry import REGISTRY  # noqa: E402
 from tpu_cnn.utils import artifacts as art  # noqa: E402
 from tpu_cnn.utils.paths import default_artifacts  # noqa: E402
 from tpu_cnn_torch.apps import infer, serve  # noqa: E402
 
 ART = default_artifacts()
+ART4 = default_artifacts("lyr4-wide")
+LYR4_SHIFTS = (3, 5, 5, 7)  # the lyr4-wide bundle's shifts.json
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _oracle(body: bytes, bundle):
-    feats = numpy_cnn_forward(np.frombuffer(body, np.uint8), bundle.kernels)
+def _oracle(body: bytes, bundle, shifts=(2, 4, 6), img_size=128):
+    feats = numpy_cnn_forward(np.frombuffer(body, np.uint8), bundle.kernels,
+                              shifts)
     idx, conf, probs = classify_np(feats[None], bundle.fc_weight, bundle.fc_bias)
-    return int(idx[0]), probs[0], list(cam_bbox_fast(feats, int(idx[0]),
-                                                     bundle.fc_weight))
+    return int(idx[0]), probs[0], list(cam_bbox_fast(
+        feats, int(idx[0]), bundle.fc_weight, img_size=img_size))
 
 
-def test_service_answers_like_the_host_oracle():
-    bundle = art.load_bundle(ART)
-    batcher, backend = serve.build_service(ART, device="cpu", max_batch=4,
-                                           max_wait_ms=2.0)
+def _lyr4_bundle():
+    return art.load_bundle(ART4,
+                           layer_configs=REGISTRY["lyr4-wide"].layer_configs)
+
+
+@contextlib.contextmanager
+def _service(**kwargs):
+    """A CPU service on an ephemeral loopback port; yields request()."""
+    batcher, backend = serve.build_service(device="cpu", max_wait_ms=2.0,
+                                           **kwargs)
     srv = ServiceHTTPServer(("127.0.0.1", 0), make_handler(batcher, backend))
     th = threading.Thread(target=srv.serve_forever, daemon=True)
     th.start()
@@ -58,6 +70,18 @@ def test_service_answers_like_the_host_oracle():
             conn.close()
 
     try:
+        yield request
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        batcher.stop()
+        th.join(timeout=10)
+    assert not th.is_alive()
+
+
+def test_service_answers_like_the_host_oracle():
+    bundle = art.load_bundle(ART)
+    with _service(artifacts_dir=ART, max_batch=4) as request:
         for p in sorted(glob.glob(os.path.join(ART, "test_image_*.bin")))[:3]:
             body = open(p, "rb").read()
             status, ans = request("POST", "/detect", body)
@@ -69,12 +93,22 @@ def test_service_answers_like_the_host_oracle():
         assert request("GET", "/healthz") == (
             200, {"ok": True, "backend": "reference-cpu"})
         assert request("POST", "/detect", b"\x00" * 100)[0] == 400
-    finally:
-        srv.shutdown()
-        srv.server_close()
-        batcher.stop()
-        th.join(timeout=10)
-    assert not th.is_alive()
+
+
+def test_service_lyr4_wide_answers_like_the_host_oracle():
+    """--variant lyr4-wide: a POST body is 256 x 256 = 65,536 bytes; a
+    128 x 128 body is refused."""
+    bundle = _lyr4_bundle()
+    body = open(sorted(glob.glob(os.path.join(ART4, "test_image_*.bin")))[0],
+                "rb").read()
+    assert len(body) == 65536
+    with _service(variant="lyr4-wide", max_batch=2) as request:
+        status, ans = request("POST", "/detect", body)
+        idx, probs, box = _oracle(body, bundle, LYR4_SHIFTS, 256)
+        assert status == 200, ans
+        assert ans["pred"] == idx and ans["bbox"] == box
+        np.testing.assert_allclose(ans["probs"], probs, rtol=0, atol=1e-4)
+        assert request("POST", "/detect", b"\x00" * 16384)[0] == 400
 
 
 def test_infer_cli_scores_a_directory(tmp_path, capsys):
@@ -86,6 +120,22 @@ def test_infer_cli_scores_a_directory(tmp_path, capsys):
                 "--device", "cpu", "--no-save"])
     out = capsys.readouterr().out
     want = sum(_oracle(open(p, "rb").read(), bundle)[0]
+               == art.label_from_filename(p) for p in paths)
+    assert f"Accuracy: {want}/2 " in out
+    assert "CUDAEngine (reference-cpu)" in out
+
+
+def test_infer_cli_lyr4_wide(tmp_path, capsys):
+    """--variant lyr4-wide resolves artifacts/pretrained-lyr4 and its
+    shifts; the accuracy equals the numpy oracle's on the same images."""
+    bundle = _lyr4_bundle()
+    paths = sorted(glob.glob(os.path.join(ART4, "test_image_*.bin")))[:2]
+    for p in paths:
+        shutil.copy(p, tmp_path)
+    infer.main(["--variant", "lyr4-wide", "--image-dir", str(tmp_path),
+                "--device", "cpu", "--no-save"])
+    out = capsys.readouterr().out
+    want = sum(_oracle(open(p, "rb").read(), bundle, LYR4_SHIFTS, 256)[0]
                == art.label_from_filename(p) for p in paths)
     assert f"Accuracy: {want}/2 " in out
     assert "CUDAEngine (reference-cpu)" in out

@@ -9,6 +9,7 @@ engine's features), unchanged.
 Usage:
   python -m tpu_cnn_torch.apps.infer --image-dir artifacts/pretrained --device cuda --no-save
   python -m tpu_cnn_torch.apps.infer --image X.bin --device cuda --no-save
+  python -m tpu_cnn_torch.apps.infer --variant lyr4-wide --device cuda --no-save
 
 ``--no-save`` skips the annotated JPEG (which needs PIL); raw ``.bin``
 images need nothing beyond numpy.
@@ -39,8 +40,8 @@ def main(argv=None):
     p.add_argument("--image", default=None, help="single image (.bin/.jpg/.png)")
     p.add_argument("--image-dir", default=None, help="directory of test_image_*.bin")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                   help="cuda runs the hand-written kernel; cpu its plain "
-                        "PyTorch version")
+                   help="cuda runs the hand-written kernels; cpu their plain "
+                        "PyTorch versions")
     p.add_argument("--no-save", action="store_true")
     p.add_argument("--shifts", default=None,
                    help="comma list, one per layer (default: the bundle's "

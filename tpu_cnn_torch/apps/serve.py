@@ -7,13 +7,15 @@ requests into device batches and drives the engine's
 ``detect_batch_async`` / ``detect_resolve`` pipeline.
 
 Endpoints:
-  POST /detect   body: 16384 raw bytes (128x128 uint8); returns JSON
-                 {pred, name, conf, probs, bbox}
+  POST /detect   body: S x S raw uint8 bytes at the variant's image size
+                 (16,384 for lyr3-std's 128x128, 65,536 for lyr4-wide's
+                 256x256); returns JSON {pred, name, conf, probs, bbox}
   GET  /healthz  liveness + engine backend
   GET  /stats    request/batch counters and latency percentiles
 
 Usage:
   python -m tpu_cnn_torch.apps.serve --device cuda --port 8000
+  python -m tpu_cnn_torch.apps.serve --variant lyr4-wide --device cuda --port 8000
 """
 
 from __future__ import annotations

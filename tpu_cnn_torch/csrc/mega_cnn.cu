@@ -12,9 +12,15 @@
 //   bins   (B, oc_L*16)   float32      4x4 bin means: sum / (npx*npx) / 255
 //   twin   (B, oc_L, P*P) bfloat16     the features again (0..255 is exact)
 //
+// The input is (B, ic0, S, S) uint8, NCHW: ic0 = 1 for a whole net, and
+// the head's output channels when the kernel runs the tail of the chained
+// plan (lyr4-wide's L1-L3 read the 16 x 128^2 output of conv_pool_layer.cu).
+//
 // Design: one CTA per image. The layers ping-pong between two regions of
-// dynamic shared memory; the input image is read from global memory. For
-// lyr3-std the peak is L0 out + L1 out = 65,536 + 32,768 = 98,304 bytes.
+// dynamic shared memory; the input is read from global memory (for a tail,
+// the L2-cached head output). For lyr3-std the peak is L0 out + L1 out =
+// 65,536 + 32,768 = 98,304 bytes; for lyr4-wide's tail L1 out + L2 out =
+// 131,072 + 65,536 = 196,608 bytes.
 // Each thread owns pooled outputs: for one it accumulates the four pre-pool
 // int32 sums over ic x 9 taps (a 4x4 input patch, zero padding by bounds
 // check), shifts, clips and keeps the max. Geometry (L <= 4 layers,
@@ -44,7 +50,7 @@ constexpr int kThreads = 512;
 constexpr int kMaxSmemBytes = 232448;  // opt-in limit of one block on sm_90
 
 struct MegaParams {
-  const uint8_t* images;               // (B, S, S)
+  const uint8_t* images;               // (B, ic0, S, S)
   const int8_t* weights[kMaxLayers];   // per layer (oc, ic, 3, 3)
   const int32_t* shifts;               // (L,)
   uint8_t* feats;                      // optional outputs, nullptr = skip
@@ -110,7 +116,8 @@ __global__ void __launch_bounds__(kThreads) mega_cnn_kernel(MegaParams prm) {
   extern __shared__ __align__(16) uint8_t smem[];
   const int b = blockIdx.x;
 
-  const uint8_t* cur = prm.images + static_cast<size_t>(b) * prm.size0 * prm.size0;
+  const uint8_t* cur =
+      prm.images + static_cast<size_t>(b) * prm.ic[0] * prm.size0 * prm.size0;
   int size = prm.size0;
   for (int l = 0; l < prm.n_layers; ++l) {
     uint8_t* out = (l & 1) ? smem + prm.region0_bytes : smem;
@@ -160,6 +167,8 @@ int smem_bytes(int n_layers, int size0, const int* ic, const int* oc,
                int* region0_bytes) {
   if (n_layers < 1 || n_layers > kMaxLayers || size0 <= 0) return 0;
   if (size0 % (1 << n_layers) != 0) return 0;
+  // the first layer indexes its input planes in int
+  if (ic[0] <= 0 || static_cast<long long>(ic[0]) * size0 * size0 > INT32_MAX) return 0;
   int region[2] = {0, 0};
   int size = size0;
   for (int l = 0; l < n_layers; ++l) {
@@ -179,12 +188,12 @@ extern "C" const char* mega_cnn_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Launches the megakernel on `stream` of CUDA device `device` for a batch.
-// Pointers are device pointers (weights[l] for l >= n_layers and
-// unrequested outputs may be null); ic/oc are host arrays of n_layers
-// entries. Returns a cudaError_t: cudaSuccess, cudaErrorInvalidValue for a
-// geometry the kernel does not take, or the launch error. Neither
-// synchronises nor allocates.
+// Launches the megakernel on `stream` of CUDA device `device` for a batch
+// of (B, ic[0], size0, size0) u8 inputs. Pointers are device pointers
+// (weights[l] for l >= n_layers and unrequested outputs may be null);
+// ic/oc are host arrays of n_layers entries. Returns a cudaError_t:
+// cudaSuccess, cudaErrorInvalidValue for a geometry the kernel does not
+// take, or the launch error. Neither synchronises nor allocates.
 extern "C" int mega_cnn_forward(const void* images, const void* w0,
                                 const void* w1, const void* w2, const void* w3,
                                 const void* shifts, void* feats, void* bins,

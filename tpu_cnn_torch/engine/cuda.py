@@ -1,14 +1,15 @@
 """CUDAEngine — batched fused detection on one CUDA device.
 
 Port of ``tpu_cnn.engine.tpu.TPUEngine`` for the single-box path. The
-JAX engine's program becomes: the whole-net megakernel
-(``ops.mega.cnn_forward_mega``) with its fused bin pooling and bf16
-feature twin, then the plain-torch head (``ops.detect_head``), all on the
-device; only (pred, conf, probs, bbox) come back to the host, through
-pinned buffers and a recorded event.
+JAX engine's program becomes: the net on the chained plan
+(``ops.mega.cnn_forward_mega``: the ``mega_plan`` head layers one kernel
+each, then the megakernel with its fused bin pooling and bf16 feature
+twin), then the plain-torch head (``ops.detect_head``), all on the device;
+only (pred, conf, probs, bbox) come back to the host, through pinned
+buffers and a recorded event.
 
-The device is explicit: ``"cuda"`` runs the kernel and raises when there is
-no card; ``"cpu"`` runs the kernel's plain version (for tests on machines
+The device is explicit: ``"cuda"`` runs the kernels and raises when there
+is no card; ``"cpu"`` runs their plain versions (for tests on machines
 without a card). Nothing picks a device on its own.
 
 Engine protocol (``run(gray) -> (features, conv_ms, read_ms)``) and the
@@ -70,17 +71,20 @@ class CUDAEngine:
             raise ValueError("box_mode='reg' needs a bbox_weight.npy in the "
                              "artifact bundle")
         cfgs = model.config.layer_configs
-        if not mega.mega_fits(cfgs):
-            raise NotImplementedError(
-                f"{cfgs} does not fit the whole-net megakernel; the chained "
-                f"plan for such geometries is not ported yet (ROADMAP A.9)")
+        n_head = mega.mega_plan(cfgs)
+        if n_head is None:
+            raise ValueError(f"no tail of {cfgs} fits the megakernel")
         self.model = model
         self.max_batch = max_batch
         self.timeout_s = timeout_s
         self.box_mode = box_mode
         self.net = TorchFpgaCNN.from_fpga_cnn(model, self.device)
-        self.backend = ("mega-cuda" if self.device.type == "cuda"
-                        else "reference-cpu")
+        if self.device.type == "cpu":
+            self.backend = "reference-cpu"
+        else:
+            self.backend = f"chain{n_head}-cuda" if n_head else "mega-cuda"
+        # kernels one pass of the net launches: the head layers + the tail
+        self._kernels_per_pass = n_head + 1
         self.launches = 0  # kernel launches made by this engine
 
     # ── device work ───────────────────────────────────────────────────
@@ -101,7 +105,7 @@ class CUDAEngine:
         out = mega.cnn_forward_mega(x, self.net.kernels, self.net.shifts,
                                     **outputs)
         if x.is_cuda:
-            self.launches += 1
+            self.launches += self._kernels_per_pass
         return list(out) if isinstance(out, tuple) else [out]
 
     def _detect_device(self, x: torch.Tensor, with_feats: bool = False):

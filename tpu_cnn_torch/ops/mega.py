@@ -1,12 +1,16 @@
-"""The whole-net megakernel: wrapper, fit check and plain version.
+"""The megakernel and the chained plan: wrapper, plan and plain versions.
 
 ``cnn_forward_mega`` is the port of ``tpu_cnn.ops.pallas_poly``'s
-``cnn_forward_mega`` for the geometries whose whole net fits one CTA's
-shared memory (every registry geometry but lyr4-wide), i.e. the
-``cnn_forward_polyphase_pallas`` megakernel. On a CUDA tensor it launches
-the hand-written kernel ``csrc/mega_cnn.cu``; on a CPU tensor it runs the
-plain version, ``mega_reference``, built on ``ops.quant``. Any other
-device, or a CUDA call the kernel cannot take, raises: nothing falls back.
+``cnn_forward_mega``. ``mega_plan`` picks how many head layers run one at a
+time (``ops.conv_pool.conv_pool_layer``, the port of the single-layer
+Pallas kernels) so that the rest of the net, the tail, fits one CTA of the
+megakernel ``csrc/mega_cnn.cu`` (the port of
+``cnn_forward_polyphase_pallas``): no head layer for lyr3-std, lyr3-tiny
+and lyr2-small, one for lyr4-wide. On a CUDA tensor each stage launches its
+hand-written kernel; on a CPU tensor each runs its plain version
+(``conv_pool_reference``, ``mega_reference``), built on ``ops.quant``. Any
+other device, or a CUDA call a kernel cannot take, raises: nothing falls
+back.
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ from typing import Sequence
 
 import torch
 
-from tpu_cnn_torch.ops import _build, quant
+from tpu_cnn_torch.ops import _build, conv_pool, quant
 from tpu_cnn_torch.ops.detect_head import bin_pool
 
 MAX_LAYERS = 4
@@ -47,18 +51,24 @@ def mega_smem_bytes(layer_configs) -> int:
     return -(-region[0] // 16) * 16 + region[1]
 
 
-def mega_fits(layer_configs) -> bool:
-    """True when the whole net runs in one CTA: at most four layers and
-    the activations within one block's shared memory."""
-    return (1 <= len(layer_configs) <= MAX_LAYERS
-            and mega_smem_bytes(layer_configs) <= MAX_SMEM_BYTES)
+def mega_plan(layer_configs) -> int | None:
+    """The chained plan's number of head layers: the smallest ``n_head``
+    whose tail ``layer_configs[n_head:]`` runs in one CTA (at most four
+    layers, activations within one block's shared memory). None when no
+    tail of at least one layer fits."""
+    for n_head in range(len(layer_configs)):
+        tail = layer_configs[n_head:]
+        if (len(tail) <= MAX_LAYERS
+                and mega_smem_bytes(tail) <= MAX_SMEM_BYTES):
+            return n_head
+    return None
 
 
 def mega_reference(images: torch.Tensor, kernels: Sequence[torch.Tensor],
                    shifts: torch.Tensor, *, compute_dtype: str = "float32"):
-    """The kernel's plain version: (feats u8 (B, oc, P*P), bins f32
-    (B, oc*16), twin bf16 (B, oc, P*P)) from ``ops.quant`` and
-    ``detect_head.bin_pool``."""
+    """The megakernel's plain version on (B, S, S) or (B, ic0, S, S) u8:
+    (feats u8 (B, oc, P*P), bins f32 (B, oc*16), twin bf16 (B, oc, P*P))
+    from ``ops.quant`` and ``detect_head.bin_pool``."""
     feats = quant.cnn_forward(images, kernels, shifts,
                               compute_dtype=compute_dtype)
     return feats, bin_pool(feats), feats.to(torch.bfloat16)
@@ -76,20 +86,21 @@ def _lib() -> ctypes.CDLL:
 
 
 def _check_inputs(images, kernels, shifts, with_bins):
-    if images.dtype != torch.uint8 or images.dim() != 3:
-        raise ValueError(f"images must be (B, S, S) uint8, got "
-                         f"{tuple(images.shape)} {images.dtype}")
-    b, s, s2 = images.shape
+    if images.dtype != torch.uint8 or images.dim() not in (3, 4):
+        raise ValueError(f"images must be (B, S, S) or (B, ic0, S, S) uint8, "
+                         f"got {tuple(images.shape)} {images.dtype}")
+    s, s2 = images.shape[-2:]
     n = len(kernels)
-    if s != s2 or not 1 <= n <= MAX_LAYERS or s % (1 << n):
+    if s != s2 or n < 1 or s % (1 << n):
         raise ValueError(f"need square images with side divisible by 2^L "
-                         f"and 1 <= L <= {MAX_LAYERS}; got {s}x{s2}, L={n}")
-    ic = 1
+                         f"and L >= 1; got {s}x{s2}, L={n}")
+    ic = 1 if images.dim() == 3 else images.shape[1]
     for k in kernels:
         if (k.dtype != torch.int8 or k.dim() != 4 or k.shape[1] != ic
                 or tuple(k.shape[2:]) != (3, 3)):
             raise ValueError(f"kernels must chain (oc, ic, 3, 3) int8 from "
-                             f"ic=1; got {tuple(k.shape)} {k.dtype}")
+                             f"the input's channels; at ic={ic} got "
+                             f"{tuple(k.shape)} {k.dtype}")
         ic = k.shape[0]
     if shifts.dtype != torch.int32 or tuple(shifts.shape) != (n,):
         raise ValueError(f"shifts must be ({n},) int32, got "
@@ -99,7 +110,8 @@ def _check_inputs(images, kernels, shifts, with_bins):
 
 
 def _launch(images, kernels, shifts, with_feats, with_bins, with_twin):
-    """The kernel on the tensors' CUDA device and current stream."""
+    """The megakernel on the tensors' CUDA device and current stream: a
+    whole net or a tail that fits one CTA."""
     global launches
     dev = images.device
     tensors = [images, shifts, *kernels]
@@ -107,7 +119,7 @@ def _launch(images, kernels, shifts, with_feats, with_bins, with_twin):
         raise ValueError("images, kernels and shifts must be on one device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("images, kernels and shifts must be contiguous")
-    b, s, _ = images.shape
+    b, s = images.shape[0], images.shape[-1]
     oc, p = kernels[-1].shape[0], s >> len(kernels)
     feats = (torch.empty((b, oc, p * p), dtype=torch.uint8, device=dev)
              if with_feats else None)
@@ -138,37 +150,42 @@ def _launch(images, kernels, shifts, with_feats, with_bins, with_twin):
 def cnn_forward_mega(images: torch.Tensor, kernels: Sequence[torch.Tensor],
                      shifts: torch.Tensor, *, with_feats: bool = True,
                      with_bins: bool = False, with_twin: bool = False):
-    """The whole net in one kernel: (B, S, S) u8 images, per-layer
+    """The net on the chained plan: (B, S, S) u8 images (or (B, ic0, S, S)
+    NCHW when the first kernel takes ic0 channels), per-layer
     (oc, ic, 3, 3) int8 kernels and (L,) int32 shifts (on the device, read
-    by the kernel: a shift change rebuilds nothing) -> the requested
+    by the kernels: a shift change rebuilds nothing) -> the requested
     outputs in (feats, bins, twin) order, a bare tensor when only one is
     requested:
 
       feats (B, oc_L, P*P) u8, bins (B, oc_L*16) f32 4x4 bin means / 255,
       twin (B, oc_L, P*P) bf16 copy of the features.
 
-    CUDA tensors launch ``csrc/mega_cnn.cu``; CPU tensors run
-    ``mega_reference``."""
+    The ``mega_plan`` head layers run through ``conv_pool.conv_pool_layer``
+    and the tail through the megakernel: on CUDA tensors
+    ``csrc/conv_pool_layer.cu`` then ``csrc/mega_cnn.cu``, on CPU tensors
+    ``conv_pool_reference`` then ``mega_reference``."""
     if not (with_feats or with_bins or with_twin):
         raise ValueError("at least one of with_feats/with_bins/with_twin "
                          "must be requested")
     _check_inputs(images, kernels, shifts, with_bins)
-    cfgs = _layer_configs(kernels, images.shape[1])
-    if not mega_fits(cfgs):
-        raise NotImplementedError(
-            f"the whole-net megakernel needs {mega_smem_bytes(cfgs):,} B of "
-            f"shared memory for {cfgs} (limit {MAX_SMEM_BYTES:,} B, at most "
-            f"{MAX_LAYERS} layers); the chained per-layer plan for such "
-            f"geometries is not ported yet (ROADMAP A.9)")
-    if images.device.type == "cpu":
-        outs = mega_reference(images, kernels, shifts)
-    elif images.device.type == "cuda":
-        outs = _launch(images, kernels, shifts, with_feats, with_bins,
-                       with_twin)
-    else:
+    if images.device.type not in ("cpu", "cuda"):
         raise ValueError(f"cnn_forward_mega runs on CUDA tensors (the "
-                         f"kernel) or CPU tensors (its plain version), not "
-                         f"on {images.device}")
+                         f"kernels) or CPU tensors (their plain versions), "
+                         f"not on {images.device}")
+    cfgs = _layer_configs(kernels, images.shape[-1])
+    n_head = mega_plan(cfgs)
+    if n_head is None:
+        raise ValueError(
+            f"no tail of {cfgs} fits one CTA ({MAX_SMEM_BYTES:,} B of shared "
+            f"memory, at most {MAX_LAYERS} layers)")
+    x = images if images.dim() == 4 else images[:, None]
+    for i in range(n_head):
+        x = conv_pool.conv_pool_layer(x, kernels[i], shifts, i)
+    tail, tail_shifts = kernels[n_head:], shifts[n_head:]
+    if x.device.type == "cpu":
+        outs = mega_reference(x, tail, tail_shifts)
+    else:
+        outs = _launch(x, tail, tail_shifts, with_feats, with_bins, with_twin)
     ret = [o for o, want in zip(outs, (with_feats, with_bins, with_twin))
            if want]
     return tuple(ret) if len(ret) > 1 else ret[0]

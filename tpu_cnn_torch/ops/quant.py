@@ -114,11 +114,13 @@ def fixed_point_conv_layer(x: torch.Tensor, kernel: torch.Tensor,
 def cnn_forward(images: torch.Tensor, kernels: Sequence[torch.Tensor],
                 shifts: torch.Tensor, *, accum_wrap: bool = False,
                 compute_dtype: str = "float32") -> torch.Tensor:
-    """Full forward: (B, S, S) u8 -> (B, oc, S'*S') u8 features, the
+    """Full forward: (B, S, S) u8 images, or a (B, C, S, S) NCHW input for
+    kernels that start at C channels -> (B, oc, S'*S') u8 features, the
     reference's (channel, flattened-spatial) dump layout."""
-    if images.dim() != 3:
-        raise ValueError(f"images must be (B, S, S), got {tuple(images.shape)}")
-    x = images[:, None]
+    if images.dim() not in (3, 4):
+        raise ValueError(f"images must be (B, S, S) or (B, C, S, S), got "
+                         f"{tuple(images.shape)}")
+    x = images[:, None] if images.dim() == 3 else images
     for i, k in enumerate(kernels):
         x = fixed_point_conv_layer(x, k, shifts[i], accum_wrap=accum_wrap,
                                    compute_dtype=compute_dtype)
