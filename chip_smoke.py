@@ -3,43 +3,61 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA device, ``nvcc`` (CUDA toolkit) and the repository around
-this file; it fails with a non-zero exit code otherwise. Two model families
-run: lyr3-std (128x128, the whole net in the megakernel) and lyr4-wide
-(256x256, the chained plan: the layer kernel for L0, then the megakernel
-for L1-L3). Phases, one line each, in order; any failure raises:
+Needs one CUDA device, ``nvcc`` (CUDA toolkit), ``g++`` (the native
+oracle of the verify phase) and the repository around this file; it fails
+with a non-zero exit code otherwise. Two model families run: lyr3-std
+(128x128) and lyr4-wide (256x256), on four main paths: each family on the
+default ``mega`` backend (lyr3-std: the whole net in the megakernel;
+lyr4-wide: the chained plan, the layer kernel for L0, then the megakernel
+for L1-L3), lyr4-wide on ``pallas`` (every layer on the conv kernel) and
+lyr3-std on ``hybrid`` (L0 on the conv kernel, L1-L2 plain). Phases, one
+line each, in order; any failure raises:
 
   1. header   — the card (nvidia-smi name and power limit), torch, CUDA
-  2. build    — nvcc builds csrc/mega_cnn.cu and csrc/conv_pool_layer.cu
-                for sm_90a, in parallel
+  2. build    — nvcc builds csrc/mega_cnn.cu, csrc/conv_pool_layer.cu and
+                csrc/conv_act.cu for sm_90a, in parallel
   3. kernel   — each kernel against its plain PyTorch version on the card,
                 B=37. The megakernel: lyr3-std (shipped and seeded random
                 weights, shifts 2/4/6 and 1/3/5, every with_feats/bins/twin
                 combination), lyr3-tiny, lyr2-small, and lyr4-wide's L1-L3
                 tail from a (B, 16, 128, 128) input. The layer kernel:
                 lyr4-wide's L0 (shipped and seeded weights, shifts 3 and
-                0), 16->32 at 128^2 and two small odd geometries. Then the
-                lyr4-wide chain against the numpy oracle on 4 images.
-                Features and twin bit-equal, bins within 1e-6.
-  4. engine   — CUDAEngine(device="cuda") through the bench's parity gate
-                on 28 shipped test images + 4 noise images, per family,
-                and set_shifts against the oracle
-  5. cli      — tpu_cnn_torch.apps.infer over the shipped test images, per
-                family; accuracy equal to the numpy oracle's
-  6. server   — tpu_cnn_torch.apps.serve behind HTTP on 127.0.0.1, per
-                family: 8 raw image POSTs, each answer equal to the host
-                oracle's
+                0), 16->32 at 128^2 and two small odd geometries. The conv
+                kernel: every layer of lyr3-std and lyr4-wide (shipped
+                weights on the plain chain's activations at the model's
+                shift, seeded weights at shifts 0 and 31), the rectangles
+                6x10 and 7x12 and 20->35 across the channel chunks; then
+                its pooled output against the layer kernel on lyr4-wide's
+                L0. Then the lyr4-wide chain against the numpy oracle on 4
+                images. Features and twin bit-equal, bins within 1e-6; the
+                plain f32 and int32 versions bit-equal to each other.
+  4. engine   — CUDAEngine(device="cuda", backend=...) through the bench's
+                parity gate on 28 shipped test images + 4 noise images,
+                per path, and set_shifts against the oracle
+  5. cli      — tpu_cnn_torch.apps.infer --mode ... over the shipped test
+                images, per path; accuracy equal to the numpy oracle's
+  6. server   — tpu_cnn_torch.apps.serve --mode ... behind HTTP on
+                127.0.0.1, per path: 8 raw image POSTs, each answer equal
+                to the host oracle's
+  verify      — tpu_cnn_torch.apps.verify --device cuda for lyr3-std
+                (shipped weights) and lyr4-wide (seeded weights): all seven
+                backends bit-exact and every engine head equal to the host
+                twins; exit 0 and the verdict line
   7. times    — at batch 1536, CUDA events, median: lyr3-std's megakernel
                 and its plain version; lyr4-wide's layer kernel, tail and
-                chain and their plain versions; the async-pipelined engine
-                detect FPS of each family
+                chain and their plain versions; the conv kernel on each
+                lyr3-std layer and lyr4-wide's L0 and its plain version;
+                the async-pipelined engine detect FPS of each family on
+                mega and of lyr3-std on pallas and hybrid
 
-Phases 4-6 are the main path, once per family: every kernel launch
-counter is set to 0 before a family's phases 4-6 and read after them, and
-each kernel of that family's path must have launched there (lyr3-std: the
-megakernel, and never the layer kernel; lyr4-wide: both). The line before
-the last is a JSON object with each kernel's launches (summed over the
-families), error and times; the last line is {"ok": true, "device": {...}}.
+Phases 4-6 are the main paths, once per path: every kernel launch counter
+is set to 0 before a path's phases 4-6 and read after them, and each
+kernel of that path must have launched there and no other kernel
+(lyr3-std/mega: the megakernel; lyr4-wide/mega: the megakernel and the
+layer kernel; lyr4-wide/pallas and lyr3-std/hybrid: the conv kernel). The
+line before the last is a JSON object with each kernel's launches (summed
+over the paths), error and times; the last line is {"ok": true, "device":
+{...}}.
 """
 
 from __future__ import annotations
@@ -74,9 +92,9 @@ from tpu_cnn.models.registry import default_shifts, get_config  # noqa: E402
 from tpu_cnn.utils import artifacts as art  # noqa: E402
 from tpu_cnn.utils.artifacts import label_from_filename  # noqa: E402
 from tpu_cnn_torch import bench_gate  # noqa: E402
-from tpu_cnn_torch.apps import infer, serve  # noqa: E402
+from tpu_cnn_torch.apps import infer, serve, verify  # noqa: E402
 from tpu_cnn_torch.engine.cuda import CUDAEngine  # noqa: E402
-from tpu_cnn_torch.ops import _build, conv_pool, mega  # noqa: E402
+from tpu_cnn_torch.ops import _build, conv_pool, int8, mega  # noqa: E402
 
 ARTIFACTS = {"lyr3-std": os.path.join(ROOT, "artifacts", "pretrained"),
              "lyr4-wide": os.path.join(ROOT, "artifacts", "pretrained-lyr4")}
@@ -86,11 +104,17 @@ KERNELS = {  # name -> (source, the TPU kernel(s) it replaces)
     "conv_pool_layer": ("tpu_cnn_torch/csrc/conv_pool_layer.cu",
                         # conv_pool_layer_poly, conv_pool_layer_phase
                         "tpu_cnn/ops/pallas_poly.py:957,1160"),
+    "conv_act": ("tpu_cnn_torch/csrc/conv_act.cu",
+                 "tpu_cnn/ops/pallas_int8.py:150"),  # _conv_mxu
 }
-# each family's main path: the shifts set_shifts tries, and the kernels the
-# path must launch
-PATHS = {"lyr3-std": ((1, 3, 5), ("mega_cnn",)),
-         "lyr4-wide": ((2, 4, 6, 8), ("mega_cnn", "conv_pool_layer"))}
+# the main paths: (family, engine backend, the shifts set_shifts tries, the
+# kernels the path must launch; it must launch no other)
+PATHS = [("lyr3-std", "mega", (1, 3, 5), ("mega_cnn",)),
+         ("lyr4-wide", "mega", (2, 4, 6, 8), ("mega_cnn", "conv_pool_layer")),
+         ("lyr4-wide", "pallas", (2, 4, 6, 8), ("conv_act",)),
+         ("lyr3-std", "hybrid", (1, 3, 5), ("conv_act",))]
+MODULES = {"mega_cnn": mega, "conv_pool_layer": conv_pool, "conv_act": int8}
+VERDICT = "VERDICT: DESIGN IS BIT-ACCURATE across all backends"
 BINS_TOL = 1e-6  # the kernel's bins vs the plain version's (1-ulp / order)
 BENCH_BATCH = 1536  # bench.py's batch
 KERNEL_BATCH = 37  # the kernel cases' batch: not a multiple of any tile
@@ -157,8 +181,8 @@ def build() -> None:
     """One nvcc per source, all started together."""
     with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
         built = dict(zip(KERNELS, pool.map(_build.build, KERNELS)))
-    mega._lib()  # load each library and bind its entry points
-    conv_pool._lib()
+    for module in MODULES.values():  # load each library, bind its entry points
+        module._lib()
     for name, (_lib, log, secs) in built.items():
         ptxas = " ".join(line.split("info    : ", 1)[-1]
                          for line in log.splitlines()
@@ -275,6 +299,65 @@ def layer_vs_plain(dev: torch.device) -> tuple[float, int]:
     return max_err, len(setups)
 
 
+def act_vs_plain(dev: torch.device) -> tuple[float, int]:
+    """The conv kernel against conv_act_reference on the same card tensors:
+    every layer of lyr3-std and lyr4-wide, with the shipped weights on the
+    plain chain's activations of the gate images at the model's shift and
+    with seeded weights on noise at shifts 0 and 31; two rectangles and
+    20->35 across the channel chunks. Then its pooled output against the
+    layer kernel on lyr4-wide's L0. Returns (largest absolute difference,
+    cases)."""
+    rs = np.random.RandomState(9)
+    setups = []  # (name, x on the card, kernel (numpy), shift)
+    for variant in ARTIFACTS:
+        model = load_model(ARTIFACTS[variant], variant)
+        x = torch.from_numpy(bench_gate.load_gate_images(
+            ARTIFACTS[variant], n_real=28, n_noise=9,
+            img_size=model.config.img_size)[:, None]).to(dev)  # B = 37
+        shifts = torch.from_numpy(model.shifts).to(dev)
+        for li, (ic, oc, s) in enumerate(model.config.layer_configs):
+            setups.append((f"{variant}-L{li}/shipped/{model.shifts[li]}", x,
+                           model.kernels[li], int(model.shifts[li])))
+            noise = torch.from_numpy(rs.randint(
+                0, 256, (KERNEL_BATCH, ic, s, s)).astype(np.uint8)).to(dev)
+            k = rs.randint(-127, 128, (oc, ic, 3, 3)).astype(np.int8)
+            setups += [(f"{variant}-L{li}/seed9/{sh}", noise, k, sh)
+                       for sh in (0, 31)]
+            x = conv_pool.conv_pool_reference(
+                x, torch.from_numpy(model.kernels[li]).to(dev), shifts, li,
+                compute_dtype="int32")
+    for ic, oc, h, w in ((3, 5, 6, 10), (4, 7, 7, 12), (20, 35, 38, 38)):
+        setups.append((f"{ic}->{oc}@{h}x{w}/3", torch.from_numpy(rs.randint(
+            0, 256, (KERNEL_BATCH, ic, h, w)).astype(np.uint8)).to(dev),
+            rs.randint(-127, 128, (oc, ic, 3, 3)).astype(np.int8), 3))
+    max_err = 0.0
+    for name, x, k_np, sh in setups:
+        k = torch.from_numpy(k_np).to(dev)
+        shifts = torch.tensor([7, sh], dtype=torch.int32, device=dev)  # layer 1
+        ref = int8.conv_act_reference(x, k, shifts, 1)
+        ref_int = int8.conv_act_reference(x, k, shifts, 1, compute_dtype="int32")
+        got = int8.conv_act(x, k, shifts, 1)
+        torch.cuda.synchronize()
+        check(torch.equal(ref, ref_int),
+              f"{name}: plain f32 and int32 paths disagree on the card")
+        check(got.dtype == torch.uint8 and torch.equal(got, ref),
+              f"{name}: conv kernel differs from its plain version")
+        max_err = max(max_err, (got.int() - ref.int()).abs().max().item())
+
+    # two hand-written kernels on one function: conv + pool, lyr4-wide L0
+    model = load_model(ARTIFACTS["lyr4-wide"], "lyr4-wide")
+    x = torch.from_numpy(bench_gate.load_gate_images(
+        ARTIFACTS["lyr4-wide"], n_real=28, n_noise=9, img_size=256)[:, None]).to(dev)
+    k = torch.from_numpy(model.kernels[0]).to(dev)
+    shifts = torch.from_numpy(model.shifts).to(dev)
+    pooled = int8.fused_conv_layer(x, k, shifts, 0)
+    layer = conv_pool.conv_pool_layer(x, k, shifts, 0)
+    torch.cuda.synchronize()
+    check(torch.equal(pooled, layer), "lyr4-wide L0: conv kernel + pool "
+                                      "differs from the layer kernel")
+    return max_err, len(setups)
+
+
 def chain_vs_oracle(dev: torch.device) -> None:
     """The lyr4-wide chain (layer kernel, then the tail) on 4 shipped test
     images against the numpy oracle and the plain chain."""
@@ -303,18 +386,24 @@ def kernel_vs_plain(dev: torch.device) -> dict[str, float]:
     layer_err, layer_cases = layer_vs_plain(dev)
     phase("3 kernel", f"conv_pool_layer: {layer_cases} cases (B={KERNEL_BATCH}) "
                       f"bit-equal; max_abs_err={layer_err!r}")
+    act_err, act_cases = act_vs_plain(dev)
+    phase("3 kernel", f"conv_act: {act_cases} cases (B={KERNEL_BATCH}) "
+                      f"bit-equal; max_abs_err={act_err!r}; pooled, bit-equal "
+                      f"to conv_pool_layer on lyr4-wide's L0")
     chain_vs_oracle(dev)
     phase("3 kernel", "lyr4-wide chain on 4 shipped images: bit-equal to the "
                       "numpy oracle and the plain chain")
-    return {"mega_cnn": mega_err, "conv_pool_layer": layer_err}
+    return {"mega_cnn": mega_err, "conv_pool_layer": layer_err,
+            "conv_act": act_err}
 
 
-def engine_gate(variant: str, alt_shifts: tuple[int, ...]) -> None:
+def engine_gate(variant: str, backend: str,
+                alt_shifts: tuple[int, ...]) -> None:
     art_dir = ARTIFACTS[variant]
     bundle = bundle_of(variant)
     model = load_model(art_dir, variant)
     shifts, size = tuple(int(s) for s in model.shifts), model.config.img_size
-    engine = CUDAEngine(model, device="cuda")
+    engine = CUDAEngine(model, device="cuda", backend=backend)
     gate = bench_gate.load_gate_images(art_dir, img_size=size)
     err = bench_gate.run_parity_gate(engine.detect_with_features, bundle, gate,
                                      shifts=shifts, img_size=size)
@@ -335,7 +424,7 @@ def engine_gate(variant: str, alt_shifts: tuple[int, ...]) -> None:
                       f"{alt_shifts} checked; engine launches={engine.launches}")
 
 
-def cli(variant: str) -> None:
+def cli(variant: str, mode: str) -> None:
     art_dir = ARTIFACTS[variant]
     paths = shipped_images(variant)
     bundle = bundle_of(variant)
@@ -347,22 +436,24 @@ def cli(variant: str) -> None:
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         infer.main(["--variant", variant, "--image-dir", art_dir,
-                    "--device", "cuda", "--no-save"])
+                    "--device", "cuda", "--mode", mode, "--no-save"])
     line = next(ln.strip() for ln in out.getvalue().splitlines()
                 if "Accuracy:" in ln)
     check(line.startswith(f"Accuracy: {want}/{len(paths)} "),
-          f"{variant} CLI '{line}' != the oracle's {want}/{len(paths)}")
-    phase("5 cli", f"tpu_cnn_torch.apps.infer --variant {variant}: {line} "
-                   f"(numpy oracle: {want}/{len(paths)})")
+          f"{variant} --mode {mode} CLI '{line}' != the oracle's "
+          f"{want}/{len(paths)}")
+    phase("5 cli", f"tpu_cnn_torch.apps.infer --variant {variant} --mode "
+                   f"{mode}: {line} (numpy oracle: {want}/{len(paths)})")
 
 
-def server(variant: str) -> None:
+def server(variant: str, mode: str) -> None:
     bundle = bundle_of(variant)
     model = load_model(ARTIFACTS[variant], variant)
     size = model.config.img_size
     paths = shipped_images(variant)[:8]
     batcher, backend = serve.build_service(ARTIFACTS[variant], device="cuda",
-                                           max_batch=8, variant=variant)
+                                           max_batch=8, variant=variant,
+                                           mode=mode)
     srv = ServiceHTTPServer(("127.0.0.1", 0), make_handler(batcher, backend))
     th = threading.Thread(target=srv.serve_forever, daemon=True)
     th.start()
@@ -399,9 +490,29 @@ def server(variant: str) -> None:
         srv.server_close()
         batcher.stop()
         th.join(timeout=10)
-    phase("6 server", f"{variant}: {len(paths)} POST /detect of {size * size} "
+    phase("6 server", f"{variant} ({backend}): {len(paths)} POST /detect of "
+                      f"{size * size} "
                       f"bytes equal to the host oracle; /healthz {health}; "
                       f"batches={stats['batches']} requests={stats['requests']}")
+
+
+def verify_cli(variant: str) -> None:
+    """The port's golden-model verifier on the card: all seven backends,
+    the engines' heads, exit 0 and the verdict."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = verify.main(["--device", "cuda", "--variant", variant,
+                          "--image-dir", ARTIFACTS[variant]])
+    text = out.getvalue()
+    exact = sum("BIT-EXACT" in ln for ln in text.splitlines())
+    heads = sum(": OK" in ln for ln in text.splitlines())
+    if rc != 0 or VERDICT not in text:
+        print(text, flush=True)
+    check(rc == 0 and VERDICT in text,
+          f"tpu_cnn_torch.apps.verify --variant {variant}: exit {rc}")
+    phase("verify", f"tpu_cnn_torch.apps.verify --device cuda --variant "
+                    f"{variant}: exit 0, {exact} backend pairs bit-exact, "
+                    f"{heads} head checks OK; {VERDICT}")
 
 
 def _event_ms(fn, n: int) -> list[float]:
@@ -430,11 +541,11 @@ def _kernel_and_plain_ms(kernel, plain, n_kernel: int = 20,
     return statistics.median(k_ms), statistics.median(p_ms), len(k_ms), len(p_ms)
 
 
-def engine_fps(variant: str, rs) -> list[float]:
+def engine_fps(variant: str, backend: str, rs) -> list[float]:
     """bench.py's async pipeline: 52 rounds over 4 staged pools, 3 passes."""
     model = load_model(ARTIFACTS[variant], variant)
     s = model.config.img_size
-    engine = CUDAEngine(model, device="cuda")
+    engine = CUDAEngine(model, device="cuda", backend=backend)
     pools = [engine.stage_batch(rs.randint(0, 256, (BENCH_BATCH, s, s))
                                 .astype(np.uint8)) for _ in range(4)]
     engine.detect_resolve(engine.detect_batch_async(pools[0]))
@@ -454,7 +565,8 @@ def engine_fps(variant: str, rs) -> list[float]:
 
 def times(dev: torch.device, card: str) -> dict[str, tuple[float, float]]:
     """Returns {kernel name: (kernel ms, plain ms)} at batch 1536: the
-    megakernel on lyr3-std's whole net, the layer kernel on lyr4-wide's L0."""
+    megakernel on lyr3-std's whole net, the layer kernel on lyr4-wide's L0,
+    the conv kernel on lyr3-std's three layers summed."""
     rs = np.random.RandomState(0)
     # lyr3-std: the whole net in the megakernel
     bundle = art.load_bundle(ARTIFACTS["lyr3-std"])
@@ -511,11 +623,42 @@ def times(dev: torch.device, card: str) -> dict[str, tuple[float, float]]:
     del imgs, x, x16
     torch.cuda.empty_cache()
 
-    for variant in ARTIFACTS:
-        fps = engine_fps(variant, rs)
-        phase("7 times", f"{variant} engine detect async-pipelined batch "
-                         f"{BENCH_BATCH} on {card}: best {max(fps)!r} FPS of "
-                         f"{fps!r}")
+    # the conv kernel: each lyr3-std layer, and lyr4-wide's L0 (no pool)
+    act_ms = [0.0, 0.0]
+    for variant, layers in (("lyr3-std", (0, 1, 2)), ("lyr4-wide", (0,))):
+        model = load_model(ARTIFACTS[variant], variant)
+        shifts = torch.from_numpy(model.shifts).to(dev)
+        for li in layers:
+            ic, oc, s = model.config.layer_configs[li]
+            x = torch.from_numpy(rs.randint(
+                0, 256, (BENCH_BATCH, ic, s, s)).astype(np.uint8)).to(dev)
+            k = torch.from_numpy(model.kernels[li]).to(dev)
+            k_ms, p_ms, nk, np_ = _kernel_and_plain_ms(
+                lambda: int8.conv_act(x, k, shifts, li),
+                lambda: int8.conv_act_reference(x, k, shifts, li), 10, 3)
+            tops = oc * ic * 9 * s * s * BENCH_BATCH / (k_ms * 1e-3) / 1e12
+            gbs = (ic + oc) * s * s * BENCH_BATCH / (k_ms * 1e-3) / 1e9
+            phase("7 times", f"{variant} conv_act L{li} ({ic}->{oc} at {s}^2, "
+                             f"no pool) batch {BENCH_BATCH} on {card}: kernel "
+                             f"median {k_ms!r} ms (n={nk}, {tops:.2f} int "
+                             f"TMAC/s, {gbs:.0f} GB/s of u8 in+out), plain "
+                             f"median {p_ms!r} ms (n={np_})")
+            if variant == "lyr3-std":
+                act_ms[0] += k_ms
+                act_ms[1] += p_ms
+            del x
+    out["conv_act"] = tuple(act_ms)
+    phase("7 times", f"lyr3-std conv_act L0+L1+L2 on {card}: kernel "
+                     f"{act_ms[0]!r} ms, plain {act_ms[1]!r} ms")
+    torch.cuda.empty_cache()
+
+    for variant, backend in (("lyr3-std", "mega"), ("lyr4-wide", "mega"),
+                             ("lyr3-std", "pallas"), ("lyr3-std", "hybrid")):
+        fps = engine_fps(variant, backend, rs)
+        phase("7 times", f"{variant} engine ({backend}) detect async-pipelined "
+                         f"batch {BENCH_BATCH} on {card}: best {max(fps)!r} "
+                         f"FPS of {fps!r}")
+        torch.cuda.empty_cache()
     return out
 
 
@@ -526,19 +669,22 @@ def main() -> None:
     max_err = kernel_vs_plain(dev)
 
     launches = dict.fromkeys(KERNELS, 0)
-    for variant, (alt_shifts, path_kernels) in PATHS.items():
-        mega.launches = conv_pool.launches = 0  # this main path starts here
-        engine_gate(variant, alt_shifts)
-        cli(variant)
-        server(variant)
-        counts = {"mega_cnn": mega.launches,
-                  "conv_pool_layer": conv_pool.launches}
+    for variant, backend, alt_shifts, path_kernels in PATHS:
+        for module in MODULES.values():  # this main path starts here
+            module.launches = 0
+        engine_gate(variant, backend, alt_shifts)
+        cli(variant, backend)
+        server(variant, backend)
+        counts = {name: module.launches for name, module in MODULES.items()}
         for name, n in counts.items():
             check((n > 0) == (name in path_kernels),
-                  f"{variant}'s main path launched {name} {n} times")
+                  f"{variant}/{backend} main path launched {name} {n} times")
             launches[name] += n
-        phase("4-6 main path", f"{variant} (phases 4-6) kernel "
-                          f"launches: {counts}")
+        phase("4-6 main path", f"{variant}/{backend} (phases 4-6) kernel "
+                               f"launches: {counts}")
+
+    for variant in ARTIFACTS:
+        verify_cli(variant)
 
     ms = times(dev, card)
     check("jax" not in sys.modules, "jax was imported")

@@ -310,3 +310,74 @@ def test_pooled_bins_equal_host_bin_pool(images, engines):
     feats = port.run_batch(images)
     np.testing.assert_allclose(port.run_batch_pooled(images),
                                bin_pool_np(feats), rtol=0, atol=1e-6)
+
+
+# ── the per-layer backends: pallas, hybrid, xla ──────────────────────
+
+
+@pytest.mark.parametrize("backend,dtype", [
+    ("pallas", "float32"), ("hybrid", "float32"), ("xla", "float32"),
+    ("xla", "int32")])
+def test_backend_matches_tpu_engine(images, backend, dtype):
+    """CUDAEngine(backend=b) against TPUEngine(backend=b) (Pallas in
+    interpret mode): detect_batch, run_batch and run_batch_pooled."""
+    port = CUDAEngine(load_model(ART), device="cpu", backend=backend,
+                      compute_dtype=dtype)
+    ref = TPUEngine(load_model(ART), backend=backend, compute_dtype=dtype)
+    assert port.backend == f"{backend}-reference-cpu"
+    _assert_detect_equal(port.detect_batch(images), ref.detect_batch(images))
+    feats = port.run_batch(images)
+    np.testing.assert_array_equal(feats, ref.run_batch(images))
+    np.testing.assert_allclose(port.run_batch_pooled(images),
+                               ref.run_batch_pooled(images), rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(port.run(images[0])[0], feats[0])
+    assert port.launches == 0  # the CPU runs the plain versions
+
+
+@pytest.mark.parametrize("backend", ["pallas", "hybrid", "xla"])
+def test_backend_gap_head_matches_tpu_engine(images, backend):
+    bundle = art.load_bundle(ART)
+    rs = np.random.RandomState(42)
+    w = (rs.randn(6, 64) * 0.05).astype(np.float32)
+    b = (rs.randn(6) * 0.1).astype(np.float32)
+    port = CUDAEngine(FpgaCNN(bundle.kernels, w, b), device="cpu",
+                      backend=backend)
+    ref = TPUEngine(FpgaCNN(bundle.kernels, w, b), backend=backend)
+    _assert_detect_equal(port.detect_batch(images), ref.detect_batch(images))
+
+
+@pytest.mark.parametrize("backend", ["pallas", "hybrid"])
+def test_backend_gate_and_set_shifts(images, backend):
+    engine = CUDAEngine(load_model(ART), device="cpu", backend=backend)
+    bundle = art.load_bundle(ART)
+    assert bench_gate.run_parity_gate(engine.detect_with_features, bundle,
+                                      images) is None
+    engine.set_shifts(1, 3, 5)
+    want = np.stack([numpy_cnn_forward(im, bundle.kernels, (1, 3, 5))
+                     for im in images[:2]])
+    np.testing.assert_array_equal(engine.run_batch(images[:2]), want)
+
+
+def test_lyr4_wide_pallas_backend_matches_the_oracle(images4):
+    """lyr4-wide on "pallas": every layer on the conv kernel's plain
+    version, its L0 included (the JAX package reroutes that one to XLA)."""
+    port = CUDAEngine(load_model(ART4, "lyr4-wide"), device="cpu",
+                      backend="pallas")
+    kernels = _lyr4_bundle().kernels
+    want = np.stack([numpy_cnn_forward(im, kernels, (3, 5, 5, 7))
+                     for im in images4[:2]])
+    np.testing.assert_array_equal(port.run_batch(images4[:2]), want)
+    assert port._kernels_per_pass == 4
+
+
+def test_backend_names_and_launch_counts():
+    model = load_model(ART)
+    per_pass = {"mega": 1, "pallas": 3, "hybrid": 1, "xla": 0}
+    for backend, n in per_pass.items():
+        engine = CUDAEngine(model, device="cpu", backend=backend)
+        assert engine._kernels_per_pass == n
+    assert CUDAEngine(model, device="cpu").backend == "reference-cpu"
+    with pytest.raises(ValueError, match="unknown backend"):
+        CUDAEngine(model, device="cpu", backend="auto")
+    with pytest.raises(ValueError, match="compute_dtype"):
+        CUDAEngine(model, device="cpu", backend="xla", compute_dtype="bf16")

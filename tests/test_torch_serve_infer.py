@@ -177,3 +177,42 @@ def test_package_imports_without_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_infer_cli_mode_pallas(tmp_path, capsys):
+    """--mode pallas: the conv kernel's plain version on every layer; the
+    accuracy equals the numpy oracle's."""
+    bundle = art.load_bundle(ART)
+    paths = sorted(glob.glob(os.path.join(ART, "test_image_*.bin")))[2:4]
+    for p in paths:
+        shutil.copy(p, tmp_path)
+    infer.main(["--artifacts", ART, "--image-dir", str(tmp_path),
+                "--device", "cpu", "--mode", "pallas", "--no-save"])
+    out = capsys.readouterr().out
+    want = sum(_oracle(open(p, "rb").read(), bundle)[0]
+               == art.label_from_filename(p) for p in paths)
+    assert f"Accuracy: {want}/2 " in out
+    assert "CUDAEngine (pallas-reference-cpu)" in out
+
+
+def test_service_mode_hybrid_answers_like_the_host_oracle():
+    bundle = art.load_bundle(ART)
+    with _service(artifacts_dir=ART, max_batch=2, mode="hybrid") as request:
+        assert request("GET", "/healthz") == (
+            200, {"ok": True, "backend": "hybrid-reference-cpu"})
+        for p in sorted(glob.glob(os.path.join(ART, "test_image_*.bin")))[3:5]:
+            body = open(p, "rb").read()
+            status, ans = request("POST", "/detect", body)
+            idx, probs, box = _oracle(body, bundle)
+            assert status == 200, ans
+            assert ans["pred"] == idx and ans["bbox"] == box
+            np.testing.assert_allclose(ans["probs"], probs, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("argv,exc", [
+    (["--mode", "auto"], SystemExit),  # no backend picks itself
+    (["--shifts", "2,4,-1"], ValueError),
+    (["--shifts", "2,32,6"], ValueError)])
+def test_infer_refuses_bad_mode_and_shifts(argv, exc):
+    with pytest.raises(exc):
+        infer.main(argv + ["--device", "cpu", "--no-save"])

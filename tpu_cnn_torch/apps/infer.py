@@ -10,6 +10,11 @@ Usage:
   python -m tpu_cnn_torch.apps.infer --image-dir artifacts/pretrained --device cuda --no-save
   python -m tpu_cnn_torch.apps.infer --image X.bin --device cuda --no-save
   python -m tpu_cnn_torch.apps.infer --variant lyr4-wide --device cuda --no-save
+  python -m tpu_cnn_torch.apps.infer --mode pallas --device cuda --no-save
+
+``--mode`` picks the engine's backend (``CUDAEngine`` ``BACKENDS``, the
+reference's flag name): ``mega`` (default), ``pallas``, ``hybrid`` or
+``xla``. It is orthogonal to ``--device``.
 
 ``--no-save`` skips the annotated JPEG (which needs PIL); raw ``.bin``
 images need nothing beyond numpy.
@@ -26,7 +31,7 @@ from tpu_cnn.apps.common import load_model
 from tpu_cnn.apps.infer import run_inference
 from tpu_cnn.utils import artifacts as art
 from tpu_cnn.utils.paths import default_artifacts
-from tpu_cnn_torch.engine.cuda import CUDAEngine
+from tpu_cnn_torch.engine.cuda import BACKENDS, CUDAEngine
 
 NOT_PORTED = "not yet ported (ROADMAP A.7)"
 
@@ -42,6 +47,10 @@ def main(argv=None):
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda runs the hand-written kernels; cpu their plain "
                         "PyTorch versions")
+    p.add_argument("--mode", default="mega", choices=BACKENDS,
+                   help="engine backend: mega (whole-net kernel), pallas "
+                        "(the conv kernel on every layer), hybrid (on layer "
+                        "0 only) or xla (plain contract, no kernel)")
     p.add_argument("--no-save", action="store_true")
     p.add_argument("--shifts", default=None,
                    help="comma list, one per layer (default: the bundle's "
@@ -65,7 +74,8 @@ def main(argv=None):
                        shifts=shifts)
     if args.box == "reg" and model.bbox_weight is None:
         p.error("--box reg needs bbox_weight.npy in the bundle")
-    engine = CUDAEngine(model, device=args.device, box_mode=args.box)
+    engine = CUDAEngine(model, device=args.device, backend=args.mode,
+                        box_mode=args.box)
     print(f"Engine: {type(engine).__name__} ({engine.backend})")
     print(f"Classifier: {len(model.class_names)} classes — {model.class_names} "
           f"[{model.head_mode} head]")

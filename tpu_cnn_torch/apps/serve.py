@@ -16,6 +16,9 @@ Endpoints:
 Usage:
   python -m tpu_cnn_torch.apps.serve --device cuda --port 8000
   python -m tpu_cnn_torch.apps.serve --variant lyr4-wide --device cuda --port 8000
+  python -m tpu_cnn_torch.apps.serve --mode hybrid --device cuda --port 8000
+
+``--mode`` picks the engine's backend, as in ``apps.infer``.
 """
 
 from __future__ import annotations
@@ -25,20 +28,20 @@ import argparse
 from tpu_cnn.apps.common import load_model
 from tpu_cnn.apps.serve import DynamicBatcher, ServiceHTTPServer, make_handler
 from tpu_cnn.utils.paths import default_artifacts
-from tpu_cnn_torch.engine.cuda import CUDAEngine
+from tpu_cnn_torch.engine.cuda import BACKENDS, CUDAEngine
 
 
 def build_service(artifacts_dir: str | None = None, device: str = "cuda",
                   max_batch: int = 256, max_wait_ms: float = 5.0,
                   variant: str = "lyr3-std", box: str = "ref",
-                  head_prefix: str = ""):
-    """Load the bundle, build and warm a ``CUDAEngine`` at ``max_batch``
-    (the batcher pads every batch to it), and put a ``DynamicBatcher`` in
-    front. Returns (batcher, backend name)."""
+                  head_prefix: str = "", mode: str = "mega"):
+    """Load the bundle, build and warm a ``CUDAEngine`` on backend ``mode``
+    at ``max_batch`` (the batcher pads every batch to it), and put a
+    ``DynamicBatcher`` in front. Returns (batcher, backend name)."""
     model = load_model(artifacts_dir or default_artifacts(variant), variant,
                        head_prefix)
-    engine = CUDAEngine(model, device=device, max_batch=max_batch,
-                        box_mode=box)
+    engine = CUDAEngine(model, device=device, backend=mode,
+                        max_batch=max_batch, box_mode=box)
     engine.warmup(batch=max_batch)
     batcher = DynamicBatcher(engine, model.class_names, max_batch=max_batch,
                              max_wait_ms=max_wait_ms,
@@ -51,6 +54,8 @@ def main(argv=None):
                                             "CUDA port")
     p.add_argument("--artifacts", default=None)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    p.add_argument("--mode", default="mega", choices=BACKENDS,
+                   help="engine backend (see tpu_cnn_torch.apps.infer)")
     p.add_argument("--host", default="127.0.0.1",
                    help="bind address (default loopback; the service has no "
                         "auth — expose beyond localhost deliberately)")
@@ -72,7 +77,8 @@ def main(argv=None):
     batcher, backend = build_service(args.artifacts, args.device,
                                      args.max_batch, args.max_wait_ms,
                                      variant=args.variant, box=args.box,
-                                     head_prefix=args.head_prefix)
+                                     head_prefix=args.head_prefix,
+                                     mode=args.mode)
     srv = ServiceHTTPServer((args.host, args.port),
                             make_handler(batcher, backend))
     print(f"serving on {args.host}:{args.port} (backend {backend}, "

@@ -1,12 +1,22 @@
 """CUDAEngine — batched fused detection on one CUDA device.
 
-Port of ``tpu_cnn.engine.tpu.TPUEngine`` for the single-box path. The
-JAX engine's program becomes: the net on the chained plan
-(``ops.mega.cnn_forward_mega``: the ``mega_plan`` head layers one kernel
-each, then the megakernel with its fused bin pooling and bf16 feature
-twin), then the plain-torch head (``ops.detect_head``), all on the device;
-only (pred, conf, probs, bbox) come back to the host, through pinned
-buffers and a recorded event.
+Port of ``tpu_cnn.engine.tpu.TPUEngine`` for the single-box path, with its
+backends under their names, so that the apps' ``--mode`` flag carries over:
+
+  - ``"mega"`` (the default): the net on the chained plan
+    (``ops.mega.cnn_forward_mega``: the ``mega_plan`` head layers one
+    kernel each, then the megakernel with its fused bin pooling and bf16
+    feature twin), then the plain-torch head (``ops.detect_head``);
+  - ``"pallas"``: every layer on the conv kernel ``ops.int8.conv_act``
+    (``cnn_forward_pallas``), then ``detect_head.detect`` on the features;
+  - ``"hybrid"``: layer 0 on that kernel, the deeper layers plain
+    (``cnn_forward_hybrid``), then ``detect``;
+  - ``"xla"``: the plain contract ``ops.quant.cnn_forward`` (f32 or int32,
+    ``compute_dtype``), then ``detect``. It launches no kernel.
+
+Nothing picks a backend on its own. All of it runs on the device; only
+(pred, conf, probs, bbox) come back to the host, through pinned buffers
+and a recorded event.
 
 The device is explicit: ``"cuda"`` runs the kernels and raises when there
 is no card; ``"cpu"`` runs their plain versions (for tests on machines
@@ -28,7 +38,7 @@ import torch
 
 from tpu_cnn.models.cnn import FpgaCNN
 from tpu_cnn_torch.models.cnn import TorchFpgaCNN
-from tpu_cnn_torch.ops import detect_head, mega
+from tpu_cnn_torch.ops import detect_head, int8, mega, quant
 from tpu_cnn_torch.utils.failguard import wait_event
 
 
@@ -43,16 +53,29 @@ class DetectResult:
     bbox: np.ndarray  # (B, 4) int32 (x1, y1, x2, y2)
 
 
+BACKENDS = ("mega", "pallas", "hybrid", "xla")
+
+
 class CUDAEngine:
     """Batched inference for the FpgaCNN contract on ``device``.
 
-    ``box_mode``: "ref" (reference CAM threshold box), "centroid" (CAM
-    mass-centroid box) or "reg" (learned regression on the pooled bins;
-    needs the bundle's bbox_weight)."""
+    ``backend``: one of ``BACKENDS`` (module docstring); ``compute_dtype``
+    ("float32" or "int32") applies to "xla". ``box_mode``: "ref" (reference
+    CAM threshold box), "centroid" (CAM mass-centroid box) or "reg" (learned
+    regression on the pooled bins; needs the bundle's bbox_weight). The
+    model's shifts must lie in 0..31."""
 
     def __init__(self, model: FpgaCNN, device: torch.device | str,
+                 backend: str = "mega", compute_dtype: str = "float32",
                  max_batch: int = 4096, timeout_s: float | None = 300.0,
                  box_mode: str = "ref"):
+        if backend not in BACKENDS:
+            raise ValueError(f"unknown backend {backend!r}: need one of "
+                             f"{BACKENDS}")
+        if compute_dtype not in ("float32", "int32"):
+            raise ValueError(f"compute_dtype {compute_dtype!r}: need "
+                             f"'float32' or 'int32'")
+        quant.check_shifts(model.shifts)
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
@@ -71,20 +94,29 @@ class CUDAEngine:
             raise ValueError("box_mode='reg' needs a bbox_weight.npy in the "
                              "artifact bundle")
         cfgs = model.config.layer_configs
-        n_head = mega.mega_plan(cfgs)
-        if n_head is None:
-            raise ValueError(f"no tail of {cfgs} fits the megakernel")
         self.model = model
         self.max_batch = max_batch
         self.timeout_s = timeout_s
         self.box_mode = box_mode
+        self.compute_dtype = compute_dtype
+        self._backend = backend
         self.net = TorchFpgaCNN.from_fpga_cnn(model, self.device)
-        if self.device.type == "cpu":
-            self.backend = "reference-cpu"
+        # kernels one pass of the net launches
+        if backend == "mega":
+            n_head = mega.mega_plan(cfgs)
+            if n_head is None:
+                raise ValueError(f"no tail of {cfgs} fits the megakernel")
+            self._kernels_per_pass = n_head + 1  # the head layers + the tail
+            name = f"chain{n_head}" if n_head else "mega"
         else:
-            self.backend = f"chain{n_head}-cuda" if n_head else "mega-cuda"
-        # kernels one pass of the net launches: the head layers + the tail
-        self._kernels_per_pass = n_head + 1
+            self._kernels_per_pass = {"pallas": len(cfgs), "hybrid": 1,
+                                      "xla": 0}[backend]
+            name = backend
+        if self.device.type == "cpu":
+            self.backend = ("reference-cpu" if backend == "mega"
+                            else f"{backend}-reference-cpu")
+        else:
+            self.backend = f"{name}-cuda"
         self.launches = 0  # kernel launches made by this engine
 
     # ── device work ───────────────────────────────────────────────────
@@ -108,14 +140,43 @@ class CUDAEngine:
             self.launches += self._kernels_per_pass
         return list(out) if isinstance(out, tuple) else [out]
 
+    def _features(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, S, S) u8 on the device -> (B, C, S'*S') u8 features on the
+        engine's backend."""
+        if self._backend == "mega":
+            return self._mega(x, with_feats=True)[0]
+        ks, sh = self.net.kernels, self.net.shifts
+        if self._backend == "pallas":
+            feats = int8.cnn_forward_pallas(x, ks, sh)
+        elif self._backend == "hybrid":
+            feats = int8.cnn_forward_hybrid(x, ks, sh)
+        else:
+            feats = quant.cnn_forward(x, ks, sh,
+                                      compute_dtype=self.compute_dtype)
+        if x.is_cuda:
+            self.launches += self._kernels_per_pass
+        return feats
+
     def _detect_device(self, x: torch.Tensor, with_feats: bool = False):
-        """(feats or None, pooled, pred, conf, probs, bbox) on the device.
+        """(feats or None, pooled or None, pred, conf, probs, bbox) on the
+        device.
 
         Bins head: one kernel emits the bins (classifier, "reg" box) and,
         for the CAM box modes, the bf16 twin; the u8 features are written
         only when asked for. GAP head: the classifier needs global means,
-        so the kernel writes the u8 features and the head pools them."""
+        so the kernel writes the u8 features and the head pools them.
+        Other backends: the features, then ``detect_head.detect`` on them
+        (the JAX engine's unfused branch); the bins are pooled apart only
+        when the features are asked for too (the parity gate's path)."""
         net, img = self.net, self.model.config.img_size
+        if self._backend != "mega":
+            feats = self._features(x)
+            pred, conf, probs, bbox = detect_head.detect(
+                feats, net.fc_weight, net.fc_bias, self.model.head_mode, img,
+                box_mode=self.box_mode, bbox_weight=net.bbox_weight)
+            if not with_feats:
+                return None, None, pred, conf, probs, bbox
+            return feats, detect_head.bin_pool(feats), pred, conf, probs, bbox
         if self.model.head_mode == "bins":
             with_twin = self.box_mode != "reg"
             outs = self._mega(x, with_feats=with_feats, with_bins=True,
@@ -175,9 +236,10 @@ class CUDAEngine:
         """Runtime shift update — register semantics: an in-stream copy
         into the device shift vector the kernel reads. Work already
         dispatched keeps the old shifts; nothing is rebuilt and the host
-        does not wait."""
+        does not wait. Each shift must lie in 0..31."""
         if len(shifts) != len(self.model.config.layer_configs):
             raise ValueError("one shift per layer required")
+        quant.check_shifts(shifts)
         self.model.shifts = np.asarray(shifts, np.int32)
         src = torch.from_numpy(self.model.shifts)
         if self.device.type == "cuda":
@@ -188,7 +250,7 @@ class CUDAEngine:
         """Engine protocol: one image -> ((C, S'*S') u8, conv_ms, read_ms)."""
         x, _ = self._to_device(gray)
         t0 = time.perf_counter()
-        (feats,) = self._mega(x, with_feats=True)
+        feats = self._features(x)
         self._sync()
         conv_ms = (time.perf_counter() - t0) * 1e3
         t1 = time.perf_counter()
@@ -199,13 +261,17 @@ class CUDAEngine:
     def run_batch(self, images: np.ndarray) -> np.ndarray:
         """(B, S, S) u8 -> (B, C, S'*S') u8 features."""
         x, _ = self._to_device(images)
-        return self._fetch(self._to_host_async(self._mega(x, with_feats=True)))[0]
+        return self._fetch(self._to_host_async((self._features(x),)))[0]
 
     def run_batch_pooled(self, images: np.ndarray) -> np.ndarray:
-        """(B, S, S) u8 -> (B, C*16) f32 bin-pooled features, from the
-        kernel's fused bins (the feature map is never written)."""
+        """(B, S, S) u8 -> (B, C*16) f32 bin-pooled features: on "mega"
+        from the kernel's fused bins (the feature map is never written),
+        else ``bin_pool`` of the features."""
         x, _ = self._to_device(images)
-        out = self._mega(x, with_feats=False, with_bins=True)
+        if self._backend == "mega":
+            out = self._mega(x, with_feats=False, with_bins=True)
+        else:
+            out = (detect_head.bin_pool(self._features(x)),)
         return self._fetch(self._to_host_async(out))[0]
 
     def detect_batch(self, images) -> DetectResult:
@@ -240,4 +306,4 @@ class CUDAEngine:
     def features_device(self, images_dev: torch.Tensor) -> torch.Tensor:
         """Device-resident features for pipelines that keep data on the
         device."""
-        return self._mega(images_dev, with_feats=True)[0]
+        return self._features(images_dev)

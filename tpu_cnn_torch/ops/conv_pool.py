@@ -99,8 +99,11 @@ def conv_pool_layer(x: torch.Tensor, kernel: torch.Tensor,
     (L,) int32 shift vector, of which ``shifts[layer]`` applies (on the
     device, read by the kernel: a shift change rebuilds nothing) ->
     (B, oc, S/2, S/2) u8. CUDA tensors launch ``csrc/conv_pool_layer.cu``;
-    CPU tensors run ``conv_pool_reference``."""
+    CPU tensors run ``conv_pool_reference``. A CPU shift vector is held to
+    0..31 here; a CUDA one where it was built on the host."""
     _check_inputs(x, kernel, shifts, layer)
+    if shifts.device.type == "cpu":
+        quant.check_shifts(shifts)
     if x.device.type == "cpu":
         return conv_pool_reference(x, kernel, shifts, layer)
     if x.device.type == "cuda":

@@ -1,0 +1,182 @@
+"""The per-layer backends: the conv kernel without the pool, and the nets
+built on it.
+
+Port of ``tpu_cnn.ops.pallas_int8``. ``conv_act`` is the port of its one
+Pallas kernel, ``_conv_mxu``: a hand-written CUDA kernel,
+``csrc/conv_act.cu``, that computes
+
+    (B, ic, H, W) u8 -> conv3x3 SAME -> >> shift -> clip 0..255
+    -> (B, oc, H, W) u8                  # pre-pool: no pool
+
+for any rectangle. ``fused_conv_layer`` adds the 2x2 pool as torch glue
+(as the JAX package adds it as XLA glue), ``cnn_forward_pallas`` runs every
+layer through it and ``cnn_forward_hybrid`` only layer 0, the deeper layers
+being the plain contract layer (``quant.fixed_point_conv_layer``: unfold +
+an f32 matmul, never cuDNN), as in the JAX package.
+
+What is not carried over: the TPU kernel's zero-point staging,
+block-diagonal weight packing, batch-tile model, pad-to-4 batch, and the
+reroutes of small tiles to an XLA conv or to row bands were Mosaic's. Here
+the kernel runs on every layer, lyr4-wide's 1 -> 16 L0 at 256^2 included.
+
+On a CUDA tensor ``conv_act`` launches the kernel; on a CPU tensor it runs
+the plain version, ``conv_act_reference``. Any other device, or a CUDA call
+the kernel cannot take, raises: nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Sequence
+
+import torch
+
+from tpu_cnn_torch.ops import _build, quant
+
+# kernel launches made by this wrapper in this process
+launches = 0
+
+
+def conv_act_reference(x: torch.Tensor, kernel: torch.Tensor,
+                       shifts: torch.Tensor, layer: int, *,
+                       compute_dtype: str = "float32") -> torch.Tensor:
+    """The kernel's plain version: ``quant.conv3x3_same`` (f32 ``unfold`` +
+    matmul, or the int32 tap loop), then ``shift_relu_clamp`` at
+    ``shifts[layer]`` -> (B, oc, H, W) u8."""
+    acc = quant.conv3x3_same(x, kernel, compute_dtype)
+    return quant.shift_relu_clamp(acc, shifts[layer]).to(torch.uint8)
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("conv_act")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.conv_act_forward.argtypes = [p, p, p, i, p, i, i, i, i, i, i, p]
+    lib.conv_act_forward.restype = i
+    lib.conv_act_error_string.argtypes = [i]
+    lib.conv_act_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_inputs(x, kernel, shifts, layer):
+    if x.dtype != torch.uint8 or x.dim() != 4:
+        raise ValueError(f"x must be (B, ic, H, W) uint8, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    ic = x.shape[1]
+    if min(x.shape[2:]) < 1:
+        raise ValueError(f"need H, W >= 1, got {tuple(x.shape[2:])}")
+    if (kernel.dtype != torch.int8 or kernel.dim() != 4
+            or kernel.shape[1] != ic or tuple(kernel.shape[2:]) != (3, 3)):
+        raise ValueError(f"kernel must be (oc, {ic}, 3, 3) int8, got "
+                         f"{tuple(kernel.shape)} {kernel.dtype}")
+    if shifts.dtype != torch.int32 or shifts.dim() != 1:
+        raise ValueError(f"shifts must be a 1-D int32 vector, got "
+                         f"{tuple(shifts.shape)} {shifts.dtype}")
+    if not 0 <= layer < shifts.shape[0]:
+        raise ValueError(f"layer {layer} outside the {shifts.shape[0]} shifts")
+
+
+def _launch(x, kernel, shifts, layer):
+    """The kernel on the tensors' CUDA device and current stream."""
+    global launches
+    dev = x.device
+    tensors = (x, kernel, shifts)
+    if any(t.device != dev for t in tensors):
+        raise ValueError("x, kernel and shifts must be on one device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("x, kernel and shifts must be contiguous")
+    b, ic, h, w = x.shape
+    oc = kernel.shape[0]
+    out = torch.empty((b, oc, h, w), dtype=torch.uint8, device=dev)
+    lib = _lib()
+    err = lib.conv_act_forward(
+        x.data_ptr(), kernel.data_ptr(), shifts.data_ptr(), layer,
+        out.data_ptr(), b, ic, oc, h, w,
+        dev.index if dev.index is not None else torch.cuda.current_device(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"conv_act_forward failed: cudaError {err} "
+                           f"({lib.conv_act_error_string(err).decode()})")
+    launches += 1
+    return out
+
+
+def conv_act(x: torch.Tensor, kernel: torch.Tensor, shifts: torch.Tensor,
+             layer: int) -> torch.Tensor:
+    """One conv without the pool: (B, ic, H, W) u8, (oc, ic, 3, 3) int8 and
+    the (L,) int32 shift vector, of which ``shifts[layer]`` applies (on the
+    device, read by the kernel: a shift change rebuilds nothing) ->
+    (B, oc, H, W) u8. CUDA tensors launch ``csrc/conv_act.cu``; CPU tensors
+    run ``conv_act_reference``. A CPU shift vector is held to 0..31 here; a
+    CUDA one where it was built on the host."""
+    _check_inputs(x, kernel, shifts, layer)
+    if shifts.device.type == "cpu":
+        quant.check_shifts(shifts)
+    if x.device.type == "cpu":
+        return conv_act_reference(x, kernel, shifts, layer)
+    if x.device.type == "cuda":
+        return _launch(x, kernel, shifts, layer)
+    raise ValueError(f"conv_act runs on CUDA tensors (the kernel) or CPU "
+                     f"tensors (its plain version), not on {x.device}")
+
+
+def pack_kernel_matrix(kernel: torch.Tensor) -> torch.Tensor:
+    """(oc, ic, 3, 3) int8 -> the JAX package's (oc, 9*ic) f32 matrix,
+    tap-major / ic-minor."""
+    oc, ic = kernel.shape[:2]
+    return kernel.to(torch.float32).permute(0, 2, 3, 1).reshape(oc, 9 * ic)
+
+
+def unpack_kernel_matrix(kmat: torch.Tensor, ic: int) -> torch.Tensor:
+    """Inverse of :func:`pack_kernel_matrix`: (oc, 9*ic) f32 -> (oc, ic, 3,
+    3) int8 (exact: the packed values are small integers)."""
+    oc = kmat.shape[0]
+    return (kmat.reshape(oc, 3, 3, ic).permute(0, 3, 1, 2)
+            .to(torch.int8).contiguous())
+
+
+def fused_conv_layer(x: torch.Tensor, kernel: torch.Tensor,
+                     shifts: torch.Tensor, layer: int) -> torch.Tensor:
+    """One contract layer: ``conv_act``, then the 2x2 max pool as torch
+    glue. (B, ic, H, W) u8 with H and W even -> (B, oc, H/2, W/2) u8."""
+    h, w = x.shape[-2:]
+    if h % 2 or w % 2:
+        raise ValueError(f"the pool needs an even H and W, got {h}x{w}")
+    return quant.maxpool2x2(conv_act(x, kernel, shifts, layer))
+
+
+def _nchw(images: torch.Tensor) -> torch.Tensor:
+    """(B, S, S) or (B, S, S, 1) u8 images -> (B, 1, S, S)."""
+    if images.dim() == 4 and images.shape[-1] == 1:
+        images = images[..., 0]
+    if images.dim() != 3:
+        raise ValueError(f"images must be (B, S, S) or (B, S, S, 1), got "
+                         f"{tuple(images.shape)}")
+    return images[:, None]
+
+
+def _flat(x: torch.Tensor) -> torch.Tensor:
+    b, c, h, w = x.shape
+    return x.reshape(b, c, h * w)
+
+
+def cnn_forward_pallas(images: torch.Tensor, kernels: Sequence[torch.Tensor],
+                       shifts: torch.Tensor) -> torch.Tensor:
+    """Every layer through ``fused_conv_layer``: (B, S, S) or (B, S, S, 1)
+    u8 -> (B, oc, S'*S') u8, the layout of ``quant.cnn_forward``."""
+    x = _nchw(images)
+    for i, k in enumerate(kernels):
+        x = fused_conv_layer(x, k, shifts, i)
+    return _flat(x)
+
+
+def cnn_forward_hybrid(images: torch.Tensor, kernels: Sequence[torch.Tensor],
+                       shifts: torch.Tensor) -> torch.Tensor:
+    """Layer 0 through ``fused_conv_layer`` (the kernel), the deeper layers
+    through the plain contract layer, as the JAX package computes them
+    outside any Pallas kernel. Same layout as ``cnn_forward_pallas``."""
+    x = fused_conv_layer(_nchw(images), kernels[0], shifts, 0)
+    for i, k in enumerate(kernels[1:], start=1):
+        x = quant.fixed_point_conv_layer(x, k, shifts[i])
+    return _flat(x)

@@ -163,11 +163,14 @@ def cnn_forward_mega(images: torch.Tensor, kernels: Sequence[torch.Tensor],
     The ``mega_plan`` head layers run through ``conv_pool.conv_pool_layer``
     and the tail through the megakernel: on CUDA tensors
     ``csrc/conv_pool_layer.cu`` then ``csrc/mega_cnn.cu``, on CPU tensors
-    ``conv_pool_reference`` then ``mega_reference``."""
+    ``conv_pool_reference`` then ``mega_reference``. A CPU shift vector is
+    held to 0..31 here; a CUDA one where it was built on the host."""
     if not (with_feats or with_bins or with_twin):
         raise ValueError("at least one of with_feats/with_bins/with_twin "
                          "must be requested")
     _check_inputs(images, kernels, shifts, with_bins)
+    if shifts.device.type == "cpu":
+        quant.check_shifts(shifts)
     if images.device.type not in ("cpu", "cuda"):
         raise ValueError(f"cnn_forward_mega runs on CUDA tensors (the "
                          f"kernels) or CPU tensors (their plain versions), "

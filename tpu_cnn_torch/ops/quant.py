@@ -24,7 +24,8 @@ Two compute paths, bit-identical to each other and to the numpy oracle:
     matmul on CUDA, so this path uses neither; it is exact on any device.
 
 Shifts are a tensor argument (the reference's runtime register): changing
-them never rebuilds anything.
+them never rebuilds anything. The register is unsigned and 0..31 is its
+contract: ``check_shifts`` refuses anything else wherever a shift enters.
 """
 
 from __future__ import annotations
@@ -36,6 +37,21 @@ import torch
 import torch.nn.functional as F
 
 from tpu_cnn.models.cnn import ACCUM_BITS
+
+SHIFT_MAX = 31
+
+
+def check_shifts(shifts) -> None:
+    """Raise ``ValueError`` for a shift outside 0..31. ``shifts`` is a host
+    sequence or a CPU tensor, one entry per layer. Outside that range the
+    paths disagree (the f32 plain version multiplies at a negative shift,
+    the int32 one gives 0, the CUDA kernels clamp), and the reference's
+    shift register is unsigned, so no answer is right."""
+    values = shifts.tolist() if isinstance(shifts, torch.Tensor) else list(shifts)
+    for layer, s in enumerate(values):
+        if not 0 <= int(s) <= SHIFT_MAX:
+            raise ValueError(f"shift {int(s)} of layer {layer} is outside "
+                             f"0..{SHIFT_MAX}")
 
 
 def wrap_accum(x: torch.Tensor, bits: int = ACCUM_BITS) -> torch.Tensor:
