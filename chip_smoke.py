@@ -2,20 +2,26 @@
 """Drive the PyTorch/CUDA port (``tpu_cnn_torch``) end to end on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --profile-out multi_profile.txt  # + profiler tables
 
 Needs one CUDA device, ``nvcc`` (CUDA toolkit), ``g++`` (the native
 oracle of the verify phase) and the repository around this file; it fails
 with a non-zero exit code otherwise. Two model families run: lyr3-std
-(128x128) and lyr4-wide (256x256), on four main paths: each family on the
-default ``mega`` backend (lyr3-std: the whole net in the megakernel;
-lyr4-wide: the chained plan, the layer kernel for L0, then the megakernel
-for L1-L3), lyr4-wide on ``pallas`` (every layer on the conv kernel) and
-lyr3-std on ``hybrid`` (L0 on the conv kernel, L1-L2 plain). Phases, one
-line each, in order; any failure raises:
+(128x128) and lyr4-wide (256x256), on four single-box main paths: each
+family on the default ``mega`` backend (lyr3-std: the whole net in the
+megakernel; lyr4-wide: the chained plan, the layer kernel for L0, then the
+megakernel for L1-L3), lyr4-wide on ``pallas`` (every layer on the conv
+kernel) and lyr3-std on ``hybrid`` (L0 on the conv kernel, L1-L2 plain);
+then the bitcast probe's path, and two multi-object paths with the shipped
+presence heads: lyr3-std on ``mega`` with ``--multi --instances 2`` (the
+kernel's bins and twin, the instance head) and lyr4-wide on ``pallas``
+with ``--multi`` (the features branch, the 256-pixel box scale). Phases,
+one line each, in order; any failure raises:
 
   1. header   — the card (nvidia-smi name and power limit), torch, CUDA
-  2. build    — nvcc builds csrc/mega_cnn.cu, csrc/conv_pool_layer.cu and
-                csrc/conv_act.cu for sm_90a, in parallel
+  2. build    — nvcc builds csrc/mega_cnn.cu, csrc/conv_pool_layer.cu,
+                csrc/conv_act.cu and csrc/bitcast.cu for sm_90a, in
+                parallel
   3. kernel   — each kernel against its plain PyTorch version on the card,
                 B=37. The megakernel: lyr3-std (shipped and seeded random
                 weights, shifts 2/4/6 and 1/3/5, every with_feats/bins/twin
@@ -30,38 +36,59 @@ line each, in order; any failure raises:
                 its pooled output against the layer kernel on lyr4-wide's
                 L0. Then the lyr4-wide chain against the numpy oracle on 4
                 images. Features and twin bit-equal, bins within 1e-6; the
-                plain f32 and int32 versions bit-equal to each other.
+                plain f32 and int32 versions bit-equal to each other. The
+                bitcast kernel's narrow, widen and roll (shifts 3, 0, -1,
+                L+2) bit-equal at (8, 256), (5, 37) and (1024, 4096) on
+                full-range words, and widen(narrow(x)) == x; narrow and
+                widen on views misaligned for the vector path.
   4. engine   — CUDAEngine(device="cuda", backend=...) through the bench's
                 parity gate on 28 shipped test images + 4 noise images,
-                per path, and set_shifts against the oracle
+                per path, and set_shifts against the oracle; on a multi
+                path detect_multi_batch (direct and staged) on the same 32
+                images against the host twins: boxes, instances and counts
+                equal, probabilities and presence scores within 1e-4, the
+                same detections
   5. cli      — tpu_cnn_torch.apps.infer --mode ... over the shipped test
-                images, per path; accuracy equal to the numpy oracle's
+                images, per path; accuracy equal to the numpy oracle's; on
+                a multi path each image's "Detections" lines equal the
+                host twins' (names and boxes; probabilities to the printed
+                0.1%)
   6. server   — tpu_cnn_torch.apps.serve --mode ... behind HTTP on
                 127.0.0.1, per path: 8 raw image POSTs, each answer equal
-                to the host oracle's
+                to the host oracle's; on a multi path the "detections" too,
+                one POST with ?thresh=0.3
+  probe       — tpu_cnn_torch.apps.probe_bitcast --device cuda: exit 0,
+                MATCH on the r*4+b layouts of Q1 and Q2 and on Q3
   verify      — tpu_cnn_torch.apps.verify --device cuda for lyr3-std
                 (shipped weights) and lyr4-wide (seeded weights): all seven
-                backends bit-exact and every engine head equal to the host
+                backends bit-exact and every engine head, multi boxes,
+                instances and presence scores included, equal to the host
                 twins; exit 0 and the verdict line
   7. times    — at batch 1536, CUDA events, median: lyr3-std's megakernel
                 and its plain version; lyr4-wide's layer kernel, tail and
                 chain and their plain versions; the conv kernel on each
                 lyr3-std layer and lyr4-wide's L0 and its plain version;
                 the async-pipelined engine detect FPS of each family on
-                mega and of lyr3-std on pallas and hybrid
+                mega and of lyr3-std on pallas and hybrid; on lyr3-std/mega
+                the multi detect FPS at instances 1 and 2 beside the
+                single-box FPS, and a torch.profiler split of the instance
+                head; the bitcast kernel and its plain version at
+                (1024, 4096), device time per call with the calls queued
 
-Phases 4-6 are the main paths, once per path: every kernel launch counter
-is set to 0 before a path's phases 4-6 and read after them, and each
-kernel of that path must have launched there and no other kernel
-(lyr3-std/mega: the megakernel; lyr4-wide/mega: the megakernel and the
-layer kernel; lyr4-wide/pallas and lyr3-std/hybrid: the conv kernel). The
-line before the last is a JSON object with each kernel's launches (summed
-over the paths), error and times; the last line is {"ok": true, "device":
-{...}}.
+Phases 4-6 and the probe are the main paths, once per path: every kernel
+launch counter is set to 0 before a path's phases and read after them,
+and each kernel of that path must have launched there and no other
+kernel (lyr3-std/mega: the megakernel; lyr4-wide/mega: the megakernel and
+the layer kernel; lyr4-wide/pallas and lyr3-std/hybrid: the conv kernel;
+the probe: the bitcast kernel; the multi paths: the megakernel, then the
+conv kernel). The line before the last is a JSON object with each
+kernel's launches (summed over the paths), error and times; the last line
+is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import argparse
 import concurrent.futures
 import contextlib
 import glob
@@ -86,15 +113,17 @@ sys.path.insert(0, ROOT)
 from tpu_cnn.apps.common import load_model  # noqa: E402
 from tpu_cnn.apps.serve import ServiceHTTPServer, make_handler  # noqa: E402
 from tpu_cnn.engine.cpu_ref import numpy_cnn_forward  # noqa: E402
-from tpu_cnn.head.cam import cam_bbox_fast  # noqa: E402
-from tpu_cnn.head.classify import classify_np  # noqa: E402
+from tpu_cnn.head.cam import cam_bbox_fast, cam_bbox_multi  # noqa: E402
+from tpu_cnn.head.classify import classify_np, multi_scores_np, pool_for_head  # noqa: E402
 from tpu_cnn.models.registry import default_shifts, get_config  # noqa: E402
 from tpu_cnn.utils import artifacts as art  # noqa: E402
 from tpu_cnn.utils.artifacts import label_from_filename  # noqa: E402
 from tpu_cnn_torch import bench_gate  # noqa: E402
-from tpu_cnn_torch.apps import infer, serve, verify  # noqa: E402
-from tpu_cnn_torch.engine.cuda import CUDAEngine  # noqa: E402
-from tpu_cnn_torch.ops import _build, conv_pool, int8, mega  # noqa: E402
+from tpu_cnn_torch.apps import infer, probe_bitcast, serve, verify  # noqa: E402
+from tpu_cnn_torch.engine.cuda import (DEFAULT_MULTI_THRESH, CUDAEngine,  # noqa: E402
+                                       MultiDetectResult)
+from tpu_cnn_torch.ops import _build, bitcast, conv_pool, detect_head, int8, mega  # noqa: E402
+from tpu_cnn_torch.utils.host_twins import cam_instances  # noqa: E402
 
 ARTIFACTS = {"lyr3-std": os.path.join(ROOT, "artifacts", "pretrained"),
              "lyr4-wide": os.path.join(ROOT, "artifacts", "pretrained-lyr4")}
@@ -106,6 +135,8 @@ KERNELS = {  # name -> (source, the TPU kernel(s) it replaces)
                         "tpu_cnn/ops/pallas_poly.py:957,1160"),
     "conv_act": ("tpu_cnn_torch/csrc/conv_act.cu",
                  "tpu_cnn/ops/pallas_int8.py:150"),  # _conv_mxu
+    "bitcast": ("tpu_cnn_torch/csrc/bitcast.cu",
+                "scripts/probe_bitcast.py:35"),  # run (narrow, widen, roll)
 }
 # the main paths: (family, engine backend, the shifts set_shifts tries, the
 # kernels the path must launch; it must launch no other)
@@ -113,7 +144,13 @@ PATHS = [("lyr3-std", "mega", (1, 3, 5), ("mega_cnn",)),
          ("lyr4-wide", "mega", (2, 4, 6, 8), ("mega_cnn", "conv_pool_layer")),
          ("lyr4-wide", "pallas", (2, 4, 6, 8), ("conv_act",)),
          ("lyr3-std", "hybrid", (1, 3, 5), ("conv_act",))]
-MODULES = {"mega_cnn": mega, "conv_pool_layer": conv_pool, "conv_act": int8}
+# the multi-object paths: (family, backend, instances, kernels)
+MULTI_PATHS = [("lyr3-std", "mega", 2, ("mega_cnn",)),
+               ("lyr4-wide", "pallas", 1, ("conv_act",))]
+MODULES = {"mega_cnn": mega, "conv_pool_layer": conv_pool, "conv_act": int8,
+           "bitcast": bitcast}
+SCORE_TOL = 1e-4  # probabilities and presence scores: 1024-term f32 dots
+BITCAST_SHAPES = ((8, 256), (5, 37), (1024, 4096))  # the probe's; ragged; 16 MiB
 VERDICT = "VERDICT: DESIGN IS BIT-ACCURATE across all backends"
 BINS_TOL = 1e-6  # the kernel's bins vs the plain version's (1-ulp / order)
 BENCH_BATCH = 1536  # bench.py's batch
@@ -378,6 +415,47 @@ def chain_vs_oracle(dev: torch.device) -> None:
           "lyr4-wide chain disagrees with the numpy oracle")
 
 
+def bitcast_vs_plain(dev: torch.device) -> tuple[float, int]:
+    """The bitcast kernel's three functions against their plain versions
+    on the same card tensors, bit for bit. Returns (largest absolute
+    difference, cases)."""
+    rs = np.random.RandomState(10)
+    max_err, n_cases = 0, 0
+
+    def same(tag, got, want):
+        nonlocal max_err, n_cases
+        torch.cuda.synchronize()
+        check(got.dtype == want.dtype and got.shape == want.shape
+              and torch.equal(got, want), f"bitcast {tag}: differs")
+        max_err = max(max_err, (got.long() - want.long()).abs().max().item())
+        n_cases += 1
+
+    for r, l in BITCAST_SHAPES:
+        words = rs.randint(-2**31, 2**31, (r, l), dtype=np.int64).astype(np.int32)
+        words.reshape(-1)[:4] = (-2**31, 2**31 - 1, 0, -1)  # the extremes
+        x = torch.from_numpy(words).to(dev)
+        x8 = torch.from_numpy(rs.randint(0, 256, (4 * r, l)).astype(np.uint8)).to(dev)
+        narrow = bitcast.narrow_i32_to_i8(x)
+        same(f"narrow {r}x{l}", narrow, bitcast.narrow_i32_to_i8_reference(x))
+        same(f"widen {r}x{l}", bitcast.widen_u8_to_i32(x8),
+             bitcast.widen_u8_to_i32_reference(x8))
+        same(f"widen(narrow(x)) {r}x{l}", bitcast.widen_u8_to_i32(narrow), x)
+        for k in (3, 0, -1, l + 2):
+            same(f"roll {k} {r}x{l}", bitcast.packed_roll(x, k),
+                 bitcast.packed_roll_reference(x, k))
+    # views one element into their storage, at a width that is a multiple
+    # of 4: misaligned for the vector path, so the one-word path runs
+    flat = torch.from_numpy(rs.randint(-2**31, 2**31, 8 * 64 + 1, dtype=np.int64)
+                            .astype(np.int32)).to(dev)
+    x = flat[1:].view(8, 64)
+    x8 = flat.view(torch.uint8)[1:4 * 8 * 64 + 1].view(32, 64)
+    same("narrow offset view", bitcast.narrow_i32_to_i8(x),
+         bitcast.narrow_i32_to_i8_reference(x))
+    same("widen offset view", bitcast.widen_u8_to_i32(x8),
+         bitcast.widen_u8_to_i32_reference(x8))
+    return float(max_err), n_cases
+
+
 def kernel_vs_plain(dev: torch.device) -> dict[str, float]:
     mega_err, mega_cases = mega_vs_plain(dev)
     phase("3 kernel", f"mega_cnn: {mega_cases} cases (B={KERNEL_BATCH}) "
@@ -393,8 +471,13 @@ def kernel_vs_plain(dev: torch.device) -> dict[str, float]:
     chain_vs_oracle(dev)
     phase("3 kernel", "lyr4-wide chain on 4 shipped images: bit-equal to the "
                       "numpy oracle and the plain chain")
+    bit_err, bit_cases = bitcast_vs_plain(dev)
+    phase("3 kernel", f"bitcast: {bit_cases} cases (narrow, widen, "
+                      f"widen(narrow), roll 3/0/-1/L+2 at {BITCAST_SHAPES}; "
+                      f"narrow and widen on offset views) bit-equal; "
+                      f"max_abs_err={bit_err!r}")
     return {"mega_cnn": mega_err, "conv_pool_layer": layer_err,
-            "conv_act": act_err}
+            "conv_act": act_err, "bitcast": bit_err}
 
 
 def engine_gate(variant: str, backend: str,
@@ -446,14 +529,10 @@ def cli(variant: str, mode: str) -> None:
                    f"{mode}: {line} (numpy oracle: {want}/{len(paths)})")
 
 
-def server(variant: str, mode: str) -> None:
-    bundle = bundle_of(variant)
-    model = load_model(ARTIFACTS[variant], variant)
-    size = model.config.img_size
-    paths = shipped_images(variant)[:8]
-    batcher, backend = serve.build_service(ARTIFACTS[variant], device="cuda",
-                                           max_batch=8, variant=variant,
-                                           mode=mode)
+@contextlib.contextmanager
+def http_service(batcher, backend):
+    """The batcher behind HTTP on an ephemeral loopback port; yields
+    request(method, path, body) -> (status, JSON). Stops both after."""
     srv = ServiceHTTPServer(("127.0.0.1", 0), make_handler(batcher, backend))
     th = threading.Thread(target=srv.serve_forever, daemon=True)
     th.start()
@@ -469,6 +548,23 @@ def server(variant: str, mode: str) -> None:
             conn.close()
 
     try:
+        yield request
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        batcher.stop()
+        th.join(timeout=10)
+
+
+def server(variant: str, mode: str) -> None:
+    bundle = bundle_of(variant)
+    model = load_model(ARTIFACTS[variant], variant)
+    size = model.config.img_size
+    paths = shipped_images(variant)[:8]
+    batcher, backend = serve.build_service(ARTIFACTS[variant], device="cuda",
+                                           max_batch=8, variant=variant,
+                                           mode=mode)
+    with http_service(batcher, backend) as request:
         bodies = [open(p, "rb").read() for p in paths]
         check(all(len(b) == size * size for b in bodies),
               f"{variant}: test images are not {size}x{size}")
@@ -485,15 +581,172 @@ def server(variant: str, mode: str) -> None:
         status, health = request("GET", "/healthz")
         check(status == 200 and health.get("ok") is True, f"/healthz: {health}")
         stats = batcher.snapshot()
-    finally:
-        srv.shutdown()
-        srv.server_close()
-        batcher.stop()
-        th.join(timeout=10)
     phase("6 server", f"{variant} ({backend}): {len(paths)} POST /detect of "
                       f"{size * size} "
                       f"bytes equal to the host oracle; /healthz {health}; "
                       f"batches={stats['batches']} requests={stats['requests']}")
+
+
+# ── the multi-object paths ───────────────────────────────────────────
+
+
+def host_multi(feats: np.ndarray, model, instances: int) -> MultiDetectResult:
+    """The host twins' multi-object result for (N, C, P) u8 features: the
+    numpy classifier and presence head, cam_bbox_multi, cam_instances."""
+    fcw, size = model.fc_weight, model.config.img_size
+    pred, conf, probs = classify_np(feats, fcw, model.fc_bias)
+    scores = (multi_scores_np(pool_for_head(feats, fcw), *model.multi_head)
+              if model.multi_head is not None else None)
+    boxes = np.stack([cam_bbox_multi(f, fcw, img_size=size) for f in feats])
+    inst = (None, None)
+    if instances > 1:
+        got = [cam_instances(f, fcw, img_size=size, max_instances=instances)
+               for f in feats]
+        inst = (np.stack([g[0] for g in got]), np.stack([g[1] for g in got]))
+    return MultiDetectResult(pred.astype(np.int32), conf, probs, boxes, *inst,
+                             scores=scores)
+
+
+def same_detections(got, want, tol: float) -> bool:
+    """Two lists of (class, prob, box): classes and boxes equal, probs
+    within ``tol``."""
+    return len(got) == len(want) and all(
+        gk == wk and tuple(gb) == tuple(wb) and abs(gp - wp) <= tol
+        for (gk, gp, gb), (wk, wp, wb) in zip(got, want))
+
+
+def multi_thresh_of(model):
+    return (model.multi_thresh if model.multi_thresh is not None
+            else DEFAULT_MULTI_THRESH)
+
+
+def multi_engine(variant: str, backend: str, instances: int) -> None:
+    art_dir = ARTIFACTS[variant]
+    model = load_model(art_dir, variant)
+    check(model.multi_head is not None, f"{variant}: no shipped multi_head.npz")
+    engine = CUDAEngine(model, device="cuda", backend=backend)
+    gate = bench_gate.load_gate_images(art_dir, img_size=model.config.img_size)
+    want = host_multi(oracle_feats(gate, model.kernels, model.shifts), model,
+                      instances)
+    thr = multi_thresh_of(model)
+    runs = {"direct": engine.detect_multi_batch(gate, instances=instances),
+            "staged": engine.detect_multi_resolve(engine.detect_multi_batch_async(
+                engine.stage_batch(gate), instances=instances))}
+    for how, res in runs.items():
+        tag = f"{variant}/{backend} --instances {instances} {how}"
+        check(np.array_equal(res.pred, want.pred), f"{tag}: predictions")
+        check(np.allclose(res.probs, want.probs, rtol=0, atol=SCORE_TOL),
+              f"{tag}: probabilities")
+        check(res.boxes.dtype == np.int32 and np.array_equal(res.boxes, want.boxes),
+              f"{tag}: per-class boxes")
+        check(np.allclose(res.scores, want.scores, rtol=0, atol=SCORE_TOL),
+              f"{tag}: presence scores")
+        if instances > 1:
+            check(np.array_equal(res.inst_boxes, want.inst_boxes)
+                  and np.array_equal(res.inst_counts, want.inst_counts),
+                  f"{tag}: instance boxes or counts")
+        else:
+            check(res.inst_boxes is None, f"{tag}: instance outputs")
+        got_d, want_d = res.detections(thr), want.detections(thr)
+        check(all(same_detections(g, w, SCORE_TOL) for g, w in zip(got_d, want_d)),
+              f"{tag}: detections differ")
+    n_dets = sum(len(d) for d in want_d)
+    phase("4 engine", f"{variant} ({engine.backend}) detect_multi_batch "
+                      f"--instances {instances}, direct and staged, on "
+                      f"{len(gate)} images: boxes"
+                      f"{', instances and counts' if instances > 1 else ''} "
+                      f"equal to the host twins, probabilities and presence "
+                      f"scores within {SCORE_TOL}, the same {n_dets} "
+                      f"detections; wire boxes u8: {engine.compact_multi}")
+
+
+def multi_cli(variant: str, mode: str, instances: int) -> None:
+    art_dir = ARTIFACTS[variant]
+    paths = shipped_images(variant)
+    model = load_model(art_dir, variant)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        infer.main(["--variant", variant, "--image-dir", art_dir, "--device",
+                    "cuda", "--mode", mode, "--multi", "--instances",
+                    str(instances), "--no-save"])
+    got = infer.parse_detection_blocks(out.getvalue())
+    feats = oracle_feats([np.fromfile(p, np.uint8) for p in paths],
+                         model.kernels, model.shifts)
+    thr = multi_thresh_of(model)
+    dets = host_multi(feats, model, instances).detections(thr)
+    # the host twins' detections in the JAX CLI's format
+    # (tpu_cnn/apps/infer.py), not through the port's formatter
+    header = "  Detections (prob >= " + (
+        f"{thr:.0%}" if np.ndim(thr) == 0 else "per-class calibrated floors") + "):"
+    want = [(header, [(model.class_names[k], 100.0 * prob,
+                       f"({x1}, {y1}) -> ({x2}, {y2})")
+                      for k, prob, (x1, y1, x2, y2) in d]) for d in dets]
+    check(len(got) == len(want) == len(paths),
+          f"{variant} --multi CLI printed {len(got)} detection blocks for "
+          f"{len(paths)} images")
+    for p, (gh, gd), (wh, wd) in zip(paths, got, want):
+        # the printed 0.1% rounds the probability: allow one step of it
+        check(gh == wh and len(gd) == len(wd) and all(
+            gn == wn and gb == wb and abs(gp - wp) <= 0.1 + 1e-9
+            for (gn, gp, gb), (wn, wp, wb) in zip(gd, wd)),
+            f"{variant} --multi CLI on {os.path.basename(p)}: {gh} {gd} != "
+            f"the host twins' {wh} {wd}")
+    phase("5 cli", f"tpu_cnn_torch.apps.infer --variant {variant} --mode {mode} "
+                   f"--multi --instances {instances}: the Detections lines of "
+                   f"{len(paths)} images equal the host twins' "
+                   f"({sum(len(d) for _, d in got)} detections)")
+
+
+def multi_server(variant: str, mode: str, instances: int) -> None:
+    model = load_model(ARTIFACTS[variant], variant)
+    size = model.config.img_size
+    paths = shipped_images(variant)[:8]
+    batcher, backend = serve.build_service(ARTIFACTS[variant], device="cuda",
+                                           max_batch=8, variant=variant,
+                                           mode=mode, multi=True,
+                                           instances=instances)
+    bodies = [open(p, "rb").read() for p in paths]
+    feats = oracle_feats([np.frombuffer(b, np.uint8) for b in bodies],
+                         model.kernels, model.shifts)
+    want = host_multi(feats, model, instances)
+    want_dets = {"/detect": want.detections(multi_thresh_of(model)),
+                 "/detect?thresh=0.3": want.detections(0.3)}
+    urls = ["/detect?thresh=0.3"] + ["/detect"] * (len(bodies) - 1)
+    with http_service(batcher, backend) as request:
+        with concurrent.futures.ThreadPoolExecutor(8) as pool:
+            answers = list(pool.map(lambda a: request("POST", *a),
+                                    zip(urls, bodies)))
+        stats = batcher.snapshot()
+    for i, (p, url, (status, ans)) in enumerate(zip(paths, urls, answers)):
+        idx = int(want.pred[i])
+        dets = want_dets[url][i]
+        got = [(d["pred"], d["conf"], d["bbox"]) for d in ans.get("detections", [])]
+        check(status == 200 and ans["pred"] == idx
+              and ans["bbox"] == [int(v) for v in want.boxes[i, idx]]
+              and all(d["name"] == model.class_names[d["pred"]]
+                      for d in ans["detections"])
+              and same_detections(got, dets, SCORE_TOL),
+              f"{variant} {os.path.basename(p)} {url}: server {status} {ans} "
+              f"!= host pred {idx} detections {dets}")
+    phase("6 server", f"{variant} ({backend}) --multi --instances {instances}: "
+                      f"{len(paths)} POSTs (one with ?thresh=0.3), each "
+                      f"answer's detections equal to the host twins'; "
+                      f"batches={stats['batches']} requests={stats['requests']}")
+
+
+def probe_path() -> None:
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = probe_bitcast.main(["--device", "cuda"])
+    lines = [ln.strip() for ln in out.getvalue().splitlines()]
+    want = ("layout r*4+b (word-major rows): MATCH", "layout r*4+b: MATCH",
+            "Q3 packed i32 roll: MATCH")
+    if rc != 0 or not all(w in lines for w in want):
+        print(out.getvalue(), flush=True)
+    check(rc == 0 and all(w in lines for w in want),
+          f"tpu_cnn_torch.apps.probe_bitcast --device cuda: exit {rc}")
+    phase("probe", f"tpu_cnn_torch.apps.probe_bitcast --device cuda: exit 0; "
+                   f"{'; '.join(want)}")
 
 
 def verify_cli(variant: str) -> None:
@@ -506,13 +759,19 @@ def verify_cli(variant: str) -> None:
     text = out.getvalue()
     exact = sum("BIT-EXACT" in ln for ln in text.splitlines())
     heads = sum(": OK" in ln for ln in text.splitlines())
-    if rc != 0 or VERDICT not in text:
+    multi_ok = all(
+        sum(f"host twin {name:13s}: OK" in ln for ln in text.splitlines())
+        == len(verify.ENGINE_BACKENDS)
+        for name in ("multi boxes", "instances", "multi scores"))
+    if rc != 0 or VERDICT not in text or not multi_ok:
         print(text, flush=True)
-    check(rc == 0 and VERDICT in text,
-          f"tpu_cnn_torch.apps.verify --variant {variant}: exit {rc}")
+    check(rc == 0 and VERDICT in text and multi_ok,
+          f"tpu_cnn_torch.apps.verify --variant {variant}: exit {rc}, "
+          f"multi checks OK on every engine: {multi_ok}")
     phase("verify", f"tpu_cnn_torch.apps.verify --device cuda --variant "
                     f"{variant}: exit 0, {exact} backend pairs bit-exact, "
-                    f"{heads} head checks OK; {VERDICT}")
+                    f"{heads} head checks OK (multi boxes, instances and "
+                    f"multi scores on each engine); {VERDICT}")
 
 
 def _event_ms(fn, n: int) -> list[float]:
@@ -528,6 +787,30 @@ def _event_ms(fn, n: int) -> list[float]:
     return out
 
 
+def _queued_ms(fn, n: int = 50) -> float:
+    """Device ms per call of ``fn`` for calls far shorter than their host
+    cost: a device-side spin holds the stream while the host queues ``n``
+    calls between two events, so the events time the device's work back
+    to back and not the host's launches. The spin doubles until the start
+    event is still pending when the last call is queued."""
+    cycles = 1 << 22
+    while True:
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        held = not start.query()
+        end.synchronize()
+        if held:
+            return start.elapsed_time(end) / n
+        check(cycles < 1 << 32, "the device spin never outlasted the host")
+        cycles *= 2
+
+
 def _kernel_and_plain_ms(kernel, plain, n_kernel: int = 20,
                          n_plain: int = 5) -> tuple[float, float, int, int]:
     """Medians of CUDA-event times, in turns plain, kernel, kernel, plain,
@@ -541,29 +824,159 @@ def _kernel_and_plain_ms(kernel, plain, n_kernel: int = 20,
     return statistics.median(k_ms), statistics.median(p_ms), len(k_ms), len(p_ms)
 
 
+def _staged_pools(engine, rs) -> list:
+    s = engine.model.config.img_size
+    return [engine.stage_batch(rs.randint(0, 256, (BENCH_BATCH, s, s))
+                               .astype(np.uint8)) for _ in range(4)]
+
+
+def _pipelined_fps(dispatch, resolve, pools, rounds: int = 52) -> float:
+    """bench.py's async pipeline: ``rounds`` batches over 4 staged pools,
+    all dispatched, then all resolved."""
+    resolve(dispatch(pools[0]))  # warm-up
+    t0 = time.perf_counter()
+    handles = [dispatch(pools[i % 4]) for i in range(rounds)]
+    results = [resolve(h) for h in handles]
+    dt = time.perf_counter() - t0
+    check(len(results) == rounds and results[0].pred.shape == (BENCH_BATCH,),
+          "pipelined detect returned the wrong shapes")
+    return rounds * BENCH_BATCH / dt
+
+
 def engine_fps(variant: str, backend: str, rs) -> list[float]:
     """bench.py's async pipeline: 52 rounds over 4 staged pools, 3 passes."""
-    model = load_model(ARTIFACTS[variant], variant)
-    s = model.config.img_size
-    engine = CUDAEngine(model, device="cuda", backend=backend)
-    pools = [engine.stage_batch(rs.randint(0, 256, (BENCH_BATCH, s, s))
-                                .astype(np.uint8)) for _ in range(4)]
-    engine.detect_resolve(engine.detect_batch_async(pools[0]))
-    rounds = 52
+    engine = CUDAEngine(load_model(ARTIFACTS[variant], variant), device="cuda",
+                        backend=backend)
+    pools = _staged_pools(engine, rs)
+    return [_pipelined_fps(engine.detect_batch_async, engine.detect_resolve,
+                           pools) for _ in range(3)]
 
-    def measure():
+
+def multi_times(card: str, rs, profile_out: str | None) -> None:
+    """lyr3-std on mega at batch 1536: single-box, multi and multi with two
+    instances, async-pipelined FPS in turns on one engine; then a profile
+    of the instance head."""
+    engine = CUDAEngine(load_model(ARTIFACTS["lyr3-std"], "lyr3-std"),
+                        device="cuda")
+    pools = _staged_pools(engine, rs)
+    modes = {
+        "single-box": (engine.detect_batch_async, engine.detect_resolve),
+        "multi, instances 1": (
+            lambda h: engine.detect_multi_batch_async(h, instances=1),
+            engine.detect_multi_resolve),
+        "multi, instances 2": (
+            lambda h: engine.detect_multi_batch_async(h, instances=2),
+            engine.detect_multi_resolve),
+    }
+    fps = {m: [] for m in modes}
+    for _ in range(3):
+        for m, (dispatch, resolve) in modes.items():
+            fps[m].append(_pipelined_fps(dispatch, resolve, pools))
+    for m, v in fps.items():
+        phase("7 times", f"lyr3-std engine (mega) {m} detect async-pipelined "
+                         f"batch {BENCH_BATCH} on {card}: best {max(v)!r} FPS "
+                         f"of {v!r}")
+
+    n_batches = 4
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        handles = [engine.detect_batch_async(pools[i % 4]) for i in range(rounds)]
-        results = [engine.detect_resolve(h) for h in handles]
-        dt = time.perf_counter() - t0
-        check(len(results) == rounds and results[0].pred.shape == (BENCH_BATCH,),
-              "pipelined detect returned the wrong shapes")
-        return rounds * BENCH_BATCH / dt
+        handles = [engine.detect_multi_batch_async(pools[i % 4], instances=2)
+                   for i in range(n_batches)]
+        for h in handles:
+            engine.detect_multi_resolve(h)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n_batches
+    events = prof.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = ("multi_cam_stack", "connected_labels", "grow_labels",
+             "component_stats")  # record_function spans of ops.detect_head
 
-    return [measure() for _ in range(3)]
+    def kernel_us(e) -> float:
+        """Device time of the kernels a host op and its callees launched."""
+        return (sum(k.duration for k in e.kernels)
+                + sum(kernel_us(c) for c in e.cpu_children))
+
+    def per_batch(*names) -> tuple[float, float, float]:
+        """(kernel ms, host ms, calls) per batch of the host ops named."""
+        sel = [e for e in events if e.device_type != cuda and e.name in names]
+        return (sum(kernel_us(e) for e in sel) / 1e3 / n_batches,
+                sum(e.cpu_time_total for e in sel) / 1e3 / n_batches,
+                len(sel) / n_batches)
+
+    def device_ms(pred) -> float:
+        return sum(e.time_range.elapsed_us() for e in events
+                   if e.device_type == cuda and e.name not in spans
+                   and pred(e.name)) / 1e3 / n_batches
+
+    split = {
+        **{f"span {r}": per_batch(r) for r in spans},
+        "CAM bmm (aten::bmm)": per_batch("aten::bmm"),
+        "topk (aten::topk)": per_batch("aten::topk"),
+        "sort + cummax/cummin": per_batch("aten::sort", "aten::cummax",
+                                          "aten::cummin"),
+        "label-loop syncs (aten::equal)": per_batch("aten::equal"),
+        "stream syncs (cudaStreamSynchronize)": per_batch("cudaStreamSynchronize"),
+    }
+    text = "; ".join(f"{k}: kernels {d:.3f} ms, host {c:.3f} ms, {n:g} calls"
+                     for k, (d, c, n) in split.items())
+    # each label loop syncs once (torch.equal) per block of LABEL_BLOCK steps
+    steps = {r: sum(c.name == "aten::equal" for e in events if e.name == r
+                    for c in e.cpu_children) * detect_head.LABEL_BLOCK / n_batches
+             for r in ("connected_labels", "grow_labels")}
+    phase("7 times", f"lyr3-std multi --instances 2 profile, {n_batches} "
+                     f"batches of {BENCH_BATCH} on {card}, per batch: device "
+                     f"kernels {device_ms(lambda n: True):.3f} ms (megakernel "
+                     f"{device_ms(lambda n: 'mega_cnn_kernel' in n):.3f} ms) in "
+                     f"a profiled host wall of {wall_ms:.3f} ms; {text}; label "
+                     f"steps connected {steps['connected_labels']:g}, grow "
+                     f"{steps['grow_labels']:g}")
+    if profile_out is None:
+        return
+    rows = prof.key_averages()
+    sort_key = ("self_device_time_total"
+                if hasattr(rows[0], "self_device_time_total")
+                else "self_cuda_time_total")
+    with open(profile_out, "w") as f:
+        f.write(rows.table(sort_by=sort_key, row_limit=60))
+        f.write(rows.table(sort_by="cpu_time_total", row_limit=60))
 
 
-def times(dev: torch.device, card: str) -> dict[str, tuple[float, float]]:
+def bitcast_times(dev: torch.device, card: str, rs) -> tuple[float, float]:
+    """The bitcast kernel's three functions against their plain versions at
+    (1024, 4096), 16 MiB of words: device time per call, queued (each call
+    takes microseconds of device time and more on the host), medians of
+    10 runs each, in turns plain, kernel, plain. Returns the summed
+    (kernel, plain) ms."""
+    r, l = BITCAST_SHAPES[-1]
+    x = torch.from_numpy(rs.randint(-2**31, 2**31, (r, l), dtype=np.int64)
+                         .astype(np.int32)).to(dev)
+    x8 = torch.from_numpy(rs.randint(0, 256, (4 * r, l)).astype(np.uint8)).to(dev)
+    total = [0.0, 0.0]
+    for name, kernel, plain in (
+            ("narrow", lambda: bitcast.narrow_i32_to_i8(x),
+             lambda: bitcast.narrow_i32_to_i8_reference(x)),
+            ("widen", lambda: bitcast.widen_u8_to_i32(x8),
+             lambda: bitcast.widen_u8_to_i32_reference(x8)),
+            ("roll 3", lambda: bitcast.packed_roll(x, 3),
+             lambda: bitcast.packed_roll_reference(x, 3))):
+        p_runs = [_queued_ms(plain) for _ in range(5)]
+        k_runs = [_queued_ms(kernel) for _ in range(10)]
+        p_runs += [_queued_ms(plain) for _ in range(5)]
+        k_ms, p_ms = statistics.median(k_runs), statistics.median(p_runs)
+        gbs = 2 * r * l * 4 / (k_ms * 1e-3) / 1e9
+        phase("7 times", f"bitcast {name} ({r}, {l}) on {card}, device time "
+                         f"per call, 50 calls queued: kernel median {k_ms!r} ms "
+                         f"(n={len(k_runs)}, {gbs:.0f} GB/s in+out), plain "
+                         f"median {p_ms!r} ms (n={len(p_runs)})")
+        total[0] += k_ms
+        total[1] += p_ms
+    return total[0], total[1]
+
+
+def times(dev: torch.device, card: str,
+          profile_out: str | None) -> dict[str, tuple[float, float]]:
     """Returns {kernel name: (kernel ms, plain ms)} at batch 1536: the
     megakernel on lyr3-std's whole net, the layer kernel on lyr4-wide's L0,
     the conv kernel on lyr3-std's three layers summed."""
@@ -652,41 +1065,63 @@ def times(dev: torch.device, card: str) -> dict[str, tuple[float, float]]:
                      f"{act_ms[0]!r} ms, plain {act_ms[1]!r} ms")
     torch.cuda.empty_cache()
 
-    for variant, backend in (("lyr3-std", "mega"), ("lyr4-wide", "mega"),
-                             ("lyr3-std", "pallas"), ("lyr3-std", "hybrid")):
+    for variant, backend in (("lyr4-wide", "mega"), ("lyr3-std", "pallas"),
+                             ("lyr3-std", "hybrid")):
         fps = engine_fps(variant, backend, rs)
         phase("7 times", f"{variant} engine ({backend}) detect async-pipelined "
                          f"batch {BENCH_BATCH} on {card}: best {max(fps)!r} "
                          f"FPS of {fps!r}")
         torch.cuda.empty_cache()
+    multi_times(card, rs, profile_out)  # lyr3-std on mega: single-box and multi
+    torch.cuda.empty_cache()
+    out["bitcast"] = bitcast_times(dev, card, rs)
     return out
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--profile-out", default=None,
+                   help="also write the instance head's torch.profiler "
+                        "tables (phase 7) to this file")
+    args = p.parse_args(argv)
     card = header()
     dev = torch.device("cuda", 0)
     build()
     max_err = kernel_vs_plain(dev)
 
     launches = dict.fromkeys(KERNELS, 0)
-    for variant, backend, alt_shifts, path_kernels in PATHS:
-        for module in MODULES.values():  # this main path starts here
+
+    def main_path(label: str, path_kernels, *steps) -> None:
+        """Run one main path's steps between zeroed and read launch
+        counters: its kernels and no others must launch."""
+        for module in MODULES.values():
             module.launches = 0
-        engine_gate(variant, backend, alt_shifts)
-        cli(variant, backend)
-        server(variant, backend)
+        for step in steps:
+            step()
         counts = {name: module.launches for name, module in MODULES.items()}
         for name, n in counts.items():
             check((n > 0) == (name in path_kernels),
-                  f"{variant}/{backend} main path launched {name} {n} times")
+                  f"{label} main path launched {name} {n} times")
             launches[name] += n
-        phase("4-6 main path", f"{variant}/{backend} (phases 4-6) kernel "
-                               f"launches: {counts}")
+        phase("main path", f"{label} kernel launches: {counts}")
+
+    for variant, backend, alt_shifts, path_kernels in PATHS:
+        main_path(f"{variant}/{backend} (phases 4-6)", path_kernels,
+                  lambda: engine_gate(variant, backend, alt_shifts),
+                  lambda: cli(variant, backend),
+                  lambda: server(variant, backend))
+    main_path("probe_bitcast", ("bitcast",), probe_path)
+    for variant, backend, instances, path_kernels in MULTI_PATHS:
+        main_path(f"{variant}/{backend} --multi --instances {instances} "
+                  f"(phases 4-6)", path_kernels,
+                  lambda: multi_engine(variant, backend, instances),
+                  lambda: multi_cli(variant, backend, instances),
+                  lambda: multi_server(variant, backend, instances))
 
     for variant in ARTIFACTS:
         verify_cli(variant)
 
-    ms = times(dev, card)
+    ms = times(dev, card, args.profile_out)
     check("jax" not in sys.modules, "jax was imported")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": src, "replaces": replaces,

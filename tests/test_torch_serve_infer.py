@@ -1,6 +1,7 @@
 """The port's apps on the CPU: the HTTP service and the inference CLI
-against the host oracle, for lyr3-std and lyr4-wide (``--variant``), and
-the package's import hygiene (no JAX).
+against the host oracle, for lyr3-std and lyr4-wide (``--variant``), their
+multi-object modes (``--multi``, ``--instances``) against the host twins,
+and the package's import hygiene (no JAX).
 
 Tolerances: predictions and boxes equal; probabilities within 1e-4 (the
 bench gate's bound: the service computes them in torch, the oracle in
@@ -148,16 +149,120 @@ def test_infer_cli_single_image(capsys):
     assert f"(class {idx})" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("argv", [["--multi"], ["--instances", "3"]])
-def test_infer_unported_modes_exit(argv):
+@pytest.mark.parametrize("argv", [["--multi"], ["--multi", "--instances", "2"]])
+def test_infer_unported_modes_exit(tmp_path, capsys, argv):
+    """--multi and --multi --instances 2 on the port (the detections of the
+    engine's multi detect) print the same "Detections" blocks as the JAX
+    CLI on its numpy oracle and host twins (``--mode cpu``): names and
+    boxes equal, probabilities within the printed 0.1%."""
+    from tpu_cnn.apps import infer as jax_infer
+
+    for p in sorted(glob.glob(os.path.join(ART, "test_image_*.bin")))[:3]:
+        shutil.copy(p, tmp_path)
+    common = ["--artifacts", ART, "--image-dir", str(tmp_path), "--no-save"]
+    infer.main(common + argv + ["--device", "cpu"])
+    got = infer.parse_detection_blocks(capsys.readouterr().out)
+    jax_infer.main(common + argv + ["--mode", "cpu"])
+    want = infer.parse_detection_blocks(capsys.readouterr().out)
+    assert len(got) == len(want) == 3
+    for (gh, gd), (wh, wd) in zip(got, want):
+        assert gh == wh == "  Detections (prob >= per-class calibrated floors):"
+        assert [(n, b) for n, _, b in gd] == [(n, b) for n, _, b in wd]
+        np.testing.assert_allclose([p for _, p, _ in gd], [p for _, p, _ in wd],
+                                   rtol=0, atol=0.1 + 1e-9)
+
+
+def test_infer_multi_flags_as_in_the_jax_cli(tmp_path, capsys):
+    """--instances without --multi is ignored; --multi-thresh sets a
+    uniform floor; --multi on a GAP-head bundle is refused."""
+    p = sorted(glob.glob(os.path.join(ART, "test_image_*.bin")))[0]
+    infer.main(["--image", p, "--device", "cpu", "--no-save", "--instances", "2"])
+    assert "Detections" not in capsys.readouterr().out
+    infer.main(["--image", p, "--device", "cpu", "--no-save", "--multi",
+                "--multi-thresh", "0.05", "--mode", "pallas"])
+    assert "  Detections (prob >= 5%):" in capsys.readouterr().out
     with pytest.raises(SystemExit):
-        infer.main(argv + ["--device", "cpu"])
+        infer.main(["--variant", "lyr4-wide", "--head-prefix", "gap_",
+                    "--multi", "--device", "cpu", "--no-save"])
+    with pytest.raises(ValueError, match="spatial-bin head"):
+        serve.build_service(ART4, device="cpu", max_batch=1,
+                            variant="lyr4-wide", head_prefix="gap_", multi=True)
 
 
-@pytest.mark.parametrize("argv", [["--multi"], ["--deployable", "x.tcnnx"]])
+@pytest.mark.parametrize("argv", [["--deployable", "x.tcnnx"],
+                                  ["--deployable", "x.tcnnx", "--multi"]])
 def test_serve_unported_modes_exit(argv):
     with pytest.raises(SystemExit):
         serve.main(argv + ["--device", "cpu"])
+
+
+_MULTI_SERVICE = """
+import http.client, json, sys, threading
+from tpu_cnn.apps.serve import ServiceHTTPServer, make_handler
+from tpu_cnn_torch.apps import serve
+paths, urls = json.loads(sys.argv[1]), json.loads(sys.argv[2])
+batcher, backend = serve.build_service(device="cpu", max_batch=4,
+                                       max_wait_ms=2.0, multi=True,
+                                       instances=2)
+srv = ServiceHTTPServer(("127.0.0.1", 0), make_handler(batcher, backend))
+th = threading.Thread(target=srv.serve_forever, daemon=True)
+th.start()
+answers = []
+for path, url in zip(paths, urls):
+    conn = http.client.HTTPConnection("127.0.0.1", srv.server_address[1],
+                                      timeout=60)
+    conn.request("POST", url, body=open(path, "rb").read())
+    resp = conn.getresponse()
+    answers.append((resp.status, json.loads(resp.read())))
+    conn.close()
+srv.shutdown()
+srv.server_close()
+batcher.stop()
+assert not [m for m in sys.modules if m == "jax" or m.startswith("jax.")]
+print(json.dumps(answers))
+"""
+
+
+def test_service_multi_instances_answers_like_the_host_twins():
+    """--multi --instances 2 on the port's service, in a process that
+    never imports JAX: each answer's detections equal the host twins'
+    (numpy oracle features, cam_bbox_multi, cam_instances, the shipped
+    presence head and floors, the JAX engine's instance filter); one
+    request sets its own floor with ?thresh=."""
+    from tpu_cnn.engine.tpu import instance_detections
+    from tpu_cnn.head.cam import cam_bbox_multi, cam_instances
+    from tpu_cnn.head.classify import multi_scores_np, pool_for_head
+
+    bundle = art.load_bundle(ART)
+    paths = sorted(glob.glob(os.path.join(ART, "test_image_*.bin")))[4:8]
+    urls = ["/detect?thresh=0.3", "/detect", "/detect", "/detect"]
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", _MULTI_SERVICE, json.dumps(paths),
+         json.dumps(urls)], cwd=REPO, env=env, capture_output=True, text=True,
+        timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    answers = json.loads(proc.stdout.splitlines()[-1])
+    for path, url, (status, ans) in zip(paths, urls, answers):
+        body = open(path, "rb").read()
+        idx, probs, _ = _oracle(body, bundle)
+        feats = numpy_cnn_forward(np.frombuffer(body, np.uint8), bundle.kernels)
+        boxes = cam_bbox_multi(feats, bundle.fc_weight)
+        ib, ic = cam_instances(feats, bundle.fc_weight, max_instances=2)
+        sc = multi_scores_np(pool_for_head(feats[None], bundle.fc_weight),
+                             *bundle.multi_head)[0]
+        thr = 0.3 if "thresh" in url else bundle.multi_thresh
+        want = instance_detections(sc, boxes, ib, ic, thr)
+        assert status == 200, ans
+        assert ans["pred"] == idx and ans["bbox"] == [int(v) for v in boxes[idx]]
+        np.testing.assert_allclose(ans["probs"], probs, rtol=0, atol=1e-4)
+        got = ans["detections"]
+        assert [(d["pred"], d["bbox"]) for d in got] == [
+            (k, list(b)) for k, _, b in want]
+        assert [d["name"] for d in got] == [bundle.class_names[k]
+                                            for k, _, _ in want]
+        np.testing.assert_allclose([d["conf"] for d in got],
+                                   [p for _, p, _ in want], rtol=0, atol=1e-4)
 
 
 def test_package_imports_without_jax():

@@ -45,8 +45,9 @@ def test_verify_lyr3_tiny_is_bit_accurate_without_jax(tmp_path):
         assert f"numpy vs {name:10s}: BIT-EXACT" in out
     for name in ("pallas", "hybrid", "mega", "xla-f32", "xla-int32"):
         assert f"head[{name}] vs host twin CAM bbox     : OK" in out
-    for name in ("multi boxes", "instances", "multi scores"):
-        assert f"{name:13s}: SKIPPED: not yet ported (ROADMAP A.6/A.7)" in out
+    for name in ("pallas", "hybrid", "mega", "xla-f32", "xla-int32"):
+        for check in ("multi boxes", "instances", "multi scores"):
+            assert f"head[{name}] vs host twin {check:13s}: OK" in out
 
 
 def test_verify_lyr3_std_shipped_weights(capsys):

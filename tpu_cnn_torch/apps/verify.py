@@ -14,7 +14,10 @@ two oracles runs through ``CUDAEngine`` on ``--device`` (``cuda``: the
 hand-written kernels; ``cpu``: their plain versions). Then the detect head
 of each of those engines (``cnn_forward_mega`` for ``mega``, else the
 features then ``detect``) is held against the host twins: bins,
-predictions, probabilities and the CAM box.
+predictions, probabilities and the CAM box; and its multi-object detect
+(``detect_multi_batch`` with two instances): every class's box, the
+instance boxes and counts, and the presence scores (the bundle's
+``multi_head.npz``, else a seeded head).
 
 A backend named in ``--backends`` that cannot run (no card, no compiler,
 no plan for the geometry) ends the run with exit code 2: nothing is
@@ -35,8 +38,8 @@ import sys
 import numpy as np
 
 from tpu_cnn.apps.verify import compare, make_stimuli
-from tpu_cnn.head.cam import cam_bbox_fast
-from tpu_cnn.head.classify import bin_pool_np, classify_np
+from tpu_cnn.head.cam import cam_bbox_fast, cam_bbox_multi
+from tpu_cnn.head.classify import bin_pool_np, classify_np, multi_scores_np
 from tpu_cnn.models.cnn import DEFAULT_SHIFTS, FpgaCNN
 from tpu_cnn.models.registry import default_shifts, get_config
 from tpu_cnn.utils import artifacts as art
@@ -44,6 +47,7 @@ from tpu_cnn.utils import weights as wc
 from tpu_cnn.utils.paths import default_artifacts
 from tpu_cnn_torch.engine.cuda import CUDAEngine
 from tpu_cnn_torch.ops import quant
+from tpu_cnn_torch.utils.host_twins import cam_instances
 
 # verify backend -> (CUDAEngine backend, compute_dtype)
 ENGINE_BACKENDS = {
@@ -54,7 +58,7 @@ ENGINE_BACKENDS = {
     "mega": ("mega", "float32"),
 }
 BACKENDS = ("numpy", "native", *ENGINE_BACKENDS)
-NOT_PORTED = "SKIPPED: not yet ported (ROADMAP A.6/A.7)"
+INSTANCES = 2  # the host twin cam_instances' default
 
 
 class BackendUnavailable(RuntimeError):
@@ -93,15 +97,28 @@ def build_backends(model: FpgaCNN, names, device: str):
 
 
 def verify_head(engine: CUDAEngine, label: str, batch, stim_names,
-                want_feats, fc_weight, fc_bias, img_size) -> bool:
-    """The engine's detect head against the host numpy twins."""
+                want_feats, fc_weight, fc_bias, img_size,
+                multi_head) -> bool:
+    """The engine's detect head and multi-object detect against the host
+    numpy twins."""
     _, pooled, pred, _conf, probs, bbox = engine.detect_with_features(batch)
+    multi = engine.detect_multi_batch(batch, instances=INSTANCES)
     widx, _, wprobs = classify_np(want_feats, fc_weight, fc_bias)
     want_bbox = np.stack([
         cam_bbox_fast(want_feats[i], int(widx[i]), fc_weight, img_size)
         for i in range(len(batch))])
+    want_mboxes = np.stack([cam_bbox_multi(f, fc_weight, img_size=img_size)
+                            for f in want_feats])
+    want_inst = [cam_instances(f, fc_weight, img_size=img_size,
+                               max_instances=INSTANCES) for f in want_feats]
+    want_iboxes = np.stack([w[0] for w in want_inst])
+    want_icounts = np.stack([w[1] for w in want_inst])
+    want_scores = multi_scores_np(bin_pool_np(want_feats), *multi_head)
     # fused bin sums are exact integers; /16/255 folding may differ by 1
-    # ulp. Probabilities: the 1024-term logit dot sums in another order.
+    # ulp. Probabilities and presence scores: the 1024-term logit dot sums
+    # in another order (the JAX verify's tolerances).
+    inst_bad = ((multi.inst_boxes != want_iboxes).any(axis=(1, 2, 3))
+                | (multi.inst_counts != want_icounts).any(axis=(1, 2)))
     checks = [
         ("bin pooling", np.allclose(pooled, bin_pool_np(want_feats),
                                     atol=1e-5), []),
@@ -110,6 +127,11 @@ def verify_head(engine: CUDAEngine, label: str, batch, stim_names,
         ("probabilities", np.allclose(probs, wprobs, atol=1e-4), []),
         ("CAM bbox", np.array_equal(bbox, want_bbox.astype(bbox.dtype)),
          np.nonzero((bbox != want_bbox).any(axis=1))[0]),
+        ("multi boxes", np.array_equal(multi.boxes, want_mboxes),
+         np.nonzero((multi.boxes != want_mboxes).any(axis=(1, 2)))[0]),
+        ("instances", not inst_bad.any(), np.nonzero(inst_bad)[0]),
+        ("multi scores", np.allclose(multi.scores, want_scores, atol=1e-4),
+         []),
     ]
     ok = True
     for name, good, bad in checks:
@@ -174,16 +196,24 @@ def main(argv=None) -> int:
     # the head: the shipped bundle's bins head where its feature dim fits
     # this geometry, else a seeded random bins head (head arithmetic parity)
     d = kernels[-1].shape[0] * 16
-    fcw = fcb = None
+    fcw = fcb = multi_head = None
     if args.variant == "lyr3-std":
         bundle = art.load_bundle(default_artifacts())
         if bundle.fc_weight.shape[1] == d:
             fcw, fcb = bundle.fc_weight, bundle.fc_bias
+            multi_head = bundle.multi_head
     if fcw is None:
         rs = np.random.RandomState(7)
         fcw = (rs.randn(6, d) * 0.05).astype(np.float32)
         fcb = np.zeros(6, np.float32)
-    model = FpgaCNN(kernels, fcw, fcb, shifts=shifts, config=config)
+    if multi_head is None:
+        # seeded presence head (the JAX verify's): the sigmoid-score
+        # arithmetic is verified without a shipped head
+        rs = np.random.RandomState(11)
+        multi_head = ((rs.randn(*fcw.shape) * 0.05).astype(np.float32),
+                      np.zeros(fcw.shape[0], np.float32))
+    model = FpgaCNN(kernels, fcw, fcb, shifts=shifts, config=config,
+                    multi_head=multi_head)
 
     print("=" * 64)
     print(f"  CROSS-IMPLEMENTATION PARITY VERIFICATION [{args.variant}, "
@@ -214,9 +244,7 @@ def main(argv=None) -> int:
         print("-" * 64)
         for name, engine in engines.items():
             ok = verify_head(engine, name, batch, stim_names, outputs[ref],
-                             fcw, fcb, config.img_size) and ok
-        for name in ("multi boxes", "instances", "multi scores"):
-            print(f"  head vs host twin {name:13s}: {NOT_PORTED}")
+                             fcw, fcb, config.img_size, multi_head) and ok
     print("=" * 64)
     if ok:
         print("  VERDICT: DESIGN IS BIT-ACCURATE across all backends")

@@ -1,7 +1,8 @@
 """CUDAEngine — batched fused detection on one CUDA device.
 
-Port of ``tpu_cnn.engine.tpu.TPUEngine`` for the single-box path, with its
-backends under their names, so that the apps' ``--mode`` flag carries over:
+Port of ``tpu_cnn.engine.tpu.TPUEngine``: the single-box detect and the
+multi-object / instance detect (``detect_multi_batch``), with its backends
+under their names, so that the apps' ``--mode`` flag carries over:
 
   - ``"mega"`` (the default): the net on the chained plan
     (``ops.mega.cnn_forward_mega``: the ``mega_plan`` head layers one
@@ -15,8 +16,12 @@ backends under their names, so that the apps' ``--mode`` flag carries over:
     ``compute_dtype``), then ``detect``. It launches no kernel.
 
 Nothing picks a backend on its own. All of it runs on the device; only
-(pred, conf, probs, bbox) come back to the host, through pinned buffers
-and a recorded event.
+the head's outputs come back to the host, through pinned buffers and a
+recorded event (the multi head's boxes as u8 and its instance counts as
+int16 on that copy, restored to int32 on the host).
+
+``presence_scores``, ``detections_above``, ``instance_detections`` and
+``MultiDetectResult`` are the JAX engine module's, without JAX.
 
 The device is explicit: ``"cuda"`` runs the kernels and raises when there
 is no card; ``"cpu"`` runs their plain versions (for tests on machines
@@ -53,6 +58,93 @@ class DetectResult:
     bbox: np.ndarray  # (B, 4) int32 (x1, y1, x2, y2)
 
 
+# the multi-object filter's floor when neither the caller nor the bundle
+# (multi_thresh.json) gives one
+DEFAULT_MULTI_THRESH = 0.15
+
+
+def presence_scores(res) -> np.ndarray:
+    """The (B, K) presence matrix the multi-object filter thresholds: the
+    presence head's sigmoid scores when the bundle ships one, else the
+    softmax probabilities."""
+    sc = getattr(res, "scores", None)
+    return sc if sc is not None else res.probs
+
+
+def detections_above(probs_row, boxes_row, threshold):
+    """One image's multi-object detections: [(class_idx, prob, (x1, y1,
+    x2, y2)), ...] for every class with prob >= its threshold (a scalar or
+    a per-class vector), by descending probability."""
+    thr = np.broadcast_to(np.asarray(threshold, np.float64),
+                          (len(probs_row),))
+    dets = [(int(k), float(probs_row[k]), tuple(int(v) for v in boxes_row[k]))
+            for k in range(len(probs_row)) if probs_row[k] >= thr[k]]
+    dets.sort(key=lambda d: -d[1])
+    return dets
+
+
+def instance_detections(probs_row, boxes_row, inst_boxes_row,
+                        inst_counts_row, threshold,
+                        min_pixels: int | None = None,
+                        min_frac: float | None = None):
+    """One image's multi-instance detections: for every class with prob >=
+    its threshold, one detection per watershed component with at least
+    ``min_pixels`` pixels and ``min_frac`` of the class's largest; the
+    class box instead unless two or more survive. Sorted by descending
+    probability, then instance size."""
+    if min_pixels is None:
+        min_pixels = detect_head.INSTANCE_MIN_PIXELS
+    if min_frac is None:
+        min_frac = detect_head.INSTANCE_MIN_FRAC
+    thr = np.broadcast_to(np.asarray(threshold, np.float64),
+                          (len(probs_row),))
+    dets = []
+    for k in range(len(probs_row)):
+        if probs_row[k] < thr[k]:
+            continue
+        floor = max(min_pixels, 1,
+                    int(np.ceil(min_frac * int(np.max(inst_counts_row[k])))))
+        inst = [(int(k), float(probs_row[k]), tuple(int(v) for v in b), int(c))
+                for b, c in zip(inst_boxes_row[k], inst_counts_row[k])
+                if c >= floor]
+        if len(inst) < 2:
+            inst = [(int(k), float(probs_row[k]),
+                     tuple(int(v) for v in boxes_row[k]), 0)]
+        dets.extend(inst)
+    dets.sort(key=lambda d: (-d[1], -d[3]))
+    return [(k, p, b) for k, p, b, _ in dets]
+
+
+@dataclasses.dataclass
+class MultiDetectResult:
+    """The fields of ``tpu_cnn.engine.tpu.MultiDetectResult``: the argmax
+    fields, every class's CAM box, and the instance outputs and presence
+    scores where asked for and shipped."""
+
+    pred: np.ndarray  # (B,) int32
+    conf: np.ndarray  # (B,) float32
+    probs: np.ndarray  # (B, num_classes) float32
+    boxes: np.ndarray  # (B, num_classes, 4) int32 (x1, y1, x2, y2)
+    inst_boxes: np.ndarray | None = None  # (B, num_classes, I, 4) int32
+    inst_counts: np.ndarray | None = None  # (B, num_classes, I) int32
+    scores: np.ndarray | None = None  # (B, num_classes) f32 presence scores
+
+    def detections(self, threshold=DEFAULT_MULTI_THRESH,
+                   min_pixels: int | None = None):
+        """Per image: :func:`instance_detections` when the instance outputs
+        are present, else :func:`detections_above`, on
+        :func:`presence_scores`."""
+        sc = presence_scores(self)
+        if self.inst_boxes is not None:
+            return [instance_detections(sc[b], self.boxes[b],
+                                        self.inst_boxes[b],
+                                        self.inst_counts[b], threshold,
+                                        min_pixels)
+                    for b in range(sc.shape[0])]
+        return [detections_above(sc[b], self.boxes[b], threshold)
+                for b in range(sc.shape[0])]
+
+
 BACKENDS = ("mega", "pallas", "hybrid", "xla")
 
 
@@ -62,8 +154,10 @@ class CUDAEngine:
     ``backend``: one of ``BACKENDS`` (module docstring); ``compute_dtype``
     ("float32" or "int32") applies to "xla". ``box_mode``: "ref" (reference
     CAM threshold box), "centroid" (CAM mass-centroid box) or "reg" (learned
-    regression on the pooled bins; needs the bundle's bbox_weight). The
-    model's shifts must lie in 0..31."""
+    regression on the pooled bins; needs the bundle's bbox_weight; the
+    multi head falls back to "ref"). The multi head's device->host copy
+    carries u8 boxes and int16 counts whenever the image size is at most
+    256 (``compact_multi``). The model's shifts must lie in 0..31."""
 
     def __init__(self, model: FpgaCNN, device: torch.device | str,
                  backend: str = "mega", compute_dtype: str = "float32",
@@ -99,6 +193,7 @@ class CUDAEngine:
         self.timeout_s = timeout_s
         self.box_mode = box_mode
         self.compute_dtype = compute_dtype
+        self.compact_multi = model.config.img_size <= 256
         self._backend = backend
         self.net = TorchFpgaCNN.from_fpga_cnn(model, self.device)
         # kernels one pass of the net launches
@@ -195,6 +290,35 @@ class CUDAEngine:
                 box_mode=self.box_mode, bbox_weight=net.bbox_weight)
         return feats, pooled, pred, conf, probs, bbox
 
+    def _detect_multi_device(self, x: torch.Tensor, instances: int):
+        """The multi head's outputs on the device: (pred, conf, probs,
+        boxes[, inst_boxes, inst_counts][, scores]).
+
+        Bins head on "mega": the kernel's bins and bf16 twin only (no u8
+        features), then ``detect_multi_with_pooled``. Other backends and
+        the GAP head: the features, then ``detect_multi``."""
+        net, img = self.net, self.model.config.img_size
+        box_mode = "centroid" if self.box_mode == "centroid" else "ref"
+        if self._backend == "mega" and self.model.head_mode == "bins":
+            pooled, twin = self._mega(x, with_feats=False, with_bins=True,
+                                      with_twin=True)
+            out = detect_head.detect_multi_with_pooled(
+                pooled, twin, net.fc_weight, net.fc_bias, img,
+                box_mode=box_mode, instances=instances,
+                multi_head=net.multi_head)
+        else:
+            out = detect_head.detect_multi(
+                self._features(x), net.fc_weight, net.fc_bias,
+                self.model.head_mode, img, box_mode=box_mode,
+                instances=instances, multi_head=net.multi_head)
+        if self.compact_multi:  # u8 boxes, int16 counts on the wire
+            out = list(out)
+            out[3] = out[3].to(torch.uint8)
+            if instances > 1:
+                out[4] = out[4].to(torch.uint8)
+                out[5] = out[5].to(torch.int16)
+        return tuple(out)
+
     def _sync(self) -> None:
         """Bounded wait for the work queued so far on the device."""
         if self.device.type == "cuda":
@@ -226,11 +350,15 @@ class CUDAEngine:
 
     # ── public API ────────────────────────────────────────────────────
 
-    def warmup(self, batch: int = 1) -> None:
-        """Run the fused detect once at ``batch`` (on CUDA this also builds
-        and loads the kernel)."""
+    def warmup(self, batch: int = 1, multi: bool = False,
+               instances: int = 1) -> None:
+        """Run the fused detect once at ``batch``, and the multi detect too
+        when ``multi`` (on CUDA this also builds and loads the kernels)."""
         s = self.model.config.img_size
-        self.detect_batch(np.zeros((batch, s, s), np.uint8))
+        zeros = np.zeros((batch, s, s), np.uint8)
+        self.detect_batch(zeros)
+        if multi:
+            self.detect_multi_batch(zeros, instances=instances)
 
     def set_shifts(self, *shifts: int) -> None:
         """Runtime shift update — register semantics: an in-stream copy
@@ -295,6 +423,31 @@ class CUDAEngine:
 
     def detect_resolve(self, handle) -> DetectResult:
         return DetectResult(*self._fetch(handle))
+
+    def detect_multi_batch(self, images, instances: int = 1) -> MultiDetectResult:
+        """Multi-object detect: the classifier and every class's own CAM
+        box; with ``instances > 1`` also up to that many watershed
+        component boxes per class; with the bundle's presence head the
+        scores. Filter with :meth:`MultiDetectResult.detections`."""
+        return self.detect_multi_resolve(
+            self.detect_multi_batch_async(images, instances=instances))
+
+    def detect_multi_batch_async(self, images, instances: int = 1):
+        """Dispatch :meth:`detect_multi_batch` without waiting for the
+        results (the instance loops wait once per block of label steps);
+        takes raw images or a :meth:`stage_batch` handle. Resolve with
+        :meth:`detect_multi_resolve`."""
+        if instances < 1:
+            raise ValueError(f"instances must be >= 1, got {instances}")
+        x, _ = self._to_device(images)
+        return self._to_host_async(self._detect_multi_device(x, instances))
+
+    def detect_multi_resolve(self, handle) -> MultiDetectResult:
+        out = list(self._fetch(handle))
+        scores = out.pop() if self.net.multi_head is not None else None
+        if self.compact_multi:  # restore the wire dtypes to int32
+            out[3:] = [a.astype(np.int32) for a in out[3:]]
+        return MultiDetectResult(*out, scores=scores)
 
     def detect_with_features(self, images) -> tuple[np.ndarray, ...]:
         """The fused detect path with the u8 features written as well:

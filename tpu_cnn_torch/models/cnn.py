@@ -4,8 +4,10 @@ The topology, configuration and artifact loading stay in
 ``tpu_cnn.models.cnn`` (``CNNConfig``, ``FpgaCNN``), which is numpy-only.
 This module carries those parameters across to torch: the per-layer int8
 conv kernels (oc, ic, 3, 3), the (L,) int32 shift register, the f32 head
-(``fc_weight`` (K, D), ``fc_bias`` (K,)) and the optional (D+1, 4) box
-regression head, all as buffers on one explicit device.
+(``fc_weight`` (K, D), ``fc_bias`` (K,)), the optional (D+1, 4) box
+regression head and the optional multi-label presence head (``mw`` (K, D),
+``mb`` (K,), the bundle's ``multi_head.npz``), all as buffers on one
+explicit device.
 """
 
 from __future__ import annotations
@@ -25,12 +27,14 @@ def params_from_numpy(
     fc_bias: np.ndarray,
     shifts: Sequence[int],
     bbox_weight: np.ndarray | None = None,
+    multi_head: tuple[np.ndarray, np.ndarray] | None = None,
     *,
     device: torch.device | str,
 ) -> dict[str, torch.Tensor | list[torch.Tensor] | None]:
     """numpy parameters (as ``FpgaCNN`` and ``load_bundle`` hold them) ->
     contiguous torch tensors on ``device``: ``kernels`` int8,
-    ``shifts`` int32, ``fc_weight``/``fc_bias``/``bbox_weight`` f32."""
+    ``shifts`` int32, ``fc_weight``/``fc_bias``/``bbox_weight`` and the
+    multi head's ``mw``/``mb`` f32 (None where absent)."""
     dev = torch.device(device)
 
     def put(a, dtype):
@@ -43,6 +47,8 @@ def params_from_numpy(
         "fc_bias": put(fc_bias, np.float32),
         "bbox_weight": (put(bbox_weight, np.float32)
                         if bbox_weight is not None else None),
+        "mw": put(multi_head[0], np.float32) if multi_head is not None else None,
+        "mb": put(multi_head[1], np.float32) if multi_head is not None else None,
     }
 
 
@@ -65,15 +71,22 @@ class TorchFpgaCNN(nn.Module):
         self.register_buffer("fc_weight", params["fc_weight"])
         self.register_buffer("fc_bias", params["fc_bias"])
         self.register_buffer("bbox_weight", params["bbox_weight"])
+        self.register_buffer("mw", params.get("mw"))
+        self.register_buffer("mb", params.get("mb"))
 
     @property
     def kernels(self) -> list[torch.Tensor]:
         return [getattr(self, f"kernel{i}")
                 for i in range(len(self.config.layer_configs))]
 
+    @property
+    def multi_head(self) -> tuple[torch.Tensor, torch.Tensor] | None:
+        """(mw, mb) of the presence head, or None."""
+        return (self.mw, self.mb) if self.mw is not None else None
+
     @classmethod
     def from_fpga_cnn(cls, model: FpgaCNN,
                       device: torch.device | str) -> "TorchFpgaCNN":
         return cls(model.config, params_from_numpy(
             model.kernels, model.fc_weight, model.fc_bias, model.shifts,
-            model.bbox_weight, device=device))
+            model.bbox_weight, model.multi_head, device=device))
