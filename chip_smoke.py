@@ -26,7 +26,13 @@ one line each, in order; any failure raises:
                 B=37. The megakernel: lyr3-std (shipped and seeded random
                 weights, shifts 2/4/6 and 1/3/5, every with_feats/bins/twin
                 combination), lyr3-tiny, lyr2-small, and lyr4-wide's L1-L3
-                tail from a (B, 16, 128, 128) input. The layer kernel:
+                tail from a (B, 16, 128, 128) input; then the edges of its
+                tensor-core path: all-255 images on all +127 and all -128
+                weights and 0/255 images on ±127/-128 weights at shifts 0
+                and 31, 3 input channels, a 128-channel middle layer, 35
+                then 13 output channels, a 12-wide layer (no bins there),
+                a one-channel middle layer and one-layer nets on both
+                input paths. The layer kernel:
                 lyr4-wide's L0 (shipped and seeded weights, shifts 3 and
                 0), 16->32 at 128^2 and two small odd geometries. The conv
                 kernel: every layer of lyr3-std and lyr4-wide (shipped
@@ -38,9 +44,9 @@ one line each, in order; any failure raises:
                 images. Features and twin bit-equal, bins within 1e-6; the
                 plain f32 and int32 versions bit-equal to each other. The
                 bitcast kernel's narrow, widen and roll (shifts 3, 0, -1,
-                L+2) bit-equal at (8, 256), (5, 37) and (1024, 4096) on
-                full-range words, and widen(narrow(x)) == x; narrow and
-                widen on views misaligned for the vector path.
+                L+2) bit-equal at (8, 256), (5, 37), (1024, 4096) and
+                (4096, 4096) on full-range words, and widen(narrow(x)) == x;
+                narrow and widen on views misaligned for the vector path.
   4. engine   — CUDAEngine(device="cuda", backend=...) through the bench's
                 parity gate on 28 shipped test images + 4 noise images,
                 per path, and set_shifts against the oracle; on a multi
@@ -65,15 +71,20 @@ one line each, in order; any failure raises:
                 instances and presence scores included, equal to the host
                 twins; exit 0 and the verdict line
   7. times    — at batch 1536, CUDA events, median: lyr3-std's megakernel
-                and its plain version; lyr4-wide's layer kernel, tail and
-                chain and their plain versions; the conv kernel on each
+                and its plain version, and the megakernel on lyr3-std's
+                first layer alone; lyr4-wide's layer kernel, tail and
+                chain and their plain versions, each with its bound (the
+                card's int8 tensor-core and HBM peaks) and its share of
+                it; the conv kernel on each
                 lyr3-std layer and lyr4-wide's L0 and its plain version;
                 the async-pipelined engine detect FPS of each family on
                 mega and of lyr3-std on pallas and hybrid; on lyr3-std/mega
                 the multi detect FPS at instances 1 and 2 beside the
                 single-box FPS, and a torch.profiler split of the instance
-                head; the bitcast kernel and its plain version at
-                (1024, 4096), device time per call with the calls queued
+                head; the bitcast kernel and its plain version (one
+                PyTorch call each, so also its library time) at
+                (4096, 4096), past the L2, device time per call with the
+                calls queued
 
 Phases 4-6 and the probe are the main paths, once per path: every kernel
 launch counter is set to 0 before a path's phases and read after them,
@@ -82,8 +93,8 @@ kernel (lyr3-std/mega: the megakernel; lyr4-wide/mega: the megakernel and
 the layer kernel; lyr4-wide/pallas and lyr3-std/hybrid: the conv kernel;
 the probe: the bitcast kernel; the multi paths: the megakernel, then the
 conv kernel). The line before the last is a JSON object with each
-kernel's launches (summed over the paths), error and times; the last line
-is {"ok": true, "device": {...}}.
+kernel's launches (summed over the paths), error, times and bound; the
+last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -110,20 +121,19 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-from tpu_cnn.apps.common import load_model  # noqa: E402
-from tpu_cnn.apps.serve import ServiceHTTPServer, make_handler  # noqa: E402
-from tpu_cnn.engine.cpu_ref import numpy_cnn_forward  # noqa: E402
-from tpu_cnn.head.cam import cam_bbox_fast, cam_bbox_multi  # noqa: E402
-from tpu_cnn.head.classify import classify_np, multi_scores_np, pool_for_head  # noqa: E402
-from tpu_cnn.models.registry import default_shifts, get_config  # noqa: E402
-from tpu_cnn.utils import artifacts as art  # noqa: E402
-from tpu_cnn.utils.artifacts import label_from_filename  # noqa: E402
 from tpu_cnn_torch import bench_gate  # noqa: E402
 from tpu_cnn_torch.apps import infer, probe_bitcast, serve, verify  # noqa: E402
+from tpu_cnn_torch.apps.common import load_model  # noqa: E402
+from tpu_cnn_torch.apps.serve import ServiceHTTPServer, make_handler  # noqa: E402
+from tpu_cnn_torch.engine.cpu_ref import numpy_cnn_forward  # noqa: E402
 from tpu_cnn_torch.engine.cuda import (DEFAULT_MULTI_THRESH, CUDAEngine,  # noqa: E402
                                        MultiDetectResult)
+from tpu_cnn_torch.head.cam import cam_bbox_fast, cam_bbox_multi, cam_instances  # noqa: E402
+from tpu_cnn_torch.head.classify import classify_np, multi_scores_np, pool_for_head  # noqa: E402
+from tpu_cnn_torch.models.registry import default_shifts, get_config  # noqa: E402
 from tpu_cnn_torch.ops import _build, bitcast, conv_pool, detect_head, int8, mega  # noqa: E402
-from tpu_cnn_torch.utils.host_twins import cam_instances  # noqa: E402
+from tpu_cnn_torch.utils import artifacts as art  # noqa: E402
+from tpu_cnn_torch.utils.artifacts import label_from_filename  # noqa: E402
 
 ARTIFACTS = {"lyr3-std": os.path.join(ROOT, "artifacts", "pretrained"),
              "lyr4-wide": os.path.join(ROOT, "artifacts", "pretrained-lyr4")}
@@ -150,16 +160,55 @@ MULTI_PATHS = [("lyr3-std", "mega", 2, ("mega_cnn",)),
 MODULES = {"mega_cnn": mega, "conv_pool_layer": conv_pool, "conv_act": int8,
            "bitcast": bitcast}
 SCORE_TOL = 1e-4  # probabilities and presence scores: 1024-term f32 dots
-BITCAST_SHAPES = ((8, 256), (5, 37), (1024, 4096))  # the probe's; ragged; 16 MiB
+# the probe's; ragged; 16 MiB; 64 MiB of words, past the 50 MB L2 (timed)
+BITCAST_SHAPES = ((8, 256), (5, 37), (1024, 4096), (4096, 4096))
 VERDICT = "VERDICT: DESIGN IS BIT-ACCURATE across all backends"
 BINS_TOL = 1e-6  # the kernel's bins vs the plain version's (1-ulp / order)
 BENCH_BATCH = 1536  # bench.py's batch
 KERNEL_BATCH = 37  # the kernel cases' batch: not a multiple of any tile
 COMBOS = [c for c in itertools.product((True, False), repeat=3) if any(c)]
+# the card's published dense peaks (NVIDIA H100 SXM data sheet, at 700 W):
+# int8 tensor cores 1,979 T op/s (a MAC is two), HBM3 3.35 TB/s
+PEAK_INT8_MACS = 1979e12 / 2
+PEAK_HBM_BYTES = 3.35e12
 
 
 def macs_per_image(layer_configs) -> int:
     return sum(oc * ic * 9 * s * s for ic, oc, s in layer_configs)
+
+
+def bound(macs: float, nbytes: float) -> tuple[float, str]:
+    """The least ms the card could take for ``macs`` int8 multiply-adds on
+    inputs and outputs of ``nbytes`` (each read or written once), and the
+    limit that sets it: "operations" or "bytes"."""
+    ops_ms = macs / PEAK_INT8_MACS * 1e3
+    bytes_ms = nbytes / PEAK_HBM_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def layers_bound(layer_configs, batch: int, out_bytes: int,
+                 pooled: bool = True) -> tuple[float, str]:
+    """``bound`` of a stack of contract layers at ``batch``: the first
+    layer's u8 input, the weights and ``out_bytes`` per image of output.
+    With ``pooled`` False each layer is its own call (the conv kernel: one
+    launch a layer, its input read and its unpooled output written), and
+    the bounds add up."""
+    weights = sum(oc * ic * 9 for ic, oc, _ in layer_configs)
+    if pooled:
+        ic, _, s = layer_configs[0]
+        return bound(macs_per_image(layer_configs) * batch,
+                     ic * s * s * batch + weights + out_bytes * batch)
+    parts = [bound(oc * ic * 9 * s * s * batch, (ic + oc) * s * s * batch + oc * ic * 9)
+             for ic, oc, s in layer_configs]
+    kinds = {k for _, k in parts}
+    return sum(t for t, _ in parts), kinds.pop() if len(kinds) == 1 else "mixed"
+
+
+def detect_out_bytes(layer_configs) -> int:
+    """Per image, the megakernel's detect outputs: the bf16 twin and the
+    f32 bins of the final map."""
+    _, oc, s = layer_configs[-1]
+    return oc * (s // 2) ** 2 * 2 + oc * 16 * 4
 
 
 def check(cond: bool, msg: str) -> None:
@@ -256,6 +305,46 @@ def _check_mega_outputs(tag, got, ref, flags) -> float:
     return err
 
 
+def _mma_edge_setups(rs) -> list:
+    """Megakernel cases at the edges of its tensor-core path: saturating
+    and most negative sums (all-255 images against all +127 and all -128
+    weights, and random 0/255 images against random ±127/-128 weights) at
+    shifts 0 and 31; an input of 3 channels (padded to 16 in K), the
+    runtime-chunk path (a 128-channel middle layer), an output of 35 then
+    13 channels (padded N tiles), column groups cut by the map's edge (a
+    12-wide layer), a one-channel middle layer (one byte a pixel in
+    shared memory) and one-layer nets on both input paths (one byte a
+    pixel, staged by words or, 30 wide, by bytes; and 16 channels in
+    bands)."""
+    cfg3 = get_config("lyr3-std").layer_configs
+    b, setups = KERNEL_BATCH, []
+    sat = np.full((b, 128, 128), 255, np.uint8)
+    for fill in (127, -128):
+        ks = [np.full((oc, ic, 3, 3), fill, np.int8) for ic, oc, _ in cfg3]
+        for sh in ((0, 0, 0), (31, 31, 31)):
+            setups.append((f"all-255 x {fill}/{sh}", sat, ks, sh))
+    imgs = (rs.randint(0, 2, (b, 128, 128)) * 255).astype(np.uint8)
+    ks = [np.where(rs.randint(0, 2, (oc, ic, 3, 3)) == 1, 127, -128).astype(np.int8)
+          for ic, oc, _ in cfg3]
+    for sh in ((0, 0, 0), (31, 31, 31), (9, 11, 13)):
+        setups.append((f"0/255 x 127/-128/{sh}", imgs, ks, sh))
+    for name, ic0, s, chans, sh in (
+            ("ic0=3 3->24->8@32", 3, 32, (24, 8), (3, 5)),
+            ("wide middle 16->128->16@16", 16, 16, (128, 16), (4, 9)),
+            ("padded N 1->35->13@32", 1, 32, (35, 13), (2, 6)),
+            ("ragged 1->16->24@24", 1, 24, (16, 24), (2, 5)),
+            ("one-channel middle 1->1->16@32", 1, 32, (1, 16), (1, 3)),
+            ("one layer 1->16@64", 1, 64, (16,), (3,)),
+            ("one layer 1->16@30", 1, 30, (16,), (2,)),
+            ("one layer 16->32@32", 16, 32, (32,), (6,))):
+        shape = (b, s, s) if ic0 == 1 else (b, ic0, s, s)
+        ics = (ic0,) + chans[:-1]
+        ks = [rs.randint(-128, 128, (oc, ic, 3, 3)).astype(np.int8)
+              for ic, oc in zip(ics, chans)]
+        setups.append((name, rs.randint(0, 256, shape).astype(np.uint8), ks, sh))
+    return setups
+
+
 def mega_vs_plain(dev: torch.device) -> tuple[float, int]:
     """The megakernel against mega_reference on the same card tensors:
     whole nets, and lyr4-wide's L1-L3 tail on a 4-D input. Returns (largest
@@ -279,6 +368,7 @@ def mega_vs_plain(dev: torch.device) -> tuple[float, int]:
     for w, ks in (("shipped", bundle_of("lyr4-wide").kernels[1:]),
                   ("seed7", _random_kernels(rs, tail_cfgs))):
         setups.append((f"lyr4-wide-tail/{w}", x16, ks, (5, 5, 7)))
+    setups += _mma_edge_setups(rs)
     max_err, n_cases = 0.0, 0
     for name, imgs_np, ks_np, sh in setups:
         imgs = torch.from_numpy(imgs_np).to(dev)
@@ -293,7 +383,10 @@ def mega_vs_plain(dev: torch.device) -> tuple[float, int]:
             oracle = oracle_feats(imgs_np[:4], ks_np, sh)
             check(np.array_equal(ref[0][:4].cpu().numpy(), oracle),
                   f"{name}: plain version disagrees with the numpy oracle")
+        final = imgs_np.shape[-1] >> len(ks_np)
         for flags in COMBOS:
+            if flags[1] and final % 4:
+                continue  # bins need a final map divisible by 4
             out = mega.cnn_forward_mega(imgs, ks, shifts, with_feats=flags[0],
                                         with_bins=flags[1], with_twin=flags[2])
             torch.cuda.synchronize()
@@ -945,10 +1038,11 @@ def multi_times(card: str, rs, profile_out: str | None) -> None:
 
 def bitcast_times(dev: torch.device, card: str, rs) -> tuple[float, float]:
     """The bitcast kernel's three functions against their plain versions at
-    (1024, 4096), 16 MiB of words: device time per call, queued (each call
-    takes microseconds of device time and more on the host), medians of
-    10 runs each, in turns plain, kernel, plain. Returns the summed
-    (kernel, plain) ms."""
+    (4096, 4096), 64 MiB of words in and 64 MiB out per call, so that the
+    queued calls read and write HBM and not the 50 MB L2: device time per
+    call, queued (each call takes tens of microseconds of device time and
+    more on the host), medians of 10 runs each, in turns plain, kernel,
+    plain. Returns the summed (kernel, plain) ms."""
     r, l = BITCAST_SHAPES[-1]
     x = torch.from_numpy(rs.randint(-2**31, 2**31, (r, l), dtype=np.int64)
                          .astype(np.int32)).to(dev)
@@ -976,27 +1070,48 @@ def bitcast_times(dev: torch.device, card: str, rs) -> tuple[float, float]:
 
 
 def times(dev: torch.device, card: str,
-          profile_out: str | None) -> dict[str, tuple[float, float]]:
-    """Returns {kernel name: (kernel ms, plain ms)} at batch 1536: the
-    megakernel on lyr3-std's whole net, the layer kernel on lyr4-wide's L0,
-    the conv kernel on lyr3-std's three layers summed."""
+          profile_out: str | None) -> dict[str, tuple]:
+    """Returns {kernel name: (kernel ms, plain ms, bound ms, bound by,
+    library ms or None)} at batch 1536: the megakernel on lyr3-std's whole
+    net, the layer kernel on lyr4-wide's L0, the conv kernel on lyr3-std's
+    three layers summed, the bitcast kernel's three functions summed."""
     rs = np.random.RandomState(0)
     # lyr3-std: the whole net in the megakernel
     bundle = art.load_bundle(ARTIFACTS["lyr3-std"])
     imgs = torch.from_numpy(
         rs.randint(0, 256, (BENCH_BATCH, 128, 128)).astype(np.uint8)).to(dev)
     ks = [torch.from_numpy(k).to(dev) for k in bundle.kernels]
+    pk = [mega.pack_weights(k) for k in ks]  # once, as CUDAEngine does
     shifts = torch.tensor((2, 4, 6), dtype=torch.int32, device=dev)
     kernel_ms, plain_ms, nk, np_ = _kernel_and_plain_ms(
         lambda: mega.cnn_forward_mega(imgs, ks, shifts, with_feats=False,
-                                      with_bins=True, with_twin=True),
+                                      with_bins=True, with_twin=True,
+                                      packed=pk),
         lambda: mega.mega_reference(imgs, ks, shifts))
-    tops = (macs_per_image(get_config("lyr3-std").layer_configs) * BENCH_BATCH
-            / (kernel_ms * 1e-3) / 1e12)
+    cfgs3 = get_config("lyr3-std").layer_configs
+    tops = macs_per_image(cfgs3) * BENCH_BATCH / (kernel_ms * 1e-3) / 1e12
+    bound_ms, bound_by = layers_bound(cfgs3, BENCH_BATCH, detect_out_bytes(cfgs3))
     phase("7 times", f"lyr3-std batch {BENCH_BATCH} detect outputs on {card}: "
                      f"mega_cnn median {kernel_ms!r} ms (n={nk}, {tops:.2f} int "
-                     f"TMAC/s), plain median {plain_ms!r} ms (n={np_})")
-    out = {"mega_cnn": (kernel_ms, plain_ms)}
+                     f"TMAC/s; bound {bound_ms!r} ms by {bound_by}, "
+                     f"{bound_ms / kernel_ms:.2%} of it), plain median "
+                     f"{plain_ms!r} ms (n={np_})")
+    out = {"mega_cnn": (kernel_ms, plain_ms, bound_ms, bound_by, None)}
+
+    # the megakernel on the first layer alone: its one-channel input path
+    def l0() -> torch.Tensor:
+        return mega.cnn_forward_mega(imgs, ks[:1], shifts[:1], packed=pk[:1])
+
+    l0()
+    torch.cuda.synchronize()
+    l0_runs = _event_ms(l0, 20) + _event_ms(l0, 20)
+    l0_ms = statistics.median(l0_runs)
+    l0_bound, l0_by = layers_bound(cfgs3[:1], BENCH_BATCH,
+                                   cfgs3[0][1] * (cfgs3[0][2] // 2) ** 2)
+    phase("7 times", f"lyr3-std L0 alone (1 -> 16 at 128^2, feats out) batch "
+                     f"{BENCH_BATCH} on {card}: mega_cnn median {l0_ms!r} ms "
+                     f"(n={len(l0_runs)}; bound {l0_bound!r} ms by {l0_by}, "
+                     f"{l0_bound / l0_ms:.2%} of it)")
     del imgs
 
     # lyr4-wide: the layer kernel (L0), the megakernel (L1-L3), the chain
@@ -1006,6 +1121,7 @@ def times(dev: torch.device, card: str,
         rs.randint(0, 256, (BENCH_BATCH, 256, 256)).astype(np.uint8)).to(dev)
     x = imgs[:, None]
     ks = [torch.from_numpy(k).to(dev) for k in bundle.kernels]
+    pk = [mega.pack_weights(k) for k in ks]
     shifts = torch.tensor((3, 5, 5, 7), dtype=torch.int32, device=dev)
     x16 = conv_pool.conv_pool_layer(x, ks[0], shifts, 0)
     detect = dict(with_feats=False, with_bins=True, with_twin=True)
@@ -1015,24 +1131,31 @@ def times(dev: torch.device, card: str,
             lambda: conv_pool.conv_pool_reference(x, ks[0], shifts, 0),
             cfgs[:1]),
         "megakernel tail L1-L3": (
-            lambda: mega.cnn_forward_mega(x16, ks[1:], shifts[1:], **detect),
+            lambda: mega.cnn_forward_mega(x16, ks[1:], shifts[1:],
+                                          packed=pk[1:], **detect),
             lambda: mega.mega_reference(x16, ks[1:], shifts[1:]),
             cfgs[1:]),
         "chain": (
-            lambda: mega.cnn_forward_mega(imgs, ks, shifts, **detect),
+            lambda: mega.cnn_forward_mega(imgs, ks, shifts, packed=pk,
+                                          **detect),
             lambda: mega.mega_reference(imgs, ks, shifts),
             cfgs),
     }
     for stage, (kernel, plain, stage_cfgs) in stages.items():
         k_ms, p_ms, nk, np_ = _kernel_and_plain_ms(kernel, plain, 5, 3)
         tops = macs_per_image(stage_cfgs) * BENCH_BATCH / (k_ms * 1e-3) / 1e12
+        _, oc, s = stage_cfgs[-1]
+        b_ms, b_by = layers_bound(
+            stage_cfgs, BENCH_BATCH, oc * (s // 2) ** 2 if stage == "layer kernel L0"
+            else detect_out_bytes(stage_cfgs))
         phase("7 times", f"lyr4-wide {stage} batch {BENCH_BATCH} on {card}: "
                          f"kernel median {k_ms!r} ms (n={nk}, {tops:.2f} int "
-                         f"TMAC/s, {k_ms * 1e3 / BENCH_BATCH!r} us/image), plain "
-                         f"median {p_ms!r} ms (n={np_}, "
+                         f"TMAC/s, {k_ms * 1e3 / BENCH_BATCH!r} us/image; bound "
+                         f"{b_ms!r} ms by {b_by}, {b_ms / k_ms:.2%} of it), "
+                         f"plain median {p_ms!r} ms (n={np_}, "
                          f"{p_ms * 1e3 / BENCH_BATCH!r} us/image)")
         if stage == "layer kernel L0":
-            out["conv_pool_layer"] = (k_ms, p_ms)
+            out["conv_pool_layer"] = (k_ms, p_ms, b_ms, b_by, None)
     del imgs, x, x16
     torch.cuda.empty_cache()
 
@@ -1060,9 +1183,11 @@ def times(dev: torch.device, card: str,
                 act_ms[0] += k_ms
                 act_ms[1] += p_ms
             del x
-    out["conv_act"] = tuple(act_ms)
+    a_bound, a_by = layers_bound(cfgs3, BENCH_BATCH, 0, pooled=False)
+    out["conv_act"] = (*act_ms, a_bound, a_by, None)
     phase("7 times", f"lyr3-std conv_act L0+L1+L2 on {card}: kernel "
-                     f"{act_ms[0]!r} ms, plain {act_ms[1]!r} ms")
+                     f"{act_ms[0]!r} ms, plain {act_ms[1]!r} ms; bound "
+                     f"{a_bound!r} ms by {a_by}, {a_bound / act_ms[0]:.2%} of it")
     torch.cuda.empty_cache()
 
     for variant, backend in (("lyr4-wide", "mega"), ("lyr3-std", "pallas"),
@@ -1074,7 +1199,15 @@ def times(dev: torch.device, card: str,
         torch.cuda.empty_cache()
     multi_times(card, rs, profile_out)  # lyr3-std on mega: single-box and multi
     torch.cuda.empty_cache()
-    out["bitcast"] = bitcast_times(dev, card, rs)
+    r, l = BITCAST_SHAPES[-1]
+    k_ms, p_ms = bitcast_times(dev, card, rs)
+    b_ms, b_by = bound(0, 3 * 2 * r * l * 4)  # three calls, in + out
+    phase("7 times", f"bitcast narrow + widen + roll ({r}, {l}) on {card}: "
+                     f"kernel {k_ms!r} ms; bound {b_ms!r} ms by {b_by}, "
+                     f"{b_ms / k_ms:.2%} of it; plain {p_ms!r} ms")
+    # each plain version is one PyTorch call (torch.roll, or the copy that
+    # reshape makes of a permuted byte view): its time is the library's
+    out["bitcast"] = (k_ms, p_ms, b_ms, b_by, p_ms)
     return out
 
 
@@ -1122,11 +1255,17 @@ def main(argv=None) -> None:
         verify_cli(variant)
 
     ms = times(dev, card, args.profile_out)
-    check("jax" not in sys.modules, "jax was imported")
+    loaded = [m for m in sys.modules
+              if m.split(".")[0] in ("jax", "tpu_cnn")]
+    check(not loaded, f"the JAX package or jax was imported: {loaded[:5]}")
+    # no single PyTorch call computes a convolution kernel's function (no
+    # u8 x s8 convolution with the shift, clip and pool; torch._int_mm is
+    # s8 x s8 after an im2col): library_ms is null for those
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": src, "replaces": replaces,
         "launches": launches[name], "max_abs_err": max_err[name],
-        "ms": ms[name][0], "plain_ms": ms[name][1]}
+        "ms": ms[name][0], "plain_ms": ms[name][1], "bound_ms": ms[name][2],
+        "bound_by": ms[name][3], "library_ms": ms[name][4]}
         for name, (src, replaces) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,369 @@
+"""The port's own copies of the JAX package's JAX-free modules, each held
+equal to its ``tpu_cnn`` original on the same seeded numpy inputs: the
+numpy oracle, the C++ oracle, the host head twins, the weights.bin and
+bundle codecs, the registry and model holder, the CLI helpers and the
+service's host preprocess. Integer results are compared exactly; float
+results bit for bit too, since both sides run the same numpy code on the
+same arrays."""
+
+import glob
+import io
+import os
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip(
+    "torch", reason="torch not installed: the PyTorch port cannot be tested")
+
+from tpu_cnn.apps import common as j_common  # noqa: E402
+from tpu_cnn.apps import infer as j_infer  # noqa: E402
+from tpu_cnn.apps import realtime as j_realtime  # noqa: E402
+from tpu_cnn.apps import verify as j_verify  # noqa: E402
+from tpu_cnn.engine import cpu_ref as j_cpu_ref  # noqa: E402
+from tpu_cnn.head import bbox as j_bbox  # noqa: E402
+from tpu_cnn.head import cam as j_cam  # noqa: E402
+from tpu_cnn.head import classify as j_classify  # noqa: E402
+from tpu_cnn.models import cnn as j_cnn  # noqa: E402
+from tpu_cnn.models import registry as j_registry  # noqa: E402
+from tpu_cnn.native import oracle as j_oracle  # noqa: E402
+from tpu_cnn.ops import luma as j_luma  # noqa: E402
+from tpu_cnn.utils import artifacts as j_art  # noqa: E402
+from tpu_cnn.utils import paths as j_paths  # noqa: E402
+from tpu_cnn.utils import weights as j_weights  # noqa: E402
+from tpu_cnn_torch.apps import common, infer, serve, verify  # noqa: E402
+from tpu_cnn_torch.engine import cpu_ref  # noqa: E402
+from tpu_cnn_torch.engine.cuda import CUDAEngine  # noqa: E402
+from tpu_cnn_torch.head import bbox, cam, classify  # noqa: E402
+from tpu_cnn_torch.models import cnn, registry  # noqa: E402
+from tpu_cnn_torch.native import oracle  # noqa: E402
+from tpu_cnn_torch.ops import detect_head  # noqa: E402
+from tpu_cnn_torch.utils import artifacts as art  # noqa: E402
+from tpu_cnn_torch.utils import paths, weights  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BUNDLES = {"lyr3-std": os.path.join(REPO, "artifacts", "pretrained"),
+           "lyr4-wide": os.path.join(REPO, "artifacts", "pretrained-lyr4")}
+
+
+def _kernels(rs, cfgs):
+    return [rs.randint(-128, 128, (oc, ic, 3, 3)).astype(np.int8)
+            for ic, oc, _ in cfgs]
+
+
+def _same(a, b):
+    """Equal values, dtypes and shapes, through tuples and lists."""
+    if isinstance(a, (tuple, list)):
+        assert type(a) is type(b) and len(a) == len(b)
+        for x, y in zip(a, b):
+            _same(x, y)
+    elif isinstance(a, np.ndarray):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+    else:
+        assert type(a) is type(b) and a == b
+
+
+# ── the oracles ──────────────────────────────────────────────────────
+
+
+@pytest.mark.parametrize("variant", ["lyr3-tiny", "lyr2-small", "lyr3-std"])
+def test_numpy_oracle_equals_the_original(variant):
+    cfg = registry.get_config(variant)
+    rs = np.random.RandomState(31)
+    if variant == "lyr3-std":
+        kernels = j_art.load_bundle(BUNDLES["lyr3-std"]).kernels
+    else:
+        kernels = _kernels(rs, cfg.layer_configs)
+    shifts = registry.default_shifts(cfg)
+    imgs = rs.randint(0, 256, (3, cfg.img_size, cfg.img_size)).astype(np.uint8)
+    for im in imgs:
+        for wrap in (False, True):
+            _same(cpu_ref.numpy_cnn_forward(im, kernels, shifts, accum_wrap=wrap),
+                  j_cpu_ref.numpy_cnn_forward(im, kernels, shifts, accum_wrap=wrap))
+    x = rs.randint(-2**30, 2**30, (64,)).astype(np.int64)
+    _same(cpu_ref.wrap_accum_np(x), j_cpu_ref.wrap_accum_np(x))
+
+
+@pytest.mark.parametrize("variant", ["lyr3-tiny", "lyr2-small"])
+def test_native_oracle_equals_the_original(variant, tmp_path, monkeypatch):
+    monkeypatch.setenv("TPU_CNN_BUILD_DIR", str(tmp_path))  # the original's
+    cfg = registry.get_config(variant)
+    rs = np.random.RandomState(32)
+    kernels = _kernels(rs, cfg.layer_configs)
+    shifts = registry.default_shifts(cfg)
+    imgs = rs.randint(0, 256, (5, cfg.img_size, cfg.img_size)).astype(np.uint8)
+    ours = oracle.NativeOracle()
+    _same(ours.infer_batch(imgs, kernels, shifts),
+          j_oracle.NativeOracle().infer_batch(imgs, kernels, shifts))
+    _same(ours.infer(imgs[0], kernels, shifts),
+          cpu_ref.numpy_cnn_forward(imgs[0], kernels, shifts))
+
+
+# ── the host head twins ──────────────────────────────────────────────
+
+
+@pytest.fixture(scope="module")
+def head_case():
+    """Shipped lyr3-std features of 6 test images plus a saturated map and
+    an all-zero map (the CAM edge cases), the shipped bins head and
+    presence head."""
+    bundle = j_art.load_bundle(BUNDLES["lyr3-std"])
+    paths_ = sorted(glob.glob(os.path.join(BUNDLES["lyr3-std"],
+                                           "test_image_*.bin")))[:6]
+    feats = [j_cpu_ref.numpy_cnn_forward(np.fromfile(p, np.uint8),
+                                         bundle.kernels) for p in paths_]
+    feats += [np.full((64, 256), 255, np.uint8), np.zeros((64, 256), np.uint8)]
+    return np.stack(feats), bundle
+
+
+TWINS = {
+    "cam_bbox_fast": lambda m, f, b: [m.cam_bbox_fast(x, k, b.fc_weight)
+                                      for x in f for k in range(6)],
+    "cam_bbox_centroid": lambda m, f, b: [m.cam_bbox_centroid(x, k, b.fc_weight)
+                                          for x in f for k in range(6)],
+    "cam_bbox_hires": lambda m, f, b: [m.cam_bbox_hires(x, 1, b.fc_weight)
+                                       for x in f],
+    "cam_bbox_multi": lambda m, f, b: [m.cam_bbox_multi(x, b.fc_weight, 128, mode)
+                                       for x in f for mode in ("ref", "centroid")],
+    "cam_instances": lambda m, f, b: [m.cam_instances(x, b.fc_weight, 128, n)
+                                      for x in f for n in (1, 2, 3)],
+    "connected_labels_np": lambda m, f, b: [m.connected_labels_np(x[0].reshape(16, 16) > 90)
+                                            for x in f],
+    "grow_labels_np": lambda m, f, b: [
+        m.grow_labels_np(m.connected_labels_np(x[1].reshape(16, 16) > 200),
+                         x[1].reshape(16, 16) > 60) for x in f],
+}
+CLASSIFY = {
+    "classify_np": lambda m, f, b: [m.classify_np(f, b.fc_weight, b.fc_bias),
+                                    m.classify_np(f[0], b.fc_weight, b.fc_bias,
+                                                  b.class_names)],
+    "bin_pool_np": lambda m, f, b: m.bin_pool_np(f),
+    "gap_pool_np": lambda m, f, b: m.gap_pool_np(f),
+    "pool_for_head": lambda m, f, b: [m.pool_for_head(f, b.fc_weight),
+                                      m.pool_for_head(f, b.fc_weight[:, :64])],
+    "multi_scores_np": lambda m, f, b: m.multi_scores_np(
+        m.pool_for_head(f, b.fc_weight), *b.multi_head),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TWINS))
+def test_cam_twin_equals_the_original(name, head_case):
+    feats, bundle = head_case
+    _same(TWINS[name](cam, feats, bundle), TWINS[name](j_cam, feats, bundle))
+
+
+@pytest.mark.parametrize("name", sorted(CLASSIFY))
+def test_classify_twin_equals_the_original(name, head_case):
+    feats, bundle = head_case
+    _same(CLASSIFY[name](classify, feats, bundle),
+          CLASSIFY[name](j_classify, feats, bundle))
+
+
+def test_bbox_twins_equal_the_originals(head_case):
+    feats, bundle = head_case
+    pooled = j_classify.bin_pool_np(feats)
+    _same(bbox.bbox_regress_np(pooled, bundle.bbox_weight),
+          j_bbox.bbox_regress_np(pooled, bundle.bbox_weight))
+    _same(bbox.bbox_regress_np(pooled[0], bundle.bbox_weight, 256),
+          j_bbox.bbox_regress_np(pooled[0], bundle.bbox_weight, 256))
+    _same([bbox.bbox_regress_features_np(f, bundle.bbox_weight) for f in feats],
+          [j_bbox.bbox_regress_features_np(f, bundle.bbox_weight) for f in feats])
+
+
+def test_head_constants_equal_the_originals():
+    from tpu_cnn.ops import detect_head as j_detect_head
+
+    assert cam.SATURATION_MEAN == j_cam.SATURATION_MEAN
+    assert cam.CAM_CENTROID_K == j_cam.CAM_CENTROID_K
+    assert (cam.CAM_CORE_PERCENTILE == j_detect_head.CAM_CORE_PERCENTILE
+            == detect_head.CAM_CORE_PERCENTILE)
+
+
+# ── codecs, registry, model ──────────────────────────────────────────
+
+
+@pytest.mark.parametrize("variant", sorted(BUNDLES))
+def test_bundle_loads_to_equal_arrays(variant):
+    cfgs = registry.get_config(variant).layer_configs
+    ours = art.load_bundle(BUNDLES[variant], layer_configs=cfgs)
+    theirs = j_art.load_bundle(BUNDLES[variant], layer_configs=cfgs)
+    for field in ("kernels", "fc_weight", "fc_bias", "class_names",
+                  "bbox_weight", "shifts", "multi_thresh", "multi_head"):
+        _same(getattr(ours, field), getattr(theirs, field))
+
+
+@pytest.mark.parametrize("prefix", ["", "real_", "adam_"])
+def test_bundle_head_prefixes_load_to_equal_arrays(prefix):
+    ours = art.load_bundle(BUNDLES["lyr3-std"], prefix=prefix)
+    theirs = j_art.load_bundle(BUNDLES["lyr3-std"], prefix=prefix)
+    for field in ("fc_weight", "fc_bias", "multi_thresh", "multi_head"):
+        _same(getattr(ours, field), getattr(theirs, field))
+
+
+@pytest.mark.parametrize("variant", ["lyr3-std", "lyr3-tiny", "lyr2-small",
+                                     "lyr4-wide"])
+def test_weights_bin_round_trips(variant, tmp_path):
+    cfgs = registry.get_config(variant).layer_configs
+    kernels = _kernels(np.random.RandomState(33), cfgs)
+    blob = weights.encode_weights(kernels)
+    assert blob == j_weights.encode_weights(kernels)
+    _same(weights.decode_weights(blob, cfgs), kernels)
+    _same(weights.decode_weights(blob, cfgs), j_weights.decode_weights(blob, cfgs))
+    path = tmp_path / "weights.bin"
+    weights.save_weights_bin(path, kernels)
+    _same(weights.load_weights_bin(path, cfgs), kernels)
+    _same(j_weights.load_weights_bin(path, cfgs), kernels)
+    with pytest.raises(ValueError, match="weight bytes"):
+        weights.decode_weights(blob[:-1], cfgs)
+
+
+def test_registry_equals_the_original():
+    assert sorted(registry.REGISTRY) == sorted(j_registry.REGISTRY)
+    for name, cfg in registry.REGISTRY.items():
+        j = j_registry.get_config(name)
+        assert (cfg.layer_configs, cfg.num_classes, cfg.accum_bits,
+                cfg.accum_wrap) == (j.layer_configs, j.num_classes,
+                                    j.accum_bits, j.accum_wrap)
+        assert (cfg.img_size, cfg.out_channels, cfg.out_spatial,
+                cfg.feature_dim_bins, cfg.weight_bytes()) == (
+            j.img_size, j.out_channels, j.out_spatial, j.feature_dim_bins,
+            j.weight_bytes())
+        assert registry.default_shifts(cfg) == j_registry.default_shifts(j)
+    with pytest.raises(KeyError, match="unknown model variant"):
+        registry.get_config("lyr9")
+
+
+def test_model_constants_equal_the_originals():
+    for name in ("LAYER_CONFIGS", "DEFAULT_SHIFTS", "IMG_SIZE", "NUM_CLASSES",
+                 "ACCUM_BITS", "QUANT_MAX", "CLASS_NAMES", "WEIGHT_BYTES"):
+        assert getattr(cnn, name) == getattr(j_cnn, name), name
+
+
+@pytest.mark.parametrize("variant", ["lyr3-std", "lyr4-wide"])
+def test_load_model_equals_the_original(variant):
+    ours = common.load_model(BUNDLES[variant], variant)
+    theirs = j_common.load_model(BUNDLES[variant], variant)
+    for field in ("kernels", "fc_weight", "fc_bias", "class_names", "shifts",
+                  "bbox_weight", "multi_thresh", "multi_head"):
+        _same(getattr(ours, field), getattr(theirs, field))
+    assert ours.head_mode == theirs.head_mode
+    assert ours.config.layer_configs == theirs.config.layer_configs
+
+
+def test_fpga_cnn_refuses_what_the_original_refuses():
+    cfg = registry.get_config("lyr3-tiny")
+    ks = _kernels(np.random.RandomState(34), cfg.layer_configs)
+    fcw, fcb = np.zeros((6, 1024), np.float32), np.zeros(6, np.float32)
+    for mod, c in ((cnn, cfg), (j_cnn, j_registry.get_config("lyr3-tiny"))):
+        with pytest.raises(ValueError, match="kernel shapes"):
+            mod.FpgaCNN(ks[::-1], fcw, fcb, config=c)
+        with pytest.raises(ValueError, match="one shift per layer"):
+            mod.FpgaCNN(ks, fcw, fcb, shifts=(1, 2), config=c)
+        with pytest.raises(ValueError, match="multi_head shapes"):
+            mod.FpgaCNN(ks, fcw, fcb, config=c,
+                        multi_head=(np.zeros((6, 64), np.float32), fcb))
+        assert mod.FpgaCNN(ks, fcw[:, :64], fcb, config=c).head_mode == "gap"
+
+
+def test_torch_model_takes_either_holder():
+    """``TorchFpgaCNN.from_fpga_cnn`` duck-types the holder: the JAX
+    package's model gives the same buffers as the port's."""
+    ours = common.load_model(BUNDLES["lyr3-std"])
+    theirs = j_common.load_model(BUNDLES["lyr3-std"])
+    a = cnn.TorchFpgaCNN.from_fpga_cnn(ours, "cpu")
+    b = cnn.TorchFpgaCNN.from_fpga_cnn(theirs, "cpu")
+    assert isinstance(b.config, cnn.CNNConfig)
+    assert a.config == b.config
+    for (n, x), (m, y) in zip(a.named_buffers(), b.named_buffers()):
+        assert n == m and x.dtype == y.dtype and torch.equal(x, y)
+
+
+def test_paths_and_labels_equal_the_originals(monkeypatch):
+    monkeypatch.delenv("TPU_CNN_ARTIFACTS", raising=False)
+    for variant in ("lyr3-std", "lyr4-wide", "lyr3-tiny"):
+        assert paths.default_artifacts(variant) == j_paths.default_artifacts(variant)
+    for name in ("x/test_image_3_class5.bin", "test_image_0.bin",
+                 "a_classX.bin", "test_image_12_class0.png"):
+        assert art.label_from_filename(name) == j_art.label_from_filename(name)
+    monkeypatch.setenv("TPU_CNN_ARTIFACTS", "/somewhere")
+    assert paths.default_artifacts() == "/somewhere"
+
+
+def test_load_image_any_equals_the_original(tmp_path):
+    from PIL import Image
+
+    rs = np.random.RandomState(35)
+    png = tmp_path / "x.png"
+    Image.fromarray(rs.randint(0, 256, (40, 60, 3)).astype(np.uint8)).save(png)
+    raw = os.path.join(BUNDLES["lyr3-std"], "test_image_0_class3.bin")
+    for p in (png, raw):
+        _same(art.load_image_any(p), j_art.load_image_any(p))
+    with pytest.raises(ValueError, match="expected"):
+        art.load_image_any(raw, img_size=64)
+
+
+# ── the CLI helpers and the service's host preprocess ────────────────
+
+
+@pytest.mark.parametrize("shape", [(48, 64, 3), (64, 48, 3), (256, 256, 3),
+                                   (100, 100, 3), (70, 90)])
+def test_preprocess_equals_the_camera_twin(shape):
+    frame = np.random.RandomState(36).randint(0, 256, shape).astype(np.uint8)
+    for out in (16, 32):
+        _same(serve.preprocess(frame, out), j_realtime.preprocess(frame, out))
+    if len(shape) == 3:
+        for order in ("bgr", "rgb"):
+            _same(serve.bt601_gray_np(frame, order),
+                  j_luma.bt601_gray_np(frame, order))
+
+
+def test_decode_image_equals_the_original():
+    from PIL import Image
+    from tpu_cnn.apps import serve as j_serve
+
+    rs = np.random.RandomState(37)
+    raw = rs.randint(0, 256, 128 * 128).astype(np.uint8).tobytes()
+    buf = io.BytesIO()
+    Image.fromarray(rs.randint(0, 256, (90, 120, 3)).astype(np.uint8)).save(
+        buf, format="PNG")
+    for body, size in ((raw, 128), (buf.getvalue(), 128), (buf.getvalue(), 32)):
+        _same(serve.decode_image(body, size), j_serve.decode_image(body, size))
+
+
+def test_stimuli_and_report_equal_the_originals(capsys):
+    for n, d, size in ((2, None, 32), (1, BUNDLES["lyr3-std"], 128)):
+        ours, theirs = verify.make_stimuli(n, d, size=size), \
+            j_verify.make_stimuli(n, d, size=size)
+        assert list(ours) == list(theirs)
+        _same(list(ours.values()), list(theirs.values()))
+    ref = np.random.RandomState(38).randint(0, 256, (2, 4, 9)).astype(np.uint8)
+    bad = ref.copy()
+    bad[1, 2, 3] ^= 1
+    outputs = {"numpy": ref, "a": ref.copy(), "b": bad}
+    for mod in (verify, j_verify):
+        assert mod.compare("numpy", outputs, ["s0", "s1"]) is False
+    ours, theirs = capsys.readouterr().out.split("  numpy vs a")[1:]
+    assert ours == theirs
+
+
+@pytest.mark.parametrize("box", ["ref", "centroid", "reg"])
+def test_run_inference_prints_what_the_original_prints(box, tmp_path, capsys):
+    """Both ``run_inference``s on one engine (the port's, on the CPU) and
+    one image: the same answer and the same printed lines, the multi
+    branch included; the annotated JPEGs are equal too."""
+    model = common.load_model(BUNDLES["lyr3-std"])
+    engine = CUDAEngine(model, device="cpu")
+    src = os.path.join(BUNDLES["lyr3-std"], "test_image_4_class0.bin")
+    path = tmp_path / "test_image_4_class0.bin"
+    path.write_bytes(open(src, "rb").read())
+    outs = []
+    for mod in (infer, j_infer):
+        for multi, inst in ((None, 1), (0.2, 1), (0.2, 2)):
+            got = mod.run_inference(engine, model, str(path), box=box,
+                                    multi_thresh=multi, instances=inst)
+            text = capsys.readouterr().out
+            jpg = (tmp_path / "test_image_4_class0_result.jpg").read_bytes()
+            outs.append((got, [ln for ln in text.splitlines()
+                               if "Engine:" not in ln], jpg))
+    assert outs[:3] == outs[3:]

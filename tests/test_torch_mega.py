@@ -178,20 +178,38 @@ def test_mega_plan_refuses_what_no_tail_fits():
         _port(imgs, kernels, np.asarray([2], np.int32))
 
 
+# the kernel's regions (mega_layout): layer outputs channels-last with a
+# 1-pixel halo and cpad channels a pixel, the final one NCHW, layer 0's
+# input band in region 1
+LAYOUTS = {"lyr3-std": (66 * 66 * 16, 34 * 34 * 32, 128),
+           "lyr3-tiny": (18 * 18 * 16, 10 * 10 * 32, 32),
+           "lyr2-small": (34 * 34 * 16, 32 * 16 * 16, 64),
+           "lyr4-wide": (66 * 66 * 32, 34 * 34 * 64, 32)}
+
+
 @pytest.mark.parametrize("variant,smem", [
     ("lyr3-std", 65536 + 32768), ("lyr3-tiny", 4096 + 2048),
     ("lyr2-small", 16384 + 8192), ("lyr4-wide", 131072 + 65536)])
 def test_smem_model(variant, smem):
-    """Peak shared memory of the megakernel's part of the plan: the two
-    largest alternating layer outputs. Every whole net but lyr4-wide
-    (262,144 + 131,072 B) fits one CTA; lyr4-wide's L1-L3 tail does."""
+    """Peak shared memory of the megakernel's part of the plan. ``smem``:
+    the two largest alternating layer outputs as bare u8 maps; the kernel's
+    two regions add each output's halo and channel padding and layer 0's
+    input band. Every whole net but lyr4-wide fits one CTA; lyr4-wide's
+    L1-L3 tail does, with its 16 x 128^2 input in bands of 32 rows."""
     cfgs = REGISTRY[variant].layer_configs
     tail = cfgs[mega.mega_plan(cfgs):]
-    assert mega.mega_smem_bytes(tail) == smem <= mega.MAX_SMEM_BYTES
+    bare = [0, 0]
+    for li, (_ic, oc, s) in enumerate(tail):
+        bare[li % 2] = max(bare[li % 2], oc * (s // 2) ** 2)
+    assert sum(bare) == smem
+    r0, r1, rows = mega.mega_layout(tail)
+    assert (r0, r1, rows) == LAYOUTS[variant]
+    assert r0 >= bare[0] and r1 >= bare[1]
+    assert mega.mega_smem_bytes(tail) == r0 + r1 <= mega.MAX_SMEM_BYTES
     whole = mega.mega_smem_bytes(cfgs)
     assert (whole <= mega.MAX_SMEM_BYTES) == (variant != "lyr4-wide")
     if variant == "lyr4-wide":
-        assert whole == 262144 + 131072
+        assert whole == 130 * 130 * 16 + 66 * 66 * 32
 
 
 def test_tail_input_matches_pallas_nchw_entry():
@@ -308,3 +326,204 @@ def test_tail_input_kernel_matches_plain_version_on_card(cuda_device):
                                     with_bins=flags[1], with_twin=flags[2])
         torch.cuda.synchronize()
         _assert_outputs(got, want, flags)
+
+
+# ── the tensor-core kernel's packed weights ──────────────────────────
+
+PACK_GEOMETRIES = [(1, 16), (16, 32), (32, 64), (64, 128), (3, 5), (20, 35),
+                   (16, 1), (1, 1), (128, 16)]
+
+
+def _fragment_b(packed):
+    """The (K, N) int32 GEMM operand a packed tensor feeds the MMAs, read
+    by the PTX fragment layout of mma.m16n8k32's B (lane l, register r,
+    byte j: k = 16 r + 4 (l % 4) + j, n = l // 4), not by ``_unpack``."""
+    ks, nt = packed.shape[:2]
+    b = torch.zeros((32 * ks, 8 * nt), dtype=torch.int32)
+    for s in range(ks):
+        for t in range(nt):
+            for lane in range(32):
+                for byte in range(8):
+                    k = 32 * s + 16 * (byte // 4) + 4 * (lane % 4) + byte % 4
+                    b[k, 8 * t + lane // 4] = int(packed[s, t, lane, byte])
+    return b
+
+
+def _unpack(packed, ic, oc):
+    """``mega.pack_weights``' inverse: (oc, ic, 3, 3) int8."""
+    ks, nt = int(packed.shape[0]), int(packed.shape[1])
+    b = (packed.view(ks, nt, 8, 4, 2, 4).permute(0, 4, 3, 5, 1, 2)
+         .reshape(ks * 32, nt * 8))
+    cp = mega.cpad(ic)
+    return (b[:9 * cp].view(9, cp, nt * 8)[:, :ic, :oc]
+            .reshape(3, 3, ic, oc).permute(3, 2, 0, 1).contiguous())
+
+
+@pytest.mark.parametrize("ic,oc", PACK_GEOMETRIES)
+def test_packed_weights_round_trip(ic, oc):
+    rs = np.random.RandomState(40 + ic + oc)
+    k = torch.from_numpy(rs.randint(-128, 128, (oc, ic, 3, 3)).astype(np.int8))
+    packed = mega.pack_weights(k)
+    cp = mega.cpad(ic)
+    assert packed.dtype == torch.int8 and packed.is_contiguous()
+    assert tuple(packed.shape) == (-(-9 * cp // 32), -(-oc // 8), 32, 8)
+    assert torch.equal(_unpack(packed, ic, oc), k)
+    # K is tap-major over cpad channels; padded rows and columns are zero
+    b = _fragment_b(packed)
+    want = torch.zeros_like(b)
+    want[:9 * cp].view(9, cp, -1)[:, :ic, :oc] = (
+        k.permute(2, 3, 1, 0).reshape(9, ic, oc).to(torch.int32))
+    assert torch.equal(b, want)
+
+
+def _implicit_gemm_layer(x, packed, ic, oc, shift):
+    """One layer as the kernel computes it, in plain int32 on the CPU:
+    channels-last with a zero halo and cpad channels, im2col in the packed
+    tap-major K order (padded to the packed K), one GEMM with the
+    fragment-decoded B, then >> shift, clip and the 2x2 max."""
+    bsz, _, s, _ = x.shape
+    cp = mega.cpad(ic)
+    xl = torch.zeros((bsz, s + 2, s + 2, cp), dtype=torch.int32)
+    xl[:, 1:-1, 1:-1, :ic] = x.permute(0, 2, 3, 1).to(torch.int32)
+    cols = torch.stack([xl[:, ky:ky + s, kx:kx + s] for ky in range(3)
+                        for kx in range(3)], dim=3)  # (B, S, S, 9, cp)
+    b = _fragment_b(packed)
+    a = torch.zeros((bsz * s * s, b.shape[0]), dtype=torch.int32)
+    a[:, :9 * cp] = cols.reshape(bsz * s * s, 9 * cp)
+    acc = (a @ b)[:, :oc].reshape(bsz, s, s, oc).permute(0, 3, 1, 2)
+    act = torch.clamp(acc >> shift, 0, 255)
+    return act.reshape(bsz, oc, s // 2, 2, s // 2, 2).amax(dim=(3, 5)).to(torch.uint8)
+
+
+@pytest.mark.parametrize("variant", ["lyr3-tiny", "lyr2-small", "lyr4-wide-tail"])
+def test_gemm_in_packed_order_equals_the_plain_version(variant):
+    rs = np.random.RandomState(41)
+    if variant == "lyr4-wide-tail":
+        cfgs = REGISTRY["lyr4-wide"].layer_configs[1:]
+        x = torch.from_numpy(rs.randint(0, 256, (2, 16, 32, 32)).astype(np.uint8))
+        cfgs = tuple((ic, oc, 32 >> i) for i, (ic, oc, _) in enumerate(cfgs))
+        shifts = [5, 5, 7]
+    else:
+        cfgs = REGISTRY[variant].layer_configs
+        x = torch.from_numpy(rs.randint(0, 256, (2, 1, cfgs[0][2], cfgs[0][2]))
+                             .astype(np.uint8))
+        shifts = default_shifts(get_config(variant))
+    kernels = [torch.from_numpy(k) for k in _random_kernels(rs, cfgs)]
+    want = mega.mega_reference(x, kernels, torch.tensor(shifts, dtype=torch.int32),
+                               compute_dtype="int32")[0]
+    h = x
+    for k, sh in zip(kernels, shifts):
+        ic, oc = int(k.shape[1]), int(k.shape[0])
+        h = _implicit_gemm_layer(h, mega.pack_weights(k), ic, oc, sh)
+    assert torch.equal(h.reshape(want.shape), want)
+
+
+def test_engine_packs_its_weights_once_under_inference_mode(monkeypatch):
+    """The engine packs the megakernel's weights when it is built, also
+    under ``torch.inference_mode`` (a serving app's usual setting), and no
+    detect packs them again."""
+    from tpu_cnn_torch.apps.common import load_model
+    from tpu_cnn_torch.engine.cuda import CUDAEngine
+
+    calls = []
+    pack = mega.pack_weights
+    monkeypatch.setattr(mega, "pack_weights",
+                        lambda k: calls.append(k) or pack(k))
+    imgs = np.random.RandomState(42).randint(0, 256, (3, 128, 128)).astype(np.uint8)
+    with torch.inference_mode():
+        engine = CUDAEngine(load_model(default_artifacts()), device="cpu")
+        assert len(calls) == 3
+        for k, p in zip(engine.net.kernels, engine._packed):
+            assert torch.equal(p, pack(k))
+        first = engine.detect_batch(imgs)
+        second = engine.detect_batch(imgs)
+    assert len(calls) == 3  # packed once, not per call
+    np.testing.assert_array_equal(first.pred, second.pred)
+
+
+@pytest.mark.parametrize("bad", ["one short", "another kernel's", "int32"])
+def test_packed_weights_must_match_the_kernels(tiny, bad):
+    imgs, kernels, shifts, _ = tiny
+    ks = [torch.from_numpy(k) for k in kernels]
+    packed = [mega.pack_weights(k) for k in ks]
+    if bad == "one short":
+        packed = packed[:-1]
+    elif bad == "another kernel's":
+        packed[1] = packed[0]
+    else:
+        packed[0] = packed[0].to(torch.int32)
+    with pytest.raises(ValueError, match="pack_weights"):
+        mega.cnn_forward_mega(torch.from_numpy(imgs), ks,
+                              torch.from_numpy(shifts), packed=packed)
+
+
+@pytest.mark.parametrize("cfgs,rows", [
+    (((1, 16, 128), (16, 32, 64), (32, 64, 32)), 128),   # lyr3-std: whole image
+    (((16, 32, 128), (32, 64, 64), (64, 128, 32)), 32),  # lyr4-wide's tail
+    (((1, 16, 64),), 64),                                 # one layer, whole
+    (((64, 16, 64),), 2)])                                # one layer, thin bands
+def test_layer0_band_rows(cfgs, rows):
+    r0, r1, got = mega.mega_layout(cfgs)
+    assert got == rows and got % 2 == 0
+    row = (cfgs[0][2] + 2) * mega.cpad(cfgs[0][0])
+    assert r1 >= (rows + 2) * row and r0 % 16 == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["all-255 x 127", "all-255 x -128",
+                                  "0/255 x 127/-128", "ic0=3", "wide middle",
+                                  "padded N", "ragged", "one-channel middle",
+                                  "one layer", "one layer 30 wide",
+                                  "misaligned input"])
+def test_mma_edges_match_plain_version_on_card(cuda_device, case):
+    """The tensor-core path's edges against the plain version on the card:
+    saturating and most negative sums at shifts 0 and 31, padded K and N,
+    the runtime-chunk path, column groups cut by the map's edge and
+    one-layer nets."""
+    rs = np.random.RandomState(43)
+    lyr3 = REGISTRY["lyr3-std"].layer_configs
+    b = 37
+    if case.startswith("all-255"):
+        fill = 127 if case.endswith("127") else -128
+        imgs = np.full((b, 128, 128), 255, np.uint8)
+        kernels = [np.full((oc, ic, 3, 3), fill, np.int8) for ic, oc, _ in lyr3]
+        shift_sets = [(0, 0, 0), (31, 31, 31)]
+    elif case.startswith("0/255"):
+        imgs = (rs.randint(0, 2, (b, 128, 128)) * 255).astype(np.uint8)
+        kernels = [np.where(rs.randint(0, 2, (oc, ic, 3, 3)) == 1, 127,
+                            -128).astype(np.int8) for ic, oc, _ in lyr3]
+        shift_sets = [(0, 0, 0), (31, 31, 31), (9, 11, 13)]
+    else:
+        ic0, s, chans, sh = {
+            "ic0=3": (3, 32, (24, 8), (3, 5)),
+            "wide middle": (16, 16, (128, 16), (4, 9)),
+            "padded N": (1, 32, (35, 13), (2, 6)),
+            "ragged": (1, 24, (16, 24), (2, 5)),
+            "one-channel middle": (1, 32, (1, 16), (1, 3)),
+            "one layer": (16, 32, (32,), (6,)),
+            "one layer 30 wide": (1, 30, (16,), (2,)),
+            "misaligned input": (1, 32, (16, 32), (2, 4))}[case]
+        imgs = rs.randint(0, 256, (b, s, s) if ic0 == 1 else (b, ic0, s, s)
+                          ).astype(np.uint8)
+        kernels = [rs.randint(-128, 128, (oc, ic, 3, 3)).astype(np.int8)
+                   for ic, oc in zip((ic0,) + chans[:-1], chans)]
+        shift_sets = [sh]
+    x = torch.from_numpy(imgs).to(cuda_device)
+    if case == "misaligned input":  # one byte into its storage: byte staging
+        flat = torch.empty(x.numel() + 1, dtype=torch.uint8, device=cuda_device)
+        flat[1:] = x.reshape(-1)
+        x = flat[1:].view(x.shape)
+    ks = [torch.from_numpy(k).to(cuda_device) for k in kernels]
+    final = imgs.shape[-1] >> len(kernels)
+    for sh in shift_sets:
+        shifts = torch.tensor(sh, dtype=torch.int32, device=cuda_device)
+        want = [a.float().cpu().numpy() if a is not None and a.dtype == torch.bfloat16
+                else (a.cpu().numpy() if a is not None else None)
+                for a in mega.mega_reference(x, ks, shifts, compute_dtype="int32")]
+        for flags in COMBOS:
+            if flags[1] and final % 4:
+                continue
+            got = mega.cnn_forward_mega(x, ks, shifts, with_feats=flags[0],
+                                        with_bins=flags[1], with_twin=flags[2])
+            torch.cuda.synchronize()
+            _assert_outputs(got, want, flags)

@@ -41,7 +41,7 @@ from tpu_cnn_torch.engine import cuda as peng  # noqa: E402
 from tpu_cnn_torch.engine.cuda import CUDAEngine  # noqa: E402
 from tpu_cnn_torch.models.cnn import TorchFpgaCNN  # noqa: E402
 from tpu_cnn_torch.ops import detect_head as head  # noqa: E402
-from tpu_cnn_torch.utils import host_twins  # noqa: E402
+from tpu_cnn_torch.head import cam as host_twins  # noqa: E402
 
 SCORE_ATOL = 1e-4
 CAM_ATOL = 1e-6
@@ -370,7 +370,7 @@ def test_empty_mask_gives_no_instance():
 
 @pytest.mark.parametrize("max_instances", [1, 2, 3])
 def test_jax_free_instance_twin_equals_the_host_twin(feats, max_instances):
-    assert (host_twins.CORE_PERCENTILE == jhead.CAM_CORE_PERCENTILE
+    assert (host_twins.CAM_CORE_PERCENTILE == jhead.CAM_CORE_PERCENTILE
             == head.CAM_CORE_PERCENTILE)
     f, w = feats
     fm = np.zeros((S, S), np.uint8)
@@ -385,13 +385,13 @@ def test_jax_free_instance_twin_equals_the_host_twin(feats, max_instances):
 
 
 def test_host_instance_twin_imports_jax_and_the_ports_does_not():
-    """The fault the port's twin works around: the host twin
-    ``head.cam.cam_instances`` imports ``tpu_cnn.ops.detect_head``, and so
-    jax, for one constant."""
+    """The fault the port's copy works around: the host twin
+    ``tpu_cnn.head.cam.cam_instances`` imports ``tpu_cnn.ops.detect_head``,
+    and so jax, for one constant; ``tpu_cnn_torch.head.cam`` pins it."""
     code = (
         "import sys, numpy as np\n"
         "from tpu_cnn.head import cam\n"
-        "from tpu_cnn_torch.utils import host_twins\n"
+        "from tpu_cnn_torch.head import cam as host_twins\n"
         "f = np.zeros((4, 256), np.uint8); w = np.ones((6, 64), np.float32)\n"
         "host_twins.cam_instances(f, w)\n"
         "print('jax' in sys.modules)\n"

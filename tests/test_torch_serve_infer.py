@@ -23,7 +23,6 @@ import pytest
 torch = pytest.importorskip(
     "torch", reason="torch not installed: the PyTorch port cannot be tested")
 
-from tpu_cnn.apps.serve import ServiceHTTPServer, make_handler  # noqa: E402
 from tpu_cnn.engine.cpu_ref import numpy_cnn_forward  # noqa: E402
 from tpu_cnn.head.cam import cam_bbox_fast  # noqa: E402
 from tpu_cnn.head.classify import classify_np  # noqa: E402
@@ -56,7 +55,8 @@ def _service(**kwargs):
     """A CPU service on an ephemeral loopback port; yields request()."""
     batcher, backend = serve.build_service(device="cpu", max_wait_ms=2.0,
                                            **kwargs)
-    srv = ServiceHTTPServer(("127.0.0.1", 0), make_handler(batcher, backend))
+    srv = serve.ServiceHTTPServer(("127.0.0.1", 0),
+                                  serve.make_handler(batcher, backend))
     th = threading.Thread(target=srv.serve_forever, daemon=True)
     th.start()
 
@@ -198,8 +198,8 @@ def test_serve_unported_modes_exit(argv):
 
 _MULTI_SERVICE = """
 import http.client, json, sys, threading
-from tpu_cnn.apps.serve import ServiceHTTPServer, make_handler
 from tpu_cnn_torch.apps import serve
+from tpu_cnn_torch.apps.serve import ServiceHTTPServer, make_handler
 paths, urls = json.loads(sys.argv[1]), json.loads(sys.argv[2])
 batcher, backend = serve.build_service(device="cpu", max_batch=4,
                                        max_wait_ms=2.0, multi=True,

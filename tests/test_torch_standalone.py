@@ -1,0 +1,129 @@
+"""The port stands alone: no module of ``tpu_cnn_torch`` and not
+``chip_smoke.py`` imports the JAX package ``tpu_cnn`` or ``jax``, at the
+top or inside a function, and the port's modules and CLIs run in a process
+that refuses both imports.
+
+The tests themselves import ``tpu_cnn``: holding the port's copies against
+their originals is their job (``test_torch_copies.py``)."""
+
+import ast
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT_FILES = sorted(
+    os.path.relpath(os.path.join(d, f), REPO)
+    for d, _, fs in os.walk(os.path.join(REPO, "tpu_cnn_torch"))
+    for f in fs if f.endswith(".py")) + ["chip_smoke.py"]
+REFUSED = ("jax", "tpu_cnn")
+VERDICT = "VERDICT: DESIGN IS BIT-ACCURATE across all backends"
+
+
+def _refused(name: str) -> bool:
+    return any(name == r or name.startswith(r + ".") for r in REFUSED)
+
+
+def _imports(path: str) -> list[str]:
+    """Every module an ``import`` or ``from ... import`` in the file names,
+    wherever the statement stands (relative imports resolve inside the
+    port)."""
+    with open(os.path.join(REPO, path)) as f:
+        tree = ast.parse(f.read(), path)
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module or "")
+            names += [f"{node.module}.{a.name}" for a in node.names]
+    return names
+
+
+def test_the_scan_sees_the_port():
+    assert len(PORT_FILES) >= 30
+    assert "tpu_cnn_torch/ops/mega.py" in PORT_FILES
+    assert _imports("tpu_cnn_torch/ops/_build.py")  # it does parse imports
+    assert not _refused("tpu_cnn_torch.ops") and _refused("tpu_cnn.ops")
+    assert _refused("jax.numpy") and not _refused("jaxlib_free")
+
+
+@pytest.mark.parametrize("path", PORT_FILES)
+def test_no_import_of_the_jax_package(path):
+    bad = [n for n in _imports(path) if _refused(n)]
+    assert not bad, f"{path} imports {bad}"
+
+
+_REFUSING_PROCESS = r"""
+import importlib, io, json, pkgutil, runpy, sys
+from contextlib import redirect_stdout
+
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if any(name == r or name.startswith(r + ".") for r in ("jax", "tpu_cnn")):
+            raise ImportError(f"refused: {name}")
+        return None
+
+sys.meta_path.insert(0, Refuse())
+import tpu_cnn_torch
+names = [m.name for m in pkgutil.walk_packages(tpu_cnn_torch.__path__,
+                                                 "tpu_cnn_torch.")]
+for n in names:
+    importlib.import_module(n)
+runs = {}
+for argv in (["tpu_cnn_torch.apps.verify", "--device", "cpu",
+              "--variant", "lyr3-tiny"],
+             ["tpu_cnn_torch.apps.infer", "--image",
+              "artifacts/pretrained/test_image_0_class3.bin", "--device",
+              "cpu", "--no-save"]):
+    out = io.StringIO()
+    sys.argv = [argv[0]] + argv[1:]
+    code = 0
+    with redirect_stdout(out):
+        try:
+            runpy.run_module(argv[0], run_name="__main__", alter_sys=True)
+        except SystemExit as e:
+            code = e.code or 0
+    runs[argv[0]] = (code, out.getvalue())
+loaded = sorted(m for m in sys.modules
+                if any(m == r or m.startswith(r + ".") for r in ("jax", "tpu_cnn")))
+print(json.dumps({"modules": names, "runs": runs, "loaded": loaded}))
+"""
+
+
+@pytest.fixture(scope="module")
+def refusing_run():
+    """One process that refuses ``tpu_cnn`` and ``jax``: imports every
+    port module, then runs the verify and infer CLIs as ``python -m``."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", _REFUSING_PROCESS], cwd=REPO,
+                          env=env, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-4000:]
+    return json.loads(proc.stdout.splitlines()[-1])
+
+
+def test_every_module_imports_with_the_jax_package_refused(refusing_run):
+    names = refusing_run["modules"]
+    assert len(names) >= 30, names
+    for n in ("tpu_cnn_torch.head.cam", "tpu_cnn_torch.native.oracle",
+              "tpu_cnn_torch.engine.cpu_ref", "tpu_cnn_torch.apps.common",
+              "tpu_cnn_torch.models.registry", "tpu_cnn_torch.utils.weights"):
+        assert n in names
+    assert refusing_run["loaded"] == []
+
+
+def test_verify_cli_with_the_jax_package_refused(refusing_run):
+    code, out = refusing_run["runs"]["tpu_cnn_torch.apps.verify"]
+    assert code == 0, out
+    assert VERDICT in out
+    assert "numpy vs native    : BIT-EXACT" in out
+
+
+def test_infer_cli_with_the_jax_package_refused(refusing_run):
+    code, out = refusing_run["runs"]["tpu_cnn_torch.apps.infer"]
+    assert code == 0, out
+    assert "Image:      test_image_0_class3.bin (true: class 3)" in out
+    assert "Prediction:" in out and "BBox:" in out

@@ -77,12 +77,10 @@ def test_corrupted_backend_exits_1_with_the_report(monkeypatch, capsys):
 
 
 def test_named_backend_that_cannot_run_exits_nonzero(monkeypatch, capsys):
-    from tpu_cnn.native import oracle
-
     def broken():
         raise RuntimeError("native oracle build failed")
 
-    monkeypatch.setattr(oracle, "NativeOracle", broken)
+    monkeypatch.setattr(verify, "NativeOracle", broken)
     rc = verify.main(["--device", "cpu", "--variant", "lyr3-tiny",
                       "--backends", "numpy,native,pallas"])
     out = capsys.readouterr().out
@@ -119,3 +117,6 @@ def test_stimuli_are_the_references():
     assert list(stims) == ["ramp", "zeros", "full255", "random0", "random1"]
     assert all(s.shape == (32, 32) and s.dtype == np.uint8
                for s in stims.values())
+    ours = verify.make_stimuli(2, None, size=32)
+    assert list(ours) == list(stims)
+    assert all(np.array_equal(ours[k], stims[k]) for k in stims)

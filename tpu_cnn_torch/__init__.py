@@ -2,23 +2,38 @@
 
 The JAX package ``tpu_cnn`` stays the reference; this package runs the same
 fixed-point contract (uint8 activations, int8 weights, conv3x3 -> >>shift ->
-clip 0..255 -> 2x2 max pool) with plain PyTorch around one hand-written CUDA
-kernel:
+clip 0..255 -> 2x2 max pool) with plain PyTorch around hand-written CUDA
+kernels (``csrc/``, built by ``ops._build``):
 
-  - ``models.cnn``        — ``TorchFpgaCNN``: the int8 kernels, shifts and
-                            head as buffers on an explicit device
-  - ``ops.quant``         — the contract in plain torch (the kernel's
+  - ``models.cnn``        — ``CNNConfig``, the numpy ``FpgaCNN`` holder and
+                            ``TorchFpgaCNN`` (the int8 kernels, shifts and
+                            head as buffers on an explicit device)
+  - ``models.registry``   — the named geometries (lyr3-std, lyr4-wide, ...)
+  - ``ops.quant``         — the contract in plain torch (the kernels'
                             reference and the CPU path)
-  - ``ops.mega``          — the whole-net megakernel
-                            (``csrc/mega_cnn.cu``) and its wrapper
-  - ``ops.detect_head``   — the single-box head: classifier + CAM box
+  - ``ops.mega``          — the megakernel (``csrc/mega_cnn.cu``), its
+                            weight packing and the chained plan
+  - ``ops.conv_pool``     — the layer kernel (``csrc/conv_pool_layer.cu``)
+  - ``ops.int8``          — the conv kernel (``csrc/conv_act.cu``) and the
+                            ``pallas``/``hybrid`` forwards
+  - ``ops.bitcast``       — the bitcast/roll probe's kernel
+                            (``csrc/bitcast.cu``)
+  - ``ops.detect_head``   — the device head: classifier, CAM boxes, the
+                            multi-object and instance heads
   - ``engine.cuda``       — ``CUDAEngine``: batched fused detect
-  - ``bench_gate``        — the bench's parity gate, without JAX
-  - ``apps.infer`` / ``apps.serve`` — the CLI and the HTTP service
+  - ``engine.cpu_ref``    — the numpy oracle (``numpy_cnn_forward``)
+  - ``native.oracle``     — the C++ oracle (``native/cnn_oracle.cpp``)
+  - ``head``              — the host numpy twins of the head (``cam``,
+                            ``classify``, ``bbox``)
+  - ``utils``             — the weights.bin and bundle codecs, artifact
+                            paths, the completion wait
+  - ``bench_gate``        — the bench's parity gate
+  - ``apps``              — ``infer``, ``serve``, ``verify`` and
+                            ``probe_bitcast`` CLIs, and their ``common``
 
-It imports ``torch`` and the JAX-free modules of ``tpu_cnn`` (model
-config, artifact codecs, numpy oracles, host head twins, the serving
-layer), and never ``jax``.
+It imports ``torch`` and numpy, and nothing of ``tpu_cnn`` or ``jax``:
+where it needs a JAX-free piece of the JAX package it keeps its own copy
+(the tests hold each copy equal to its original).
 """
 
 __version__ = "0.1.0"

@@ -3,8 +3,8 @@
 The ``tpu_cnn.apps.infer`` surface with ``CUDAEngine`` in place of the TPU
 engine: one ``--image`` or a directory sweep of ``test_image_*_classC.bin``
 scored against the filename labels. Classification and the printed box
-come from ``tpu_cnn.apps.infer.run_inference`` (the host head on the
-engine's features), unchanged. With ``--multi`` each image's
+come from ``run_inference`` (the host head on the engine's features), the
+port's copy of the JAX CLI's. With ``--multi`` each image's
 "Detections" lines come from the engine's multi-object detect on the
 device (``CUDAEngine.detect_multi_batch``; ``--instances N`` adds the
 watershed instances), in the JAX CLI's format; ``--instances`` without
@@ -34,11 +34,141 @@ import time
 
 import numpy as np
 
-from tpu_cnn.apps.common import load_model
-from tpu_cnn.apps.infer import annotate_multi_and_save, run_inference
-from tpu_cnn.utils import artifacts as art
-from tpu_cnn.utils.paths import default_artifacts
-from tpu_cnn_torch.engine.cuda import BACKENDS, DEFAULT_MULTI_THRESH, CUDAEngine
+from tpu_cnn_torch.apps.common import load_model
+from tpu_cnn_torch.engine.cuda import (BACKENDS, DEFAULT_MULTI_THRESH, CUDAEngine,
+                                       detections_above, instance_detections)
+from tpu_cnn_torch.head import cam as cam_host
+from tpu_cnn_torch.head import classify as classify_host
+from tpu_cnn_torch.head.bbox import bbox_regress_features_np
+from tpu_cnn_torch.utils import artifacts as art
+from tpu_cnn_torch.utils.paths import default_artifacts
+
+
+def annotate_and_save(image_flat, bbox, label, out_path, img_size=128):
+    """Green bbox + label band, the reference CLI's output format."""
+    from PIL import Image, ImageDraw
+
+    gray = image_flat.reshape(img_size, img_size)
+    rgb = np.stack([gray, gray, gray], axis=2)
+    img = Image.fromarray(rgb, "RGB")
+    draw = ImageDraw.Draw(img)
+    x1, y1, x2, y2 = bbox
+    draw.rectangle([x1, y1, x2, y2], outline=(0, 255, 0), width=2)
+    ty = max(0, y1 - 14)
+    draw.rectangle([x1, ty, x1 + len(label) * 7, ty + 13], fill=(0, 255, 0))
+    draw.text((x1 + 2, ty + 1), label, fill=(0, 0, 0))
+    img.save(out_path, quality=95)
+
+
+# one fixed colour per class index for multi-object overlays
+MULTI_COLORS = [
+    (0, 255, 0), (255, 160, 0), (80, 160, 255),
+    (255, 80, 255), (255, 255, 0), (0, 255, 220),
+]
+
+
+def annotate_multi_and_save(image_flat, detections, class_names, out_path,
+                            img_size=128):
+    """One labelled box per detection (class_idx, prob, bbox) — the
+    multi-object counterpart of :func:`annotate_and_save`."""
+    from PIL import Image, ImageDraw
+
+    gray = image_flat.reshape(img_size, img_size)
+    rgb = np.stack([gray, gray, gray], axis=2)
+    img = Image.fromarray(rgb, "RGB")
+    draw = ImageDraw.Draw(img)
+    for k, prob, (x1, y1, x2, y2) in detections:
+        color = MULTI_COLORS[k % len(MULTI_COLORS)]
+        label = f"{class_names[k]} {prob:.0%}"
+        draw.rectangle([x1, y1, x2, y2], outline=color, width=2)
+        ty = max(0, y1 - 14)
+        draw.rectangle([x1, ty, x1 + len(label) * 7, ty + 13], fill=color)
+        draw.text((x1 + 2, ty + 1), label, fill=(0, 0, 0))
+    img.save(out_path, quality=95)
+
+
+def run_inference(engine, model, image_path, verbose=True, save_output=True,
+                  box: str = "ref", multi_thresh: float | None = None,
+                  instances: int = 1):
+    """One image through ``engine.run`` and the host head: classification,
+    the printed box (``box``: "ref" the hi-res CAM box, "centroid", "reg")
+    and, with ``multi_thresh``, the host twins' multi-object detections.
+    Returns (class index, name, confidence)."""
+    size = model.config.img_size
+    image = art.load_image_any(image_path, img_size=size)
+    feat, conv_ms, read_ms = engine.run(image)
+
+    idx, name, conf, probs = classify_host.classify_np(
+        feat, model.fc_weight, model.fc_bias, model.class_names
+    )
+    detections = None
+    if multi_thresh is not None:
+        sc = probs
+        if model.multi_head is not None:
+            sc = classify_host.multi_scores_np(
+                classify_host.pool_for_head(feat, model.fc_weight),
+                *model.multi_head)
+        boxes_all = cam_host.cam_bbox_multi(
+            feat, model.fc_weight, img_size=size,
+            box_mode="centroid" if box == "centroid" else "ref",
+        )
+        if instances > 1:
+            inst_boxes, inst_counts = cam_host.cam_instances(
+                feat, model.fc_weight, img_size=size,
+                max_instances=instances,
+            )
+            detections = instance_detections(
+                sc, boxes_all, inst_boxes, inst_counts, multi_thresh
+            )
+        else:
+            detections = detections_above(sc, boxes_all, multi_thresh)
+    if box == "reg":
+        bbox = bbox_regress_features_np(feat, model.bbox_weight, img_size=size)
+    elif model.head_mode != "bins":
+        bbox = (0, 0, size - 1, size - 1)
+    elif box == "centroid":
+        bbox = cam_host.cam_bbox_centroid(feat, idx, model.fc_weight,
+                                          img_size=size)
+    else:
+        _, bbox = cam_host.cam_bbox_hires(feat, idx, model.fc_weight,
+                                          img_size=size)
+
+    if verbose:
+        base = os.path.basename(image_path)
+        true = art.label_from_filename(image_path)
+        suffix = f" (true: class {true})" if true >= 0 else ""
+        print(f"\n  Image:      {base}{suffix}")
+        print(f"  Prediction: {name} (class {idx})")
+        print(f"  Confidence: {conf:.1%}")
+        print(f"  BBox:       ({bbox[0]}, {bbox[1]}) -> ({bbox[2]}, {bbox[3]})")
+        if detections is not None:
+            thr_s = (f"{multi_thresh:.0%}" if np.ndim(multi_thresh) == 0
+                     else "per-class calibrated floors")
+            print(f"  Detections (prob >= {thr_s}):")
+            for k, prob, (x1, y1, x2, y2) in detections:
+                print(f"    {model.class_names[k]:10s} {prob:5.1%}  "
+                      f"({x1}, {y1}) -> ({x2}, {y2})")
+        print(f"  Engine:     {conv_ms:.2f} ms compute + {read_ms:.2f} ms readout")
+        top3 = np.argsort(probs)[::-1][:3]
+        print("  Top-3:")
+        for rank, i in enumerate(top3):
+            print(f"    {rank + 1}. {model.class_names[i]}: {probs[i]:.1%}")
+
+    if save_output:
+        stem = os.path.splitext(os.path.basename(image_path))[0]
+        out_path = os.path.join(
+            os.path.dirname(os.path.abspath(image_path)), f"{stem}_result.jpg"
+        )
+        if detections is not None:
+            annotate_multi_and_save(image, detections, model.class_names,
+                                    out_path, img_size=size)
+        else:
+            annotate_and_save(image, bbox, f"{name} {conf:.0%}", out_path,
+                              img_size=size)
+        if verbose:
+            print(f"  Output:     {out_path}")
+
+    return idx, name, conf
 
 
 def detection_lines(detections, class_names, multi_thresh) -> list[str]:

@@ -1,18 +1,19 @@
 """Detection service on the port's engine — dynamic-batching HTTP server.
 
-The ``tpu_cnn.apps.serve`` service with ``CUDAEngine`` underneath. The
-serving layer itself (``DynamicBatcher``, ``ServiceHTTPServer``,
-``make_handler``) is reused: the batcher coalesces single requests into
-device batches and drives the engine's async detect pipeline. Only the
-multi-object answer is built here (``PortBatcher``), from the engine
-module's JAX-free twins of the detection filters, with the same JSON.
+The port of ``tpu_cnn.apps.serve`` with ``CUDAEngine`` underneath. The
+serving layer (``DynamicBatcher``, ``ServiceHTTPServer``, ``make_handler``,
+``decode_image`` and its host ``preprocess``) is the port's copy of the
+JAX service's: the batcher coalesces single requests into device batches
+and drives the engine's async detect pipeline; the multi-object answers
+come from the engine module's detection filters.
 
 Endpoints:
   POST /detect   body: S x S raw uint8 bytes at the variant's image size
                  (16,384 for lyr3-std's 128x128, 65,536 for lyr4-wide's
-                 256x256); returns JSON {pred, name, conf, probs, bbox},
-                 and with --multi also "detections": [{pred, name, conf,
-                 bbox}, ...] (per-request floor: POST /detect?thresh=0.3)
+                 256x256) or any PIL-decodable image (center-crop, BT.601
+                 luma, area resize); returns JSON {pred, name, conf, probs,
+                 bbox}, and with --multi also "detections": [{pred, name,
+                 conf, bbox}, ...] (per-request floor: POST /detect?thresh=0.3)
   GET  /healthz  liveness + engine backend
   GET  /stats    request/batch counters and latency percentiles
 
@@ -28,49 +29,413 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import io
+import json
+import queue
+import threading
 import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-from tpu_cnn.apps.common import load_model
-from tpu_cnn.apps.serve import DynamicBatcher, ServiceHTTPServer, make_handler
-from tpu_cnn.utils.paths import default_artifacts
+import numpy as np
+
+from tpu_cnn_torch.apps.common import load_model
 from tpu_cnn_torch.engine.cuda import (BACKENDS, DEFAULT_MULTI_THRESH,
                                        CUDAEngine, detections_above,
                                        instance_detections, presence_scores)
+from tpu_cnn_torch.models.cnn import IMG_SIZE
+from tpu_cnn_torch.utils.paths import default_artifacts
+
+# BT.601 fixed-point luma (cv2.COLOR_BGR2GRAY-exact), tpu_cnn/ops/luma.py's
+LUMA_R, LUMA_G, LUMA_B = 4899, 9617, 1868
+LUMA_BIAS, LUMA_SHIFT = 8192, 14
 
 
-class PortBatcher(DynamicBatcher):
-    """``DynamicBatcher`` whose multi-object answers come from the port's
-    detection filters (the base class imports the JAX engine module for
-    them)."""
+def bt601_gray_np(frame: np.ndarray, channel_order: str = "bgr") -> np.ndarray:
+    """(..., 3) uint8 -> (...) uint8 luma, cv2's fixed-point rounding."""
+    c = frame.astype(np.uint32)
+    if channel_order == "bgr":
+        b, g, r = c[..., 0], c[..., 1], c[..., 2]
+    elif channel_order == "rgb":
+        r, g, b = c[..., 0], c[..., 1], c[..., 2]
+    else:
+        raise ValueError(f"channel_order must be 'bgr' or 'rgb', got {channel_order!r}")
+    return ((LUMA_R * r + LUMA_G * g + LUMA_B * b + LUMA_BIAS) >> LUMA_SHIFT).astype(
+        np.uint8
+    )
+
+
+def preprocess(frame: np.ndarray, out_size: int = IMG_SIZE) -> np.ndarray:
+    """Center-crop to square, BT.601 grayscale (cv2.COLOR_BGR2GRAY-exact),
+    area-resize to the model input size: the host twin of the camera
+    pipeline's preprocess (``tpu_cnn.apps.realtime.preprocess``)."""
+    h, w = frame.shape[:2]
+    if w > h:
+        x0 = (w - h) // 2
+        crop = frame[:, x0 : x0 + h]
+    elif h > w:
+        y0 = (h - w) // 2
+        crop = frame[y0 : y0 + w]
+    else:
+        crop = frame
+    if crop.ndim == 3:  # BGR, OpenCV's fixed-point BT.601 luma
+        gray = bt601_gray_np(crop).astype(np.uint32)
+    else:
+        gray = crop
+    s = gray.shape[0]
+    f = s // out_size
+    if f >= 1 and s % out_size == 0:
+        small = gray.reshape(out_size, f, out_size, f).mean(axis=(1, 3))
+    else:
+        idx = (np.arange(out_size) * s // out_size).clip(0, s - 1)
+        small = gray[np.ix_(idx, idx)]
+    return small.astype(np.uint8)
+
+
+class Overloaded(Exception):
+    """The batcher's admission queue is full. Carries a Retry-After hint
+    (seconds) derived from the backlog the client would otherwise join.
+    The reference signals the same condition at the protocol level —
+    ``tready = !busy``
+    (its AXI slave's ``tready``): backpressure is an explicit signal, never a dropped transaction."""
+
+    def __init__(self, retry_after_s: int):
+        super().__init__(f"server overloaded, retry after {retry_after_s}s")
+        self.retry_after_s = retry_after_s
+
+
+class ServiceHTTPServer(ThreadingHTTPServer):
+    """ThreadingHTTPServer with a deep accept backlog. The default
+    ``request_queue_size=5`` RESETS the 6th simultaneous connect while the
+    GIL-bound accept loop is busy — measured as 354 silent client errors
+    at 64 concurrent clients (docs/OPERATIONS.md). Overload must surface
+    as a 503, which requires accepting the connection first."""
+
+    request_queue_size = 128
+    daemon_threads = True
+
+
+class _Pending:
+    __slots__ = ("image", "event", "result", "thresh", "t0")
+
+    def __init__(self, image: np.ndarray, thresh: float | None = None):
+        self.image = image
+        self.event = threading.Event()
+        self.result: dict | None = None
+        self.thresh = thresh  # per-request multi threshold (multi mode)
+        self.t0 = time.perf_counter()  # submit time -> /stats percentiles
+
+
+class DynamicBatcher:
+    """Coalesces single requests into device batches.
+
+    A worker thread drains the queue; a batch launches when ``max_batch``
+    requests are waiting or the oldest has waited ``max_wait_ms``.
+    """
+
+    def __init__(self, engine, class_names, max_batch: int = 256,
+                 max_wait_ms: float = 5.0, img_size: int = IMG_SIZE,
+                 multi: bool = False, multi_thresh: float = 0.15,
+                 instances: int = 1, max_queue: int | None = None):
+        if multi and not hasattr(engine, "detect_multi_batch"):
+            raise ValueError(
+                f"--multi is not supported by this engine "
+                f"({type(engine).__name__}) — it has no detect_multi_batch")
+        if instances > 1:
+            import inspect
+
+            sig = inspect.signature(engine.detect_multi_batch)
+            if "instances" not in sig.parameters:
+                raise ValueError(
+                    f"--instances is not supported by this engine "
+                    f"({type(engine).__name__})")
+        self.instances = instances
+        self.engine = engine
+        self.class_names = class_names
+        self.max_batch = max_batch
+        self.max_wait = max_wait_ms / 1e3
+        self.img_size = img_size
+        self.multi = multi
+        self.multi_thresh = multi_thresh
+        # Bounded admission queue: beyond ~4 full device batches of backlog
+        # the client is better served by an immediate 503 + Retry-After than
+        # by joining a queue whose wait already exceeds any sane deadline.
+        self.max_queue = max_queue if max_queue is not None else 4 * max_batch
+        self.q: queue.Queue[_Pending] = queue.Queue(maxsize=self.max_queue)
+        self.stats = {"requests": 0, "batches": 0, "batch_ms_ema": 0.0,
+                      "mean_batch_size": 0.0, "errors": 0, "shed": 0}
+        # per-request submit->result latencies (ms), last 4096 — /stats
+        # reports p50/p99 from this window (serving SLO measurement,
+        # docs/OPERATIONS.md load harness)
+        from collections import deque
+
+        self._lat: deque[float] = deque(maxlen=4096)
+        self._lock = threading.Lock()
+        self.running = True
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    def submit(self, image: np.ndarray, timeout_s: float = 30.0,
+               thresh: float | None = None) -> dict:
+        p = _Pending(image, thresh)
+        try:
+            self.q.put_nowait(p)
+        except queue.Full:
+            with self._lock:
+                self.stats["shed"] += 1
+                ema = self.stats["batch_ms_ema"]
+            # hint: the time to drain the backlog ahead of this client
+            # (queue depth / batch size, at the EMA batch latency)
+            backlog_batches = self.max_queue / max(1, self.max_batch)
+            retry = max(1, int(round(backlog_batches * max(ema, 50.0) / 1e3)))
+            raise Overloaded(min(retry, 30))
+        if not p.event.wait(timeout_s):
+            raise TimeoutError("inference timed out")
+        assert p.result is not None
+        return p.result
+
+    def _collect(self) -> list[_Pending]:
+        try:
+            first = self.q.get(timeout=0.25)
+        except queue.Empty:
+            return []
+        batch = [first]
+        deadline = time.perf_counter() + self.max_wait
+        while len(batch) < self.max_batch:
+            remaining = deadline - time.perf_counter()
+            if remaining <= 0:
+                break
+            try:
+                batch.append(self.q.get(timeout=remaining))
+            except queue.Empty:
+                break
+        return batch
 
     def _fan_out(self, batch, res):
-        if not self.multi:
-            super()._fan_out(batch, res)
-            return
-        sc = presence_scores(res)
         for i, p in enumerate(batch):
             idx = int(res.pred[i])
-            thr = p.thresh if p.thresh is not None else self.multi_thresh
-            if res.inst_boxes is not None:
-                dets = instance_detections(sc[i], res.boxes[i],
-                                           res.inst_boxes[i],
-                                           res.inst_counts[i], thr)
-            else:
-                dets = detections_above(sc[i], res.boxes[i], thr)
             p.result = {
                 "pred": idx,
                 "name": self.class_names[idx],
                 "conf": float(res.conf[i]),
                 "probs": [float(v) for v in res.probs[i]],
-                "bbox": [int(v) for v in res.boxes[i, idx]],
-                "detections": [{"pred": k, "name": self.class_names[k],
-                                "conf": prob, "bbox": list(bbox)}
-                               for k, prob, bbox in dets],
+                "bbox": [int(v) for v in (res.boxes[i, idx] if self.multi
+                                          else res.bbox[i])],
             }
+            if self.multi:
+                thr = p.thresh if p.thresh is not None else self.multi_thresh
+                sc = presence_scores(res)
+                if getattr(res, "inst_boxes", None) is not None:
+                    dets = instance_detections(
+                        sc[i], res.boxes[i], res.inst_boxes[i],
+                        res.inst_counts[i], thr)
+                else:
+                    dets = detections_above(sc[i], res.boxes[i], thr)
+                p.result["detections"] = [
+                    {"pred": k, "name": self.class_names[k], "conf": prob,
+                     "bbox": list(bbox)}
+                    for k, prob, bbox in dets
+                ]
             p.event.set()
         now = time.perf_counter()
+        lats = [(now - p.t0) * 1e3 for p in batch]
         with self._lock:
-            self._lat.extend((now - p.t0) * 1e3 for p in batch)
+            self._lat.extend(lats)
+
+    def _fail(self, batch, e):
+        for p in batch:
+            p.result = {"error": f"{type(e).__name__}: {e}"}
+            p.event.set()
+        with self._lock:
+            self.stats["errors"] += len(batch)
+
+    def _record(self, n, t0):
+        dt = (time.perf_counter() - t0) * 1e3
+        with self._lock:
+            s = self.stats
+            s["requests"] += n
+            s["batches"] += 1
+            s["batch_ms_ema"] = 0.8 * s["batch_ms_ema"] + 0.2 * dt
+            s["mean_batch_size"] = s["requests"] / s["batches"]
+
+    def _worker(self):
+        """Dispatch loop. With an async-capable engine, batches are
+        dispatched without blocking and resolved by the collector thread —
+        several batches overlap on device (the bench.py pipeline pattern).
+        Host engines fall back to synchronous dispatch."""
+        dispatch_async = getattr(
+            self.engine,
+            "detect_multi_batch_async" if self.multi else "detect_batch_async",
+            None)
+        if self.multi and self.instances > 1 and dispatch_async is not None:
+            import functools
+
+            dispatch_async = functools.partial(dispatch_async,
+                                               instances=self.instances)
+        # resolved lazily inside the per-batch try so an engine without the
+        # method fails each request loudly instead of killing the worker
+        self._dispatch_sync = getattr(
+            self.engine,
+            "detect_multi_batch" if self.multi else "detect_batch",
+            None)
+        if (self.multi and self.instances > 1
+                and self._dispatch_sync is not None):
+            import functools
+
+            self._dispatch_sync = functools.partial(
+                self._dispatch_sync, instances=self.instances)
+        self._resolve = getattr(
+            self.engine,
+            "detect_multi_resolve" if self.multi else "detect_resolve",
+            None)
+        is_async = dispatch_async is not None
+        if is_async:
+            self._inflight: queue.Queue = queue.Queue(maxsize=4)
+            self._collector = threading.Thread(target=self._collect_loop,
+                                               daemon=True)
+            self._collector.start()
+        while self.running:
+            batch = self._collect()
+            if not batch:
+                continue
+            t0 = time.perf_counter()
+            # Pad every device batch to the fixed max_batch shape: one
+            # compiled executable instead of one per power-of-two bucket
+            # (bucket churn stalls serving for minutes per new size).
+            images = np.zeros((self.max_batch, *batch[0].image.shape), np.uint8)
+            for i, p in enumerate(batch):
+                images[i] = p.image
+            try:
+                if is_async:
+                    handle = dispatch_async(images)
+                    self._inflight.put((batch, handle, t0))
+                else:
+                    if self._dispatch_sync is None:
+                        raise AttributeError(
+                            f"{type(self.engine).__name__} has no "
+                            "detect_batch")
+                    res = self._dispatch_sync(images)
+                    self._fan_out(batch, res)
+                    self._record(len(batch), t0)
+            except Exception as e:  # fan the failure out, keep serving
+                self._fail(batch, e)
+
+    def _collect_loop(self):
+        while self.running:
+            try:
+                batch, handle, t0 = self._inflight.get(timeout=0.25)
+            except queue.Empty:
+                continue
+            try:
+                res = self._resolve(handle)
+                self._fan_out(batch, res)
+                self._record(len(batch), t0)
+            except Exception as e:
+                self._fail(batch, e)
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            out = dict(self.stats)
+            lats = sorted(self._lat)
+        out["queue_depth"] = self.q.qsize()
+        inflight = getattr(self, "_inflight", None)
+        out["batches_in_flight"] = inflight.qsize() if inflight else 0
+        if lats:
+            out["p50_ms"] = round(lats[len(lats) // 2], 3)
+            out["p99_ms"] = round(lats[min(len(lats) - 1,
+                                           int(len(lats) * 0.99))], 3)
+        return out
+
+    def stop(self):
+        self.running = False
+
+
+def decode_image(body: bytes, img_size: int = IMG_SIZE) -> np.ndarray:
+    if len(body) == img_size * img_size:
+        return np.frombuffer(body, np.uint8).reshape(img_size, img_size).copy()
+    from PIL import Image
+
+    # Decode, then run the SAME preprocess as every other ingest path
+    # (center-crop, cv2-exact BT.601 luma, area/nearest resize) — PIL's
+    # convert("L")+resize uses different luma rounding and interpolation,
+    # which would make the service classify differently from the camera
+    # pipeline on identical pixels.
+    img = np.asarray(Image.open(io.BytesIO(body)).convert("RGB"), np.uint8)
+    return preprocess(img[..., ::-1], img_size)  # twin expects BGR
+
+
+# Reject request bodies above this size before reading them: the server
+# otherwise buffers attacker-controlled Content-Length bytes in RAM.
+MAX_BODY_BYTES = 8 * 1024 * 1024
+
+
+def make_handler(batcher: DynamicBatcher, backend: str):
+    class Handler(BaseHTTPRequestHandler):
+        def _json(self, code: int, obj: dict, extra_headers=()):
+            body = json.dumps(obj).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            for k, v in extra_headers:
+                self.send_header(k, v)
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            if self.path == "/healthz":
+                self._json(200, {"ok": True, "backend": backend})
+            elif self.path == "/stats":
+                self._json(200, batcher.snapshot())
+            else:
+                self._json(404, {"error": "not found"})
+
+        def do_POST(self):
+            from urllib.parse import parse_qs, urlparse
+
+            url = urlparse(self.path)
+            if url.path != "/detect":
+                self._json(404, {"error": "not found"})
+                return
+            qs = parse_qs(url.query)
+            thresh = None
+            if "thresh" in qs:
+                if not batcher.multi:
+                    self._json(400, {"error": "thresh= needs a --multi "
+                                              "server"})
+                    return
+                try:
+                    thresh = float(qs["thresh"][0])
+                except ValueError:
+                    thresh = float("nan")
+                if not (0.0 <= thresh <= 1.0):  # also rejects NaN
+                    self._json(400, {"error": "bad thresh (need 0..1)"})
+                    return
+            n = int(self.headers.get("Content-Length", 0))
+            if n > MAX_BODY_BYTES:
+                self._json(413, {"error": f"body too large ({n} bytes; "
+                                          f"max {MAX_BODY_BYTES})"})
+                return
+            body = self.rfile.read(n)
+            try:
+                image = decode_image(body, batcher.img_size)
+                result = batcher.submit(image, thresh=thresh)
+            except Overloaded as e:
+                # graceful shed: a protocol-level backpressure signal (the
+                # reference's tready=!busy), never a dropped connection
+                self._json(503, {"error": "overloaded",
+                                 "retry_after_s": e.retry_after_s},
+                           extra_headers=[("Retry-After",
+                                           str(e.retry_after_s))])
+                return
+            except Exception as e:
+                self._json(400, {"error": f"{type(e).__name__}: {e}"})
+                return
+            code = 500 if "error" in result else 200
+            self._json(code, result)
+
+        def log_message(self, *_):
+            pass
+
+    return Handler
 
 
 def build_service(artifacts_dir: str | None = None, device: str = "cuda",
@@ -80,7 +445,7 @@ def build_service(artifacts_dir: str | None = None, device: str = "cuda",
                   multi: bool = False, multi_thresh=None, instances: int = 1):
     """Load the bundle, build and warm a ``CUDAEngine`` on backend ``mode``
     at ``max_batch`` (the batcher pads every batch to it), the multi
-    program too with ``multi``, and put a ``PortBatcher`` in front.
+    program too with ``multi``, and put a ``DynamicBatcher`` in front.
     ``multi_thresh`` None: the bundle's ``multi_thresh.json``, else 0.15.
     Returns (batcher, backend name)."""
     model = load_model(artifacts_dir or default_artifacts(variant), variant,
@@ -93,10 +458,10 @@ def build_service(artifacts_dir: str | None = None, device: str = "cuda",
     engine = CUDAEngine(model, device=device, backend=mode,
                         max_batch=max_batch, box_mode=box)
     engine.warmup(batch=max_batch, multi=multi, instances=instances)
-    batcher = PortBatcher(engine, model.class_names, max_batch=max_batch,
-                          max_wait_ms=max_wait_ms,
-                          img_size=model.config.img_size, multi=multi,
-                          multi_thresh=multi_thresh, instances=instances)
+    batcher = DynamicBatcher(engine, model.class_names, max_batch=max_batch,
+                             max_wait_ms=max_wait_ms,
+                             img_size=model.config.img_size, multi=multi,
+                             multi_thresh=multi_thresh, instances=instances)
     return batcher, engine.backend
 
 

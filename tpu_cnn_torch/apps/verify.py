@@ -1,6 +1,7 @@
 """Cross-implementation parity verifier on the port — the golden-model test.
 
-Port of ``tpu_cnn.apps.verify``. The reference's most important test
+Port of ``tpu_cnn.apps.verify`` (``make_stimuli`` and ``compare`` are its
+copies). The reference's most important test
 compares every value of every channel against a golden model and ends in a
 "DESIGN IS BIT-ACCURATE" verdict; this CLI does the same across
 
@@ -32,22 +33,23 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import glob
 import os
 import sys
 
 import numpy as np
 
-from tpu_cnn.apps.verify import compare, make_stimuli
-from tpu_cnn.head.cam import cam_bbox_fast, cam_bbox_multi
-from tpu_cnn.head.classify import bin_pool_np, classify_np, multi_scores_np
-from tpu_cnn.models.cnn import DEFAULT_SHIFTS, FpgaCNN
-from tpu_cnn.models.registry import default_shifts, get_config
-from tpu_cnn.utils import artifacts as art
-from tpu_cnn.utils import weights as wc
-from tpu_cnn.utils.paths import default_artifacts
+from tpu_cnn_torch.engine.cpu_ref import numpy_cnn_forward
 from tpu_cnn_torch.engine.cuda import CUDAEngine
+from tpu_cnn_torch.head.cam import cam_bbox_fast, cam_bbox_multi, cam_instances
+from tpu_cnn_torch.head.classify import bin_pool_np, classify_np, multi_scores_np
+from tpu_cnn_torch.models.cnn import DEFAULT_SHIFTS, FpgaCNN
+from tpu_cnn_torch.models.registry import default_shifts, get_config
+from tpu_cnn_torch.native.oracle import NativeOracle
 from tpu_cnn_torch.ops import quant
-from tpu_cnn_torch.utils.host_twins import cam_instances
+from tpu_cnn_torch.utils import artifacts as art
+from tpu_cnn_torch.utils import weights as wc
+from tpu_cnn_torch.utils.paths import default_artifacts
 
 # verify backend -> (CUDAEngine backend, compute_dtype)
 ENGINE_BACKENDS = {
@@ -59,6 +61,49 @@ ENGINE_BACKENDS = {
 }
 BACKENDS = ("numpy", "native", *ENGINE_BACKENDS)
 INSTANCES = 2  # the host twin cam_instances' default
+
+
+def make_stimuli(n_random: int, image_dir: str | None, seed: int = 0,
+                 size: int = 128):
+    """Controlled (the testbench ramp, all-zero, all-255), random and, at
+    128x128, on-disk stimuli: {name: (S, S) u8}."""
+    stims = {}
+    i = np.arange(size * size, dtype=np.int64)
+    stims["ramp"] = ((13 * i + 5) % 256).astype(np.uint8).reshape(size, size)
+    stims["zeros"] = np.zeros((size, size), np.uint8)
+    stims["full255"] = np.full((size, size), 255, np.uint8)
+    rs = np.random.RandomState(seed)
+    for k in range(n_random):
+        stims[f"random{k}"] = rs.randint(0, 256, (size, size)).astype(np.uint8)
+    if image_dir and size == 128:
+        for p in sorted(glob.glob(os.path.join(image_dir, "test_image_*.bin")))[:8]:
+            stims[os.path.basename(p)] = np.fromfile(p, np.uint8).reshape(size, size)
+    return stims
+
+
+def compare(reference_name, outputs, stim_names):
+    """Per-channel mismatch report; returns True if all pairs bit-identical."""
+    ok = True
+    ref = outputs[reference_name]
+    for name, out in outputs.items():
+        if name == reference_name:
+            continue
+        if np.array_equal(out, ref):
+            print(f"  {reference_name} vs {name:10s}: BIT-EXACT "
+                  f"({out.size} values over {len(stim_names)} stimuli)")
+            continue
+        ok = False
+        print(f"  {reference_name} vs {name:10s}: MISMATCH")
+        for si, sname in enumerate(stim_names):
+            diff = out[si] != ref[si]
+            if diff.any():
+                per_ch = diff.sum(axis=1)
+                bad = np.nonzero(per_ch)[0]
+                print(f"    stimulus {sname}: {diff.sum()} mismatched values "
+                      f"in channels {bad[:8].tolist()}"
+                      f"{'...' if len(bad) > 8 else ''} "
+                      f"(per-ch max {per_ch.max()})")
+    return ok
 
 
 class BackendUnavailable(RuntimeError):
@@ -74,13 +119,9 @@ def build_backends(model: FpgaCNN, names, device: str):
     for name in names:
         try:
             if name == "numpy":
-                from tpu_cnn.engine.cpu_ref import numpy_cnn_forward
-
                 backends[name] = lambda imgs: np.stack(
                     [numpy_cnn_forward(im, kernels, shifts) for im in imgs])
             elif name == "native":
-                from tpu_cnn.native.oracle import NativeOracle
-
                 oracle = NativeOracle()
                 backends[name] = lambda imgs: oracle.infer_batch(
                     imgs, kernels, shifts)

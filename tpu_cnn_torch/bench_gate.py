@@ -17,10 +17,10 @@ from typing import Callable, Sequence
 
 import numpy as np
 
-from tpu_cnn.engine.cpu_ref import numpy_cnn_forward
-from tpu_cnn.head.cam import cam_bbox_fast
-from tpu_cnn.head.classify import bin_pool_np, classify_np
-from tpu_cnn.models.cnn import DEFAULT_SHIFTS, IMG_SIZE
+from tpu_cnn_torch.engine.cpu_ref import numpy_cnn_forward
+from tpu_cnn_torch.head.cam import cam_bbox_fast
+from tpu_cnn_torch.head.classify import bin_pool_np, classify_np
+from tpu_cnn_torch.models.cnn import DEFAULT_SHIFTS, IMG_SIZE
 
 
 def load_gate_images(art_dir: str, n_real: int = 28, n_noise: int = 4,

@@ -21,7 +21,7 @@ recorded event (the multi head's boxes as u8 and its instance counts as
 int16 on that copy, restored to int32 on the host).
 
 ``presence_scores``, ``detections_above``, ``instance_detections`` and
-``MultiDetectResult`` are the JAX engine module's, without JAX.
+``MultiDetectResult`` are the JAX engine module's, copied.
 
 The device is explicit: ``"cuda"`` runs the kernels and raises when there
 is no card; ``"cpu"`` runs their plain versions (for tests on machines
@@ -29,8 +29,9 @@ without a card). Nothing picks a device on its own.
 
 Engine protocol (``run(gray) -> (features, conv_ms, read_ms)``) and the
 serving protocol (``detect_batch_async`` / ``detect_resolve``) match
-``TPUEngine``, so ``tpu_cnn.apps.infer.run_inference`` and
-``tpu_cnn.apps.serve.DynamicBatcher`` drive it unchanged.
+``TPUEngine``, so the port's copies of ``run_inference`` (``apps.infer``)
+and ``DynamicBatcher`` (``apps.serve``) drive it as the JAX ones drive
+that engine.
 """
 
 from __future__ import annotations
@@ -41,16 +42,14 @@ import time
 import numpy as np
 import torch
 
-from tpu_cnn.models.cnn import FpgaCNN
-from tpu_cnn_torch.models.cnn import TorchFpgaCNN
+from tpu_cnn_torch.models.cnn import FpgaCNN, TorchFpgaCNN
 from tpu_cnn_torch.ops import detect_head, int8, mega, quant
 from tpu_cnn_torch.utils.failguard import wait_event
 
 
 @dataclasses.dataclass
 class DetectResult:
-    """The fields of ``tpu_cnn.engine.tpu.DetectResult`` (which cannot be
-    imported here: that module imports jax)."""
+    """The fields of ``tpu_cnn.engine.tpu.DetectResult``."""
 
     pred: np.ndarray  # (B,) int32
     conf: np.ndarray  # (B,) float32
@@ -196,6 +195,10 @@ class CUDAEngine:
         self.compact_multi = model.config.img_size <= 256
         self._backend = backend
         self.net = TorchFpgaCNN.from_fpga_cnn(model, self.device)
+        # the megakernel's weights, packed once: the engine's kernels never
+        # change (set_shifts changes only the shift vector)
+        self._packed = ([mega.pack_weights(k) for k in self.net.kernels]
+                        if backend == "mega" else None)
         # kernels one pass of the net launches
         if backend == "mega":
             n_head = mega.mega_plan(cfgs)
@@ -230,7 +233,7 @@ class CUDAEngine:
 
     def _mega(self, x: torch.Tensor, **outputs) -> list[torch.Tensor]:
         out = mega.cnn_forward_mega(x, self.net.kernels, self.net.shifts,
-                                    **outputs)
+                                    packed=self._packed, **outputs)
         if x.is_cuda:
             self.launches += self._kernels_per_pass
         return list(out) if isinstance(out, tuple) else [out]

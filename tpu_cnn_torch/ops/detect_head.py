@@ -23,7 +23,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from tpu_cnn.head.cam import CAM_CENTROID_K, SATURATION_MEAN
+from tpu_cnn_torch.head.cam import CAM_CENTROID_K, SATURATION_MEAN
 
 CAM_THRESHOLD_FLOOR = 0.25
 CAM_PERCENTILE = 70.0

@@ -36,7 +36,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tpu_cnn.models.cnn import ACCUM_BITS
+from tpu_cnn_torch.models.cnn import ACCUM_BITS
 
 SHIFT_MAX = 31
 
