@@ -20,8 +20,9 @@ one line each, in order; any failure raises:
 
   1. header   — the card (nvidia-smi name and power limit), torch, CUDA
   2. build    — nvcc builds csrc/mega_cnn.cu, csrc/conv_pool_layer.cu,
-                csrc/conv_act.cu and csrc/bitcast.cu for sm_90a, in
-                parallel
+                csrc/conv_act.cu (the last two: the layer kernel of
+                csrc/conv_layer.cuh, both on csrc/int8_mma.cuh like the
+                megakernel) and csrc/bitcast.cu for sm_90a, in parallel
   3. kernel   — each kernel against its plain PyTorch version on the card,
                 B=37. The megakernel: lyr3-std (shipped and seeded random
                 weights, shifts 2/4/6 and 1/3/5, every with_feats/bins/twin
@@ -32,16 +33,23 @@ one line each, in order; any failure raises:
                 and 31, 3 input channels, a 128-channel middle layer, 35
                 then 13 output channels, a 12-wide layer (no bins there),
                 a one-channel middle layer and one-layer nets on both
-                input paths. The layer kernel:
+                input paths. The layer kernel (conv_pool_layer):
                 lyr4-wide's L0 (shipped and seeded weights, shifts 3 and
                 0), 16->32 at 128^2 and two small odd geometries. The conv
-                kernel: every layer of lyr3-std and lyr4-wide (shipped
-                weights on the plain chain's activations at the model's
-                shift, seeded weights at shifts 0 and 31), the rectangles
-                6x10 and 7x12 and 20->35 across the channel chunks; then
-                its pooled output against the layer kernel on lyr4-wide's
-                L0. Then the lyr4-wide chain against the numpy oracle on 4
-                images. Features and twin bit-equal, bins within 1e-6; the
+                kernel, unpooled and (even maps) pooled: every layer of
+                lyr3-std and lyr4-wide (shipped weights on the plain
+                chain's activations at the model's shift, seeded weights
+                at shifts 0 and 31), the rectangles 6x10 and 7x12 and
+                20->35 across the channel chunks; then its pooled output
+                against conv_pool_layer on lyr4-wide's L0. Then the
+                tensor-core edges of all three entries: all-255 inputs on
+                all +127 and all -128 weights and 0/255 inputs on
+                +127/-128 weights at shifts 0 and 31, input channels
+                1/3/20/64 against output channels 5/13/35/128 at 7x12,
+                6x10 and 38x38, lyr4-wide's L3 (64->128 at 32^2). Every
+                layer-kernel case runs with the weights packed per call
+                and packed once. Then the lyr4-wide chain against the
+                numpy oracle on 4 images. Features and twin bit-equal, bins within 1e-6; the
                 plain f32 and int32 versions bit-equal to each other. The
                 bitcast kernel's narrow, widen and roll (shifts 3, 0, -1,
                 L+2) bit-equal at (8, 256), (5, 37), (1024, 4096) and
@@ -76,7 +84,10 @@ one line each, in order; any failure raises:
                 chain and their plain versions, each with its bound (the
                 card's int8 tensor-core and HBM peaks) and its share of
                 it; the conv kernel on each
-                lyr3-std layer and lyr4-wide's L0 and its plain version;
+                lyr3-std layer and lyr4-wide's L0, unpooled and pooled,
+                each with its bound, and its plain version; a
+                torch.profiler list of the device kernels of the lyr3-std
+                pallas pass (the conv kernel per layer, no torch pool);
                 the async-pipelined engine detect FPS of each family on
                 mega and of lyr3-std on pallas and hybrid; on lyr3-std/mega
                 the multi detect FPS at instances 1 and 2 beside the
@@ -93,8 +104,9 @@ kernel (lyr3-std/mega: the megakernel; lyr4-wide/mega: the megakernel and
 the layer kernel; lyr4-wide/pallas and lyr3-std/hybrid: the conv kernel;
 the probe: the bitcast kernel; the multi paths: the megakernel, then the
 conv kernel). The line before the last is a JSON object with each
-kernel's launches (summed over the paths), error, times and bound; the
-last line is {"ok": true, "device": {...}}.
+kernel's launches (summed over the paths), error, times and bound (and
+the conv kernel's pooled time and bound on lyr3-std); the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -131,7 +143,7 @@ from tpu_cnn_torch.engine.cuda import (DEFAULT_MULTI_THRESH, CUDAEngine,  # noqa
 from tpu_cnn_torch.head.cam import cam_bbox_fast, cam_bbox_multi, cam_instances  # noqa: E402
 from tpu_cnn_torch.head.classify import classify_np, multi_scores_np, pool_for_head  # noqa: E402
 from tpu_cnn_torch.models.registry import default_shifts, get_config  # noqa: E402
-from tpu_cnn_torch.ops import _build, bitcast, conv_pool, detect_head, int8, mega  # noqa: E402
+from tpu_cnn_torch.ops import _build, bitcast, conv_pool, detect_head, int8, mega, quant  # noqa: E402
 from tpu_cnn_torch.utils import artifacts as art  # noqa: E402
 from tpu_cnn_torch.utils.artifacts import label_from_filename  # noqa: E402
 
@@ -187,18 +199,21 @@ def bound(macs: float, nbytes: float) -> tuple[float, str]:
 
 
 def layers_bound(layer_configs, batch: int, out_bytes: int,
-                 pooled: bool = True) -> tuple[float, str]:
-    """``bound`` of a stack of contract layers at ``batch``: the first
-    layer's u8 input, the weights and ``out_bytes`` per image of output.
-    With ``pooled`` False each layer is its own call (the conv kernel: one
-    launch a layer, its input read and its unpooled output written), and
-    the bounds add up."""
+                 calls: str = "net") -> tuple[float, str]:
+    """``bound`` of a stack of contract layers at ``batch``. ``calls``:
+    "net", one call for the stack (the megakernel, the layer kernel): the
+    first layer's u8 input, the weights and ``out_bytes`` per image of
+    output; "unpooled" or "pooled", each layer its own call of the conv
+    kernel (its input read, its output written: ``oc * s^2`` unpooled,
+    ``oc * (s/2)^2`` pooled), and the bounds add up."""
     weights = sum(oc * ic * 9 for ic, oc, _ in layer_configs)
-    if pooled:
+    if calls == "net":
         ic, _, s = layer_configs[0]
         return bound(macs_per_image(layer_configs) * batch,
                      ic * s * s * batch + weights + out_bytes * batch)
-    parts = [bound(oc * ic * 9 * s * s * batch, (ic + oc) * s * s * batch + oc * ic * 9)
+    div = 4 if calls == "pooled" else 1
+    parts = [bound(oc * ic * 9 * s * s * batch,
+                   (ic * s * s + oc * s * s // div) * batch + oc * ic * 9)
              for ic, oc, s in layer_configs]
     kinds = {k for _, k in parts}
     return sum(t for t, _ in parts), kinds.pop() if len(kinds) == 1 else "mixed"
@@ -411,7 +426,7 @@ def layer_vs_plain(dev: torch.device) -> tuple[float, int]:
         setups.append((f"{ic}->{oc}@{s}/{sh}",
                        rs.randint(0, 256, (KERNEL_BATCH, ic, s, s)).astype(np.uint8),
                        rs.randint(-127, 128, (oc, ic, 3, 3)).astype(np.int8), sh))
-    max_err = 0.0
+    max_err, n_cases = 0.0, 0
     for name, x_np, k_np, sh in setups:
         x = torch.from_numpy(x_np).to(dev)
         k = torch.from_numpy(k_np).to(dev)
@@ -419,14 +434,18 @@ def layer_vs_plain(dev: torch.device) -> tuple[float, int]:
         ref = conv_pool.conv_pool_reference(x, k, shifts, 1)
         ref_int = conv_pool.conv_pool_reference(x, k, shifts, 1,
                                                 compute_dtype="int32")
-        got = conv_pool.conv_pool_layer(x, k, shifts, 1)
         torch.cuda.synchronize()
         check(torch.equal(ref, ref_int),
               f"{name}: plain f32 and int32 paths disagree on the card")
-        check(got.dtype == torch.uint8 and torch.equal(got, ref),
-              f"{name}: layer kernel differs from its plain version")
-        max_err = max(max_err, (got.int() - ref.int()).abs().max().item())
-    return max_err, len(setups)
+        for packed in (None, mega.pack_layer(k)):
+            got = conv_pool.conv_pool_layer(x, k, shifts, 1, packed=packed)
+            torch.cuda.synchronize()
+            check(got.dtype == torch.uint8 and torch.equal(got, ref),
+                  f"{name} packed={packed is not None}: layer kernel differs "
+                  f"from its plain version")
+            max_err = max(max_err, (got.int() - ref.int()).abs().max().item())
+            n_cases += 1
+    return max_err, n_cases
 
 
 def act_vs_plain(dev: torch.device) -> tuple[float, int]:
@@ -460,19 +479,17 @@ def act_vs_plain(dev: torch.device) -> tuple[float, int]:
         setups.append((f"{ic}->{oc}@{h}x{w}/3", torch.from_numpy(rs.randint(
             0, 256, (KERNEL_BATCH, ic, h, w)).astype(np.uint8)).to(dev),
             rs.randint(-127, 128, (oc, ic, 3, 3)).astype(np.int8), 3))
-    max_err = 0.0
+    max_err, n_cases = 0.0, 0
     for name, x, k_np, sh in setups:
         k = torch.from_numpy(k_np).to(dev)
         shifts = torch.tensor([7, sh], dtype=torch.int32, device=dev)  # layer 1
         ref = int8.conv_act_reference(x, k, shifts, 1)
         ref_int = int8.conv_act_reference(x, k, shifts, 1, compute_dtype="int32")
-        got = int8.conv_act(x, k, shifts, 1)
         torch.cuda.synchronize()
         check(torch.equal(ref, ref_int),
               f"{name}: plain f32 and int32 paths disagree on the card")
-        check(got.dtype == torch.uint8 and torch.equal(got, ref),
-              f"{name}: conv kernel differs from its plain version")
-        max_err = max(max_err, (got.int() - ref.int()).abs().max().item())
+        err, n = _conv_entries(name, x, k, shifts, 1, ref)
+        max_err, n_cases = max(max_err, err), n_cases + n
 
     # two hand-written kernels on one function: conv + pool, lyr4-wide L0
     model = load_model(ARTIFACTS["lyr4-wide"], "lyr4-wide")
@@ -483,9 +500,85 @@ def act_vs_plain(dev: torch.device) -> tuple[float, int]:
     pooled = int8.fused_conv_layer(x, k, shifts, 0)
     layer = conv_pool.conv_pool_layer(x, k, shifts, 0)
     torch.cuda.synchronize()
-    check(torch.equal(pooled, layer), "lyr4-wide L0: conv kernel + pool "
+    check(torch.equal(pooled, layer), "lyr4-wide L0: pooled conv kernel "
                                       "differs from the layer kernel")
-    return max_err, len(setups)
+    return max_err, n_cases
+
+
+def _conv_entries(name, x, k, shifts, layer, ref) -> tuple[float, int]:
+    """The conv kernel's unpooled entry and, for an even H and W, its
+    pooled entry (``fused_conv_layer``), each with the weights packed per
+    call and packed once, against ``ref`` (the plain unpooled conv) and
+    its 2x2 max. Returns (largest absolute difference, cases)."""
+    h, w = x.shape[-2:]
+    want = {"unpooled": ref}
+    if h % 2 == 0 and w % 2 == 0:
+        want["pooled"] = quant.maxpool2x2(ref)
+    max_err, n = 0.0, 0
+    for packed in (None, mega.pack_layer(k)):
+        for entry, ref_out in want.items():
+            fn = int8.conv_act if entry == "unpooled" else int8.fused_conv_layer
+            got = fn(x, k, shifts, layer, packed=packed)
+            torch.cuda.synchronize()
+            check(got.dtype == torch.uint8 and torch.equal(got, ref_out),
+                  f"{name} {entry} packed={packed is not None}: conv kernel "
+                  f"differs from its plain version")
+            max_err = max(max_err, (got.int() - ref_out.int()).abs().max().item())
+            n += 1
+    return max_err, n
+
+
+def layer_edges(dev: torch.device) -> tuple[float, int, float, int]:
+    """The layer kernel's tensor-core edges, B=37, through all three of
+    its entries (the conv kernel unpooled and pooled, and conv_pool_layer
+    for a square map), each with the weights packed per call and once:
+    all-255 inputs on all +127 and on all -128 weights and 0/255 inputs
+    on random +127/-128 weights, at shifts 0 and 31, on one-channel,
+    16-channel and 64-channel layers; then input channels 1, 3, 20 and 64
+    (K padded) against output channels 5, 13, 35 and 128 (N tiles padded)
+    on the rectangles 7x12 (unpooled) and 6x10 and on 38x38, and
+    lyr4-wide's L3 (64 -> 128 at 32^2). Returns (the conv kernel's largest
+    absolute difference, its cases, the layer kernel's, its cases)."""
+    rs = np.random.RandomState(11)
+    b, setups = KERNEL_BATCH, []
+    for ic, oc in ((1, 16), (16, 32), (64, 128)):
+        sat = np.full((b, ic, 32, 32), 255, np.uint8)
+        bits = (rs.randint(0, 2, (b, ic, 32, 32)) * 255).astype(np.uint8)
+        for fill in (127, -128):
+            setups.append((f"all-255 x {fill} {ic}->{oc}", sat,
+                           np.full((oc, ic, 3, 3), fill, np.int8), (0, 31)))
+        setups.append((f"0/255 x 127/-128 {ic}->{oc}", bits, np.where(
+            rs.randint(0, 2, (oc, ic, 3, 3)) == 1, 127, -128).astype(np.int8),
+            (0, 31)))
+    for ic, oc, h, w in ((1, 5, 7, 12), (3, 13, 7, 12), (20, 35, 7, 12),
+                         (64, 128, 7, 12), (1, 35, 6, 10), (3, 128, 6, 10),
+                         (20, 5, 6, 10), (64, 13, 6, 10), (1, 128, 38, 38),
+                         (3, 35, 38, 38), (20, 13, 38, 38), (64, 5, 38, 38),
+                         (64, 128, 32, 32)):
+        setups.append((f"{ic}->{oc}@{h}x{w}",
+                       rs.randint(0, 256, (b, ic, h, w)).astype(np.uint8),
+                       rs.randint(-128, 128, (oc, ic, 3, 3)).astype(np.int8), (3,)))
+    act_err = layer_err = 0.0
+    act_n = layer_n = 0
+    for name, x_np, k_np, shift_set in setups:
+        x = torch.from_numpy(x_np).to(dev)
+        k = torch.from_numpy(k_np).to(dev)
+        h, w = x_np.shape[-2:]
+        for sh in shift_set:
+            shifts = torch.tensor([sh], dtype=torch.int32, device=dev)
+            ref = int8.conv_act_reference(x, k, shifts, 0, compute_dtype="int32")
+            err, n = _conv_entries(f"{name}/{sh}", x, k, shifts, 0, ref)
+            act_err, act_n = max(act_err, err), act_n + n
+            if h == w and h % 2 == 0:
+                want = quant.maxpool2x2(ref)
+                for packed in (None, mega.pack_layer(k)):
+                    got = conv_pool.conv_pool_layer(x, k, shifts, 0, packed=packed)
+                    torch.cuda.synchronize()
+                    check(torch.equal(got, want), f"{name}/{sh} packed="
+                          f"{packed is not None}: layer kernel differs")
+                    layer_err = max(layer_err, (got.int() - want.int()).abs().max().item())
+                    layer_n += 1
+    return act_err, act_n, layer_err, layer_n
 
 
 def chain_vs_oracle(dev: torch.device) -> None:
@@ -555,12 +648,23 @@ def kernel_vs_plain(dev: torch.device) -> dict[str, float]:
                       f"bit-equal feats/twin, bins within {BINS_TOL}; "
                       f"max_abs_err={mega_err!r}")
     layer_err, layer_cases = layer_vs_plain(dev)
-    phase("3 kernel", f"conv_pool_layer: {layer_cases} cases (B={KERNEL_BATCH}) "
-                      f"bit-equal; max_abs_err={layer_err!r}")
+    phase("3 kernel", f"conv_pool_layer: {layer_cases} cases (B={KERNEL_BATCH}; "
+                      f"weights packed per call and once) bit-equal; "
+                      f"max_abs_err={layer_err!r}")
     act_err, act_cases = act_vs_plain(dev)
-    phase("3 kernel", f"conv_act: {act_cases} cases (B={KERNEL_BATCH}) "
-                      f"bit-equal; max_abs_err={act_err!r}; pooled, bit-equal "
-                      f"to conv_pool_layer on lyr4-wide's L0")
+    phase("3 kernel", f"conv_act: {act_cases} cases (B={KERNEL_BATCH}; the "
+                      f"unpooled and, for an even map, the pooled entry, "
+                      f"weights packed per call and once) bit-equal; "
+                      f"max_abs_err={act_err!r}; pooled, bit-equal to "
+                      f"conv_pool_layer on lyr4-wide's L0")
+    edge_act_err, edge_act, edge_layer_err, edge_layer = layer_edges(dev)
+    phase("3 kernel", f"layer kernel edges (all-255 x +127/-128 and 0/255 x "
+                      f"+127/-128 at shifts 0 and 31; ic 1/3/20/64 x oc "
+                      f"5/13/35/128 at 7x12, 6x10 and 38x38; 64->128 at 32^2): "
+                      f"conv_act {edge_act} and conv_pool_layer {edge_layer} "
+                      f"cases bit-equal; max_abs_err={max(edge_act_err, edge_layer_err)!r}")
+    act_err = max(act_err, edge_act_err)
+    layer_err = max(layer_err, edge_layer_err)
     chain_vs_oracle(dev)
     phase("3 kernel", "lyr4-wide chain on 4 shipped images: bit-equal to the "
                       "numpy oracle and the plain chain")
@@ -1069,19 +1173,59 @@ def bitcast_times(dev: torch.device, card: str, rs) -> tuple[float, float]:
     return total[0], total[1]
 
 
+def pallas_profile(card: str, rs) -> None:
+    """torch.profiler over the lyr3-std ``pallas`` pass (the features of
+    ``CUDAEngine(backend="pallas")``) at batch 1536: the device kernels it
+    launches, by name. It must launch the conv kernel once per layer and
+    no torch pool (``quant.maxpool2x2``'s ``aten::amax`` reduction, whose
+    kernel names are read from one profiled call of it first)."""
+    engine = CUDAEngine(load_model(ARTIFACTS["lyr3-std"], "lyr3-std"),
+                        device="cuda", backend="pallas")
+    x = engine._to_device(rs.randint(0, 256, (BENCH_BATCH, 128, 128))
+                          .astype(np.uint8))[0]
+    cuda = torch.autograd.DeviceType.CUDA
+    act = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    probe = torch.zeros((2, 16, 8, 8), dtype=torch.uint8, device=x.device)
+    with torch.profiler.profile(activities=act) as prof:
+        quant.maxpool2x2(probe)
+        torch.cuda.synchronize()
+    pool_kernels = {e.name for e in prof.events() if e.device_type == cuda}
+    engine._features(x)  # warm-up
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=act) as prof:
+        engine._features(x)
+        torch.cuda.synchronize()
+    events = prof.events()
+    names: dict[str, int] = {}
+    for e in events:
+        if e.device_type == cuda:
+            names[e.name] = names.get(e.name, 0) + 1
+    amax = sum(e.name == "aten::amax" for e in events if e.device_type != cuda)
+    conv = sum(n for name, n in names.items() if "conv_layer_kernel" in name)
+    check(pool_kernels and not pool_kernels & set(names) and amax == 0,
+          f"the lyr3-std pallas pass ran a torch pool: {names}, aten::amax {amax}")
+    check(conv == len(engine.net.kernels),
+          f"the lyr3-std pallas pass launched {conv} conv kernels: {names}")
+    phase("7 times", f"lyr3-std pallas pass (batch {BENCH_BATCH}) on {card}, "
+                     f"torch.profiler: device kernels {names}; torch pool "
+                     f"kernels {sorted(pool_kernels)} launched 0 times, "
+                     f"aten::amax {amax}")
+
+
 def times(dev: torch.device, card: str,
           profile_out: str | None) -> dict[str, tuple]:
     """Returns {kernel name: (kernel ms, plain ms, bound ms, bound by,
     library ms or None)} at batch 1536: the megakernel on lyr3-std's whole
     net, the layer kernel on lyr4-wide's L0, the conv kernel on lyr3-std's
-    three layers summed, the bitcast kernel's three functions summed."""
+    three layers summed (and under "conv_act pooled" its pooled entry on
+    them), the bitcast kernel's three functions summed."""
     rs = np.random.RandomState(0)
     # lyr3-std: the whole net in the megakernel
     bundle = art.load_bundle(ARTIFACTS["lyr3-std"])
     imgs = torch.from_numpy(
         rs.randint(0, 256, (BENCH_BATCH, 128, 128)).astype(np.uint8)).to(dev)
     ks = [torch.from_numpy(k).to(dev) for k in bundle.kernels]
-    pk = [mega.pack_weights(k) for k in ks]  # once, as CUDAEngine does
+    pk = mega.pack_plan(ks, 128)  # once, as CUDAEngine does
     shifts = torch.tensor((2, 4, 6), dtype=torch.int32, device=dev)
     kernel_ms, plain_ms, nk, np_ = _kernel_and_plain_ms(
         lambda: mega.cnn_forward_mega(imgs, ks, shifts, with_feats=False,
@@ -1121,13 +1265,13 @@ def times(dev: torch.device, card: str,
         rs.randint(0, 256, (BENCH_BATCH, 256, 256)).astype(np.uint8)).to(dev)
     x = imgs[:, None]
     ks = [torch.from_numpy(k).to(dev) for k in bundle.kernels]
-    pk = [mega.pack_weights(k) for k in ks]
+    pk = mega.pack_plan(ks, 256)  # the layer kernel's L0, K1's L1-L3
     shifts = torch.tensor((3, 5, 5, 7), dtype=torch.int32, device=dev)
-    x16 = conv_pool.conv_pool_layer(x, ks[0], shifts, 0)
+    x16 = conv_pool.conv_pool_layer(x, ks[0], shifts, 0, packed=pk[0])
     detect = dict(with_feats=False, with_bins=True, with_twin=True)
     stages = {
         "layer kernel L0": (
-            lambda: conv_pool.conv_pool_layer(x, ks[0], shifts, 0),
+            lambda: conv_pool.conv_pool_layer(x, ks[0], shifts, 0, packed=pk[0]),
             lambda: conv_pool.conv_pool_reference(x, ks[0], shifts, 0),
             cfgs[:1]),
         "megakernel tail L1-L3": (
@@ -1159,8 +1303,10 @@ def times(dev: torch.device, card: str,
     del imgs, x, x16
     torch.cuda.empty_cache()
 
-    # the conv kernel: each lyr3-std layer, and lyr4-wide's L0 (no pool)
-    act_ms = [0.0, 0.0]
+    # the conv kernel: each lyr3-std layer and lyr4-wide's L0, unpooled
+    # (conv_act) and pooled (fused_conv_layer, what `pallas` and `hybrid`
+    # run); the weights packed once, as CUDAEngine does
+    act_ms, pool_ms = [0.0, 0.0], [0.0, 0.0]
     for variant, layers in (("lyr3-std", (0, 1, 2)), ("lyr4-wide", (0,))):
         model = load_model(ARTIFACTS[variant], variant)
         shifts = torch.from_numpy(model.shifts).to(dev)
@@ -1169,25 +1315,39 @@ def times(dev: torch.device, card: str,
             x = torch.from_numpy(rs.randint(
                 0, 256, (BENCH_BATCH, ic, s, s)).astype(np.uint8)).to(dev)
             k = torch.from_numpy(model.kernels[li]).to(dev)
-            k_ms, p_ms, nk, np_ = _kernel_and_plain_ms(
-                lambda: int8.conv_act(x, k, shifts, li),
-                lambda: int8.conv_act_reference(x, k, shifts, li), 10, 3)
-            tops = oc * ic * 9 * s * s * BENCH_BATCH / (k_ms * 1e-3) / 1e12
-            gbs = (ic + oc) * s * s * BENCH_BATCH / (k_ms * 1e-3) / 1e9
-            phase("7 times", f"{variant} conv_act L{li} ({ic}->{oc} at {s}^2, "
-                             f"no pool) batch {BENCH_BATCH} on {card}: kernel "
-                             f"median {k_ms!r} ms (n={nk}, {tops:.2f} int "
-                             f"TMAC/s, {gbs:.0f} GB/s of u8 in+out), plain "
-                             f"median {p_ms!r} ms (n={np_})")
-            if variant == "lyr3-std":
-                act_ms[0] += k_ms
-                act_ms[1] += p_ms
+            pk = mega.pack_layer(k)
+            for entry, kernel, plain, out_px in (
+                    ("no pool", lambda: int8.conv_act(x, k, shifts, li, packed=pk),
+                     lambda: int8.conv_act_reference(x, k, shifts, li), s * s),
+                    ("pooled", lambda: int8.fused_conv_layer(x, k, shifts, li, packed=pk),
+                     lambda: quant.maxpool2x2(int8.conv_act_reference(x, k, shifts, li)),
+                     s * s // 4)):
+                k_ms, p_ms, nk, np_ = _kernel_and_plain_ms(kernel, plain, 10, 3)
+                tops = oc * ic * 9 * s * s * BENCH_BATCH / (k_ms * 1e-3) / 1e12
+                gbs = (ic * s * s + oc * out_px) * BENCH_BATCH / (k_ms * 1e-3) / 1e9
+                b_ms, _ = layers_bound(((ic, oc, s),), BENCH_BATCH, 0,
+                                       calls="unpooled" if entry == "no pool" else "pooled")
+                phase("7 times", f"{variant} conv_act L{li} ({ic}->{oc} at {s}^2, "
+                                 f"{entry}) batch {BENCH_BATCH} on {card}: kernel "
+                                 f"median {k_ms!r} ms (n={nk}, {tops:.2f} int "
+                                 f"TMAC/s, {gbs:.0f} GB/s of u8 in+out; bound "
+                                 f"{b_ms!r} ms, {b_ms / k_ms:.2%} of it), plain "
+                                 f"median {p_ms!r} ms (n={np_})")
+                if variant == "lyr3-std":
+                    tot = act_ms if entry == "no pool" else pool_ms
+                    tot[0] += k_ms
+                    tot[1] += p_ms
             del x
-    a_bound, a_by = layers_bound(cfgs3, BENCH_BATCH, 0, pooled=False)
+    a_bound, a_by = layers_bound(cfgs3, BENCH_BATCH, 0, calls="unpooled")
+    p_bound, p_by = layers_bound(cfgs3, BENCH_BATCH, 0, calls="pooled")
     out["conv_act"] = (*act_ms, a_bound, a_by, None)
-    phase("7 times", f"lyr3-std conv_act L0+L1+L2 on {card}: kernel "
+    out["conv_act pooled"] = (*pool_ms, p_bound, p_by, None)
+    phase("7 times", f"lyr3-std conv_act L0+L1+L2 on {card}: no pool: kernel "
                      f"{act_ms[0]!r} ms, plain {act_ms[1]!r} ms; bound "
-                     f"{a_bound!r} ms by {a_by}, {a_bound / act_ms[0]:.2%} of it")
+                     f"{a_bound!r} ms by {a_by}, {a_bound / act_ms[0]:.2%} of it. "
+                     f"Pooled: kernel {pool_ms[0]!r} ms, plain {pool_ms[1]!r} ms; "
+                     f"bound {p_bound!r} ms by {p_by}, {p_bound / pool_ms[0]:.2%} "
+                     f"of it")
     torch.cuda.empty_cache()
 
     for variant, backend in (("lyr4-wide", "mega"), ("lyr3-std", "pallas"),
@@ -1198,6 +1358,10 @@ def times(dev: torch.device, card: str,
                          f"FPS of {fps!r}")
         torch.cuda.empty_cache()
     multi_times(card, rs, profile_out)  # lyr3-std on mega: single-box and multi
+    torch.cuda.empty_cache()
+    # after every host-bound FPS: a finished torch.profiler run leaves
+    # CUPTI's launch overhead behind it
+    pallas_profile(card, rs)
     torch.cuda.empty_cache()
     r, l = BITCAST_SHAPES[-1]
     k_ms, p_ms = bitcast_times(dev, card, rs)
@@ -1261,12 +1425,17 @@ def main(argv=None) -> None:
     # no single PyTorch call computes a convolution kernel's function (no
     # u8 x s8 convolution with the shift, clip and pool; torch._int_mm is
     # s8 x s8 after an im2col): library_ms is null for those
-    print(json.dumps({"kernels": [{
+    rows = [{
         "name": name, "route": "cuda", "source": src, "replaces": replaces,
         "launches": launches[name], "max_abs_err": max_err[name],
         "ms": ms[name][0], "plain_ms": ms[name][1], "bound_ms": ms[name][2],
         "bound_by": ms[name][3], "library_ms": ms[name][4]}
-        for name, (src, replaces) in KERNELS.items()]}))
+        for name, (src, replaces) in KERNELS.items()]
+    # the conv kernel's pooled entry, what the pallas and hybrid paths run
+    act = next(r for r in rows if r["name"] == "conv_act")
+    act["pooled_ms"], act["pooled_bound_ms"] = (ms["conv_act pooled"][0],
+                                                ms["conv_act pooled"][2])
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

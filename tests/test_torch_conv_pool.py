@@ -25,7 +25,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from tpu_cnn.engine.cpu_ref import numpy_conv_layer  # noqa: E402
 from tpu_cnn.ops import pallas_poly  # noqa: E402
-from tpu_cnn_torch.ops import conv_pool  # noqa: E402
+from tpu_cnn_torch.ops import conv_pool, mega  # noqa: E402
 
 
 def _case(seed, batch, ic, oc, size):
@@ -80,6 +80,31 @@ def test_layer_matches_numpy_oracle(ic, oc, size, shift):
     x, k = _case(33, 2, ic, oc, size)
     got = _port(x, k, shift, layer=1)
     np.testing.assert_array_equal(got.numpy(), _oracle(x, k, shift))
+
+
+@pytest.mark.parametrize("ic,oc,size", [(1, 16, 256), (4, 8, 64)])
+def test_layer_with_packed_weights_matches_k2_k3_interpret(ic, oc, size):
+    """``packed=`` (``mega.pack_layer``, made once by the weights' owner)
+    does not change the answer on a CPU tensor, nor launch anything: the
+    one-channel recast's packing against K2, the multi-channel packing
+    against K3 (the geometries each TPU kernel takes)."""
+    x, k = _case(39 + ic, 3, ic, oc, size)
+    kt = torch.from_numpy(k)
+    before = conv_pool.launches
+    got = conv_pool.conv_pool_layer(torch.from_numpy(x), kt,
+                                    torch.tensor([3], dtype=torch.int32), 0,
+                                    packed=mega.pack_layer(kt))
+    assert conv_pool.launches == before
+    if ic == 1:
+        want = pallas_poly.conv_pool_layer_poly(
+            jnp.asarray(x), jnp.asarray(k), jnp.int32(3), interpret=True)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    else:
+        want = pallas_poly.conv_pool_layer_phase(
+            jnp.asarray(x), jnp.asarray(k), jnp.int32(3), h=4, interpret=True)
+        np.testing.assert_array_equal(
+            np.asarray(pallas_poly.phase_split_nchw(jnp.asarray(got.numpy()), 4)),
+            np.asarray(want))
 
 
 def test_reference_paths_agree():
@@ -152,3 +177,24 @@ def test_kernel_matches_plain_version_on_card(cuda_device, ic, oc, size,
     assert conv_pool.launches == before + 1
     assert got.dtype == torch.uint8 and got.shape == want.shape
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ic,oc,size,batch", [
+    (1, 16, 256, 37), (1, 5, 10, 37), (1, 128, 32, 3), (64, 128, 32, 5),
+    (3, 13, 38, 5), (1, 35, 6, 37)])
+def test_kernel_with_packed_weights_on_card(cuda_device, ic, oc, size, batch):
+    """Packed once (as ``CUDAEngine`` does) and packed per call agree with
+    the plain version: the one-channel recast at lyr4-wide's L0 and with
+    padded N tiles, the multi-channel path with padded K."""
+    x, k = _case(38, batch, ic, oc, size)
+    kt = torch.from_numpy(k).to(cuda_device)
+    xt = torch.from_numpy(x).to(cuda_device)
+    pk = mega.pack_layer(kt)
+    for shift in (0, 4, 31):
+        shifts = torch.tensor([shift], dtype=torch.int32, device=cuda_device)
+        want = conv_pool.conv_pool_reference(xt, kt, shifts, 0, compute_dtype="int32")
+        got = conv_pool.conv_pool_layer(xt, kt, shifts, 0, packed=pk)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert torch.equal(conv_pool.conv_pool_layer(xt, kt, shifts, 0), want)

@@ -123,6 +123,61 @@ def test_cnn_forward_matches_jax(name, variant):
         want)
 
 
+@pytest.mark.parametrize("ic,oc,h,w", [
+    (1, 16, 32, 32), (16, 32, 16, 16), (3, 5, 6, 10)])
+def test_conv_act_with_packed_weights_matches_k4_interpret(ic, oc, h, w):
+    """``packed=`` (the layer kernel's weights, made once by their owner)
+    does not change the answer on a CPU tensor."""
+    x, k = _case(51 + ic, 5, ic, oc, h, w)
+    fn = _jax_conv_mxu(h, w)
+    xt, kt = _t(x, k)
+    packed = mega.pack_layer(kt)
+    for shift in (0, 3):
+        want = np.asarray(fn(jnp.asarray(x.reshape(5, ic, h * w)),
+                             pallas_int8.pack_kernel_matrix(k), jnp.int32(shift)))
+        got = int8.conv_act(xt, kt, _shifts(7, shift), 1, packed=packed)
+        np.testing.assert_array_equal(got.numpy().reshape(5, oc, h * w), want,
+                                      err_msg=f"shift {shift}")
+
+
+@pytest.mark.parametrize("ic,oc,size,batch", [(1, 16, 64, 2), (16, 32, 32, 4),
+                                              (3, 5, 10, 3)])
+def test_fused_conv_layer_with_packed_weights_matches_jax(ic, oc, size, batch):
+    x, k = _case(62 + ic, batch, ic, oc, size)
+    want = np.asarray(pallas_int8.fused_conv_layer(
+        jnp.asarray(x), pallas_int8.pack_kernel_matrix(k), jnp.int32(4),
+        interpret=True))
+    xt, kt = _t(x, k)
+    before = int8.launches
+    got = int8.fused_conv_layer(xt, kt, _shifts(4), 0, packed=mega.pack_layer(kt))
+    assert int8.launches == before  # a CPU tensor runs the plain version
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("name", ["cnn_forward_pallas", "cnn_forward_hybrid"])
+def test_cnn_forward_with_packed_weights_matches_jax(name):
+    imgs, ks, sh = _net("lyr3-tiny")
+    want = np.asarray(getattr(pallas_int8, name)(
+        jnp.asarray(imgs), [jnp.asarray(k) for k in ks],
+        jnp.asarray(sh, jnp.int32), interpret=True))
+    kts = _t(*ks)
+    got = getattr(int8, name)(torch.from_numpy(imgs), kts, _shifts(*sh),
+                              packed=[mega.pack_layer(k) for k in kts])
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_packed_weights_of_another_kernel_raise():
+    x, k = _case(89, 2, 1, 16, 8)
+    xt, kt = _t(x, k)
+    wrong = mega.pack_weights(kt)  # K1's layout, not the one-channel recast
+    for fn in (int8.conv_act, int8.fused_conv_layer, conv_pool.conv_pool_layer):
+        with pytest.raises(ValueError, match="pack_layer"):
+            fn(xt, kt, _shifts(2), 0, packed=wrong)
+    with pytest.raises(ValueError, match="pack_layer"):
+        int8.cnn_forward_pallas(torch.from_numpy(x[:, 0]), [kt], _shifts(2),
+                                packed=[])
+
+
 def test_pack_kernel_matrix_round_trip():
     _, k = _case(81, 1, 5, 7, 4)
     kmat = int8.pack_kernel_matrix(torch.from_numpy(k))
@@ -268,4 +323,78 @@ def test_kernel_matches_plain_version_on_card(cuda_device, ic, oc, h, w,
     torch.cuda.synchronize()
     assert int8.launches == before + 1
     assert got.dtype == torch.uint8 and got.shape == want.shape
+    assert torch.equal(got, want)
+
+
+# the pooled entry and the layer kernel, unpacked and packed, at the main
+# paths' layers and the tensor-core path's edges: padded K (ic 3, 20),
+# padded N tiles (oc 5, 13, 35), 128 channels, rectangles and 38x38
+CARD_POOLED = [(1, 16, 256, 256, 37), (16, 32, 64, 64, 37), (32, 64, 32, 32, 37),
+               (64, 128, 32, 32, 5), (1, 5, 6, 10, 37), (3, 13, 6, 10, 37),
+               (20, 35, 38, 38, 5), (1, 35, 38, 38, 5), (1, 128, 32, 32, 3),
+               (64, 5, 16, 16, 37)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("ic,oc,h,w,batch", CARD_POOLED)
+def test_pooled_kernel_matches_plain_version_on_card(cuda_device, ic, oc, h, w,
+                                                     batch, packed):
+    x, k = _case(90, batch, ic, oc, h, w)
+    xt = torch.from_numpy(x).to(cuda_device)
+    kt = torch.from_numpy(k).to(cuda_device)
+    pk = mega.pack_layer(kt) if packed else None
+    for shift in (0, 3, 31):
+        shifts = torch.tensor([7, shift], dtype=torch.int32, device=cuda_device)
+        want = conv_pool.conv_pool_reference(xt, kt, shifts, 1, compute_dtype="int32")
+        before, layer_before = int8.launches, conv_pool.launches
+        got = int8.fused_conv_layer(xt, kt, shifts, 1, packed=pk)
+        torch.cuda.synchronize()
+        assert int8.launches == before + 1 and conv_pool.launches == layer_before
+        assert got.dtype == torch.uint8 and torch.equal(got, want), shift
+        if h == w:
+            got = conv_pool.conv_pool_layer(xt, kt, shifts, 1, packed=pk)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), shift
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fill", [127, -128])
+@pytest.mark.parametrize("ic,oc,h,w", [(1, 16, 64, 64), (16, 32, 32, 32),
+                                       (64, 128, 16, 16), (20, 13, 7, 12)])
+def test_extreme_sums_match_plain_version_on_card(cuda_device, ic, oc, h, w, fill):
+    """All-255 inputs on all +127 or all -128 weights (the largest and most
+    negative sums), then 0/255 inputs on ±127/-128 weights, at shifts 0 and
+    31, unpooled and (even sizes) pooled."""
+    rs = np.random.RandomState(91)
+    cases = [(np.full((3, ic, h, w), 255, np.uint8),
+              np.full((oc, ic, 3, 3), fill, np.int8)),
+             ((rs.randint(0, 2, (3, ic, h, w)) * 255).astype(np.uint8),
+              np.where(rs.randint(0, 2, (oc, ic, 3, 3)) == 1, 127, fill).astype(np.int8))]
+    for x, k in cases:
+        xt = torch.from_numpy(x).to(cuda_device)
+        kt = torch.from_numpy(k).to(cuda_device)
+        for shift in (0, 31):
+            shifts = torch.tensor([shift], dtype=torch.int32, device=cuda_device)
+            got = int8.conv_act(xt, kt, shifts, 0)
+            want = int8.conv_act_reference(xt, kt, shifts, 0, compute_dtype="int32")
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), shift
+            if h % 2 == 0 and w % 2 == 0:
+                got = int8.fused_conv_layer(xt, kt, shifts, 0)
+                torch.cuda.synchronize()
+                assert torch.equal(got, quant.maxpool2x2(want)), shift
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ic,oc,h,w", [(1, 35, 7, 12), (1, 13, 6, 10),
+                                       (64, 5, 16, 16), (3, 128, 10, 10)])
+def test_unpooled_kernel_with_packed_weights_on_card(cuda_device, ic, oc, h, w):
+    x, k = _case(92, 37, ic, oc, h, w)
+    xt = torch.from_numpy(x).to(cuda_device)
+    kt = torch.from_numpy(k).to(cuda_device)
+    shifts = torch.tensor([5], dtype=torch.int32, device=cuda_device)
+    want = int8.conv_act_reference(xt, kt, shifts, 0, compute_dtype="int32")
+    got = int8.conv_act(xt, kt, shifts, 0, packed=mega.pack_layer(kt))
+    torch.cuda.synchronize()
     assert torch.equal(got, want)

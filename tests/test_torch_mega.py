@@ -31,7 +31,7 @@ from tpu_cnn.models.registry import REGISTRY, default_shifts, get_config  # noqa
 from tpu_cnn.ops import pallas_poly  # noqa: E402
 from tpu_cnn.utils import artifacts as art  # noqa: E402
 from tpu_cnn.utils.paths import default_artifacts  # noqa: E402
-from tpu_cnn_torch.ops import _build, conv_pool, mega  # noqa: E402
+from tpu_cnn_torch.ops import _build, conv_pool, int8, mega  # noqa: E402
 
 BINS_ATOL = 1e-6
 COMBOS = [c for c in itertools.product((True, False), repeat=3) if any(c)]
@@ -527,3 +527,130 @@ def test_mma_edges_match_plain_version_on_card(cuda_device, case):
                                         with_bins=flags[1], with_twin=flags[2])
             torch.cuda.synchronize()
             _assert_outputs(got, want, flags)
+
+
+# ── the layer kernel's one-channel recast ────────────────────────────
+
+
+def _one_channel_b(packed):
+    """The (16, 4, G*16) int32 operand (K, position, channel) a packed
+    one-channel tensor feeds the MMAs, read by the PTX fragment layout of
+    mma.m16n8k16's B (lane l, byte j: k = 4 (l % 4) + j, n = l // 4; N tile
+    t = 2 p + h holds channels 16 q + 8 h + n at position p), not by the
+    packing's own arithmetic."""
+    groups = packed.shape[0]
+    b = torch.zeros((16, 4, 16 * groups), dtype=torch.int32)
+    for q in range(groups):
+        for t in range(8):
+            p, h = divmod(t, 2)
+            for lane in range(32):
+                for j in range(4):
+                    b[4 * (lane % 4) + j, p, 16 * q + 8 * h + lane // 4] = int(
+                        packed[q, t, lane, j])
+    return b
+
+
+def _one_channel_gemm(x, packed, oc):
+    """The recast GEMM in plain int32 on the CPU: each 2x2 output quad's
+    4x4 input patch (zero outside the image) times the fragment-decoded
+    weight matrix -> (B, quad rows, quad cols, position, oc) sums."""
+    bsz, _, h, w = x.shape
+    qh, qw = -(-h // 2), -(-w // 2)
+    xp = torch.zeros((bsz, 2 * qh + 2, 2 * qw + 2), dtype=torch.int32)
+    xp[:, 1:h + 1, 1:w + 1] = x[:, 0].to(torch.int32)
+    patches = torch.stack([xp[:, r:r + 2 * qh:2, s:s + 2 * qw:2]
+                           for r in range(4) for s in range(4)], dim=-1)
+    b = _one_channel_b(packed)
+    acc = patches.reshape(-1, 16) @ b.reshape(16, -1)
+    return acc.reshape(bsz, qh, qw, 4, -1)[..., :oc]
+
+
+@pytest.mark.parametrize("oc,h,w", [(16, 32, 32), (16, 16, 24), (5, 6, 10),
+                                    (35, 8, 8), (13, 7, 9), (1, 4, 6)])
+def test_one_channel_recast_equals_the_plain_versions(oc, h, w):
+    """The recast (K = the 4x4 patch under a quad, N = 4 positions x oc)
+    holds every output of the conv: the max over positions, shifted and
+    clipped, is the plain pooled layer; the positions laid out as pixels
+    are the plain unpooled conv (odd H or W: the quads past the edge are
+    cut)."""
+    rs = np.random.RandomState(44 + oc + h)
+    k = torch.from_numpy(rs.randint(-128, 128, (oc, 1, 3, 3)).astype(np.int8))
+    x = torch.from_numpy(rs.randint(0, 256, (3, 1, h, w)).astype(np.uint8))
+    packed = mega.pack_one_channel(k)
+    assert packed.dtype == torch.int8 and packed.is_contiguous()
+    assert tuple(packed.shape) == mega.layer_packed_shape(k) == (-(-oc // 16), 8, 32, 4)
+    assert torch.equal(mega.pack_layer(k), packed)
+    acc = _one_channel_gemm(x, packed, oc)
+    qh, qw = acc.shape[1:3]
+    for sh in (0, 4, 31):
+        shifts = torch.tensor([sh], dtype=torch.int32)
+        act = torch.clamp(acc >> sh, 0, 255)
+        full = (act.reshape(3, qh, qw, 2, 2, oc).permute(0, 5, 1, 3, 2, 4)
+                .reshape(3, oc, 2 * qh, 2 * qw)[:, :, :h, :w])
+        assert torch.equal(full.to(torch.uint8), int8.conv_act_reference(
+            x, k, shifts, 0, compute_dtype="int32"))
+        if h % 2 == 0 and w % 2 == 0:
+            pooled = torch.clamp(acc.amax(dim=3) >> sh, 0, 255).permute(0, 3, 1, 2)
+            assert torch.equal(pooled.to(torch.uint8), conv_pool.conv_pool_reference(
+                x, k, shifts, 0, compute_dtype="int32"))
+
+
+def test_one_channel_matrix_places_the_kernel_at_each_position():
+    k = torch.arange(1, 10, dtype=torch.int8).view(1, 1, 3, 3)
+    b = mega.one_channel_matrix(k).view(4, 4, 4, 16)  # (r, s, position, channel)
+    for p in range(4):
+        py, px = divmod(p, 2)
+        want = torch.zeros((4, 4), dtype=torch.int8)
+        want[py:py + 3, px:px + 3] = k[0, 0]
+        assert torch.equal(b[:, :, p, 0], want)
+    assert not b[..., 1:].any()  # padded channels hold zero weights
+
+
+@pytest.mark.parametrize("variant,n_head", [("lyr3-std", 0), ("lyr4-wide", 1)])
+def test_pack_plan_packs_the_head_layers_for_the_layer_kernel(variant, n_head):
+    rs = np.random.RandomState(45)
+    cfg = get_config(variant)
+    ks = [torch.from_numpy(k) for k in _random_kernels(rs, cfg.layer_configs)]
+    packed = mega.pack_plan(ks, cfg.img_size)
+    assert len(packed) == len(ks)
+    for i, (p, k) in enumerate(zip(packed, ks)):
+        want = mega.pack_layer(k) if i < n_head else mega.pack_weights(k)
+        assert torch.equal(p, want)
+
+
+def test_chained_plan_takes_its_packing_on_cpu():
+    """The lyr4-wide chain with ``pack_plan`` gives the plain chain's
+    answer; K1's packing of the head layer is refused, naming both."""
+    rs = np.random.RandomState(46)
+    cfg = get_config("lyr4-wide")
+    ks = [torch.from_numpy(k) for k in _random_kernels(rs, cfg.layer_configs)]
+    imgs = torch.from_numpy(rs.randint(0, 256, (1, 256, 256)).astype(np.uint8))
+    shifts = torch.tensor(default_shifts(cfg), dtype=torch.int32)
+    got = mega.cnn_forward_mega(imgs, ks, shifts,
+                                packed=mega.pack_plan(ks, cfg.img_size))
+    assert torch.equal(got, mega.mega_reference(imgs, ks, shifts)[0])
+    with pytest.raises(ValueError, match="pack_layer .* pack_weights"):
+        mega.cnn_forward_mega(imgs, ks, shifts,
+                              packed=[mega.pack_weights(k) for k in ks])
+
+
+@pytest.mark.parametrize("backend", ["pallas", "hybrid"])
+def test_engine_packs_the_layer_kernel_once(monkeypatch, backend):
+    """The per-layer backends' engine packs the layer kernel's weights when
+    it is built (every layer for pallas, layer 0 for hybrid) and hands
+    them to every pass."""
+    from tpu_cnn_torch.apps.common import load_model
+    from tpu_cnn_torch.engine.cuda import CUDAEngine
+
+    calls = []
+    pack = mega.pack_layer
+    monkeypatch.setattr(mega, "pack_layer", lambda k: calls.append(k) or pack(k))
+    engine = CUDAEngine(load_model(default_artifacts()), device="cpu",
+                        backend=backend)
+    n = 3 if backend == "pallas" else 1
+    assert len(calls) == n
+    for k, p in zip(engine.net.kernels[:n], engine._packed):
+        assert torch.equal(p, pack(k))
+    imgs = np.random.RandomState(47).randint(0, 256, (2, 128, 128)).astype(np.uint8)
+    engine.detect_batch(imgs)
+    assert len(calls) == n

@@ -60,8 +60,8 @@ def test_verify_lyr3_std_shipped_weights(capsys):
 def test_corrupted_backend_exits_1_with_the_report(monkeypatch, capsys):
     real = int8.cnn_forward_pallas
 
-    def corrupted(images, kernels, shifts):
-        out = real(images, kernels, shifts).clone()
+    def corrupted(images, kernels, shifts, **kwargs):
+        out = real(images, kernels, shifts, **kwargs).clone()
         out[0, 3, 5] ^= 1  # one flipped bit in channel 3 of the first stimulus
         return out
 

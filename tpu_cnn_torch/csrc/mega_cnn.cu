@@ -70,6 +70,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "int8_mma.cuh"
+
 namespace {
 
 constexpr int kMaxLayers = 4;
@@ -98,38 +100,6 @@ struct MegaParams {
   int region0_bytes;                   // ping-pong split of shared memory
   int band_rows;                       // image rows of layer 0 per band
 };
-
-// Bytes one pixel of a c-channel map takes in shared memory.
-__host__ __device__ inline int cpad_of(int c) {
-  if (c == 1) return 1;
-  int p = 16;
-  while (p < c) p <<= 1;
-  return p;
-}
-
-// The 16-byte chunk a pixel's channel chunk c sits at: c ^ swz(pixel).
-// cpp = chunks per pixel (1, 2, 4, 8 or more).
-__device__ __forceinline__ int swz(int pixel, int cpp) {
-  return cpp >= 8 ? (pixel & 7)
-       : cpp == 4 ? ((pixel >> 1) & 3)
-       : cpp == 2 ? ((pixel >> 2) & 1) : 0;
-}
-
-__device__ __forceinline__ void mma_u8s8(int (&c)[4], uint32_t a0, uint32_t a1,
-                                         uint32_t a2, uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.u8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-               : "r"(addr));
-}
 
 // One contract layer as an implicit GEMM. `in` holds `2 * n_prow + 2` rows
 // of the S x S input with its halo (pitch S + 2 pixels; row 0 is the halo

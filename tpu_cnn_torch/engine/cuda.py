@@ -195,10 +195,15 @@ class CUDAEngine:
         self.compact_multi = model.config.img_size <= 256
         self._backend = backend
         self.net = TorchFpgaCNN.from_fpga_cnn(model, self.device)
-        # the megakernel's weights, packed once: the engine's kernels never
-        # change (set_shifts changes only the shift vector)
-        self._packed = ([mega.pack_weights(k) for k in self.net.kernels]
-                        if backend == "mega" else None)
+        # the kernels' weights, packed once for every backend that launches
+        # them: the engine's kernels never change (set_shifts changes only
+        # the shift vector)
+        ks = self.net.kernels
+        self._packed = (
+            mega.pack_plan(ks, model.config.img_size) if backend == "mega"
+            else [mega.pack_layer(k) for k in ks] if backend == "pallas"
+            else [mega.pack_layer(ks[0]), *[None] * (len(ks) - 1)]
+            if backend == "hybrid" else None)
         # kernels one pass of the net launches
         if backend == "mega":
             n_head = mega.mega_plan(cfgs)
@@ -245,9 +250,9 @@ class CUDAEngine:
             return self._mega(x, with_feats=True)[0]
         ks, sh = self.net.kernels, self.net.shifts
         if self._backend == "pallas":
-            feats = int8.cnn_forward_pallas(x, ks, sh)
+            feats = int8.cnn_forward_pallas(x, ks, sh, packed=self._packed)
         elif self._backend == "hybrid":
-            feats = int8.cnn_forward_hybrid(x, ks, sh)
+            feats = int8.cnn_forward_hybrid(x, ks, sh, packed=self._packed)
         else:
             feats = quant.cnn_forward(x, ks, sh,
                                       compute_dtype=self.compute_dtype)

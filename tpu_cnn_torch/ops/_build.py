@@ -3,7 +3,9 @@
 Each source under ``tpu_cnn_torch/csrc`` has a plain C interface. It is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/tpu_cnn_torch/`` at the repository root (listed in ``.gitignore``),
-named by a hash of the source so that an edit rebuilds it, and loaded with
+named by a hash of the source and of every header it includes from its own
+directory (``source_digest``), so that an edit to either rebuilds it, and
+loaded with
 ``ctypes``. Nothing is built when a module is imported: the first call on
 a CUDA tensor builds, later calls reuse the loaded library. The C++ oracle
 ``tpu_cnn_torch/native/cnn_oracle.cpp`` is built the same way with ``g++``
@@ -16,6 +18,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -50,15 +53,37 @@ def _nvcc() -> str:
         "/usr/local/cuda/bin): the CUDA kernels need the CUDA toolkit")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def source_digest(src: str, extra: bytes = b"") -> str:
+    """SHA-256 (hex) of ``src``, of every file it ``#include "..."``s
+    relative to its own directory (recursively, each once) and of
+    ``extra``. System headers (``<...>``) are not hashed."""
+    digest = hashlib.sha256()
+    seen, todo = set(), [os.path.abspath(src)]
+    while todo:
+        path = todo.pop(0)
+        if path in seen or not os.path.exists(path):
+            continue
+        seen.add(path)
+        with open(path, "rb") as f:
+            text = f.read()
+        digest.update(text + b"\0")
+        todo += [os.path.join(os.path.dirname(path), inc.decode())
+                 for inc in _INCLUDE.findall(text)]
+    digest.update(extra)
+    return digest.hexdigest()
+
+
 def _compile(src: str, name: str, commands) -> tuple[str, str, float]:
     """Build ``src`` into ``BUILD_DIR`` with the first of ``commands`` (each
     a function of the output path -> argv) that succeeds, unless a library
-    of the same source and commands exists. Returns (library path, the
-    compiler's output, seconds spent building; 0 when cached)."""
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + repr(
-            [cmd("") for cmd in commands]).encode())
-    lib = os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
+    of the same sources (``source_digest``) and commands exists. Returns
+    (library path, the compiler's output, seconds spent building; 0 when
+    cached)."""
+    digest = source_digest(src, repr([cmd("") for cmd in commands]).encode())
+    lib = os.path.join(BUILD_DIR, f"lib{name}_{digest[:16]}.so")
     if os.path.exists(lib):
         return lib, "", 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)

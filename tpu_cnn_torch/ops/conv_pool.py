@@ -14,7 +14,9 @@ writes NCHW:
 On a CUDA tensor the wrapper launches the kernel; on a CPU tensor it runs
 the plain version, ``conv_pool_reference`` (one layer of ``ops.quant``).
 Any other device, or a CUDA call the kernel cannot take, raises: nothing
-falls back.
+falls back. The kernel is the pooled layer kernel of ``csrc/conv_layer.cuh``
+(as is ``int8.fused_conv_layer``'s): it reads the weights packed by
+``mega.pack_layer``, made once by the weights' owner or here on each call.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import functools
 
 import torch
 
-from tpu_cnn_torch.ops import _build, quant
+from tpu_cnn_torch.ops import _build, mega, quant
 
 # kernel launches made by this wrapper in this process
 launches = 0
@@ -68,11 +70,13 @@ def _check_inputs(x, kernel, shifts, layer):
         raise ValueError(f"layer {layer} outside the {shifts.shape[0]} shifts")
 
 
-def _launch(x, kernel, shifts, layer):
+def _launch(x, kernel, shifts, layer, packed):
     """The kernel on the tensors' CUDA device and current stream."""
     global launches
     dev = x.device
-    tensors = (x, kernel, shifts)
+    if packed is None:
+        packed = mega.pack_layer(kernel)
+    tensors = (x, packed, shifts)
     if any(t.device != dev for t in tensors):
         raise ValueError("x, kernel and shifts must be on one device")
     if not all(t.is_contiguous() for t in tensors):
@@ -82,7 +86,7 @@ def _launch(x, kernel, shifts, layer):
     out = torch.empty((b, oc, s // 2, s // 2), dtype=torch.uint8, device=dev)
     lib = _lib()
     err = lib.conv_pool_layer_forward(
-        x.data_ptr(), kernel.data_ptr(), shifts.data_ptr(), layer,
+        x.data_ptr(), packed.data_ptr(), shifts.data_ptr(), layer,
         out.data_ptr(), b, ic, oc, s,
         dev.index if dev.index is not None else torch.cuda.current_device(),
         torch.cuda.current_stream(dev).cuda_stream)
@@ -94,19 +98,22 @@ def _launch(x, kernel, shifts, layer):
 
 
 def conv_pool_layer(x: torch.Tensor, kernel: torch.Tensor,
-                    shifts: torch.Tensor, layer: int) -> torch.Tensor:
+                    shifts: torch.Tensor, layer: int, *,
+                    packed: torch.Tensor | None = None) -> torch.Tensor:
     """One contract layer: (B, ic, S, S) u8, (oc, ic, 3, 3) int8 and the
     (L,) int32 shift vector, of which ``shifts[layer]`` applies (on the
     device, read by the kernel: a shift change rebuilds nothing) ->
     (B, oc, S/2, S/2) u8. CUDA tensors launch ``csrc/conv_pool_layer.cu``;
     CPU tensors run ``conv_pool_reference``. A CPU shift vector is held to
-    0..31 here; a CUDA one where it was built on the host."""
+    0..31 here; a CUDA one where it was built on the host. ``packed``:
+    ``mega.pack_layer(kernel)``, or None to pack it here."""
     _check_inputs(x, kernel, shifts, layer)
+    mega.check_layer_packed(packed, kernel)
     if shifts.device.type == "cpu":
         quant.check_shifts(shifts)
     if x.device.type == "cpu":
         return conv_pool_reference(x, kernel, shifts, layer)
     if x.device.type == "cuda":
-        return _launch(x, kernel, shifts, layer)
+        return _launch(x, kernel, shifts, layer, packed)
     raise ValueError(f"conv_pool_layer runs on CUDA tensors (the kernel) or "
                      f"CPU tensors (its plain version), not on {x.device}")

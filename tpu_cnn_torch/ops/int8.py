@@ -1,27 +1,34 @@
-"""The per-layer backends: the conv kernel without the pool, and the nets
-built on it.
+"""The per-layer backends: the conv kernel, unpooled and pooled, and the
+nets built on it.
 
 Port of ``tpu_cnn.ops.pallas_int8``. ``conv_act`` is the port of its one
 Pallas kernel, ``_conv_mxu``: a hand-written CUDA kernel,
-``csrc/conv_act.cu``, that computes
+``csrc/conv_act.cu`` (the layer kernel of ``csrc/conv_layer.cuh`` on
+Hopper's int8 tensor cores), that computes
 
     (B, ic, H, W) u8 -> conv3x3 SAME -> >> shift -> clip 0..255
     -> (B, oc, H, W) u8                  # pre-pool: no pool
 
-for any rectangle. ``fused_conv_layer`` adds the 2x2 pool as torch glue
-(as the JAX package adds it as XLA glue), ``cnn_forward_pallas`` runs every
-layer through it and ``cnn_forward_hybrid`` only layer 0, the deeper layers
-being the plain contract layer (``quant.fixed_point_conv_layer``: unfold +
-an f32 matmul, never cuDNN), as in the JAX package.
+for any rectangle. In the JAX package the kernel is only ever followed by
+the 2x2 pool, as XLA glue; ``fused_conv_layer`` is that function, and on a
+CUDA tensor it launches the same kernel with the pool inside
+(``conv_act_pool_forward``), so the unpooled map never reaches device
+memory. ``cnn_forward_pallas`` runs every layer through it and
+``cnn_forward_hybrid`` only layer 0, the deeper layers being the plain
+contract layer (``quant.fixed_point_conv_layer``: unfold + an f32 matmul,
+never cuDNN), as in the JAX package. The kernel reads weights packed by
+``mega.pack_layer``: made once by their owner (``CUDAEngine``) and passed
+as ``packed``, or here on every call.
 
 What is not carried over: the TPU kernel's zero-point staging,
 block-diagonal weight packing, batch-tile model, pad-to-4 batch, and the
 reroutes of small tiles to an XLA conv or to row bands were Mosaic's. Here
 the kernel runs on every layer, lyr4-wide's 1 -> 16 L0 at 256^2 included.
 
-On a CUDA tensor ``conv_act`` launches the kernel; on a CPU tensor it runs
-the plain version, ``conv_act_reference``. Any other device, or a CUDA call
-the kernel cannot take, raises: nothing falls back.
+On a CUDA tensor ``conv_act`` and ``fused_conv_layer`` launch the kernel;
+on a CPU tensor they run the plain versions, ``conv_act_reference`` and
+``maxpool2x2`` of it. Any other device, or a CUDA call the kernel cannot
+take, raises: nothing falls back.
 """
 
 from __future__ import annotations
@@ -32,7 +39,7 @@ from typing import Sequence
 
 import torch
 
-from tpu_cnn_torch.ops import _build, quant
+from tpu_cnn_torch.ops import _build, mega, quant
 
 # kernel launches made by this wrapper in this process
 launches = 0
@@ -52,14 +59,15 @@ def conv_act_reference(x: torch.Tensor, kernel: torch.Tensor,
 def _lib() -> ctypes.CDLL:
     lib = _build.load("conv_act")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.conv_act_forward.argtypes = [p, p, p, i, p, i, i, i, i, i, i, p]
-    lib.conv_act_forward.restype = i
+    for fn in (lib.conv_act_forward, lib.conv_act_pool_forward):
+        fn.argtypes = [p, p, p, i, p, i, i, i, i, i, i, p]
+        fn.restype = i
     lib.conv_act_error_string.argtypes = [i]
     lib.conv_act_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check_inputs(x, kernel, shifts, layer):
+def _check_inputs(x, kernel, shifts, layer, packed):
     if x.dtype != torch.uint8 or x.dim() != 4:
         raise ValueError(f"x must be (B, ic, H, W) uint8, got "
                          f"{tuple(x.shape)} {x.dtype}")
@@ -75,50 +83,58 @@ def _check_inputs(x, kernel, shifts, layer):
                          f"{tuple(shifts.shape)} {shifts.dtype}")
     if not 0 <= layer < shifts.shape[0]:
         raise ValueError(f"layer {layer} outside the {shifts.shape[0]} shifts")
+    mega.check_layer_packed(packed, kernel)
+    if shifts.device.type == "cpu":
+        quant.check_shifts(shifts)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the conv kernel runs on CUDA tensors (the kernel) "
+                         f"or CPU tensors (its plain version), not on "
+                         f"{x.device}")
 
 
-def _launch(x, kernel, shifts, layer):
-    """The kernel on the tensors' CUDA device and current stream."""
+def _launch(x, kernel, shifts, layer, packed, pool):
+    """The kernel on the tensors' CUDA device and current stream, with the
+    2x2 pool inside when ``pool``."""
     global launches
     dev = x.device
-    tensors = (x, kernel, shifts)
+    if packed is None:
+        packed = mega.pack_layer(kernel)
+    tensors = (x, packed, shifts)
     if any(t.device != dev for t in tensors):
         raise ValueError("x, kernel and shifts must be on one device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("x, kernel and shifts must be contiguous")
     b, ic, h, w = x.shape
     oc = kernel.shape[0]
-    out = torch.empty((b, oc, h, w), dtype=torch.uint8, device=dev)
+    oh, ow = (h // 2, w // 2) if pool else (h, w)
+    out = torch.empty((b, oc, oh, ow), dtype=torch.uint8, device=dev)
     lib = _lib()
-    err = lib.conv_act_forward(
-        x.data_ptr(), kernel.data_ptr(), shifts.data_ptr(), layer,
-        out.data_ptr(), b, ic, oc, h, w,
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    fn = lib.conv_act_pool_forward if pool else lib.conv_act_forward
+    err = fn(x.data_ptr(), packed.data_ptr(), shifts.data_ptr(), layer,
+             out.data_ptr(), b, ic, oc, h, w,
+             dev.index if dev.index is not None else torch.cuda.current_device(),
+             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"conv_act_forward failed: cudaError {err} "
+        name = "conv_act_pool_forward" if pool else "conv_act_forward"
+        raise RuntimeError(f"{name} failed: cudaError {err} "
                            f"({lib.conv_act_error_string(err).decode()})")
     launches += 1
     return out
 
 
 def conv_act(x: torch.Tensor, kernel: torch.Tensor, shifts: torch.Tensor,
-             layer: int) -> torch.Tensor:
+             layer: int, *, packed: torch.Tensor | None = None) -> torch.Tensor:
     """One conv without the pool: (B, ic, H, W) u8, (oc, ic, 3, 3) int8 and
     the (L,) int32 shift vector, of which ``shifts[layer]`` applies (on the
     device, read by the kernel: a shift change rebuilds nothing) ->
     (B, oc, H, W) u8. CUDA tensors launch ``csrc/conv_act.cu``; CPU tensors
     run ``conv_act_reference``. A CPU shift vector is held to 0..31 here; a
-    CUDA one where it was built on the host."""
-    _check_inputs(x, kernel, shifts, layer)
-    if shifts.device.type == "cpu":
-        quant.check_shifts(shifts)
+    CUDA one where it was built on the host. ``packed``:
+    ``mega.pack_layer(kernel)``, or None to pack it here."""
+    _check_inputs(x, kernel, shifts, layer, packed)
     if x.device.type == "cpu":
         return conv_act_reference(x, kernel, shifts, layer)
-    if x.device.type == "cuda":
-        return _launch(x, kernel, shifts, layer)
-    raise ValueError(f"conv_act runs on CUDA tensors (the kernel) or CPU "
-                     f"tensors (its plain version), not on {x.device}")
+    return _launch(x, kernel, shifts, layer, packed, pool=False)
 
 
 def pack_kernel_matrix(kernel: torch.Tensor) -> torch.Tensor:
@@ -137,13 +153,19 @@ def unpack_kernel_matrix(kmat: torch.Tensor, ic: int) -> torch.Tensor:
 
 
 def fused_conv_layer(x: torch.Tensor, kernel: torch.Tensor,
-                     shifts: torch.Tensor, layer: int) -> torch.Tensor:
-    """One contract layer: ``conv_act``, then the 2x2 max pool as torch
-    glue. (B, ic, H, W) u8 with H and W even -> (B, oc, H/2, W/2) u8."""
+                     shifts: torch.Tensor, layer: int, *,
+                     packed: torch.Tensor | None = None) -> torch.Tensor:
+    """One contract layer: the conv of ``conv_act``, then the 2x2 max pool.
+    (B, ic, H, W) u8 with H and W even -> (B, oc, H/2, W/2) u8. CUDA
+    tensors launch ``csrc/conv_act.cu`` with the pool inside; CPU tensors
+    run ``maxpool2x2(conv_act_reference(...))``."""
     h, w = x.shape[-2:]
     if h % 2 or w % 2:
         raise ValueError(f"the pool needs an even H and W, got {h}x{w}")
-    return quant.maxpool2x2(conv_act(x, kernel, shifts, layer))
+    _check_inputs(x, kernel, shifts, layer, packed)
+    if x.device.type == "cpu":
+        return quant.maxpool2x2(conv_act_reference(x, kernel, shifts, layer))
+    return _launch(x, kernel, shifts, layer, packed, pool=True)
 
 
 def _nchw(images: torch.Tensor) -> torch.Tensor:
@@ -161,22 +183,37 @@ def _flat(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(b, c, h * w)
 
 
+def _packed_for(packed, kernels):
+    if packed is not None and len(packed) != len(kernels):
+        raise ValueError(f"packed must hold mega.pack_layer of each of the "
+                         f"{len(kernels)} kernels, got {len(packed)}")
+    return [None] * len(kernels) if packed is None else packed
+
+
 def cnn_forward_pallas(images: torch.Tensor, kernels: Sequence[torch.Tensor],
-                       shifts: torch.Tensor) -> torch.Tensor:
+                       shifts: torch.Tensor, *,
+                       packed: Sequence[torch.Tensor] | None = None
+                       ) -> torch.Tensor:
     """Every layer through ``fused_conv_layer``: (B, S, S) or (B, S, S, 1)
-    u8 -> (B, oc, S'*S') u8, the layout of ``quant.cnn_forward``."""
+    u8 -> (B, oc, S'*S') u8, the layout of ``quant.cnn_forward``.
+    ``packed``: ``mega.pack_layer`` of each kernel, or None to pack them
+    on every CUDA call."""
     x = _nchw(images)
-    for i, k in enumerate(kernels):
-        x = fused_conv_layer(x, k, shifts, i)
+    for i, (k, p) in enumerate(zip(kernels, _packed_for(packed, kernels))):
+        x = fused_conv_layer(x, k, shifts, i, packed=p)
     return _flat(x)
 
 
 def cnn_forward_hybrid(images: torch.Tensor, kernels: Sequence[torch.Tensor],
-                       shifts: torch.Tensor) -> torch.Tensor:
+                       shifts: torch.Tensor, *,
+                       packed: Sequence[torch.Tensor] | None = None
+                       ) -> torch.Tensor:
     """Layer 0 through ``fused_conv_layer`` (the kernel), the deeper layers
     through the plain contract layer, as the JAX package computes them
-    outside any Pallas kernel. Same layout as ``cnn_forward_pallas``."""
-    x = fused_conv_layer(_nchw(images), kernels[0], shifts, 0)
+    outside any Pallas kernel. Same layout as ``cnn_forward_pallas``.
+    ``packed``: as there; only layer 0's is read."""
+    x = fused_conv_layer(_nchw(images), kernels[0], shifts, 0,
+                         packed=_packed_for(packed, kernels)[0])
     for i, k in enumerate(kernels[1:], start=1):
         x = quant.fixed_point_conv_layer(x, k, shifts[i])
     return _flat(x)

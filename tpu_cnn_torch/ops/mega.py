@@ -132,6 +132,78 @@ def packed_shape(kernel: torch.Tensor) -> tuple[int, int, int, int]:
     return -(-9 * cpad(ic) // 32), -(-oc // 8), 32, 8
 
 
+def one_channel_matrix(kernel: torch.Tensor) -> torch.Tensor:
+    """(oc, 1, 3, 3) int8 -> the one-channel recast's GEMM operand B,
+    (16, 4, G*16) int8 over (K, position, channel): K = 4 r + s indexes the
+    4x4 input patch under a 2x2 output quad, position p = 2 py + px the
+    quad's output, and B[4 r + s, p, o] = kernel[o, 0, r - py, s - px]
+    where that tap exists, else 0. Channels are padded to G = ceil(oc/16)
+    groups of 16 with zero weights."""
+    oc = int(kernel.shape[0])
+    groups = -(-oc // 16)
+    w = torch.zeros((3, 3, groups * 16), dtype=torch.int8, device=kernel.device)
+    w[:, :, :oc] = kernel[:, 0].permute(1, 2, 0)
+    b = torch.zeros((4, 4, 4, groups * 16), dtype=torch.int8, device=kernel.device)
+    for p in range(4):
+        py, px = divmod(p, 2)
+        b[py:py + 3, px:px + 3, p] = w
+    return b.view(16, 4, groups * 16)
+
+
+def pack_one_channel(kernel: torch.Tensor) -> torch.Tensor:
+    """(oc, 1, 3, 3) int8 -> the layer kernel's one-channel B fragments,
+    (G, 8, 32, 4) int8 on the same device: for channel group q (16
+    channels) and N tile t = 2 p + h (channels 16 q + 8 h .. + 7 at quad
+    position p), row (q, t) holds what lane l of mma.m16n8k16 takes: bytes
+    j = 0-3 B[4 (l % 4) + j, p, 16 q + 8 h + l // 4] of
+    ``one_channel_matrix``."""
+    b = one_channel_matrix(kernel)
+    groups = b.shape[2] // 16
+    # (t4, j, p, q, h, g) -> (q, t = 2 p + h, lane = 4 g + t4, byte = j)
+    return (b.view(4, 4, 4, groups, 2, 8).permute(3, 2, 4, 5, 0, 1)
+            .contiguous().view(groups, 8, 32, 4))
+
+
+def layer_packed_shape(kernel: torch.Tensor) -> tuple[int, ...]:
+    """The shape ``pack_layer(kernel)`` gives."""
+    if int(kernel.shape[1]) == 1:
+        return -(-int(kernel.shape[0]) // 16), 8, 32, 4
+    return packed_shape(kernel)
+
+
+def pack_layer(kernel: torch.Tensor) -> torch.Tensor:
+    """The layer kernel's weights (``csrc/conv_layer.cuh``, under
+    ``conv_act``, ``fused_conv_layer`` and ``conv_pool_layer``):
+    ``pack_one_channel`` for one input channel, else ``pack_weights`` (its
+    multi-channel path reads K1's B layout)."""
+    if int(kernel.shape[1]) == 1:
+        return pack_one_channel(kernel)
+    return pack_weights(kernel)
+
+
+def check_layer_packed(packed: torch.Tensor | None, kernel: torch.Tensor) -> None:
+    """Raise unless ``packed`` is None or has the dtype and shape of
+    ``pack_layer(kernel)`` on the kernel's device."""
+    if packed is not None and (
+            packed.dtype != torch.int8 or packed.device != kernel.device
+            or tuple(packed.shape) != layer_packed_shape(kernel)):
+        raise ValueError(
+            f"packed must be pack_layer of the kernel, "
+            f"{layer_packed_shape(kernel)} int8 on {kernel.device}; got "
+            f"{tuple(packed.shape)} {packed.dtype} on {packed.device}")
+
+
+def pack_plan(kernels: Sequence[torch.Tensor], size: int) -> list[torch.Tensor]:
+    """Each kernel's packing for ``cnn_forward_mega`` at input side
+    ``size``: ``pack_layer`` for the plan's head layers (the layer kernel),
+    ``pack_weights`` for the tail (the megakernel)."""
+    n_head = mega_plan(_layer_configs(kernels, size))
+    if n_head is None:
+        n_head = 0  # cnn_forward_mega refuses the geometry
+    return ([pack_layer(k) for k in kernels[:n_head]]
+            + [pack_weights(k) for k in kernels[n_head:]])
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("mega_cnn")
@@ -143,7 +215,7 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_inputs(images, kernels, shifts, with_bins, packed):
+def _check_inputs(images, kernels, shifts, with_bins):
     if images.dtype != torch.uint8 or images.dim() not in (3, 4):
         raise ValueError(f"images must be (B, S, S) or (B, ic0, S, S) uint8, "
                          f"got {tuple(images.shape)} {images.dtype}")
@@ -165,12 +237,19 @@ def _check_inputs(images, kernels, shifts, with_bins, packed):
                          f"{tuple(shifts.shape)} {shifts.dtype}")
     if with_bins and (s >> n) % 4:
         raise ValueError(f"bins need a final map divisible by 4, got {s >> n}")
+
+
+def _check_packed(packed, kernels, n_head):
+    n = len(kernels)
+    want = ([layer_packed_shape(k) for k in kernels[:n_head]]
+            + [packed_shape(k) for k in kernels[n_head:]])
     if packed is not None and (
             len(packed) != n
-            or any(p.dtype != torch.int8 or tuple(p.shape) != packed_shape(k)
-                   for p, k in zip(packed, kernels))):
-        raise ValueError(f"packed must hold pack_weights of each of the "
-                         f"{n} kernels, got "
+            or any(p.dtype != torch.int8 or tuple(p.shape) != w
+                   for p, w in zip(packed, want))):
+        raise ValueError(f"packed must hold pack_plan of the {n} kernels "
+                         f"(pack_layer of the {n_head} head layers, "
+                         f"pack_weights of the tail): shapes {want}, got "
                          f"{[(tuple(p.shape), p.dtype) for p in packed]}")
 
 
@@ -236,13 +315,13 @@ def cnn_forward_mega(images: torch.Tensor, kernels: Sequence[torch.Tensor],
     ``conv_pool_reference`` then ``mega_reference``. A CPU shift vector is
     held to 0..31 here; a CUDA one where it was built on the host.
 
-    ``packed``: ``pack_weights`` of each kernel, made once by the weights'
-    owner (``CUDAEngine`` does); when None, the megakernel's layers are
-    packed here on every CUDA call."""
+    ``packed``: ``pack_plan`` of the kernels, made once by the weights'
+    owner (``CUDAEngine`` does); when None, each kernel's layers are
+    packed on every CUDA call."""
     if not (with_feats or with_bins or with_twin):
         raise ValueError("at least one of with_feats/with_bins/with_twin "
                          "must be requested")
-    _check_inputs(images, kernels, shifts, with_bins, packed)
+    _check_inputs(images, kernels, shifts, with_bins)
     if shifts.device.type == "cpu":
         quant.check_shifts(shifts)
     if images.device.type not in ("cpu", "cuda"):
@@ -255,9 +334,12 @@ def cnn_forward_mega(images: torch.Tensor, kernels: Sequence[torch.Tensor],
         raise ValueError(
             f"no tail of {cfgs} fits one CTA ({MAX_SMEM_BYTES:,} B of shared "
             f"memory, at most {MAX_LAYERS} layers)")
+    _check_packed(packed, kernels, n_head)
     x = images if images.dim() == 4 else images[:, None]
     for i in range(n_head):
-        x = conv_pool.conv_pool_layer(x, kernels[i], shifts, i)
+        x = conv_pool.conv_pool_layer(
+            x, kernels[i], shifts, i,
+            packed=None if packed is None else packed[i])
     tail, tail_shifts = kernels[n_head:], shifts[n_head:]
     if x.device.type == "cpu":
         outs = mega_reference(x, tail, tail_shifts)
