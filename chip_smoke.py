@@ -73,6 +73,29 @@ one line each, in order; any failure raises:
                 one POST with ?thresh=0.3
   probe       — tpu_cnn_torch.apps.probe_bitcast --device cuda: exit 0,
                 MATCH on the r*4+b layouts of Q1 and Q2 and on Q3
+  swap        — the engine swap, per family: make_engine(model, "cpu") is
+                the host oracle on the native C++ build, its features
+                bit-equal to the numpy oracle on the shipped images;
+                make_engine(model, "auto", "cuda") resolves to mega; infer
+                --mode cpu scores what --mode mega --device cuda scores;
+                infer --image X --dump-features writes the oracle's features
+  server      — serve --mode cpu (the host oracle) behind HTTP: the 8 raw
+                POSTs of the lyr3-std/mega server phase, each answer equal
+                to that server's, and a PNG POST through decode_image equal
+                to the host oracle on realtime.preprocess of its pixels
+  preprocess  — ops.preprocess.preprocess_frames on the card, B=37, at
+                eight camera geometries (640x480 ... 1280x720) on BGR and
+                RGB, BGRX/RGBX, packed uint32/int32 words, gray and valid_w
+                on a wider pitch: bit-equal to the native and numpy twins
+  realtime    — tpu_cnn_torch.apps.realtime --device cuda --source
+                synthetic --frames 40 --no-serve on five paths (lyr3-std
+                mega on the host-head protocol, mega --fused, mega --fused
+                --multi --instances 2 --track, lyr4-wide pallas --fused,
+                --mode cpu): "Done. 40 frames.", and detect_frame on the
+                same 40 frames equal to the host oracle (CPURefEngine and
+                the host twins: classes, boxes, detections and tracks equal,
+                probabilities within 1e-4); then one run with the MJPEG
+                server on a free port, /stream answering a JPEG part
   verify      — tpu_cnn_torch.apps.verify --device cuda for lyr3-std
                 (shipped weights) and lyr4-wide (seeded weights): all seven
                 backends bit-exact and every engine head, multi boxes,
@@ -95,15 +118,21 @@ one line each, in order; any failure raises:
                 head; the bitcast kernel and its plain version (one
                 PyTorch call each, so also its library time) at
                 (4096, 4096), past the L2, device time per call with the
-                calls queued
+                calls queued; preprocess_frames at batch 256 on 640x480 BGR
+                and packed frames, with its byte bound; the realtime loop's
+                EMA FPS and median engine ms (lyr3-std mega, --fused and the
+                host-head protocol) and its stages timed one by one
 
-Phases 4-6 and the probe are the main paths, once per path: every kernel
-launch counter is set to 0 before a path's phases and read after them,
-and each kernel of that path must have launched there and no other
-kernel (lyr3-std/mega: the megakernel; lyr4-wide/mega: the megakernel and
-the layer kernel; lyr4-wide/pallas and lyr3-std/hybrid: the conv kernel;
-the probe: the bitcast kernel; the multi paths: the megakernel, then the
-conv kernel). The line before the last is a JSON object with each
+Phases 4-6, the probe, the swap, the host server, the preprocess and the
+realtime runs are the main paths, once per path: every kernel launch
+counter is set to 0 before a path's phases and read after them, and each
+kernel of that path must have launched there and no other kernel
+(lyr3-std/mega: the megakernel; lyr4-wide/mega: the megakernel and the
+layer kernel; lyr4-wide/pallas and lyr3-std/hybrid: the conv kernel; the
+probe: the bitcast kernel; the multi paths: the megakernel, then the conv
+kernel; the swap: what mega runs on the family; the host server, the
+preprocess and realtime --mode cpu: none; the realtime paths: mega's or
+pallas's). The line before the last is a JSON object with each
 kernel's launches (summed over the paths), error, times and bound (and
 the conv kernel's pooled time and bound on lyr3-std); the last line is
 {"ok": true, "device": {...}}.
@@ -134,18 +163,23 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 from tpu_cnn_torch import bench_gate  # noqa: E402
-from tpu_cnn_torch.apps import infer, probe_bitcast, serve, verify  # noqa: E402
+from tpu_cnn_torch.apps import infer, probe_bitcast, realtime, serve, verify  # noqa: E402
 from tpu_cnn_torch.apps.common import load_model  # noqa: E402
 from tpu_cnn_torch.apps.serve import ServiceHTTPServer, make_handler  # noqa: E402
-from tpu_cnn_torch.engine.cpu_ref import numpy_cnn_forward  # noqa: E402
+from tpu_cnn_torch.engine.cpu_ref import CPURefEngine, numpy_cnn_forward  # noqa: E402
 from tpu_cnn_torch.engine.cuda import (DEFAULT_MULTI_THRESH, CUDAEngine,  # noqa: E402
                                        MultiDetectResult)
 from tpu_cnn_torch.head.cam import cam_bbox_fast, cam_bbox_multi, cam_instances  # noqa: E402
 from tpu_cnn_torch.head.classify import classify_np, multi_scores_np, pool_for_head  # noqa: E402
+from tpu_cnn_torch.head.tracker import Tracker  # noqa: E402
 from tpu_cnn_torch.models.registry import default_shifts, get_config  # noqa: E402
+from tpu_cnn_torch.native.preprocess import preprocess_frames_native  # noqa: E402
 from tpu_cnn_torch.ops import _build, bitcast, conv_pool, detect_head, int8, mega, quant  # noqa: E402
+from tpu_cnn_torch.ops import preprocess as dev_preprocess  # noqa: E402
+from tpu_cnn_torch.ops.luma import pack_bgrx  # noqa: E402
 from tpu_cnn_torch.utils import artifacts as art  # noqa: E402
 from tpu_cnn_torch.utils.artifacts import label_from_filename  # noqa: E402
+from tpu_cnn_torch.utils.profiling import StageTimer  # noqa: E402
 
 ARTIFACTS = {"lyr3-std": os.path.join(ROOT, "artifacts", "pretrained"),
              "lyr4-wide": os.path.join(ROOT, "artifacts", "pretrained-lyr4")}
@@ -169,6 +203,27 @@ PATHS = [("lyr3-std", "mega", (1, 3, 5), ("mega_cnn",)),
 # the multi-object paths: (family, backend, instances, kernels)
 MULTI_PATHS = [("lyr3-std", "mega", 2, ("mega_cnn",)),
                ("lyr4-wide", "pallas", 1, ("conv_act",))]
+# the realtime app's paths: (family, flags, kernels); each runs
+# realtime.main --device cuda --source synthetic for REALTIME_FRAMES frames
+REALTIME_PATHS = [
+    ("lyr3-std", ("--mode", "mega"), ("mega_cnn",)),  # the host-head protocol
+    ("lyr3-std", ("--mode", "mega", "--fused"), ("mega_cnn",)),
+    ("lyr3-std", ("--mode", "mega", "--fused", "--multi", "--instances", "2",
+                  "--track"), ("mega_cnn",)),
+    ("lyr4-wide", ("--mode", "pallas", "--fused"), ("conv_act",)),
+    ("lyr3-std", ("--mode", "cpu"), ()),  # the host oracle: no kernel
+]
+REALTIME_FRAMES = 40
+STREAM_FRAMES = 150  # the MJPEG run's: its client connects within a frame
+REALTIME_TIMED_FRAMES = 200
+# the kernels `--mode auto` (mega) runs per family
+MEGA_KERNELS = {"lyr3-std": ("mega_cnn",),
+                "lyr4-wide": ("mega_cnn", "conv_pool_layer")}
+# the device preprocess's camera geometries (W, H), the JAX function's
+# phase-path and dense-path points among them
+PREPROCESS_GEOMETRIES = ((640, 480), (320, 240), (177, 131), (127, 127),
+                         (300, 200), (720, 560), (656, 480), (1280, 720))
+PREPROCESS_BATCH = 256  # the timed batch
 MODULES = {"mega_cnn": mega, "conv_pool_layer": conv_pool, "conv_act": int8,
            "bitcast": bitcast}
 SCORE_TOL = 1e-4  # probabilities and presence scores: 1024-term f32 dots
@@ -753,6 +808,9 @@ def http_service(batcher, backend):
         th.join(timeout=10)
 
 
+_SERVED: dict[tuple[str, str], list] = {}  # (family, mode) -> answers
+
+
 def server(variant: str, mode: str) -> None:
     bundle = bundle_of(variant)
     model = load_model(ARTIFACTS[variant], variant)
@@ -778,6 +836,7 @@ def server(variant: str, mode: str) -> None:
         status, health = request("GET", "/healthz")
         check(status == 200 and health.get("ok") is True, f"/healthz: {health}")
         stats = batcher.snapshot()
+    _SERVED[(variant, mode)] = answers
     phase("6 server", f"{variant} ({backend}): {len(paths)} POST /detect of "
                       f"{size * size} "
                       f"bytes equal to the host oracle; /healthz {health}; "
@@ -969,6 +1028,331 @@ def verify_cli(variant: str) -> None:
                     f"{variant}: exit 0, {exact} backend pairs bit-exact, "
                     f"{heads} head checks OK (multi boxes, instances and "
                     f"multi scores on each engine); {VERDICT}")
+
+
+# ── the engine swap, the host-oracle service, the device preprocess and
+# the realtime app ──────────────────────────────────────────────────
+
+
+def _accuracy_line(argv) -> str:
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        infer.main(argv)
+    return next(ln.strip() for ln in out.getvalue().splitlines()
+                if "Accuracy:" in ln)
+
+
+def engine_swap(variant: str) -> None:
+    """``make_engine``: "cpu" is the host oracle on the native C++ build,
+    its features bit-equal to the numpy oracle on the shipped images;
+    "auto" resolves to mega on the card; the infer CLI's ``--mode cpu``
+    scores as ``--mode mega --device cuda``; ``--dump-features`` writes the
+    oracle's features."""
+    art_dir = ARTIFACTS[variant]
+    model = load_model(art_dir, variant)
+    paths = shipped_images(variant)
+    imgs = np.stack([np.fromfile(p, np.uint8) for p in paths])
+    want = oracle_feats(list(imgs), model.kernels, model.shifts)
+    host = infer.make_engine(model, "cpu")
+    check(isinstance(host, CPURefEngine) and host.backend == "native-c++",
+          f"{variant}: make_engine(model, 'cpu') is {type(host).__name__} on "
+          f"{getattr(host, 'backend', '?')}, not the native C++ oracle")
+    check(np.array_equal(host.run_batch(imgs), want),
+          f"{variant}: the host oracle engine's features differ from the "
+          f"numpy oracle's")
+    check(np.array_equal(host.run(imgs[0])[0], want[0]),
+          f"{variant}: CPURefEngine.run differs from the numpy oracle")
+    auto = infer.make_engine(model, "auto", "cuda")
+    check(isinstance(auto, CUDAEngine) and auto.mode == "mega"
+          and auto.backend.endswith("-cuda"),
+          f"{variant}: --mode auto resolved to {auto.backend}")
+    check(np.array_equal(auto.run_batch(imgs[:8]), want[:8]),
+          f"{variant}: the auto engine's features differ from the oracle's")
+    common = ["--variant", variant, "--image-dir", art_dir, "--no-save"]
+    cpu_line = _accuracy_line(common + ["--mode", "cpu"])
+    mega_line = _accuracy_line(common + ["--mode", "mega", "--device", "cuda"])
+    cpu_acc, mega_acc = (ln.split(" (")[0] for ln in (cpu_line, mega_line))
+    check(cpu_acc == mega_acc,
+          f"{variant}: infer --mode cpu '{cpu_line}' != --mode mega '{mega_line}'")
+    dump = os.path.join(ROOT, "build", "chip_smoke", variant)
+    os.makedirs(dump, exist_ok=True)
+    image = os.path.join(dump, os.path.basename(paths[0]))
+    with open(paths[0], "rb") as src, open(image, "wb") as dst:
+        dst.write(src.read())
+    with contextlib.redirect_stdout(io.StringIO()):
+        infer.main(["--variant", variant, "--image", image, "--device", "cuda",
+                    "--no-save", "--dump-features"])
+    dumped = np.load(os.path.splitext(image)[0] + "_features.npy")
+    check(dumped.dtype == np.uint8 and np.array_equal(dumped, want[0]),
+          f"{variant}: --dump-features differs from the oracle's features")
+    phase("swap", f"{variant}: make_engine cpu -> CPURefEngine ({host.backend}), "
+                  f"features of {len(imgs)} shipped images bit-equal to the "
+                  f"numpy oracle; auto -> {auto.backend}; infer --mode cpu "
+                  f"'{cpu_acc}' == --mode mega --device cuda; --dump-features "
+                  f"bit-equal to the oracle")
+
+
+def _host_answer(small: np.ndarray, model) -> tuple[int, np.ndarray, list]:
+    """The host oracle's (pred, probs, box) for one (S, S) u8 image."""
+    f = oracle_feats([small], model.kernels, model.shifts)[0]
+    idx, _, probs = classify_np(f[None], model.fc_weight, model.fc_bias)
+    box = cam_bbox_fast(f, int(idx[0]), model.fc_weight,
+                        img_size=model.config.img_size)
+    return int(idx[0]), probs[0], list(box)
+
+
+def host_server(variant: str) -> None:
+    """``serve --mode cpu`` (the host oracle behind the host adapter) on
+    the device server phase's 8 raw POSTs, each answer equal to that
+    server's; then a PNG through ``decode_image``, equal to the host
+    oracle on ``realtime.preprocess`` of the same pixels."""
+    from PIL import Image
+
+    model = load_model(ARTIFACTS[variant], variant)
+    paths = shipped_images(variant)[:8]
+    bodies = [open(p, "rb").read() for p in paths]
+    frame = realtime.SyntheticSource(640, 480).read()  # BGR
+    png = io.BytesIO()
+    Image.fromarray(frame[..., ::-1]).save(png, format="PNG")
+    batcher, backend = serve.build_service(ARTIFACTS[variant], device="cuda",
+                                           max_batch=8, variant=variant,
+                                           mode="cpu")
+    check(backend == "host:native-c++", f"serve --mode cpu backend {backend}")
+    with http_service(batcher, backend) as request:
+        with concurrent.futures.ThreadPoolExecutor(8) as pool:
+            answers = list(pool.map(lambda b: request("POST", "/detect", b), bodies))
+        png_status, png_ans = request("POST", "/detect", png.getvalue())
+    for p, (status, ans), (d_status, d_ans) in zip(paths, answers,
+                                                   _SERVED[(variant, "mega")]):
+        check(status == d_status == 200 and ans["pred"] == d_ans["pred"]
+              and ans["bbox"] == d_ans["bbox"] and ans["name"] == d_ans["name"]
+              and np.allclose(ans["probs"], d_ans["probs"], rtol=0, atol=SCORE_TOL),
+              f"{variant} {os.path.basename(p)}: serve --mode cpu {ans} != the "
+              f"device server's {d_ans}")
+    idx, probs, box = _host_answer(realtime.preprocess(frame, model.config.img_size),
+                                   model)
+    check(png_status == 200 and png_ans["pred"] == idx and png_ans["bbox"] == box
+          and np.allclose(png_ans["probs"], probs, rtol=0, atol=SCORE_TOL),
+          f"{variant} PNG POST: {png_status} {png_ans} != host oracle pred "
+          f"{idx} box {box}")
+    phase("6 server", f"{variant} serve --mode cpu ({backend}): {len(bodies)} "
+                      f"raw POSTs equal to the device server's answers; a "
+                      f"640x480 PNG POST equal to the host oracle on "
+                      f"realtime.preprocess of its pixels")
+
+
+def _preprocess_cases(rs, w: int, h: int):
+    """(form, input, valid_w, channel order, the host twins' answer) for
+    one geometry at B=37: BGR and RGB, 4-channel, packed words (uint32 and
+    their int32 view), gray, and valid_w=w on a pitch 8 wider."""
+    b = KERNEL_BATCH
+    f4 = rs.randint(0, 256, (b, h, w, 4)).astype(np.uint8)
+    f3 = np.ascontiguousarray(f4[..., :3])
+    gray = rs.randint(0, 256, (b, h, w)).astype(np.uint8)
+    bgr = preprocess_frames_native(f3, 128)
+    rgb = preprocess_frames_native(f3, 128, channel_order="rgb")
+    g = preprocess_frames_native(gray, 128)
+    check(np.array_equal(bgr, np.stack([realtime.preprocess(f, 128) for f in f3]))
+          and np.array_equal(rgb, np.stack([realtime.preprocess(f[..., ::-1], 128)
+                                            for f in f3]))
+          and np.array_equal(g, np.stack([realtime.preprocess(f, 128) for f in gray])),
+          f"{w}x{h}: the native and numpy host twins disagree")
+    words = pack_bgrx(f4)
+    staged = np.full((b, h, w + 8), 0xDEADBEEF, np.uint32)
+    staged[:, :, :w] = words
+    return [("bgr", f3, None, "bgr", bgr), ("rgb", f3, None, "rgb", rgb),
+            ("bgrx", f4, None, "bgr", bgr), ("rgbx", f4, None, "rgb", rgb),
+            ("packed u32", words, None, "bgr", bgr),
+            ("packed i32", words.view(np.int32), None, "rgb", rgb),
+            ("gray", gray, None, "bgr", g),
+            (f"packed, valid_w={w} on pitch {w + 8}", staged, w, "bgr", bgr)]
+
+
+def device_preprocess(dev: torch.device) -> None:
+    """``ops.preprocess.preprocess_frames`` on the card at B=37, every
+    geometry and input form, bit-equal to the native twin and the numpy
+    twin (``realtime.preprocess``)."""
+    rs = np.random.RandomState(12)
+    n = 0
+    for w, h in PREPROCESS_GEOMETRIES:
+        for form, x, vw, order, want in _preprocess_cases(rs, w, h):
+            got = dev_preprocess.preprocess_frames(
+                torch.from_numpy(x).to(dev), 128, channel_order=order, valid_w=vw)
+            check(got.device.type == "cuda" and got.dtype == torch.uint8
+                  and np.array_equal(got.cpu().numpy(), want),
+                  f"device preprocess {w}x{h} {form} differs from the host twins")
+            n += 1
+    phase("preprocess", f"ops.preprocess.preprocess_frames on the card, "
+                        f"B={KERNEL_BATCH}: {n} cases ({len(PREPROCESS_GEOMETRIES)} "
+                        f"geometries x BGR/RGB, BGRX/RGBX, packed u32/i32, gray, "
+                        f"valid_w on a wider pitch) bit-equal to the native "
+                        f"and numpy twins")
+
+
+def _realtime_argv(variant: str, flags, frames: int, serve_port=None) -> list:
+    return ["--variant", variant, *flags, "--device", "cuda", "--source",
+            "synthetic", "--frames", str(frames),
+            *(["--port", str(serve_port)] if serve_port else ["--no-serve"])]
+
+
+def _run_realtime(argv) -> tuple[str, dict]:
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        stats = realtime.main(argv)
+    return out.getvalue(), stats
+
+
+def _same_frame(got, want) -> bool:
+    """Two ``realtime.Frame``s: class, name and box equal, probabilities
+    within SCORE_TOL, the same detections (classes, boxes and labels
+    equal, probabilities within SCORE_TOL)."""
+    if (got.idx, got.name, tuple(got.bbox)) != (want.idx, want.name, tuple(want.bbox)):
+        return False
+    if not np.allclose(got.probs, want.probs, rtol=0, atol=SCORE_TOL):
+        return False
+    if (got.detections is None) != (want.detections is None):
+        return False
+    return got.detections is None or (
+        len(got.detections) == len(want.detections) and all(
+            g[0] == w[0] and tuple(g[2]) == tuple(w[2]) and g[3:] == w[3:]
+            and abs(g[1] - w[1]) <= SCORE_TOL
+            for g, w in zip(got.detections, want.detections)))
+
+
+def _stream_part(port: int, got: list) -> None:
+    """Client of the realtime app's MJPEG server: retry until it listens,
+    then read one multipart JPEG from /stream into ``got``."""
+    deadline = time.time() + 120
+    while time.time() < deadline:
+        try:
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
+            conn.request("GET", "/stream")
+            resp = conn.getresponse()
+            got.append((resp.status, resp.getheader("Content-Type"),
+                        resp.fp.read(4096)))
+            conn.close()
+            return
+        except OSError:
+            time.sleep(0.02)
+
+
+def realtime_path(variant: str, flags) -> None:
+    """``realtime.main`` on the card for REALTIME_FRAMES synthetic frames;
+    then ``detect_frame`` on those frames against the host oracle
+    (``CPURefEngine`` and the host twins, with a tracker of its own where
+    the path tracks)."""
+    text, _ = _run_realtime(_realtime_argv(variant, flags, REALTIME_FRAMES))
+    check(f"Done. {REALTIME_FRAMES} frames." in text,
+          f"realtime {variant} {' '.join(flags)}: no 'Done.' line:\n{text[-2000:]}")
+    engine_line = next(ln for ln in text.splitlines() if ln.startswith("Engine:"))
+    model = load_model(ARTIFACTS[variant], variant)
+    mode = flags[flags.index("--mode") + 1]
+    multi, track = "--multi" in flags, "--track" in flags
+    instances = int(flags[flags.index("--instances") + 1]) if multi else 1
+    engine = infer.make_engine(model, mode, "cuda")
+    host = CPURefEngine(model.kernels, model.shifts)
+    fused = "--fused" in flags and hasattr(engine, "detect_batch")
+    opts = dict(multi=multi, instances=instances,
+                multi_thresh=multi_thresh_of(model))
+    trackers = (Tracker(), Tracker()) if track else (None, None)
+    src = realtime.SyntheticSource(640, 480)
+    n_dets = 0
+    for i in range(REALTIME_FRAMES):
+        small = realtime.preprocess(src.read(), model.config.img_size)
+        got = realtime.detect_frame(engine, model, small, fused=fused,
+                                    tracker=trackers[0], **opts)
+        want = realtime.detect_frame(host, model, small, tracker=trackers[1],
+                                     **opts)
+        check(_same_frame(got, want),
+              f"realtime {variant} {' '.join(flags)} frame {i}: {got} != the "
+              f"host oracle's {want}")
+        n_dets += len(want.detections or ())
+    phase("realtime", f"{variant} {' '.join(flags)} --device cuda: "
+                      f"'Done. {REALTIME_FRAMES} frames.' ({engine_line}); "
+                      f"detect_frame on the same {REALTIME_FRAMES} synthetic "
+                      f"frames equal to the host oracle ({n_dets} detections"
+                      f"{', tracked' if track else ''})")
+
+
+def realtime_stream() -> None:
+    """One realtime run with the MJPEG server on a free loopback port:
+    /stream returns a JPEG part."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    got: list = []
+    client = threading.Thread(target=_stream_part, args=(port, got), daemon=True)
+    client.start()
+    text, _ = _run_realtime(_realtime_argv("lyr3-std", ("--mode", "mega", "--fused"),
+                                           STREAM_FRAMES, serve_port=port))
+    client.join(timeout=30)
+    check(f"Done. {STREAM_FRAMES} frames." in text and got and got[0][0] == 200
+          and "multipart/x-mixed-replace" in (got[0][1] or "")
+          and b"image/jpeg" in got[0][2] and b"\xff\xd8" in got[0][2],
+          f"realtime MJPEG /stream on port {port}: {got[:1]!r}")
+    phase("realtime", f"lyr3-std --mode mega --fused with the MJPEG server on "
+                      f"127.0.0.1:{port}: /stream answered 200 with a JPEG part")
+
+
+def preprocess_times(dev: torch.device, card: str, rs) -> None:
+    """``preprocess_frames`` at batch PREPROCESS_BATCH on 640x480 BGR and
+    packed frames on the card: CUDA events, median, with the byte bound
+    (the frames read once, the 128^2 outputs written once)."""
+    b, h, w = PREPROCESS_BATCH, 480, 640
+    f4 = rs.randint(0, 256, (b, h, w, 4)).astype(np.uint8)
+    for form, x in (("BGR", torch.from_numpy(np.ascontiguousarray(f4[..., :3]))),
+                    ("packed", torch.from_numpy(pack_bgrx(f4).view(np.int32)))):
+        x = x.to(dev)
+
+        def run():
+            return dev_preprocess.preprocess_frames(x, 128)
+
+        run()
+        torch.cuda.synchronize()
+        runs = _event_ms(run, 20) + _event_ms(run, 20)
+        ms = statistics.median(runs)
+        b_ms, b_by = bound(0, x.numel() * x.element_size() + b * 128 * 128)
+        phase("7 times", f"preprocess_frames {form} {w}x{h} -> 128^2 batch {b} "
+                         f"on {card}: median {ms!r} ms (n={len(runs)}), "
+                         f"{ms * 1e3 / b!r} us/frame; bound {b_ms!r} ms by "
+                         f"{b_by}, {b_ms / ms:.2%} of it")
+
+
+def realtime_times(card: str) -> None:
+    """The realtime loop's EMA FPS and median engine ms on lyr3-std mega,
+    fused and on the host-head protocol, REALTIME_TIMED_FRAMES synthetic
+    frames each; then the same loop's stages timed one by one (the
+    synthetic source, the host preprocess, the detect, the overlay). Both
+    are host-bound per-frame loops, as in the reference."""
+    for flags in (("--mode", "mega", "--fused"), ("--mode", "mega")):
+        _, stats = _run_realtime(_realtime_argv("lyr3-std", flags,
+                                                REALTIME_TIMED_FRAMES))
+        check(stats["frames"] == REALTIME_TIMED_FRAMES, f"realtime {flags}: {stats}")
+        phase("7 times", f"realtime lyr3-std {' '.join(flags)} --device cuda, "
+                         f"{REALTIME_TIMED_FRAMES} synthetic 640x480 frames on "
+                         f"{card}: EMA {stats['fps']!r} FPS, median conv_ms "
+                         f"{stats['conv_ms']!r}")
+    model = load_model(ARTIFACTS["lyr3-std"], "lyr3-std")
+    engine = infer.make_engine(model, "mega", "cuda")
+    engine.warmup()
+    pre_fn, pre_name = realtime.resolve_preprocess()
+    src = realtime.SyntheticSource(640, 480)
+    timer = StageTimer()
+    for _ in range(REALTIME_TIMED_FRAMES):
+        with timer.stage("source"):
+            frame = src.read()
+        with timer.stage(f"preprocess ({pre_name})"):
+            small = pre_fn(frame, 128)
+        with timer.stage("detect (fused)"):
+            r = realtime.detect_frame(engine, model, small, fused=True)
+        with timer.stage("overlay"):
+            realtime.draw_overlay(frame, r.idx, r.name, r.conf, r.probs, r.bbox,
+                                  0.0, r.conv_ms, r.read_ms, "mega", model.class_names)
+    phase("7 times", f"realtime lyr3-std --mode mega --fused loop stages, "
+                     f"{REALTIME_TIMED_FRAMES} frames on {card}, mean host ms: "
+                     + "; ".join(f"{k} {timer.mean_ms(k)!r}" for k in timer.totals))
 
 
 def _event_ms(fn, n: int) -> list[float]:
@@ -1372,6 +1756,11 @@ def times(dev: torch.device, card: str,
     # each plain version is one PyTorch call (torch.roll, or the copy that
     # reshape makes of a permuted byte view): its time is the library's
     out["bitcast"] = (k_ms, p_ms, b_ms, b_by, p_ms)
+    torch.cuda.empty_cache()
+    # last: run before the pallas profile, these left its torch.profiler
+    # session with no events in one run on the card
+    preprocess_times(dev, card, rs)
+    realtime_times(card)
     return out
 
 
@@ -1414,6 +1803,16 @@ def main(argv=None) -> None:
                   lambda: multi_engine(variant, backend, instances),
                   lambda: multi_cli(variant, backend, instances),
                   lambda: multi_server(variant, backend, instances))
+    for variant in ARTIFACTS:
+        main_path(f"{variant} engine swap (cpu, auto, --dump-features)",
+                  MEGA_KERNELS[variant], lambda: engine_swap(variant))
+    main_path("lyr3-std serve --mode cpu", (), lambda: host_server("lyr3-std"))
+    main_path("device preprocess", (), lambda: device_preprocess(dev))
+    for variant, flags, path_kernels in REALTIME_PATHS:
+        main_path(f"{variant} realtime {' '.join(flags)}", path_kernels,
+                  lambda: realtime_path(variant, flags))
+    main_path("lyr3-std realtime --mode mega --fused, MJPEG", ("mega_cnn",),
+              realtime_stream)
 
     for variant in ARTIFACTS:
         verify_cli(variant)

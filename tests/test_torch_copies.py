@@ -1,10 +1,13 @@
 """The port's own copies of the JAX package's JAX-free modules, each held
 equal to its ``tpu_cnn`` original on the same seeded numpy inputs: the
-numpy oracle, the C++ oracle, the host head twins, the weights.bin and
-bundle codecs, the registry and model holder, the CLI helpers and the
-service's host preprocess. Integer results are compared exactly; float
-results bit for bit too, since both sides run the same numpy code on the
-same arrays."""
+numpy oracle, the C++ oracle and its batched preprocess, the host-oracle
+engine, the host head twins and the tracker, the weights.bin and bundle
+codecs, the registry and model holder, the CLI helpers, the luma
+constants, the stage timers and the camera app's host preprocess. Integer
+results are compared exactly; float results bit for bit too, since both
+sides run the same numpy code on the same arrays."""
+
+import time
 
 import glob
 import io
@@ -24,22 +27,25 @@ from tpu_cnn.engine import cpu_ref as j_cpu_ref  # noqa: E402
 from tpu_cnn.head import bbox as j_bbox  # noqa: E402
 from tpu_cnn.head import cam as j_cam  # noqa: E402
 from tpu_cnn.head import classify as j_classify  # noqa: E402
+from tpu_cnn.head import tracker as j_tracker  # noqa: E402
 from tpu_cnn.models import cnn as j_cnn  # noqa: E402
 from tpu_cnn.models import registry as j_registry  # noqa: E402
 from tpu_cnn.native import oracle as j_oracle  # noqa: E402
+from tpu_cnn.native import preprocess as j_native_pre  # noqa: E402
 from tpu_cnn.ops import luma as j_luma  # noqa: E402
 from tpu_cnn.utils import artifacts as j_art  # noqa: E402
 from tpu_cnn.utils import paths as j_paths  # noqa: E402
 from tpu_cnn.utils import weights as j_weights  # noqa: E402
-from tpu_cnn_torch.apps import common, infer, serve, verify  # noqa: E402
+from tpu_cnn_torch.apps import common, infer, realtime, serve, verify  # noqa: E402
 from tpu_cnn_torch.engine import cpu_ref  # noqa: E402
 from tpu_cnn_torch.engine.cuda import CUDAEngine  # noqa: E402
-from tpu_cnn_torch.head import bbox, cam, classify  # noqa: E402
+from tpu_cnn_torch.head import bbox, cam, classify, tracker  # noqa: E402
 from tpu_cnn_torch.models import cnn, registry  # noqa: E402
 from tpu_cnn_torch.native import oracle  # noqa: E402
-from tpu_cnn_torch.ops import detect_head  # noqa: E402
+from tpu_cnn_torch.native import preprocess as native_pre  # noqa: E402
+from tpu_cnn_torch.ops import detect_head, luma  # noqa: E402
 from tpu_cnn_torch.utils import artifacts as art  # noqa: E402
-from tpu_cnn_torch.utils import paths, weights  # noqa: E402
+from tpu_cnn_torch.utils import paths, profiling, weights  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUNDLES = {"lyr3-std": os.path.join(REPO, "artifacts", "pretrained"),
@@ -303,7 +309,7 @@ def test_load_image_any_equals_the_original(tmp_path):
         art.load_image_any(raw, img_size=64)
 
 
-# ── the CLI helpers and the service's host preprocess ────────────────
+# ── the CLI helpers and the camera app's host preprocess ─────────────
 
 
 @pytest.mark.parametrize("shape", [(48, 64, 3), (64, 48, 3), (256, 256, 3),
@@ -311,10 +317,10 @@ def test_load_image_any_equals_the_original(tmp_path):
 def test_preprocess_equals_the_camera_twin(shape):
     frame = np.random.RandomState(36).randint(0, 256, shape).astype(np.uint8)
     for out in (16, 32):
-        _same(serve.preprocess(frame, out), j_realtime.preprocess(frame, out))
+        _same(realtime.preprocess(frame, out), j_realtime.preprocess(frame, out))
     if len(shape) == 3:
         for order in ("bgr", "rgb"):
-            _same(serve.bt601_gray_np(frame, order),
+            _same(luma.bt601_gray_np(frame, order),
                   j_luma.bt601_gray_np(frame, order))
 
 
@@ -367,3 +373,154 @@ def test_run_inference_prints_what_the_original_prints(box, tmp_path, capsys):
             outs.append((got, [ln for ln in text.splitlines()
                                if "Engine:" not in ln], jpg))
     assert outs[:3] == outs[3:]
+
+
+# ── the luma constants, the tracker, the stage timers ───────────────
+
+
+def test_luma_equals_the_original():
+    for name in ("LUMA_R", "LUMA_G", "LUMA_B", "LUMA_BIAS", "LUMA_SHIFT"):
+        assert getattr(luma, name) == getattr(j_luma, name), name
+    rs = np.random.RandomState(40)
+    for shape in ((2, 5, 7, 3), (2, 5, 7, 4), (9, 3)):
+        frames = rs.randint(0, 256, shape).astype(np.uint8)
+        _same(luma.pack_bgrx(frames), j_luma.pack_bgrx(frames))
+        if shape[-1] == 3:
+            for order in ("bgr", "rgb"):
+                _same(luma.bt601_gray_np(frames, order),
+                      j_luma.bt601_gray_np(frames, order))
+    for mod in (luma, j_luma):
+        with pytest.raises(ValueError, match="3 or 4 channels"):
+            mod.pack_bgrx(np.zeros((2, 2, 5), np.uint8))
+        with pytest.raises(ValueError, match="channel_order"):
+            mod.bt601_gray_np(np.zeros((2, 3), np.uint8), "bgrx")
+
+
+def _detection_stream(seed: int, n_frames: int = 30):
+    """A seeded 30-frame detection sequence: three objects of two classes
+    drifting with jitter, one dropping out for a few frames, plus a
+    one-frame flicker now and then."""
+    rs = np.random.RandomState(seed)
+    objs = [(1, np.array([10.0, 10, 40, 40]), np.array([2.0, 1, 2, 1])),
+            (1, np.array([70.0, 60, 100, 95]), np.array([-1.0, 1, -1, 1])),
+            (4, np.array([30.0, 80, 60, 120]), np.array([3.0, -2, 3, -2]))]
+    frames = []
+    for t in range(n_frames):
+        dets = []
+        for i, (cls, box, vel) in enumerate(objs):
+            if i == 2 and 10 <= t < 14:
+                continue  # occluded
+            b = box + vel * t + rs.randint(-2, 3, 4)
+            dets.append((cls, float(rs.uniform(0.3, 0.95)),
+                         tuple(int(v) for v in np.clip(b, 0, 127))))
+        if rs.rand() < 0.2:
+            dets.append((int(rs.randint(0, 6)), float(rs.uniform(0.2, 0.5)),
+                         tuple(int(v) for v in sorted(rs.randint(0, 128, 2)))
+                         + tuple(int(v) for v in sorted(rs.randint(0, 128, 2)))))
+        frames.append(dets)
+    return frames
+
+
+@pytest.mark.parametrize("velocity", [False, True])
+def test_tracker_equals_the_original(velocity):
+    ours = tracker.Tracker(velocity=velocity)
+    theirs = j_tracker.Tracker(velocity=velocity)
+    n_shown = 0
+    for dets in _detection_stream(41):
+        got, want = ours.update(dets), theirs.update(dets)
+        assert [(t.id, t.cls, t.box, t.prob, t.hits, t.age, t.vel, t.ibox())
+                for t in got] == [(t.id, t.cls, t.box, t.prob, t.hits, t.age,
+                                   t.vel, t.ibox()) for t in want]
+        n_shown += len(got)
+    assert n_shown > 30  # the stream does confirm tracks
+    assert [t.id for t in ours.tracks] == [t.id for t in theirs.tracks]
+    assert ours.tracks[0].predicted(2) == theirs.tracks[0].predicted(2)
+    for mod in (tracker, j_tracker):
+        with pytest.raises(ValueError, match="smooth"):
+            mod.Tracker(smooth=0.0)
+
+
+def test_stage_timer_and_ema_fps():
+    """``StageTimer`` and ``EmaFps`` as the JAX package's tests hold them
+    (``tests/test_aux_subsystems.py``), and the JAX one's report format."""
+    st = profiling.StageTimer()
+    with st.stage("x"):
+        time.sleep(0.01)
+    assert st.mean_ms("x") >= 5
+    assert "x:" in st.report() and st.report().endswith("ms(x1)")
+    assert st.mean_ms("never") == 0.0
+    ema = profiling.EmaFps()
+    ema.tick()
+    time.sleep(0.01)
+    assert ema.tick() > 0
+    from tpu_cnn.utils import profiling as j_profiling
+
+    a, b = profiling.StageTimer(), j_profiling.StageTimer()
+    for t in (a, b):
+        t.totals["load"], t.counts["load"] = 0.0123, 3
+    assert a.report() == b.report()
+    assert profiling.EmaFps().alpha == j_profiling.EmaFps().alpha
+
+
+def test_torch_trace_writes_a_trace(tmp_path):
+    """``torch_trace`` (``jax_trace``'s counterpart): None or "" does
+    nothing; a directory gets a Chrome trace of the block."""
+    for off in (None, ""):
+        with profiling.torch_trace(off):
+            torch.ones(4).sum()
+    assert list(tmp_path.iterdir()) == []
+    out = tmp_path / "trace"
+    with profiling.torch_trace(str(out)):
+        torch.ones(64, 64) @ torch.ones(64, 64)
+    trace = out / profiling.TRACE_FILE
+    assert trace.exists() and "traceEvents" in trace.read_text()
+
+
+# ── the native preprocess and the host-oracle engine ─────────────────
+
+
+NATIVE_PRE_CASES = {  # tests/test_native_oracle.py's cases
+    "color divisible": ((3, 256, 320, 3), 128, "bgr"),
+    "rgb": ((2, 256, 256, 3), 128, "rgb"),
+    "gray non-divisible": ((2, 200, 300), 128, "bgr"),
+    "single colour frame": ((480, 640, 3), 128, "bgr"),
+    "single gray frame": ((256, 256), 128, "bgr"),
+    "tall": ((640, 256, 3), 128, "bgr"),
+    "upsample": ((3, 240, 320, 3), 256, "bgr"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(NATIVE_PRE_CASES))
+def test_native_preprocess_equals_the_original(case, tmp_path, monkeypatch):
+    monkeypatch.setenv("TPU_CNN_BUILD_DIR", str(tmp_path))  # the original's
+    shape, out, order = NATIVE_PRE_CASES[case]
+    frames = np.random.RandomState(42).randint(0, 256, shape).astype(np.uint8)
+    got = native_pre.preprocess_frames_native(frames, out, channel_order=order)
+    _same(got, j_native_pre.preprocess_frames_native(frames, out,
+                                                     channel_order=order))
+    if order == "bgr":  # the numpy twin reads BGR and gray
+        want = (realtime.preprocess(frames, out) if len(shape) == 2
+                or (len(shape) == 3 and shape[-1] == 3)
+                else np.stack([realtime.preprocess(f, out) for f in frames]))
+        _same(got, want)
+    with pytest.raises(ValueError, match="channel_order"):
+        native_pre.preprocess_frames_native(frames, out, channel_order="bgrx")
+
+
+@pytest.mark.parametrize("use_native", [True, False])
+def test_cpu_ref_engine_equals_the_original(use_native, tmp_path, monkeypatch):
+    monkeypatch.setenv("TPU_CNN_BUILD_DIR", str(tmp_path))  # the original's
+    bundle = j_art.load_bundle(BUNDLES["lyr3-std"])
+    imgs = np.random.RandomState(43).randint(0, 256, (3, 128, 128)).astype(np.uint8)
+    ours = cpu_ref.CPURefEngine(bundle.kernels, use_native=use_native)
+    theirs = j_cpu_ref.CPURefEngine(bundle.kernels, use_native=use_native)
+    assert ours.backend == theirs.backend == ("native-c++" if use_native
+                                              else "numpy")
+    for eng in (ours, theirs):
+        eng.set_shifts(1, 3, 5)
+    assert ours.shifts == theirs.shifts == [1, 3, 5]
+    _same(ours.run_batch(imgs), theirs.run_batch(imgs))
+    got, conv_ms, read_ms = ours.run(imgs[0])
+    _same(got, theirs.run(imgs[0])[0])
+    _same(got, cpu_ref.numpy_cnn_forward(imgs[0], bundle.kernels, (1, 3, 5)))
+    assert conv_ms >= 0 and read_ms == 0.0

@@ -315,7 +315,7 @@ def test_service_mode_hybrid_answers_like_the_host_oracle():
 
 
 @pytest.mark.parametrize("argv,exc", [
-    (["--mode", "auto"], SystemExit),  # no backend picks itself
+    (["--mode", "mesh"], SystemExit),  # not ported yet (ROADMAP A.14)
     (["--shifts", "2,4,-1"], ValueError),
     (["--shifts", "2,32,6"], ValueError)])
 def test_infer_refuses_bad_mode_and_shifts(argv, exc):

@@ -78,7 +78,10 @@ for argv in (["tpu_cnn_torch.apps.verify", "--device", "cpu",
               "--variant", "lyr3-tiny"],
              ["tpu_cnn_torch.apps.infer", "--image",
               "artifacts/pretrained/test_image_0_class3.bin", "--device",
-              "cpu", "--no-save"]):
+              "cpu", "--no-save"],
+             ["tpu_cnn_torch.apps.realtime", "--mode", "cpu", "--source",
+              "synthetic", "--frames", "3", "--no-serve", "--multi",
+              "--track"]):
     out = io.StringIO()
     sys.argv = [argv[0]] + argv[1:]
     code = 0
@@ -110,7 +113,10 @@ def test_every_module_imports_with_the_jax_package_refused(refusing_run):
     assert len(names) >= 30, names
     for n in ("tpu_cnn_torch.head.cam", "tpu_cnn_torch.native.oracle",
               "tpu_cnn_torch.engine.cpu_ref", "tpu_cnn_torch.apps.common",
-              "tpu_cnn_torch.models.registry", "tpu_cnn_torch.utils.weights"):
+              "tpu_cnn_torch.models.registry", "tpu_cnn_torch.utils.weights",
+              "tpu_cnn_torch.ops.luma", "tpu_cnn_torch.ops.preprocess",
+              "tpu_cnn_torch.native.preprocess", "tpu_cnn_torch.head.tracker",
+              "tpu_cnn_torch.utils.profiling", "tpu_cnn_torch.apps.realtime"):
         assert n in names
     assert refusing_run["loaded"] == []
 
@@ -120,6 +126,22 @@ def test_verify_cli_with_the_jax_package_refused(refusing_run):
     assert code == 0, out
     assert VERDICT in out
     assert "numpy vs native    : BIT-EXACT" in out
+
+
+def test_the_scan_sees_the_new_modules():
+    for path in ("tpu_cnn_torch/ops/luma.py", "tpu_cnn_torch/ops/preprocess.py",
+                 "tpu_cnn_torch/native/preprocess.py",
+                 "tpu_cnn_torch/head/tracker.py",
+                 "tpu_cnn_torch/utils/profiling.py",
+                 "tpu_cnn_torch/apps/realtime.py"):
+        assert path in PORT_FILES
+
+
+def test_realtime_cli_with_the_jax_package_refused(refusing_run):
+    code, out = refusing_run["runs"]["tpu_cnn_torch.apps.realtime"]
+    assert code == 0, out
+    assert "Engine: CPURefEngine:native-c++" in out
+    assert "Host preprocess: native-c++" in out and "Done. 3 frames." in out
 
 
 def test_infer_cli_with_the_jax_package_refused(refusing_run):

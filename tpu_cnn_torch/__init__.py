@@ -20,16 +20,25 @@ kernels (``csrc/``, built by ``ops._build``):
                             (``csrc/bitcast.cu``)
   - ``ops.detect_head``   — the device head: classifier, CAM boxes, the
                             multi-object and instance heads
+  - ``ops.preprocess``    — batched camera-frame preprocess in torch on
+                            the frames' device (crop, BT.601 luma, resize)
+  - ``ops.luma``          — the BT.601 constants, ``pack_bgrx``
   - ``engine.cuda``       — ``CUDAEngine``: batched fused detect
-  - ``engine.cpu_ref``    — the numpy oracle (``numpy_cnn_forward``)
+  - ``engine.cpu_ref``    — the numpy oracle (``numpy_cnn_forward``) and
+                            the host-oracle engine ``CPURefEngine``
   - ``native.oracle``     — the C++ oracle (``native/cnn_oracle.cpp``)
+  - ``native.preprocess`` — the C++ batched frame preprocess (same source)
   - ``head``              — the host numpy twins of the head (``cam``,
-                            ``classify``, ``bbox``)
+                            ``classify``, ``bbox``) and the tracker
   - ``utils``             — the weights.bin and bundle codecs, artifact
-                            paths, the completion wait
+                            paths, the completion wait, stage timers and
+                            the torch.profiler trace context
   - ``bench_gate``        — the bench's parity gate
-  - ``apps``              — ``infer``, ``serve``, ``verify`` and
-                            ``probe_bitcast`` CLIs, and their ``common``
+  - ``apps``              — ``infer`` (with ``make_engine``, the engine
+                            swap: ``--mode auto|mega|pallas|hybrid|xla|
+                            cpu``), ``serve``, ``realtime`` (the camera
+                            app), ``verify`` and ``probe_bitcast`` CLIs,
+                            and their ``common``
 
 It imports ``torch`` and numpy, and nothing of ``tpu_cnn`` or ``jax``:
 where it needs a JAX-free piece of the JAX package it keeps its own copy

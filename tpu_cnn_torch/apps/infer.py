@@ -1,25 +1,31 @@
-"""Single/batch image inference CLI on the port's engine.
+"""Single/batch image inference CLI on the port's engines.
 
-The ``tpu_cnn.apps.infer`` surface with ``CUDAEngine`` in place of the TPU
-engine: one ``--image`` or a directory sweep of ``test_image_*_classC.bin``
-scored against the filename labels. Classification and the printed box
-come from ``run_inference`` (the host head on the engine's features), the
-port's copy of the JAX CLI's. With ``--multi`` each image's
-"Detections" lines come from the engine's multi-object detect on the
-device (``CUDAEngine.detect_multi_batch``; ``--instances N`` adds the
-watershed instances), in the JAX CLI's format; ``--instances`` without
-``--multi`` is ignored, as there.
+The ``tpu_cnn.apps.infer`` surface: one ``--image`` or a directory sweep of
+``test_image_*_classC.bin`` scored against the filename labels, with
+``--dump-features`` on a single image. The engine comes from
+``make_engine``, the port's engine swap: ``CUDAEngine`` on a device
+backend, or the host oracle ``CPURefEngine`` with ``--mode cpu``.
+Classification and the printed box come from ``run_inference`` (the host
+head on the engine's features), the port's copy of the JAX CLI's. With
+``--multi`` each image's "Detections" lines come from the engine's
+multi-object detect on the device (``CUDAEngine.detect_multi_batch``;
+``--instances N`` adds the watershed instances), in the JAX CLI's format;
+on ``--mode cpu`` from the host twins in ``run_inference``, as the JAX
+CLI computes them. ``--instances`` without ``--multi`` is ignored, as there.
 
 Usage:
   python -m tpu_cnn_torch.apps.infer --image-dir artifacts/pretrained --device cuda --no-save
   python -m tpu_cnn_torch.apps.infer --image X.bin --device cuda --no-save
+  python -m tpu_cnn_torch.apps.infer --image X.bin --mode cpu --dump-features --no-save
   python -m tpu_cnn_torch.apps.infer --variant lyr4-wide --device cuda --no-save
   python -m tpu_cnn_torch.apps.infer --mode pallas --device cuda --no-save
   python -m tpu_cnn_torch.apps.infer --multi --instances 2 --device cuda --no-save
 
-``--mode`` picks the engine's backend (``CUDAEngine`` ``BACKENDS``, the
-reference's flag name): ``mega`` (default), ``pallas``, ``hybrid`` or
-``xla``. It is orthogonal to ``--device``.
+``--mode`` (``MODES``, the reference's flag): ``mega`` (default),
+``pallas``, ``hybrid`` or ``xla`` run that ``CUDAEngine`` backend on
+``--device``; ``auto`` resolves to ``mega`` where the chained plan fits
+the geometry, else ``hybrid``; ``cpu`` runs the host oracle and ignores
+``--device``; ``mesh`` is not ported yet (ROADMAP A.14).
 
 ``--no-save`` skips the annotated JPEG (which needs PIL); raw ``.bin``
 images need nothing beyond numpy.
@@ -35,13 +41,48 @@ import time
 import numpy as np
 
 from tpu_cnn_torch.apps.common import load_model
+from tpu_cnn_torch.engine.cpu_ref import CPURefEngine
 from tpu_cnn_torch.engine.cuda import (BACKENDS, DEFAULT_MULTI_THRESH, CUDAEngine,
                                        detections_above, instance_detections)
 from tpu_cnn_torch.head import cam as cam_host
 from tpu_cnn_torch.head import classify as classify_host
 from tpu_cnn_torch.head.bbox import bbox_regress_features_np
+from tpu_cnn_torch.models.cnn import FpgaCNN
+from tpu_cnn_torch.ops import mega
 from tpu_cnn_torch.utils import artifacts as art
 from tpu_cnn_torch.utils.paths import default_artifacts
+
+# the engine swap's modes: the CUDAEngine backends, "auto", the mesh (not
+# ported yet) and the host oracle
+MODES = ("auto", *BACKENDS, "mesh", "cpu")
+MESH_NOT_PORTED = "--mode mesh: not yet ported (ROADMAP A.14, the mesh axes)"
+
+
+def auto_backend(model: FpgaCNN) -> str:
+    """``--mode auto``'s backend: "mega" when the chained plan has a tail
+    that fits the megakernel for the geometry, else "hybrid"."""
+    return ("mega" if mega.mega_plan(model.config.layer_configs) is not None
+            else "hybrid")
+
+
+def make_engine(model: FpgaCNN, mode: str, device: str = "cuda",
+                box_mode: str = "ref"):
+    """The engine swap (reference ``--mode fpga|arm``,
+    ``realtime_detect.py:556``): "cpu" is the host oracle
+    (``CPURefEngine``, the native C++ oracle or numpy; ``device`` ignored);
+    "mega", "pallas", "hybrid" and "xla" are that ``CUDAEngine`` backend on
+    ``device``; "auto" is :func:`auto_backend`'s. ``box_mode`` picks the
+    fused CAM box ("ref", "centroid", "reg"); the host oracle has no fused
+    head, its callers pick the host twin themselves."""
+    if mode == "cpu":
+        return CPURefEngine(model.kernels, model.shifts)
+    if mode == "mesh":
+        raise ValueError(MESH_NOT_PORTED)
+    if mode == "auto":
+        mode = auto_backend(model)
+    if mode not in BACKENDS:
+        raise ValueError(f"unknown mode {mode!r}: need one of {MODES}")
+    return CUDAEngine(model, device=device, backend=mode, box_mode=box_mode)
 
 
 def annotate_and_save(image_flat, bbox, label, out_path, img_size=128):
@@ -201,7 +242,13 @@ def parse_detection_blocks(text: str) -> list[tuple[str, list[tuple]]]:
 
 def _infer_one(engine, model, path, args, multi_thresh):
     """``run_inference`` for the single-box part, then, with ``--multi``,
-    the device's multi-object detections of the same image."""
+    the device's multi-object detections of the same image. An engine
+    without a multi detect (the host oracle) gets them from the host twins
+    inside ``run_inference``, as the JAX CLI does."""
+    if args.multi and not hasattr(engine, "detect_multi_batch"):
+        return run_inference(engine, model, path, save_output=not args.no_save,
+                             box=args.box, multi_thresh=multi_thresh,
+                             instances=args.instances)
     idx, name, conf = run_inference(
         engine, model, path, save_output=not args.no_save and not args.multi,
         box=args.box)
@@ -231,14 +278,19 @@ def main(argv=None):
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda runs the hand-written kernels; cpu their plain "
                         "PyTorch versions")
-    p.add_argument("--mode", default="mega", choices=BACKENDS,
-                   help="engine backend: mega (whole-net kernel), pallas "
-                        "(the conv kernel on every layer), hybrid (on layer "
-                        "0 only) or xla (plain contract, no kernel)")
+    p.add_argument("--mode", default="mega", choices=MODES,
+                   help="engine: mega (whole-net kernel), pallas (the conv "
+                        "kernel on every layer), hybrid (on layer 0 only), "
+                        "xla (plain contract, no kernel), auto (mega where "
+                        "it fits, else hybrid), or cpu (the host oracle, "
+                        "native C++ or numpy; --device ignored)")
     p.add_argument("--no-save", action="store_true")
     p.add_argument("--shifts", default=None,
                    help="comma list, one per layer (default: the bundle's "
                         "shifts.json if present, else the variant ladder)")
+    p.add_argument("--dump-features", action="store_true",
+                   help="with --image: also save the engine's features as "
+                        "<image stem>_features.npy")
     p.add_argument("--variant", default="lyr3-std",
                    help="model geometry from models.registry")
     p.add_argument("--box", default="ref", choices=["ref", "centroid", "reg"])
@@ -254,6 +306,8 @@ def main(argv=None):
                         "class, so two objects of one class get two boxes "
                         "(default 1)")
     args = p.parse_args(argv)
+    if args.mode == "mesh":
+        p.error(MESH_NOT_PORTED)
     args.artifacts = args.artifacts or default_artifacts(args.variant)
     shifts = ([int(s) for s in args.shifts.split(",")]
               if args.shifts is not None else None)
@@ -274,14 +328,19 @@ def main(argv=None):
     if multi_thresh is None:
         multi_thresh = (model.multi_thresh if model.multi_thresh is not None
                         else DEFAULT_MULTI_THRESH)
-    engine = CUDAEngine(model, device=args.device, backend=args.mode,
-                        box_mode=args.box)
+    engine = make_engine(model, args.mode, args.device, box_mode=args.box)
     print(f"Engine: {type(engine).__name__} ({engine.backend})")
     print(f"Classifier: {len(model.class_names)} classes — {model.class_names} "
           f"[{model.head_mode} head]")
 
     if args.image:
         _infer_one(engine, model, args.image, args, multi_thresh)
+        if args.dump_features:
+            feat, *_ = engine.run(art.load_image_any(
+                args.image, img_size=model.config.img_size))
+            out = os.path.splitext(args.image)[0] + "_features.npy"
+            np.save(out, feat)
+            print(f"  Features saved: {out}")
         return
 
     image_dir = args.image_dir or args.artifacts

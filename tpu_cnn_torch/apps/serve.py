@@ -1,11 +1,15 @@
 """Detection service on the port's engine — dynamic-batching HTTP server.
 
-The port of ``tpu_cnn.apps.serve`` with ``CUDAEngine`` underneath. The
-serving layer (``DynamicBatcher``, ``ServiceHTTPServer``, ``make_handler``,
-``decode_image`` and its host ``preprocess``) is the port's copy of the
-JAX service's: the batcher coalesces single requests into device batches
-and drives the engine's async detect pipeline; the multi-object answers
-come from the engine module's detection filters.
+The port of ``tpu_cnn.apps.serve``, with its engine from the port's engine
+swap (``apps.infer.make_engine``): ``CUDAEngine`` on a device backend, or
+with ``--mode cpu`` the host oracle behind ``_HostDetectAdapter`` (the host
+head twins on its features). The serving layer (``DynamicBatcher``,
+``ServiceHTTPServer``, ``make_handler``, ``decode_image``) is the port's
+copy of the JAX service's: the batcher coalesces single requests into
+device batches and drives the engine's async detect pipeline; the
+multi-object answers come from the engine module's detection filters.
+``decode_image`` runs an encoded image through the camera pipeline's host
+preprocess (``apps.realtime.preprocess``).
 
 Endpoints:
   POST /detect   body: S x S raw uint8 bytes at the variant's image size
@@ -22,8 +26,9 @@ Usage:
   python -m tpu_cnn_torch.apps.serve --variant lyr4-wide --device cuda --port 8000
   python -m tpu_cnn_torch.apps.serve --mode hybrid --device cuda --port 8000
   python -m tpu_cnn_torch.apps.serve --multi --instances 2 --device cuda --port 8000
+  python -m tpu_cnn_torch.apps.serve --mode cpu --port 8000
 
-``--mode`` picks the engine's backend, as in ``apps.infer``.
+``--mode`` picks the engine, as in ``apps.infer`` (``MODES``).
 """
 
 from __future__ import annotations
@@ -39,57 +44,15 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 
 from tpu_cnn_torch.apps.common import load_model
-from tpu_cnn_torch.engine.cuda import (BACKENDS, DEFAULT_MULTI_THRESH,
-                                       CUDAEngine, detections_above,
+from tpu_cnn_torch.apps.infer import MESH_NOT_PORTED, MODES, make_engine
+from tpu_cnn_torch.engine.cuda import (DEFAULT_MULTI_THRESH, DetectResult,
+                                       MultiDetectResult, detections_above,
                                        instance_detections, presence_scores)
+from tpu_cnn_torch.head import cam as cam_host
+from tpu_cnn_torch.head.bbox import bbox_regress_np
+from tpu_cnn_torch.head.classify import bin_pool_np, classify_np
 from tpu_cnn_torch.models.cnn import IMG_SIZE
 from tpu_cnn_torch.utils.paths import default_artifacts
-
-# BT.601 fixed-point luma (cv2.COLOR_BGR2GRAY-exact), tpu_cnn/ops/luma.py's
-LUMA_R, LUMA_G, LUMA_B = 4899, 9617, 1868
-LUMA_BIAS, LUMA_SHIFT = 8192, 14
-
-
-def bt601_gray_np(frame: np.ndarray, channel_order: str = "bgr") -> np.ndarray:
-    """(..., 3) uint8 -> (...) uint8 luma, cv2's fixed-point rounding."""
-    c = frame.astype(np.uint32)
-    if channel_order == "bgr":
-        b, g, r = c[..., 0], c[..., 1], c[..., 2]
-    elif channel_order == "rgb":
-        r, g, b = c[..., 0], c[..., 1], c[..., 2]
-    else:
-        raise ValueError(f"channel_order must be 'bgr' or 'rgb', got {channel_order!r}")
-    return ((LUMA_R * r + LUMA_G * g + LUMA_B * b + LUMA_BIAS) >> LUMA_SHIFT).astype(
-        np.uint8
-    )
-
-
-def preprocess(frame: np.ndarray, out_size: int = IMG_SIZE) -> np.ndarray:
-    """Center-crop to square, BT.601 grayscale (cv2.COLOR_BGR2GRAY-exact),
-    area-resize to the model input size: the host twin of the camera
-    pipeline's preprocess (``tpu_cnn.apps.realtime.preprocess``)."""
-    h, w = frame.shape[:2]
-    if w > h:
-        x0 = (w - h) // 2
-        crop = frame[:, x0 : x0 + h]
-    elif h > w:
-        y0 = (h - w) // 2
-        crop = frame[y0 : y0 + w]
-    else:
-        crop = frame
-    if crop.ndim == 3:  # BGR, OpenCV's fixed-point BT.601 luma
-        gray = bt601_gray_np(crop).astype(np.uint32)
-    else:
-        gray = crop
-    s = gray.shape[0]
-    f = s // out_size
-    if f >= 1 and s % out_size == 0:
-        small = gray.reshape(out_size, f, out_size, f).mean(axis=(1, 3))
-    else:
-        idx = (np.arange(out_size) * s // out_size).clip(0, s - 1)
-        small = gray[np.ix_(idx, idx)]
-    return small.astype(np.uint8)
-
 
 class Overloaded(Exception):
     """The batcher's admission queue is full. Carries a Retry-After hint
@@ -354,13 +317,15 @@ def decode_image(body: bytes, img_size: int = IMG_SIZE) -> np.ndarray:
         return np.frombuffer(body, np.uint8).reshape(img_size, img_size).copy()
     from PIL import Image
 
+    from tpu_cnn_torch.apps.realtime import preprocess as host_preprocess
+
     # Decode, then run the SAME preprocess as every other ingest path
     # (center-crop, cv2-exact BT.601 luma, area/nearest resize) — PIL's
     # convert("L")+resize uses different luma rounding and interpolation,
     # which would make the service classify differently from the camera
     # pipeline on identical pixels.
     img = np.asarray(Image.open(io.BytesIO(body)).convert("RGB"), np.uint8)
-    return preprocess(img[..., ::-1], img_size)  # twin expects BGR
+    return host_preprocess(img[..., ::-1], img_size)  # twin expects BGR
 
 
 # Reject request bodies above this size before reading them: the server
@@ -443,21 +408,29 @@ def build_service(artifacts_dir: str | None = None, device: str = "cuda",
                   variant: str = "lyr3-std", box: str = "ref",
                   head_prefix: str = "", mode: str = "mega",
                   multi: bool = False, multi_thresh=None, instances: int = 1):
-    """Load the bundle, build and warm a ``CUDAEngine`` on backend ``mode``
-    at ``max_batch`` (the batcher pads every batch to it), the multi
-    program too with ``multi``, and put a ``DynamicBatcher`` in front.
+    """Load the bundle, build the engine for ``mode`` through
+    ``make_engine`` (a ``CUDAEngine`` on ``device``, warmed at
+    ``max_batch`` since the batcher pads every batch to it, the multi
+    program too with ``multi``; or with ``mode="cpu"`` the host oracle
+    behind ``_HostDetectAdapter``), and put a ``DynamicBatcher`` in front.
     ``multi_thresh`` None: the bundle's ``multi_thresh.json``, else 0.15.
     Returns (batcher, backend name)."""
     model = load_model(artifacts_dir or default_artifacts(variant), variant,
                        head_prefix)
+    if box == "reg" and model.bbox_weight is None:
+        raise ValueError("--box reg needs bbox_weight.npy in the bundle")
     if multi and model.head_mode != "bins":
         raise ValueError("--multi needs the spatial-bin head (per-class CAM)")
     if multi_thresh is None:
         multi_thresh = (model.multi_thresh if model.multi_thresh is not None
                         else DEFAULT_MULTI_THRESH)
-    engine = CUDAEngine(model, device=device, backend=mode,
-                        max_batch=max_batch, box_mode=box)
-    engine.warmup(batch=max_batch, multi=multi, instances=instances)
+    engine = make_engine(model, mode, device, box_mode=box)
+    if hasattr(engine, "warmup"):
+        engine.max_batch = max_batch
+        engine.warmup(batch=max_batch, multi=multi, instances=instances)
+    if not hasattr(engine, "detect_batch"):
+        # the host oracle engine: the host head twins on its features
+        engine = _HostDetectAdapter(engine, model, box=box)
     batcher = DynamicBatcher(engine, model.class_names, max_batch=max_batch,
                              max_wait_ms=max_wait_ms,
                              img_size=model.config.img_size, multi=multi,
@@ -465,13 +438,66 @@ def build_service(artifacts_dir: str | None = None, device: str = "cuda",
     return batcher, engine.backend
 
 
+class _HostDetectAdapter:
+    """Gives the host oracle engine (``CPURefEngine``) the detect_batch
+    interface: the port's copy of the JAX service's, the host head twins
+    on the engine's features. Its ``detect_multi_batch`` takes no
+    ``instances``, so a batcher asked for instances refuses it."""
+
+    def __init__(self, engine, model, box: str = "ref"):
+        self.engine = engine
+        self.model = model
+        self.box = box
+        self.backend = f"host:{engine.backend}"
+
+    def detect_batch(self, images):
+        feats = self.engine.run_batch(images)
+        idx, conf, probs = classify_np(feats, self.model.fc_weight, self.model.fc_bias)
+        s = self.model.config.img_size
+        if self.box == "reg":
+            boxes = bbox_regress_np(bin_pool_np(feats),
+                                    self.model.bbox_weight, s)
+            return DetectResult(idx.astype(np.int32), conf.astype(np.float32),
+                                probs.astype(np.float32),
+                                np.asarray(boxes, np.int32))
+        box_fn = (cam_host.cam_bbox_centroid if self.box == "centroid"
+                  else cam_host.cam_bbox_fast)
+        boxes = []
+        for i in range(len(images)):
+            if self.model.head_mode == "bins":
+                boxes.append(box_fn(feats[i], int(idx[i]),
+                                    self.model.fc_weight, s))
+            else:
+                boxes.append((0, 0, s - 1, s - 1))
+        return DetectResult(idx.astype(np.int32), conf.astype(np.float32),
+                            probs.astype(np.float32),
+                            np.asarray(boxes, np.int32))
+
+    def detect_multi_batch(self, images):
+        feats = self.engine.run_batch(images)
+        idx, conf, probs = classify_np(feats, self.model.fc_weight,
+                                       self.model.fc_bias)
+        s = self.model.config.img_size
+        box_mode = "centroid" if self.box == "centroid" else "ref"
+        boxes = np.stack([
+            cam_host.cam_bbox_multi(feats[i], self.model.fc_weight,
+                                    img_size=s, box_mode=box_mode)
+            for i in range(len(images))
+        ])
+        return MultiDetectResult(idx.astype(np.int32),
+                                 conf.astype(np.float32),
+                                 probs.astype(np.float32),
+                                 boxes.astype(np.int32))
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description="CNN detection service on the "
                                             "CUDA port")
     p.add_argument("--artifacts", default=None)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
-    p.add_argument("--mode", default="mega", choices=BACKENDS,
-                   help="engine backend (see tpu_cnn_torch.apps.infer)")
+    p.add_argument("--mode", default="mega", choices=MODES,
+                   help="engine (see tpu_cnn_torch.apps.infer); cpu serves "
+                        "the host oracle and ignores --device")
     p.add_argument("--host", default="127.0.0.1",
                    help="bind address (default loopback; the service has no "
                         "auth — expose beyond localhost deliberately)")
@@ -495,6 +521,8 @@ def main(argv=None):
     p.add_argument("--deployable", default=None,
                    help="not yet ported (ROADMAP A.12, export)")
     args = p.parse_args(argv)
+    if args.mode == "mesh":
+        p.error(MESH_NOT_PORTED)
     if args.deployable:
         p.error("--deployable: not yet ported (ROADMAP A.12, export)")
     batcher, backend = build_service(
@@ -504,8 +532,9 @@ def main(argv=None):
         instances=args.instances)
     srv = ServiceHTTPServer((args.host, args.port),
                             make_handler(batcher, backend))
-    print(f"serving on {args.host}:{args.port} (backend {backend}, "
-          f"max_batch {args.max_batch}, max_wait {args.max_wait_ms}ms)")
+    print(f"serving on {args.host}:{srv.server_address[1]} (backend {backend}, "
+          f"max_batch {args.max_batch}, max_wait {args.max_wait_ms}ms)",
+          flush=True)
     try:
         srv.serve_forever()
     except KeyboardInterrupt:

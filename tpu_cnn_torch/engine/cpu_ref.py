@@ -1,15 +1,19 @@
-"""Bit-exact CPU oracle in vectorised numpy: the port's copy of
-``tpu_cnn.engine.cpu_ref``'s forward pass.
+"""Bit-exact CPU oracle in vectorised numpy, and the host-oracle engine:
+the port's copy of ``tpu_cnn.engine.cpu_ref``.
 
 The independent host-side implementation of the fixed-point contract that
 every device path of the port is held against. Sliding-window view +
 tensordot: a different formulation from the plain torch contract
 (``ops.quant``), the kernels and the C++ oracle (``native``), so that a bug
 in one cannot hide in all of them.
+
+``CPURefEngine`` is the engine ``--mode cpu`` asks for (``apps.infer.
+make_engine``): the C++ oracle, or this module's numpy forward.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Sequence
 
 import numpy as np
@@ -59,3 +63,60 @@ def numpy_cnn_forward(
         x = numpy_conv_layer(x, k, int(s), accum_wrap=accum_wrap)
     oc, sh, sw = x.shape
     return x.reshape(oc, sh * sw)
+
+
+class CPURefEngine:
+    """Engine-protocol oracle: ``run(gray) -> (features, conv_ms, read_ms)``.
+
+    The host engine of the engine swap (``--mode cpu``), mirroring the
+    reference's FPGA/ARM engine duality (``software/realtime_detect.py:
+    398-451,556``). Uses the native C++ oracle when it builds and loads,
+    numpy otherwise; ``backend`` names the one that runs. It has no fused
+    detect: its callers run the host head twins on its features.
+    """
+
+    def __init__(
+        self,
+        kernels: Sequence[np.ndarray],
+        shifts: Sequence[int] = DEFAULT_SHIFTS,
+        use_native: bool = True,
+    ):
+        self.kernels = [np.asarray(k, np.int8) for k in kernels]
+        self.shifts = [int(s) for s in shifts]
+        self._native = None
+        if use_native:
+            try:
+                from tpu_cnn_torch.native import oracle
+
+                self._native = oracle.NativeOracle()
+            except Exception:
+                self._native = None
+
+    @property
+    def backend(self) -> str:
+        return "native-c++" if self._native is not None else "numpy"
+
+    def set_shifts(self, *shifts: int) -> None:
+        """Runtime shift update — same register semantics as
+        ``CUDAEngine.set_shifts`` (reference ``pynq_inference.py:226-229``)."""
+        self.shifts = [int(s) for s in shifts]
+
+    def run(self, gray: np.ndarray):
+        t0 = time.perf_counter()
+        img = np.asarray(gray, dtype=np.uint8).reshape(-1)
+        if self._native is not None:
+            feat = self._native.infer(img, self.kernels, self.shifts)
+        else:
+            feat = numpy_cnn_forward(img, self.kernels, self.shifts)
+        conv_ms = (time.perf_counter() - t0) * 1e3
+        return feat, conv_ms, 0.0
+
+    def run_batch(self, images: np.ndarray) -> np.ndarray:
+        images = np.asarray(images, dtype=np.uint8)
+        if self._native is not None:
+            return self._native.infer_batch(
+                images.reshape(len(images), -1), self.kernels, self.shifts
+            )
+        return np.stack(
+            [numpy_cnn_forward(im, self.kernels, self.shifts) for im in images]
+        )

@@ -15,7 +15,8 @@ under their names, so that the apps' ``--mode`` flag carries over:
   - ``"xla"``: the plain contract ``ops.quant.cnn_forward`` (f32 or int32,
     ``compute_dtype``), then ``detect``. It launches no kernel.
 
-Nothing picks a backend on its own. All of it runs on the device; only
+The engine picks no backend on its own (``apps.infer.make_engine`` resolves
+``--mode auto``). All of it runs on the device; only
 the head's outputs come back to the host, through pinned buffers and a
 recorded event (the multi head's boxes as u8 and its instance counts as
 int16 on that copy, restored to int32 on the host).
@@ -221,6 +222,11 @@ class CUDAEngine:
         else:
             self.backend = f"{name}-cuda"
         self.launches = 0  # kernel launches made by this engine
+
+    @property
+    def mode(self) -> str:
+        """The backend this engine runs, by its ``BACKENDS`` name."""
+        return self._backend
 
     # ── device work ───────────────────────────────────────────────────
 

@@ -141,4 +141,65 @@ int tcnn_num_threads() {
 #endif
 }
 
+// Batched camera-frame preprocess (the port's copy of
+// tpu_cnn/native/cnn_oracle.cpp's tcnn_preprocess) — the native host-side
+// twin of the device path ops/preprocess.py (and of the reference's
+// per-frame ARM preprocess, software/realtime_detect.py:584-591):
+//   center-crop to square -> BT.601 fixed-point luma (cv2.COLOR_BGR2GRAY
+//   exact: (4899 R + 9617 G + 1868 B + 8192) >> 14) -> area resize (exact
+//   integer block mean when the crop divides out_size, nearest otherwise).
+// frames: batch x H x W x channels uint8 (channels 1 or 3); bgr selects the
+// channel order when channels == 3. out: batch x out_size x out_size uint8.
+// Returns 0 on success.
+int tcnn_preprocess(const uint8_t* frames, int batch, int H, int W,
+                    int channels, int bgr, int out_size, uint8_t* out) {
+  if (batch <= 0 || H <= 0 || W <= 0 || out_size <= 0) return -1;
+  if (channels != 1 && channels != 3) return -2;
+  // crops smaller than out_size upsample through the nearest-index path
+  // below — same behaviour as the numpy twin (apps/realtime.preprocess)
+  const int s = H < W ? H : W;
+  const int y0 = (H - s) / 2, x0 = (W - s) / 2;
+  const int f = s / out_size;
+  const bool exact = (s % out_size) == 0;
+  const size_t frame_sz = (size_t)H * W * channels;
+  const size_t out_sz = (size_t)out_size * out_size;
+  const int ri = channels == 3 ? (bgr ? 2 : 0) : 0;
+  const int bi = channels == 3 ? (bgr ? 0 : 2) : 0;
+
+  // nearest-sample index map (non-divisible geometries)
+  std::vector<int> idx(out_size);
+  for (int i = 0; i < out_size; ++i) {
+    int v = (int)(((int64_t)i * s) / out_size);
+    idx[i] = v < s - 1 ? v : s - 1;
+  }
+
+#pragma omp parallel for schedule(dynamic)
+  for (int b = 0; b < batch; ++b) {
+    const uint8_t* fr = frames + (size_t)b * frame_sz;
+    uint8_t* dst = out + (size_t)b * out_sz;
+    auto gray_at = [&](int y, int x) -> uint32_t {
+      const uint8_t* p = fr + ((size_t)(y0 + y) * W + (x0 + x)) * channels;
+      if (channels == 1) return p[0];
+      return (4899u * p[ri] + 9617u * p[1] + 1868u * p[bi] + 8192u) >> 14;
+    };
+    if (exact) {
+      const uint32_t denom = (uint32_t)f * f;
+      for (int oy = 0; oy < out_size; ++oy) {
+        for (int ox = 0; ox < out_size; ++ox) {
+          uint32_t sum = 0;
+          for (int dy = 0; dy < f; ++dy)
+            for (int dx = 0; dx < f; ++dx)
+              sum += gray_at(oy * f + dy, ox * f + dx);
+          dst[(size_t)oy * out_size + ox] = (uint8_t)(sum / denom);
+        }
+      }
+    } else {
+      for (int oy = 0; oy < out_size; ++oy)
+        for (int ox = 0; ox < out_size; ++ox)
+          dst[(size_t)oy * out_size + ox] = (uint8_t)gray_at(idx[oy], idx[ox]);
+    }
+  }
+  return 0;
+}
+
 }  // extern "C"
