@@ -7,6 +7,7 @@ constants, the stage timers and the camera app's host preprocess. Integer
 results are compared exactly; float results bit for bit too, since both
 sides run the same numpy code on the same arrays."""
 
+import json
 import time
 
 import glob
@@ -524,3 +525,214 @@ def test_cpu_ref_engine_equals_the_original(use_native, tmp_path, monkeypatch):
     _same(got, theirs.run(imgs[0])[0])
     _same(got, cpu_ref.numpy_cnn_forward(imgs[0], bundle.kernels, (1, 3, 5)))
     assert conv_ms >= 0 and read_ms == 0.0
+
+
+# ── the data generators, metrics and helpers of the offline apps ─────
+
+
+VAL_BINS = os.path.join(REPO, "artifacts", "realphoto", "val_bins")
+
+
+def _generator_case(data, name):
+    """One generator's output through ``data`` (the port's module or the
+    JAX package's) on fixed seeds and small sizes."""
+    if name == "SyntheticShapes.arrays_with_boxes":
+        return data.SyntheticShapes(n_per_class=2, seed=3).arrays_with_boxes()
+    if name == "CompositeScenes":
+        return [data.CompositeScenes(n_scenes=4, seed=3, same_class=sc).arrays()
+                for sc in (False, True)]
+    if name == "MovingScenes":
+        return [data.MovingScenes(n_seqs=2, n_frames=5, seed=3,
+                                  same_class=sc).arrays() for sc in (False, True)]
+    if name == "RealComposites":
+        return [data.RealComposites(n_scenes=4, seed=3, root=VAL_BINS,
+                                    background=bg).arrays()
+                for bg in ("noise", "real")] + [
+            data.RealComposites(n_scenes=3, seed=4, same_class=True).arrays()]
+    if name == "RealMovingScenes":
+        return [data.RealMovingScenes(n_seqs=2, n_frames=5, seed=3,
+                                      background=bg).arrays()
+                for bg in ("noise", "real")]
+    if name == "BinFolderDataset":
+        ds = data.BinFolderDataset(VAL_BINS, max_per_class=3)
+        return ds.arrays(), ds.class_names, len(ds)
+    raise KeyError(name)
+
+
+GENERATORS = ["SyntheticShapes.arrays_with_boxes", "CompositeScenes",
+              "MovingScenes", "RealComposites", "RealMovingScenes",
+              "BinFolderDataset"]
+
+
+def _same_data(a, b):
+    """``_same`` through dicts and tuples of numpy scalars and ints."""
+    if isinstance(a, dict):
+        assert list(a) == list(b)
+        for k in a:
+            _same_data(a[k], b[k])
+    elif isinstance(a, (tuple, list)):
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            _same_data(x, y)
+    elif isinstance(a, np.ndarray):
+        _same(a, b)
+    else:
+        assert a == b and type(a) is type(b), (a, b)
+
+
+@pytest.mark.parametrize("name", GENERATORS)
+def test_data_generator_equals_the_original(name):
+    from tpu_cnn.train import data as j_data
+    from tpu_cnn_torch.train import data
+
+    _same_data(_generator_case(data, name), _generator_case(j_data, name))
+
+
+def _write_pngs(root, rs):
+    from PIL import Image
+
+    for cls in ("bus", "cat"):
+        os.makedirs(root / cls)
+        for i in range(2):
+            Image.fromarray(rs.randint(0, 256, (40 + 7 * i, 50, 3)).astype(
+                np.uint8)).save(root / cls / f"im{i}.png")
+
+
+def test_image_folder_dataset_equals_the_original(tmp_path):
+    from tpu_cnn.train import data as j_data
+    from tpu_cnn_torch.train import data
+
+    _write_pngs(tmp_path, np.random.RandomState(44))
+    for kw in ({}, {"max_per_class": 1, "img_size": 32},
+               {"class_names": ["cat"]}):
+        ours, theirs = (m.ImageFolderDataset(str(tmp_path), **kw)
+                        for m in (data, j_data))
+        assert ours.class_names == theirs.class_names
+        assert ours.samples == theirs.samples
+        _same_data(ours.arrays(), theirs.arrays())
+
+
+def test_coco_classification_equals_the_original(tmp_path):
+    """``CocoClassification`` on a small COCO JSON and images the test
+    writes (COCO is not in the repository): the same samples and arrays,
+    through the built-in JSON reader when pycocotools is absent."""
+    import json
+
+    from PIL import Image
+    from tpu_cnn.train import data as j_data
+    from tpu_cnn_torch.train import data
+
+    rs = np.random.RandomState(45)
+    cats = list(data.CocoClassification.COCO_CATS.values())
+    images, anns = [], []
+    for i in range(12):
+        name = f"{i:04d}.png"
+        Image.fromarray(rs.randint(0, 256, (30, 40, 3)).astype(np.uint8)).save(
+            tmp_path / name)
+        images.append({"id": 100 + i, "file_name": name})
+        for c in rs.choice(cats, 1 + i % 2, replace=False):
+            anns.append({"id": len(anns), "image_id": 100 + i,
+                         "category_id": int(c)})
+    ann = tmp_path / "instances.json"
+    ann.write_text(json.dumps({"images": images, "annotations": anns}))
+    assert data.CocoClassification.COCO_CATS == j_data.CocoClassification.COCO_CATS
+    for kw in ({}, {"max_per_class": 2, "img_size": 32, "seed": 3}):
+        ours, theirs = (m.CocoClassification(str(tmp_path), str(ann), **kw)
+                        for m in (data, j_data))
+        assert ours.samples == theirs.samples and len(ours) == len(theirs) > 0
+        assert ours.class_names == theirs.class_names
+        _same_data(ours.arrays(), theirs.arrays())
+    mini = data._MiniCoco(str(ann))
+    j_mini = j_data._MiniCoco(str(ann))
+    for c in cats:
+        assert mini.getImgIds(catIds=[c]) == j_mini.getImgIds(catIds=[c])
+    assert mini.loadImgs(103) == j_mini.loadImgs(103)
+
+
+HELPERS = {
+    "soft_composites": lambda d, imgs, labels: [
+        d.soft_composites(imgs, labels, 5, seed=s) for s in (0, 2)],
+    "batches": lambda d, imgs, labels: [
+        list(d.batches(imgs, labels, 3, np.random.RandomState(5), drop_remainder=dr))
+        for dr in (True, False)],
+    "augment_batch": lambda d, imgs, labels: [
+        d.augment_batch(imgs, np.random.RandomState(6), max_shift=ms)
+        for ms in (4, 1)],
+}
+
+
+@pytest.mark.parametrize("name", sorted(HELPERS))
+def test_data_helper_equals_the_original(name):
+    from tpu_cnn.train import data as j_data
+    from tpu_cnn_torch.train import data
+
+    imgs, labels = j_data.BinFolderDataset(VAL_BINS, max_per_class=3).arrays()
+    _same_data(HELPERS[name](data, imgs, labels),
+               HELPERS[name](j_data, imgs, labels))
+
+
+def test_iou_equals_the_original():
+    from tpu_cnn.apps.eval_detection import iou as j_iou
+    from tpu_cnn_torch.apps.eval_detection import iou
+
+    rs = np.random.RandomState(46)
+    boxes = [tuple(int(v) for v in rs.randint(0, 128, 4)) for _ in range(40)]
+    boxes += [(0, 0, 10, 10), (20, 20, 30, 30), (5, 5, 5, 5)]
+    for a in boxes:
+        for b in boxes[:12]:
+            got, want = iou(a, b), j_iou(a, b)
+            assert got == want and type(got) is type(want)
+
+
+def test_metrics_equal_the_originals(tmp_path):
+    from tpu_cnn.utils import metrics as j_metrics
+    from tpu_cnn_torch.utils import metrics
+
+    rs = np.random.RandomState(47)
+    feats = rs.randint(0, 256, (5, 8, 16)).astype(np.uint8)
+    feats[:, 2] = 0
+    assert metrics.feature_stats(feats) == j_metrics.feature_stats(feats)
+    labels = rs.randint(0, 4, 40)
+    preds = np.where(rs.rand(40) < 0.7, labels, rs.randint(0, 4, 40))
+    for names in (None, ["a", "b", "c", "d"]):
+        assert (metrics.accuracy_report(preds, labels, names)
+                == j_metrics.accuracy_report(preds, labels, names))
+    recs = []
+    for mod, name in ((metrics, "ours.jsonl"), (j_metrics, "theirs.jsonl")):
+        sink = mod.JsonlMetrics(str(tmp_path / "sub" / name))
+        sink.log("fps", 12.5, mode="mega")
+        sink.log("acc", 0.75)
+        mod.JsonlMetrics(None).log("ignored", 1)
+        lines = (tmp_path / "sub" / name).read_text().splitlines()
+        recs.append([{k: v for k, v in json.loads(ln).items() if k != "ts"}
+                     for ln in lines])
+    assert recs[0] == recs[1] == [{"metric": "fps", "value": 12.5, "mode": "mega"},
+                                  {"metric": "acc", "value": 0.75}]
+
+
+def test_fit_bbox_head_equals_the_original():
+    rs = np.random.RandomState(48)
+    pooled = rs.rand(50, 64).astype(np.float32)
+    boxes = np.sort(rs.randint(0, 128, (50, 4)), axis=1)
+    for img_size, lam in ((128, 1.0), (256, 0.3)):
+        _same(bbox.fit_bbox_head(pooled, boxes, img_size, lam=lam),
+              j_bbox.fit_bbox_head(pooled, boxes, img_size, lam=lam))
+
+
+def test_feature_dump_codec_equals_the_original(tmp_path):
+    rs = np.random.RandomState(49)
+    feats = rs.randint(0, 256, (3, 64, 256)).astype(np.uint8)
+    labels, names = np.array([3, 0, -1]), ["a.bin", "b.bin", "c.bin"]
+    art.save_feature_dump(tmp_path / "ours.npz", feats, labels, names, (2, 4, 6))
+    j_art.save_feature_dump(tmp_path / "theirs.npz", feats, labels, names, (2, 4, 6))
+    for p in ("ours.npz", "theirs.npz"):
+        for load in (art.load_feature_dump, j_art.load_feature_dump):
+            _same(load(tmp_path / p)[:3], (feats, labels, names))
+            _same(load(tmp_path / p)[3], np.asarray([2, 4, 6]))
+
+
+def test_doctor_bundles_equal_the_original():
+    from tpu_cnn.apps import doctor as j_doctor
+    from tpu_cnn_torch.apps import doctor
+
+    assert doctor._DEFAULT_BUNDLES == j_doctor._DEFAULT_BUNDLES

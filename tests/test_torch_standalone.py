@@ -81,7 +81,11 @@ for argv in (["tpu_cnn_torch.apps.verify", "--device", "cpu",
               "cpu", "--no-save"],
              ["tpu_cnn_torch.apps.realtime", "--mode", "cpu", "--source",
               "synthetic", "--frames", "3", "--no-serve", "--multi",
-              "--track"]):
+              "--track"],
+             ["tpu_cnn_torch.apps.eval_detection", "--device", "cpu",
+              "--mode", "mega", "--n-per-class", "2"],
+             ["tpu_cnn_torch.apps.benchmark", "--device", "cpu", "--batch",
+              "2", "--runs", "1", "--modes", "mega,cpu"]):
     out = io.StringIO()
     sys.argv = [argv[0]] + argv[1:]
     code = 0
@@ -142,6 +146,32 @@ def test_realtime_cli_with_the_jax_package_refused(refusing_run):
     assert code == 0, out
     assert "Engine: CPURefEngine:native-c++" in out
     assert "Host preprocess: native-c++" in out and "Done. 3 frames." in out
+
+
+def test_the_scan_sees_the_offline_tools():
+    for path in ("tpu_cnn_torch/train/data.py", "tpu_cnn_torch/utils/metrics.py",
+                 "tpu_cnn_torch/utils/roofline.py",
+                 "tpu_cnn_torch/apps/eval_detection.py",
+                 "tpu_cnn_torch/apps/eval_tracking.py",
+                 "tpu_cnn_torch/apps/dump_features.py",
+                 "tpu_cnn_torch/apps/train_bbox.py",
+                 "tpu_cnn_torch/apps/doctor.py",
+                 "tpu_cnn_torch/apps/benchmark.py"):
+        assert path in PORT_FILES
+
+
+def test_eval_detection_cli_with_the_jax_package_refused(refusing_run):
+    code, out = refusing_run["runs"]["tpu_cnn_torch.apps.eval_detection"]
+    assert code == 0, out
+    assert "  samples: 12 (6 classes)" in out and "mean CAM-box IoU:" in out
+    assert "tpu_cnn_torch.train.data" in refusing_run["modules"]
+
+
+def test_benchmark_cli_with_the_jax_package_refused(refusing_run):
+    code, out = refusing_run["runs"]["tpu_cnn_torch.apps.benchmark"]
+    assert code == 0, out
+    assert "Total: 40.1M MACs/image" in out and "BEST:" in out
+    assert "FAILED" not in out
 
 
 def test_infer_cli_with_the_jax_package_refused(refusing_run):

@@ -29,16 +29,29 @@ kernels (``csrc/``, built by ``ops._build``):
   - ``native.oracle``     — the C++ oracle (``native/cnn_oracle.cpp``)
   - ``native.preprocess`` — the C++ batched frame preprocess (same source)
   - ``head``              — the host numpy twins of the head (``cam``,
-                            ``classify``, ``bbox``) and the tracker
-  - ``utils``             — the weights.bin and bundle codecs, artifact
-                            paths, the completion wait, stage timers and
-                            the torch.profiler trace context
+                            ``classify``, ``bbox`` with the ridge fit
+                            ``fit_bbox_head``) and the tracker
+  - ``train.data``        — the numpy data generators: synthetic shapes,
+                            composite and moving scenes (synthetic and
+                            real photograph tiles), the folder and COCO
+                            datasets, batching and augmentation
+  - ``utils``             — the weights.bin, bundle and feature-dump
+                            codecs, artifact paths, the completion wait,
+                            stage timers and the torch.profiler trace
+                            context, the JSONL metrics sink and accuracy
+                            reports (``metrics``), and the card's peaks
+                            and bounds (``roofline``)
   - ``bench_gate``        — the bench's parity gate
   - ``apps``              — ``infer`` (with ``make_engine``, the engine
                             swap: ``--mode auto|mega|pallas|hybrid|xla|
                             cpu``), ``serve``, ``realtime`` (the camera
-                            app), ``verify`` and ``probe_bitcast`` CLIs,
-                            and their ``common``
+                            app), ``verify`` and ``probe_bitcast`` CLIs;
+                            the benchmark (``benchmark``: throughput per
+                            mode, latency, per-layer, roofline, camera
+                            pipeline); the offline tools
+                            ``eval_detection``, ``eval_tracking``,
+                            ``dump_features``, ``train_bbox`` and
+                            ``doctor``; and their ``common``
 
 It imports ``torch`` and numpy, and nothing of ``tpu_cnn`` or ``jax``:
 where it needs a JAX-free piece of the JAX package it keeps its own copy

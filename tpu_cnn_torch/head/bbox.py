@@ -1,12 +1,29 @@
 """Learned box-regression head, host side: the port's copy of
-``tpu_cnn.head.bbox``'s twins. A (D+1, 4) f32 ``bbox_weight`` (last row =
-bias) maps the bin-pooled features to normalised box corners."""
+``tpu_cnn.head.bbox``. A (D+1, 4) f32 ``bbox_weight`` (last row = bias)
+maps the bin-pooled features to normalised box corners: fitted in closed
+form by ``fit_bbox_head`` (``apps.train_bbox``), applied by the host twins
+here and on the device by ``ops.detect_head.bbox_regress``."""
 
 from __future__ import annotations
 
 import numpy as np
 
 from tpu_cnn_torch.head.classify import bin_pool_np
+
+
+def fit_bbox_head(
+    pooled: np.ndarray,  # (N, D) bin-pooled features (bin_pool_np scale)
+    boxes: np.ndarray,  # (N, 4) pixel boxes (x1, y1, x2, y2)
+    img_size: int = 128,
+    lam: float = 1.0,
+) -> np.ndarray:
+    """Closed-form ridge fit -> (D+1, 4) float32, last row = bias."""
+    X = np.concatenate(
+        [pooled, np.ones((len(pooled), 1), np.float32)], axis=1
+    ).astype(np.float32)
+    y = np.asarray(boxes, np.float32) / float(img_size - 1)
+    a = X.T @ X + lam * np.eye(X.shape[1], dtype=np.float32)
+    return np.linalg.solve(a, X.T @ y).astype(np.float32)
 
 
 def bbox_regress_np(

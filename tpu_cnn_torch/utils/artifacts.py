@@ -6,7 +6,8 @@ A bundle directory holds:
   fc_bias.npy   (num_classes,) float32
   classes.json  class-name list
 and optionally bbox_weight.npy, shifts.json, multi_thresh.json and
-multi_head.npz. Same formats, byte-compatible.
+multi_head.npz; feature dumps are .npz files with features/labels/names/
+shifts (``save_feature_dump``). Same formats, byte-compatible.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+from typing import Sequence
 
 import numpy as np
 
@@ -107,6 +109,34 @@ def load_bundle(artifact_dir: str | os.PathLike, prefix: str = "",
     return ArtifactBundle(kernels, fc_w, fc_b, class_names,
                           bbox_weight=bbox_w, shifts=shifts,
                           multi_thresh=multi_thresh, multi_head=multi_head)
+
+
+def save_feature_dump(
+    path: str | os.PathLike,
+    features: np.ndarray,  # (N, 64, 256) uint8
+    labels: np.ndarray,  # (N,) int
+    names: Sequence[str],
+    shifts: Sequence[int],
+) -> None:
+    """Write a feature dump .npz identical in schema to the reference
+    (``software/dump_fpga_features.py:116-120``)."""
+    np.savez(
+        os.fspath(path),
+        features=np.asarray(features, dtype=np.uint8),
+        labels=np.asarray(labels),
+        names=list(names),
+        shifts=np.asarray(list(shifts)),
+    )
+
+
+def load_feature_dump(path: str | os.PathLike):
+    data = np.load(os.fspath(path), allow_pickle=False)
+    return (
+        data["features"],
+        data["labels"],
+        [str(n) for n in data["names"]],
+        data["shifts"] if "shifts" in data else None,
+    )
 
 
 def load_image_any(image_path: str | os.PathLike, img_size: int = 128) -> np.ndarray:
