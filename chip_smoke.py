@@ -110,13 +110,35 @@ one line each, in order; any failure raises:
                 images: the npz bit-equal to the numpy oracle
   train_bbox  — apps.train_bbox --mode mega (K1's fused bins) against
                 --mode cpu: weights within 1e-2, held-out IoU within 1e-3
+  train       — the trainer (train.train_cnn) and the head-fitting tools:
+                train parity, lyr3-std phase 1 (2 epochs, batch 64, one
+                init_params draw, the first 256 real-photo train tiles)
+                on the card in f32 against the CPU: epoch losses within
+                1e-3 relative, parameters within 1e-4 (or at most 0.1% of
+                them off, each by under 2 lr x updates), the TF32 flags as
+                before; bf16 on the card finite and falling. The README's
+                real-photo recipe through the CLIs into build/ from the
+                JAX trainer's seed-0 initial draw (tests/data): train_cnn
+                --bin-folder train_bins --val-bin-folder val_bins --augment
+                (30 epochs), dump_features --mode mega, retrain_classifier
+                --optimizer adam, infer --mode mega on val_bins: the
+                retrained head at least 85% held out (the GAP head's
+                accuracy printed beside it). retrain_classifier --optimizer
+                ref on that dump, card against CPU: weights within 1e-4,
+                accuracies equal. tune_shifts --mode mega against --mode
+                cpu (27 candidates): the same best, each accuracy within
+                one image. calibrate_multi --mode mega against --mode cpu
+                (the three --mode cpu runs in child processes beside the
+                mega ones), plain, --fit-head and --fit-head --real: floors
+                equal, F1s and heads within 1e-3. apps.benchmark --train
+                at float32 and bfloat16 (batch 1024): exit 0
   benchmark   — apps.benchmark on the card, each run exiting 0: lyr3-std
                 --modes auto,mega,pallas,hybrid,xla,cpu at batch 1536 and
                 mega,pallas,hybrid over 52 batches; --multi --instances 2;
                 --per-layer --modes pallas and mega; --roofline;
                 --latency; --camera-pipeline packed, BGR and at pitch 656;
                 --features; lyr4-wide --modes mega and --roofline;
-                --host-ingest and --train exit 2
+                --host-ingest exits 2
   doctor      — apps.doctor: exit 0, the runtime line names the card
   verify      — tpu_cnn_torch.apps.verify --device cuda for lyr3-std
                 (shipped weights) and lyr4-wide (seeded weights): all seven
@@ -150,8 +172,9 @@ one line each, in order; any failure raises:
                 rows must lie within 20% of them. Last, the wall time
 
 Phases 4-6, the probe, the swap, the host server, the preprocess, the
-realtime runs, the eval, tracking, dump and train_bbox runs, each
-benchmark run and the doctor are the main paths, once per path: every
+realtime runs, the eval, tracking, dump and train_bbox runs, the six
+train paths, each benchmark run and the doctor are the main paths, once
+per path: every
 kernel launch
 counter is set to 0 before a path's phases and read after them, and each
 kernel of that path must have launched there and no other kernel
@@ -161,8 +184,10 @@ probe: the bitcast kernel; the multi paths: the megakernel, then the conv
 kernel; the swap: what mega runs on the family; the host server, the
 preprocess and realtime --mode cpu: none; the realtime paths: mega's or
 pallas's; eval, tracking, dump and train_bbox: what their mode runs on
-the family, --mode cpu none; each benchmark run: what its modes run; the
-doctor and the refused benchmark flags: none). The line before the last
+the family, --mode cpu none; the trainer, the train parity, retrain_classifier
+and benchmark --train: none; the recipe, tune_shifts and calibrate_multi:
+the megakernel; each benchmark run: what its modes run; the doctor and
+the refused benchmark flag: none). The line before the last
 is a JSON object with each
 kernel's launches (summed over the paths), error, times and bound (and
 the conv kernel's pooled time and bound on lyr3-std); the last line is
@@ -181,6 +206,8 @@ import io
 import itertools
 import json
 import os
+import pickle
+import shutil
 import statistics
 import subprocess
 import sys
@@ -194,9 +221,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 from tpu_cnn_torch import bench_gate  # noqa: E402
-from tpu_cnn_torch.apps import (benchmark, doctor, dump_features, eval_detection,  # noqa: E402
-                                eval_tracking, infer, probe_bitcast, realtime,
-                                serve, train_bbox, verify)
+from tpu_cnn_torch.apps import (benchmark, calibrate_multi, doctor, dump_features,  # noqa: E402
+                                eval_detection, eval_tracking, infer, probe_bitcast,
+                                realtime, retrain_classifier, serve, train_bbox,
+                                tune_shifts, verify)
 from tpu_cnn_torch.apps.common import load_model  # noqa: E402
 from tpu_cnn_torch.apps.serve import ServiceHTTPServer, make_handler  # noqa: E402
 from tpu_cnn_torch.engine.cpu_ref import CPURefEngine, numpy_cnn_forward  # noqa: E402
@@ -210,7 +238,8 @@ from tpu_cnn_torch.native.preprocess import preprocess_frames_native  # noqa: E4
 from tpu_cnn_torch.ops import _build, bitcast, conv_pool, detect_head, int8, mega, quant  # noqa: E402
 from tpu_cnn_torch.ops import preprocess as dev_preprocess  # noqa: E402
 from tpu_cnn_torch.ops.luma import pack_bgrx  # noqa: E402
-from tpu_cnn_torch.train.data import RealComposites  # noqa: E402
+from tpu_cnn_torch.train import train_cnn  # noqa: E402
+from tpu_cnn_torch.train.data import BinFolderDataset, RealComposites, batches  # noqa: E402
 from tpu_cnn_torch.utils import artifacts as art  # noqa: E402
 from tpu_cnn_torch.utils.artifacts import label_from_filename  # noqa: E402
 from tpu_cnn_torch.utils.profiling import StageTimer  # noqa: E402
@@ -1481,8 +1510,8 @@ def benchmark_run(flags) -> None:
 
 
 def benchmark_refusals() -> None:
-    """``--host-ingest`` and ``--train`` are not ported yet: exit 2."""
-    for flag in ("--host-ingest", "--train"):
+    """``--host-ingest`` is not ported yet: exit 2."""
+    for flag in ("--host-ingest",):
         err = io.StringIO()
         try:
             with contextlib.redirect_stderr(err):
@@ -1492,8 +1521,8 @@ def benchmark_refusals() -> None:
             code = e.code
         check(code == 2 and "not yet ported (ROADMAP" in err.getvalue(),
               f"apps.benchmark {flag}: exit {code} {err.getvalue()!r}")
-    phase("benchmark", "apps.benchmark --host-ingest and --train: exit 2, "
-                       "naming the items they wait for")
+    phase("benchmark", "apps.benchmark --host-ingest: exit 2, naming the "
+                       "item it waits for")
 
 
 def doctor_path() -> None:
@@ -1506,6 +1535,298 @@ def doctor_path() -> None:
           and "[ok]   device dispatch" in text,
           f"apps.doctor: exit {rc}, runtime line {line!r}")
     phase("doctor", f"tpu_cnn_torch.apps.doctor: exit 0; {line}")
+
+
+REALPHOTO = os.path.join(ROOT, "artifacts", "realphoto")
+TRAIN_BINS = os.path.join(REALPHOTO, "train_bins")
+VAL_BINS = os.path.join(REALPHOTO, "val_bins")
+RECIPE_DIR = os.path.join(ROOT, "build", "chip_smoke", "recipe")
+PARITY_TILES = 256  # train parity: the first tiles of train_bins, lyr3-std
+LOSS_RTOL = 1e-3  # per-epoch mean loss, card against CPU
+PARAM_ATOL = 1e-4  # the CPU tests' two-level tolerance: within this, or
+FAR_SHARE = 1e-3   # at most this share of elements off, each < 2 lr steps
+RECIPE_FLOOR = 85.0  # held-out % of the retrained bins head (a TPU: 95.9)
+RETRAIN_TOL = 1e-4  # retrain_classifier --optimizer ref, card against CPU
+CAL_TOL = 1e-3  # calibrate_multi: F1s and heads, mega against --mode cpu
+CAL_FLAGS = [(), ("--fit-head",), ("--fit-head", "--real")]
+# the JAX trainer's lyr3-std initial parameters at --seed 0, raw f32 in the
+# order conv0, conv1, conv2, fc_w, fc_b (tests/test_torch_train.py holds
+# the file equal to tpu_cnn.train.train_cnn.init_params at PRNGKey(0))
+JAX_DRAW = os.path.join(ROOT, "tests", "data", "jax_init_lyr3-std_seed0.f32")
+_RECIPE: dict[str, str] = {}
+
+
+def jax_seed0_draw() -> dict[str, np.ndarray]:
+    """The JAX trainer's lyr3-std --seed 0 draw, as a parameter dict."""
+    shapes = {f"conv{i}": (oc, ic, 3, 3)
+              for i, (ic, oc, _) in enumerate(get_config("lyr3-std").layer_configs)}
+    shapes.update(fc_w=(6, 64), fc_b=(6,))
+    flat = np.fromfile(JAX_DRAW, "<f4")
+    sizes = [int(np.prod(s)) for s in shapes.values()]
+    check(flat.size == sum(sizes), f"{JAX_DRAW}: {flat.size} floats, not {sum(sizes)}")
+    parts = np.split(flat, np.cumsum(sizes)[:-1])
+    return {k: v.reshape(s) for (k, s), v in zip(shapes.items(), parts)}
+
+
+def _phase1(imgs, labels, dev: torch.device, dtype: str):
+    """The trainer's phase 1 for 2 epochs at batch 64 from one
+    ``init_params`` draw (seed 0): its optimiser, step, permutation and
+    staging on ``dev``. Returns (per-epoch mean losses, final parameters,
+    optimiser updates)."""
+    cfg = train_cnn.TrainConfig(epochs=2, batch_size=64)
+    net = train_cnn.init_params(cfg, torch.Generator().manual_seed(0)).to(dev)
+    steps = len(imgs) // cfg.batch_size
+    opt = train_cnn.AdamCosine(cfg.lr, cfg.epochs * steps)
+    state = opt.init(net.params())
+    step = train_cnn.make_train_step(cfg, opt, compute_dtype=dtype)
+    rng = np.random.RandomState(cfg.seed)
+    means = []
+    for _ in range(cfg.epochs):
+        losses = [step(net, state, bi, bl)[0] for bi, bl in train_cnn._prefetch_to_device(
+            batches(imgs, labels, cfg.batch_size, rng), dev)]
+        means.append(float(np.mean(torch.stack(losses).cpu().numpy())))
+    return np.asarray(means), train_cnn.params_to_numpy(net), state["count"]
+
+
+def train_parity(dev: torch.device) -> None:
+    """lyr3-std phase 1 on the card (f32, TF32 off) against the CPU from
+    the same draw on the first PARITY_TILES real-photo tiles; bf16 on the
+    card finite and falling; the TF32 flags as they were."""
+    imgs, labels = BinFolderDataset(TRAIN_BINS).arrays()
+    imgs, labels = imgs[:PARITY_TILES], labels[:PARITY_TILES]
+    def float_flags():
+        return (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.deterministic)
+
+    flags = float_flags()
+    t0 = time.perf_counter()
+    card, card_p, updates = _phase1(imgs, labels, dev, "float32")
+    t_card = time.perf_counter() - t0
+    check(float_flags() == flags, f"the trainer left the TF32 and cuDNN "
+                                  f"flags at {float_flags()}, not {flags}")
+    host, host_p, _ = _phase1(imgs, labels, torch.device("cpu"), "float32")
+    rel = float(np.abs(card - host).max() / np.abs(host).max())
+    check(rel <= LOSS_RTOL, f"train parity: epoch losses {card} on the card, "
+                            f"{host} on the CPU")
+    far_limit = 2 * train_cnn.TrainConfig().lr * updates
+    worst, far = 0.0, 0
+    for k, want in host_p.items():
+        diff = np.abs(card_p[k] - want)
+        worst = max(worst, float(diff.max()))
+        far += int((diff > PARAM_ATOL).sum())
+        check((diff > PARAM_ATOL).mean() <= FAR_SHARE and diff.max() < far_limit,
+              f"train parity: {k} off by up to {diff.max()!r}, "
+              f"{int((diff > PARAM_ATOL).sum())} of {diff.size} elements past "
+              f"{PARAM_ATOL}")
+    bf16, _, _ = _phase1(imgs, labels, dev, "bfloat16")
+    check(np.isfinite(bf16).all() and bf16[-1] < bf16[0],
+          f"train parity: bf16 epoch losses {bf16}")
+    phase("train", f"phase 1, lyr3-std, {PARITY_TILES} real-photo tiles, 2 "
+                   f"epochs at batch 64: card f32 losses {card.tolist()} vs CPU "
+                   f"{host.tolist()} (within {rel:.2e} relative, tolerance "
+                   f"{LOSS_RTOL}); parameters within {worst!r} ({far} elements "
+                   f"past {PARAM_ATOL}); TF32 and deterministic flags unchanged "
+                   f"{flags}; bf16 "
+                   f"losses {bf16.tolist()}; card f32 run {t_card:.2f} s")
+
+
+def _percent(line: str) -> float:
+    return float(line.rsplit("=", 1)[1].strip().rstrip("%"))
+
+
+def recipe_path() -> None:
+    """The README's real-photo recipe through the port's CLIs on the card:
+    train_cnn --augment (30 epochs), dump_features --mode mega,
+    retrain_classifier --optimizer adam, infer --mode mega on the held-out
+    tiles (the GAP head before the retrain, the bins head after).
+
+    Phase 1 starts from the JAX trainer's --seed 0 draw (carried across,
+    as the CPU tests carry parameters), the one behind the reference's
+    recorded result: the held-out accuracy depends on the initial draw
+    (PERF.md §6, scripts/recipe_seeds.py), and the port's torch stream
+    draws other numbers at the same seed."""
+    shutil.rmtree(RECIPE_DIR, ignore_errors=True)
+    walls = {}
+    draw = jax_seed0_draw()
+    own_init = train_cnn.init_params
+    train_cnn.init_params = lambda cfg, generator: train_cnn.params_from_numpy(draw)
+    t0 = time.perf_counter()
+    try:
+        bundle, text = _quiet(train_cnn.main, ["--bin-folder", TRAIN_BINS,
+                                               "--val-bin-folder", VAL_BINS,
+                                               "--augment", "--output-dir",
+                                               RECIPE_DIR])
+    finally:
+        train_cnn.init_params = own_init
+    walls["train_cnn"] = time.perf_counter() - t0
+    check(bundle is not None, "train_cnn returned no bundle")
+    best_line = next(ln.strip() for ln in text.splitlines() if "best val acc" in ln)
+    decoded = art.load_bundle(RECIPE_DIR)
+    check(decoded.fc_weight.shape == (6, 64) and decoded.shifts == [2, 4, 6]
+          and [k.shape for k in decoded.kernels] == [k.shape for k in bundle.kernels],
+          "the trained bundle does not decode to its own shapes")
+    infer_argv = ["--mode", "mega", "--device", "cuda", "--artifacts", RECIPE_DIR,
+                  "--image-dir", VAL_BINS, "--no-save"]
+    t0 = time.perf_counter()
+    gap_line = _accuracy_line(infer_argv)
+    walls["infer (GAP)"] = time.perf_counter() - t0
+    feats = os.path.join(RECIPE_DIR, "train_features.npz")
+    t0 = time.perf_counter()
+    _quiet(dump_features.main, ["--mode", "mega", "--device", "cuda",
+                                "--artifacts", RECIPE_DIR, "--image-dir",
+                                TRAIN_BINS, "--output", feats])
+    walls["dump_features"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (w, _, _), _ = _quiet(retrain_classifier.main, [
+        "--features", feats, "--optimizer", "adam", "--device", "cuda",
+        "--output-dir", RECIPE_DIR, "--classes",
+        os.path.join(RECIPE_DIR, "classes.json")])
+    walls["retrain_classifier"] = time.perf_counter() - t0
+    check(w.shape == (6, 1024), f"the retrained head is {w.shape}")
+    t0 = time.perf_counter()
+    bins_line = _accuracy_line(infer_argv)
+    walls["infer (bins)"] = time.perf_counter() - t0
+    check(_percent(bins_line) >= RECIPE_FLOOR,
+          f"recipe: the retrained bins head scores {bins_line} held out, "
+          f"under {RECIPE_FLOOR}%")
+    _RECIPE["features"] = feats
+    phase("train", f"recipe (train_cnn --augment, 30 epochs, from the JAX "
+                   f"trainer's seed-0 draw; dump_features "
+                   f"--mode mega; retrain_classifier --optimizer adam; infer "
+                   f"--mode mega): phase 1 {best_line}; held out, GAP head "
+                   f"{gap_line}, retrained bins head {bins_line} (floor "
+                   f"{RECIPE_FLOOR}%); walls "
+                   + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items()))
+
+
+def retrain_ref_path() -> None:
+    """retrain_classifier --optimizer ref on the recipe's dump, on the card
+    against the CPU."""
+    runs = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        (w, b, acc), _ = _quiet(retrain_classifier.main, [
+            "--features", _RECIPE["features"], "--device", device, "--output-dir",
+            os.path.join(ROOT, "build", "chip_smoke", f"retrain_{device}"),
+            "--classes", os.path.join(RECIPE_DIR, "classes.json")])
+        runs[device] = (w, b, acc, time.perf_counter() - t0)
+    (w, b, acc, t_card), (hw, hb, hacc, t_host) = runs["cuda"], runs["cpu"]
+    err = max(float(np.abs(w - hw).max()), float(np.abs(b - hb).max()))
+    check(err <= RETRAIN_TOL and acc == hacc,
+          f"retrain --optimizer ref: weights off by {err}, accuracy {acc} vs {hacc}")
+    phase("train", f"retrain_classifier --optimizer ref --device cuda vs cpu: "
+                   f"weights within {err!r} (tolerance {RETRAIN_TOL}), "
+                   f"accuracy {acc!r}% on both; {t_card:.2f} s vs {t_host:.2f} s")
+
+
+_CHILD = r"""
+import contextlib, importlib, io, pickle, sys, time
+sys.path.insert(0, sys.argv[1])
+main = importlib.import_module(sys.argv[2]).main
+t0 = time.perf_counter()
+with contextlib.redirect_stdout(io.StringIO()):
+    result = main(sys.argv[4:])
+with open(sys.argv[3], "wb") as f:
+    pickle.dump((result, time.perf_counter() - t0), f)
+"""
+CHILD_THREADS = "2"  # OpenMP threads of each calibrate_multi child
+
+
+def _start_child(module: str, argv, tag: str):
+    """Run ``module.main(argv)`` in a child process beside this process's
+    work, with CHILD_THREADS OpenMP threads (the host oracle's). Returns a
+    function that waits for the child (killing it past its time) and gives
+    main's result and the child's own wall time."""
+    out = os.path.join(ROOT, "build", "chip_smoke", f"child_{tag}.pickle")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    proc = subprocess.Popen([sys.executable, "-c", _CHILD, ROOT, module, out,
+                             *argv], stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, text=True,
+                            env=dict(os.environ, OMP_NUM_THREADS=CHILD_THREADS))
+
+    def wait():
+        try:
+            _, err = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        check(proc.returncode == 0, f"{module} {' '.join(argv)}: exit "
+                                    f"{proc.returncode}: {err[-2000:]}")
+        with open(out, "rb") as f:  # written by the child above
+            return pickle.load(f)
+
+    return wait
+
+
+def tune_path() -> None:
+    """tune_shifts at its defaults (27 candidates) on --mode mega against
+    --mode cpu: the same best candidate, each candidate's val accuracy
+    within one image."""
+    runs = {}
+    for mode in ("mega", "cpu"):
+        t0 = time.perf_counter()
+        (best, results), _ = _quiet(tune_shifts.main, ["--mode", mode,
+                                                       "--device", "cuda"])
+        runs[mode] = (best, results, time.perf_counter() - t0)
+    (best, results, t_mega), (hbest, hresults, t_cpu) = runs["mega"], runs["cpu"]
+    got = {c: a for c, a, _ in results}
+    want = {c: a for c, a, _ in hresults}
+    one = 1 / 48  # 240 images, 48 held out per candidate
+    worst = max(abs(got[c] - want[c]) for c in want)
+    check(best == hbest and got.keys() == want.keys() and len(got) == 27
+          and worst <= one + 1e-12,
+          f"tune_shifts --mode mega: best {best} vs {hbest}, accuracies off by "
+          f"up to {worst}")
+    phase("train", f"tune_shifts --mode mega vs --mode cpu (27 candidates): "
+                   f"best {best} at {got[best]:.4f} on both, accuracies within "
+                   f"{worst!r}; {t_mega:.2f} s vs {t_cpu:.2f} s")
+
+
+def calibrate_paths() -> None:
+    """calibrate_multi plain, --fit-head and --fit-head --real on --mode
+    mega against --mode cpu (the three in child processes, at the same
+    time): the floors equal, the F1s and the fitted head within CAL_TOL."""
+    waits = [_start_child("tpu_cnn_torch.apps.calibrate_multi",
+                          ["--mode", "cpu", "--device", "cuda", *flags], str(i))
+             for i, flags in enumerate(CAL_FLAGS)]
+    got = []
+    try:
+        for flags in CAL_FLAGS:
+            t0 = time.perf_counter()
+            res, _ = _quiet(calibrate_multi.main, ["--mode", "mega", "--device",
+                                                   "cuda", *flags])
+            got.append((res, time.perf_counter() - t0))
+    finally:
+        wanted = [wait() for wait in waits]
+    for flags, (res, t_mega), (want, t_cpu) in zip(CAL_FLAGS, got, wanted):
+        _same_calibration(flags, res, want, t_mega, t_cpu)
+
+
+def _same_calibration(flags, got, want, t_mega, t_cpu) -> None:
+    tag = " ".join(("calibrate_multi --mode mega", *flags))
+    check(np.array_equal(got[0], want[0]),
+          f"{tag}: floors {got[0]} vs --mode cpu {want[0]}")
+    f1s = {k: (v[2], want[1][k][2]) for k, v in got[1].items()
+           if isinstance(v, tuple)}
+    if "val_f1" in got[1]:  # --fit-head: the selection too
+        f1s["val_f1"] = (got[1]["val_f1"], want[1]["val_f1"])
+        check((got[1]["init"], got[1]["wd"]) == (want[1]["init"], want[1]["wd"]),
+              f"{tag}: selected {got[1]['init']} wd {got[1]['wd']}, --mode cpu "
+              f"{want[1]['init']} wd {want[1]['wd']}")
+    f1_err = max(abs(a - b) for a, b in f1s.values())
+    head_err = 0.0
+    if len(got) == 3:
+        head_err = max(float(np.abs(a - b).max()) for a, b in zip(got[2], want[2]))
+    check(f1_err <= CAL_TOL and head_err <= CAL_TOL,
+          f"{tag}: F1s off by {f1_err}, head by {head_err}")
+    held = f1s["eval_head" if len(got) == 3 else "calibrated_eval"][0]
+    phase("train", f"{tag} vs --mode cpu: floors equal "
+                   f"{[round(float(t), 2) for t in got[0]]}, F1s within "
+                   f"{f1_err!r}, head within {head_err!r} (tolerance {CAL_TOL}); "
+                   f"held-out F1 {held!r}; {t_mega:.2f} s vs {t_cpu:.2f} s "
+                   f"(in a child, {CHILD_THREADS} OpenMP threads)")
 
 
 def per_layer_agreement(phase7: dict[int, float]) -> None:
@@ -2076,10 +2397,21 @@ def main(argv=None) -> None:
         main_path(f"{variant} dump_features --mode mega", MEGA_KERNELS[variant],
                   lambda: dump_path(variant))
     main_path("lyr3-std train_bbox --mode mega", ("mega_cnn",), train_bbox_path)
+    main_path("train parity (card vs CPU, f32 and bf16)", (),
+              lambda: train_parity(dev))
+    main_path("train recipe (train_cnn, dump_features, retrain_classifier, "
+              "infer)", ("mega_cnn",), recipe_path)
+    main_path("retrain_classifier --optimizer ref (card vs CPU)", (),
+              retrain_ref_path)
+    main_path("tune_shifts --mode mega", ("mega_cnn",), tune_path)
+    main_path("calibrate_multi --mode mega", ("mega_cnn",), calibrate_paths)
+    main_path("benchmark --train", (),
+              *[lambda d=d: benchmark_run(("--train", "--train-dtype", d))
+                for d in ("float32", "bfloat16")])
     for flags, path_kernels in BENCH_RUNS:
         main_path(f"benchmark {' '.join(flags)}", path_kernels,
                   lambda: benchmark_run(flags))
-    main_path("benchmark --host-ingest, --train", (), benchmark_refusals)
+    main_path("benchmark --host-ingest", (), benchmark_refusals)
     main_path("doctor", (), doctor_path)
 
     for variant in ARTIFACTS:

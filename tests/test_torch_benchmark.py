@@ -97,8 +97,7 @@ def test_per_layer_rows_equal_the_jax_apps(variant, mode):
     assert all(r["ms"] > 0 and r["us_per_img"] > 0 for r in ours)
 
 
-@pytest.mark.parametrize("flag,item", [("--host-ingest", "A.12"),
-                                       ("--train", "A.13b")])
+@pytest.mark.parametrize("flag,item", [("--host-ingest", "A.12")])
 def test_unported_items_exit_2_naming_what_they_wait_for(flag, item, capsys):
     with pytest.raises(SystemExit) as e:
         benchmark.main(CPU + [flag])

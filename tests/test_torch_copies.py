@@ -225,6 +225,44 @@ def test_weights_bin_round_trips(variant, tmp_path):
         weights.decode_weights(blob[:-1], cfgs)
 
 
+@pytest.mark.parametrize("variant", ["lyr3-std", "lyr3-tiny", "lyr4-wide"])
+@pytest.mark.parametrize("scale", [0.3, 1e-9])
+def test_quantizers_equal_the_original(variant, scale):
+    """quantize_global and quantize_per_layer (the trainer's export), on
+    seeded float kernels and on kernels below the 1e-8 floor."""
+    rs = np.random.RandomState(34)
+    floats = [(rs.randn(oc, ic, 3, 3) * scale * (i + 1)).astype(np.float32)
+              for i, (ic, oc, _) in enumerate(registry.get_config(variant).layer_configs)]
+    for ours, theirs in ((weights.quantize_global, j_weights.quantize_global),
+                         (weights.quantize_per_layer, j_weights.quantize_per_layer)):
+        q, sc = ours(floats)
+        jq, jsc = theirs(floats)
+        _same(q, jq)
+        assert sc == jsc
+        assert all(k.dtype == np.int8 for k in q)
+    q, _ = weights.quantize_per_layer(floats, quant_max=63)
+    _same(q, j_weights.quantize_per_layer(floats, quant_max=63)[0])
+
+
+def test_save_bundle_writes_the_originals_files(tmp_path):
+    b = art.load_bundle(BUNDLES["lyr3-std"])
+    b.shifts, b.multi_thresh = [1, 3, 5], [0.2] * 6
+    b.multi_head = (np.ones((6, 1024), np.float32), np.zeros(6, np.float32))
+    art.save_bundle(tmp_path / "ours", b, prefix="p_")
+    j_art.save_bundle(tmp_path / "theirs", b, prefix="p_")
+    names = sorted(os.listdir(tmp_path / "ours"))
+    assert names == sorted(os.listdir(tmp_path / "theirs"))
+    assert "p_multi_head.npz" in names and "p_shifts.json" in names
+    for name in names:
+        if not name.endswith(".npz"):
+            assert ((tmp_path / "ours" / name).read_bytes()
+                    == (tmp_path / "theirs" / name).read_bytes()), name
+    back = j_art.load_bundle(tmp_path / "ours", prefix="p_")
+    for field in ("kernels", "fc_weight", "fc_bias", "class_names", "bbox_weight",
+                  "shifts", "multi_thresh", "multi_head"):
+        _same(getattr(back, field), getattr(b, field))
+
+
 def test_registry_equals_the_original():
     assert sorted(registry.REGISTRY) == sorted(j_registry.REGISTRY)
     for name, cfg in registry.REGISTRY.items():

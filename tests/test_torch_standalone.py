@@ -68,6 +68,7 @@ class Refuse:
         return None
 
 sys.meta_path.insert(0, Refuse())
+OUT = sys.argv[1]
 import tpu_cnn_torch
 names = [m.name for m in pkgutil.walk_packages(tpu_cnn_torch.__path__,
                                                  "tpu_cnn_torch.")]
@@ -85,7 +86,10 @@ for argv in (["tpu_cnn_torch.apps.verify", "--device", "cpu",
              ["tpu_cnn_torch.apps.eval_detection", "--device", "cpu",
               "--mode", "mega", "--n-per-class", "2"],
              ["tpu_cnn_torch.apps.benchmark", "--device", "cpu", "--batch",
-              "2", "--runs", "1", "--modes", "mega,cpu"]):
+              "2", "--runs", "1", "--modes", "mega,cpu"],
+             ["tpu_cnn_torch.train.train_cnn", "--device", "cpu",
+              "--synthetic", "--variant", "lyr3-tiny", "--epochs", "1",
+              "--max-per-class", "50", "--output-dir", OUT]):
     out = io.StringIO()
     sys.argv = [argv[0]] + argv[1:]
     code = 0
@@ -95,6 +99,7 @@ for argv in (["tpu_cnn_torch.apps.verify", "--device", "cpu",
         except SystemExit as e:
             code = e.code or 0
     runs[argv[0]] = (code, out.getvalue())
+runs["bundle"] = sorted(__import__("os").listdir(OUT))
 loaded = sorted(m for m in sys.modules
                 if any(m == r or m.startswith(r + ".") for r in ("jax", "tpu_cnn")))
 print(json.dumps({"modules": names, "runs": runs, "loaded": loaded}))
@@ -102,12 +107,15 @@ print(json.dumps({"modules": names, "runs": runs, "loaded": loaded}))
 
 
 @pytest.fixture(scope="module")
-def refusing_run():
+def refusing_run(tmp_path_factory):
     """One process that refuses ``tpu_cnn`` and ``jax``: imports every
-    port module, then runs the verify and infer CLIs as ``python -m``."""
+    port module, then runs the port's CLIs as ``python -m`` (the trainer
+    into a temporary bundle directory)."""
     env = dict(os.environ, PYTHONPATH=REPO)
-    proc = subprocess.run([sys.executable, "-c", _REFUSING_PROCESS], cwd=REPO,
-                          env=env, capture_output=True, text=True, timeout=600)
+    out = str(tmp_path_factory.mktemp("trained"))
+    proc = subprocess.run([sys.executable, "-c", _REFUSING_PROCESS, out],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=600)
     assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-4000:]
     return json.loads(proc.stdout.splitlines()[-1])
 
@@ -179,3 +187,25 @@ def test_infer_cli_with_the_jax_package_refused(refusing_run):
     assert code == 0, out
     assert "Image:      test_image_0_class3.bin (true: class 3)" in out
     assert "Prediction:" in out and "BBox:" in out
+
+
+def test_the_scan_sees_the_trainer_and_head_tools():
+    for path in ("tpu_cnn_torch/train/train_cnn.py",
+                 "tpu_cnn_torch/train/checkpoint.py",
+                 "tpu_cnn_torch/apps/retrain_classifier.py",
+                 "tpu_cnn_torch/apps/tune_shifts.py",
+                 "tpu_cnn_torch/apps/calibrate_multi.py"):
+        assert path in PORT_FILES
+
+
+def test_train_cli_with_the_jax_package_refused(refusing_run):
+    code, out = refusing_run["runs"]["tpu_cnn_torch.train.train_cnn"]
+    assert code == 0, out
+    assert "Phase 1: float training (1 epochs, 250 train / 50 val) on cpu" in out
+    assert "Exported: weights.bin" in out
+    assert {"weights.bin", "fc_weight.npy", "fc_bias.npy", "classes.json",
+            "shifts.json"} <= set(refusing_run["runs"]["bundle"])
+    for n in ("tpu_cnn_torch.train.checkpoint", "tpu_cnn_torch.apps.tune_shifts",
+              "tpu_cnn_torch.apps.calibrate_multi",
+              "tpu_cnn_torch.apps.retrain_classifier"):
+        assert n in refusing_run["modules"]

@@ -35,12 +35,20 @@ kernels (``csrc/``, built by ``ops._build``):
                             composite and moving scenes (synthetic and
                             real photograph tiles), the folder and COCO
                             datasets, batching and augmentation
+  - ``train.train_cnn``   — the two-phase QAT trainer: ``TrainNet`` (the
+                            float net, ``F.conv2d`` with TF32 off), the
+                            optimiser ``AdamCosine``, phase 2 on the
+                            contract's plain int32 version, the Adam head
+                            fit ``fit_head``, export; its CLI
+  - ``train.checkpoint``  — the ``.npz`` checkpoint (reads the JAX
+                            trainer's too)
   - ``utils``             — the weights.bin, bundle and feature-dump
                             codecs, artifact paths, the completion wait,
                             stage timers and the torch.profiler trace
                             context, the JSONL metrics sink and accuracy
-                            reports (``metrics``), and the card's peaks
-                            and bounds (``roofline``)
+                            reports (``metrics``), the export quantisers
+                            (``weights``), and the card's peaks and
+                            bounds (``roofline``)
   - ``bench_gate``        — the bench's parity gate
   - ``apps``              — ``infer`` (with ``make_engine``, the engine
                             swap: ``--mode auto|mega|pallas|hybrid|xla|
@@ -48,10 +56,12 @@ kernels (``csrc/``, built by ``ops._build``):
                             app), ``verify`` and ``probe_bitcast`` CLIs;
                             the benchmark (``benchmark``: throughput per
                             mode, latency, per-layer, roofline, camera
-                            pipeline); the offline tools
+                            pipeline, the train step); the offline tools
                             ``eval_detection``, ``eval_tracking``,
                             ``dump_features``, ``train_bbox`` and
-                            ``doctor``; and their ``common``
+                            ``doctor``; the head-fitting tools
+                            ``retrain_classifier``, ``tune_shifts`` and
+                            ``calibrate_multi``; and their ``common``
 
 It imports ``torch`` and numpy, and nothing of ``tpu_cnn`` or ``jax``:
 where it needs a JAX-free piece of the JAX package it keeps its own copy

@@ -25,11 +25,17 @@ here on the port's engine and kernels:
     (``ops.preprocess.preprocess_frames``) then the engine's detect, on
     frames resident on the card.
 
+  - ``--train``: the trainer's phase-1 float step
+    (``train.train_cnn.make_train_step``: forward, backward, Adam) at
+    ``--batch`` and ``--train-dtype``, ``--runs`` dependent steps per
+    chain; ms/step, img/s and the MFU against the card's float peak for
+    the dtype (``utils.roofline``).
+
 Timing: every window ends with a device synchronise or a CUDA event (a
 result copied to the host through a recorded event counts), so no window
 times launches that nothing waited on. ``--host-ingest`` (the native frame
-ring) and ``--train`` (the trainer) are not ported yet and exit 2. A mode
-that fails prints ``FAILED`` as the JAX app does, and the run then exits 1.
+ring) is not ported yet and exits 2. A mode that fails prints ``FAILED``
+as the JAX app does, and the run then exits 1.
 
 Usage:
   python -m tpu_cnn_torch.apps.benchmark --batch 1024 --runs 30
@@ -49,7 +55,9 @@ import numpy as np
 import torch
 
 from tpu_cnn_torch.models.cnn import FpgaCNN, TorchFpgaCNN
-from tpu_cnn_torch.utils.roofline import (PEAK_HBM_BYTES, PEAK_INT8_MACS,
+from tpu_cnn_torch.train.train_cnn import resolve_device as _device
+from tpu_cnn_torch.utils.roofline import (PEAK_BF16_MACS, PEAK_F32_MACS,
+                                          PEAK_HBM_BYTES, PEAK_INT8_MACS,
                                           detect_out_bytes, layers_bound,
                                           macs_per_image)
 
@@ -57,16 +65,8 @@ FPGA_FPS = 22.0  # reference README.md:11
 FPGA_CONV_MS = 6.8  # reference README.md:12
 HOST_INGEST_NOT_PORTED = ("--host-ingest: not yet ported (ROADMAP A.12, "
                           "serve_native's native frame ring)")
-TRAIN_NOT_PORTED = "--train: not yet ported (ROADMAP A.13b, the trainer)"
-
-
-def _device(device: str) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device='cuda' but torch finds no CUDA device")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
-    return dev
+# the card's float peak the train step's MFU is read against, per dtype
+TRAIN_PEAK_MACS = {"float32": PEAK_F32_MACS, "bfloat16": PEAK_BF16_MACS}
 
 
 def _seconds_per_call(fn, runs: int, dev: torch.device) -> float:
@@ -211,6 +211,51 @@ def print_roofline(model: FpgaCNN, batch: int, runs: int,
     out.update({"us_per_img": us, "bound_us": b_us, "bound_by": b_by,
                 "share": b_us / us})
     return out
+
+
+def bench_train(model: FpgaCNN, batch: int, runs: int, compute_dtype: str,
+                passes: int = 3, device: str = "cuda"):
+    """Phase-1 float train step throughput (forward + backward + Adam).
+
+    Chains ``runs`` dependent steps on one batch staged on the device and
+    synchronises once per chain; best of ``passes`` chains after a warm-up
+    chain. Returns (ms_per_step, img_per_s, mfu_pct): the MFU counts 3x the
+    forward MACs per image (forward, gradient of the input, gradient of the
+    weights) against the card's peak for ``compute_dtype`` (f32 outside the
+    tensor cores, bf16 on them)."""
+    from tpu_cnn_torch.train.train_cnn import (AdamCosine, TrainConfig,
+                                               init_params, make_train_step)
+
+    dev = _device(device)
+    runs = max(1, runs)
+    cfg = TrainConfig(layer_configs=model.config.layer_configs,
+                      batch_size=batch)
+    net = init_params(cfg, torch.Generator().manual_seed(0)).to(dev)
+    # the trainer's optimiser (its cosine spans the whole timed run): the
+    # JAX app's plain optax.adam does the same work per step
+    opt = AdamCosine(1e-3, runs * (max(1, passes) + 1))
+    state = opt.init(net.params())
+    step = make_train_step(cfg, opt, compute_dtype=compute_dtype)
+    rs = np.random.RandomState(0)
+    s = model.config.img_size
+    imgs = torch.as_tensor(rs.rand(batch, s, s).astype(np.float32), device=dev)
+    labels = torch.as_tensor(rs.randint(0, cfg.num_classes, batch), device=dev)
+
+    def chain():
+        for _ in range(runs):
+            step(net, state, imgs, labels)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    chain()  # build and warm
+    best = float("inf")
+    for _ in range(max(1, passes)):
+        t0 = time.perf_counter()
+        chain()
+        best = min(best, (time.perf_counter() - t0) / runs)
+    train_macs = 3 * macs_per_image(model.config.layer_configs)
+    mfu = batch * train_macs / best / TRAIN_PEAK_MACS[compute_dtype] * 100.0
+    return best * 1e3, batch / best, mfu
 
 
 def bench_engine(engine, images: np.ndarray, runs: int, use_detect: bool,
@@ -391,11 +436,11 @@ def main(argv=None):
                         "frame ring (not ported yet: exits 2)")
     p.add_argument("--ingest-threads", type=int, default=4)
     p.add_argument("--train", action="store_true",
-                   help="benchmark the phase-1 TRAIN step (not ported yet: "
-                        "exits 2)")
+                   help="benchmark the phase-1 TRAIN step (fwd+bwd+Adam) "
+                        "instead of inference: ms/step, img/s, train MFU")
     p.add_argument("--train-dtype", default="float32",
                    choices=("float32", "bfloat16"),
-                   help="--train compute dtype")
+                   help="--train compute dtype (train_cnn --bf16 twin)")
     p.add_argument("--multi", action="store_true",
                    help="time the multi-object detect pipeline (one CAM box "
                         "per class) instead of the single-box head")
@@ -417,8 +462,6 @@ def main(argv=None):
     args = p.parse_args(argv)
     if args.host_ingest:
         p.error(HOST_INGEST_NOT_PORTED)
-    if args.train:
-        p.error(TRAIN_NOT_PORTED)
     if "mesh" in (m.strip() for m in args.modes.split(",")):
         p.error(MESH_NOT_PORTED)
     args.artifacts = args.artifacts or default_artifacts(args.variant)
@@ -442,6 +485,16 @@ def main(argv=None):
     rng = np.random.RandomState(0)
     s = model.config.img_size
     images = rng.randint(0, 256, size=(args.batch, s, s)).astype(np.uint8)
+
+    if args.train:
+        ms, ips, mfu = bench_train(model, args.batch, args.runs,
+                                   args.train_dtype, device=args.device)
+        peak = "f32" if args.train_dtype == "float32" else "bf16 tensor-core"
+        print(f"\n  train step ({args.train_dtype}, batch {args.batch}, "
+              f"{args.runs}-step chain, {args.device}): {ms:8.2f} ms/step  "
+              f"{ips:10,.0f} img/s  MFU {mfu:.1f}% (of the card's {peak} "
+              f"peak)")
+        return {"train_img_per_s": ips}
 
     if args.multi and not args.detect:
         p.error("--multi times the multi-object DETECT pipeline; it cannot "

@@ -111,6 +111,32 @@ def load_bundle(artifact_dir: str | os.PathLike, prefix: str = "",
                           multi_thresh=multi_thresh, multi_head=multi_head)
 
 
+def save_bundle(
+    artifact_dir: str | os.PathLike,
+    bundle: ArtifactBundle,
+    prefix: str = "",
+) -> None:
+    d = os.fspath(artifact_dir)
+    os.makedirs(d, exist_ok=True)
+    weights_codec.save_weights_bin(os.path.join(d, WEIGHTS_BIN), bundle.kernels)
+    np.save(os.path.join(d, prefix + FC_WEIGHT), bundle.fc_weight.astype(np.float32))
+    np.save(os.path.join(d, prefix + FC_BIAS), bundle.fc_bias.astype(np.float32))
+    if bundle.bbox_weight is not None:
+        np.save(os.path.join(d, prefix + BBOX_WEIGHT),
+                bundle.bbox_weight.astype(np.float32))
+    if bundle.shifts is not None:
+        with open(os.path.join(d, prefix + SHIFTS_JSON), "w") as f:
+            json.dump([int(s) for s in bundle.shifts], f)
+    if bundle.multi_thresh is not None:
+        with open(os.path.join(d, prefix + MULTI_THRESH_JSON), "w") as f:
+            json.dump([float(t) for t in bundle.multi_thresh], f)
+    if bundle.multi_head is not None:
+        np.savez(os.path.join(d, prefix + MULTI_HEAD_NPZ),
+                 w=bundle.multi_head[0].astype(np.float32),
+                 b=bundle.multi_head[1].astype(np.float32))
+    with open(os.path.join(d, CLASSES), "w") as f:
+        json.dump(list(bundle.class_names), f)
+
 def save_feature_dump(
     path: str | os.PathLike,
     features: np.ndarray,  # (N, 64, 256) uint8

@@ -3,8 +3,10 @@
 One copy of the NVIDIA H100 SXM data sheet's dense peaks at 700 W, read by
 ``apps.benchmark`` (its per-layer MFU and ``--roofline``) and by the
 repository's ``chip_smoke.py`` (every kernel's ``bound_ms``): int8 tensor
-cores 1,979 T op/s (a multiply-add is two), HBM3 3.35 TB/s. A card set
-below 700 W runs slower than these under load; the measurements print its
+cores 1,979 T op/s (a multiply-add is two), HBM3 3.35 TB/s; and for the
+float trainer (the benchmark's ``--train`` MFU) FP32 outside the tensor
+cores 67 TFLOP/s and BF16 tensor cores 989 TFLOP/s. A card set below
+700 W runs slower than these under load; the measurements print its
 power limit beside their numbers.
 """
 
@@ -14,6 +16,8 @@ from tpu_cnn_torch.models.cnn import LAYER_CONFIGS
 
 PEAK_INT8_MACS = 1979e12 / 2
 PEAK_HBM_BYTES = 3.35e12
+PEAK_F32_MACS = 67e12 / 2
+PEAK_BF16_MACS = 989e12 / 2
 
 
 def macs_per_image(layer_configs=LAYER_CONFIGS) -> int:

@@ -1,5 +1,6 @@
-"""weights.bin codec — the hardware weight format: the port's copy of
-``tpu_cnn.utils.weights``' codec.
+"""weights.bin codec — the hardware weight format — and the export
+quantisers: the port's copy of ``tpu_cnn.utils.weights``' codec,
+``quantize_global`` and ``quantize_per_layer``.
 
 Per layer, output channels are grouped in batches of 16, and within each
 (batch, input-channel) pass the 16 cores' 3x3 kernels are stored
@@ -21,7 +22,7 @@ from typing import Sequence
 
 import numpy as np
 
-from tpu_cnn_torch.models.cnn import LAYER_CONFIGS
+from tpu_cnn_torch.models.cnn import LAYER_CONFIGS, QUANT_MAX
 
 
 def decode_weights(
@@ -82,3 +83,47 @@ def save_weights_bin(path: str | os.PathLike, kernels: Sequence[np.ndarray]) -> 
     blob = encode_weights(kernels)
     with open(os.fspath(path), "wb") as f:
         f.write(blob)
+
+
+def quantize_global(
+    float_kernels: Sequence[np.ndarray], quant_max: int = QUANT_MAX
+) -> tuple[list[np.ndarray], float]:
+    """Quantise float kernels with one global symmetric scale.
+
+    Returns (int8 kernels, scale) with ``scale = quant_max / max|w|``
+    (reference ``training/train_cnn.py:133-137,180-189``).
+    """
+    absmax = max(float(np.abs(np.asarray(k)).max()) for k in float_kernels)
+    scale = quant_max / max(absmax, 1e-8)
+    q = [
+        np.clip(np.round(np.asarray(k, dtype=np.float64) * scale), -quant_max, quant_max).astype(
+            np.int8
+        )
+        for k in float_kernels
+    ]
+    return q, scale
+
+
+def quantize_per_layer(
+    float_kernels: Sequence[np.ndarray], quant_max: int = QUANT_MAX
+) -> tuple[list[np.ndarray], list[float]]:
+    """Quantise each layer's kernels with its OWN symmetric scale.
+
+    Beyond-reference export option (``train_cnn --per-layer-scale``): the
+    reference's single global scale (``training/train_cnn.py:133-137``)
+    lets the layer with the largest |w| squeeze every other layer's int8
+    precision. Per-layer scales give each layer the full +-127 grid. The
+    runtime contract is unchanged (int8 weights + the per-layer shift
+    register absorb any power-of-two gain; heads are refit on dumped
+    features), so every engine, kernel and the byte layout stay the same.
+    """
+    q, scales = [], []
+    for k in float_kernels:
+        absmax = max(float(np.abs(np.asarray(k)).max()), 1e-8)
+        scale = quant_max / absmax
+        q.append(
+            np.clip(np.round(np.asarray(k, np.float64) * scale),
+                    -quant_max, quant_max).astype(np.int8)
+        )
+        scales.append(scale)
+    return q, scales
