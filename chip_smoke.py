@@ -137,8 +137,31 @@ one line each, in order; any failure raises:
                 mega,pallas,hybrid over 52 batches; --multi --instances 2;
                 --per-layer --modes pallas and mega; --roofline;
                 --latency; --camera-pipeline packed, BGR and at pitch 656;
-                --features; lyr4-wide --modes mega and --roofline;
-                --host-ingest exits 2
+                --features; lyr4-wide --modes mega and --roofline
+  serve_native — tpu_cnn_torch.apps.serve_native --mode mega on each
+                family (build_worker: make_engine, warmed at --max-batch
+                16, then the C++ front): 24 concurrent raw POSTs over
+                sockets, each answer equal to serve_native --mode cpu's
+                (the host oracle and head; pred and bbox exact, probs
+                within 1e-4); /healthz, 400 and 413 on malformed bodies,
+                503 push-back on a full queue; lyr3-std also --multi
+                --instances 2, its detections equal to the live engine's
+  deploy      — tpu_cnn_torch.apps.export_model --backend mega --platforms
+                cuda --batch 8,1536 on each family (lyr3-std with --multi
+                --instances 2): every program calls tcnn::mega_cnn (and
+                tcnn::conv_pool_layer on lyr4-wide) and no other op of the
+                port; a child process that imports only the loader
+                (tpu_cnn_torch.deploy; no models, engine or apps module)
+                detects 1,573 staged images, equal to CUDAEngine(mega)
+                (pred and bbox exact, probs within 1e-4); lyr3-std's
+                detections() equal to the live engine's; serve
+                --deployable behind HTTP, 8 POSTs equal to the engine
+  serving     — scripts/bench_serving_torch.py on lyr3-std mega: the
+                Python and the native front on one warm engine, ~4 s of
+                closed-loop load at 4, 16 and 64 clients each: req/s,
+                p50/p99, connection errors, 503 sheds (every answer 200)
+  ingest      — apps.benchmark --host-ingest: 4 producers, 10,240 frames
+                at 640x480 through the native frame ring: frames/s, drops
   doctor      — apps.doctor: exit 0, the runtime line names the card
   verify      — tpu_cnn_torch.apps.verify --device cuda for lyr3-std
                 (shipped weights) and lyr4-wide (seeded weights): all seven
@@ -165,7 +188,9 @@ one line each, in order; any failure raises:
                 calls queued; preprocess_frames at batch 256 on 640x480 BGR
                 and packed frames, with its byte bound; the realtime loop's
                 EMA FPS and median engine ms (lyr3-std mega, --fused and the
-                host-head protocol) and its stages timed one by one. The
+                host-head protocol) and its stages timed one by one; the
+                deployable's detect (each family's mega container) against
+                CUDAEngine.detect_batch at buckets 8 and 1536. The
                 conv kernel's per-layer times are device time per call with
                 50 calls queued (the one-call window, printed beside them,
                 also times the launch); the benchmark's --per-layer --modes pallas
@@ -173,8 +198,9 @@ one line each, in order; any failure raises:
 
 Phases 4-6, the probe, the swap, the host server, the preprocess, the
 realtime runs, the eval, tracking, dump and train_bbox runs, the six
-train paths, each benchmark run and the doctor are the main paths, once
-per path: every
+train paths, each benchmark run, the deployment paths (serve_native,
+the deployable, the serving load, the host ingest) and the doctor are
+the main paths, once per path: every
 kernel launch
 counter is set to 0 before a path's phases and read after them, and each
 kernel of that path must have launched there and no other kernel
@@ -186,8 +212,10 @@ preprocess and realtime --mode cpu: none; the realtime paths: mega's or
 pallas's; eval, tracking, dump and train_bbox: what their mode runs on
 the family, --mode cpu none; the trainer, the train parity, retrain_classifier
 and benchmark --train: none; the recipe, tune_shifts and calibrate_multi:
-the megakernel; each benchmark run: what its modes run; the doctor and
-the refused benchmark flag: none). The line before the last
+the megakernel; each benchmark run: what its modes run; serve_native and
+the deployable: what mega runs on the family (in this process: the
+deployable child's launches are its own, printed and checked apart); the
+serving load: the megakernel; the host ingest and the doctor: none). The line before the last
 is a JSON object with each
 kernel's launches (summed over the paths), error, times and bound (and
 the conv kernel's pooled time and bound on lyr3-std); the last line is
@@ -202,6 +230,7 @@ import contextlib
 import glob
 import hashlib
 import http.client
+import importlib.util
 import io
 import itertools
 import json
@@ -213,6 +242,7 @@ import subprocess
 import sys
 import threading
 import time
+import zipfile
 
 import numpy as np
 import torch
@@ -222,11 +252,13 @@ sys.path.insert(0, ROOT)
 
 from tpu_cnn_torch import bench_gate  # noqa: E402
 from tpu_cnn_torch.apps import (benchmark, calibrate_multi, doctor, dump_features,  # noqa: E402
-                                eval_detection, eval_tracking, infer, probe_bitcast,
-                                realtime, retrain_classifier, serve, train_bbox,
-                                tune_shifts, verify)
+                                eval_detection, eval_tracking, export_model, infer,
+                                probe_bitcast, realtime, retrain_classifier, serve,
+                                serve_native, train_bbox, tune_shifts, verify)
 from tpu_cnn_torch.apps.common import load_model  # noqa: E402
 from tpu_cnn_torch.apps.serve import ServiceHTTPServer, make_handler  # noqa: E402
+from tpu_cnn_torch.apps.serve_native import NativeFrontEnd  # noqa: E402
+from tpu_cnn_torch.deploy import DeployedDetector  # noqa: E402
 from tpu_cnn_torch.engine.cpu_ref import CPURefEngine, numpy_cnn_forward  # noqa: E402
 from tpu_cnn_torch.engine.cuda import (DEFAULT_MULTI_THRESH, CUDAEngine,  # noqa: E402
                                        MultiDetectResult)
@@ -1509,20 +1541,314 @@ def benchmark_run(flags) -> None:
     phase("benchmark", f"apps.benchmark {' '.join(flags)} --device cuda: exit 0")
 
 
-def benchmark_refusals() -> None:
-    """``--host-ingest`` is not ported yet: exit 2."""
-    for flag in ("--host-ingest",):
-        err = io.StringIO()
-        try:
-            with contextlib.redirect_stderr(err):
-                benchmark.main([flag])
-            code = 0
-        except SystemExit as e:
-            code = e.code
-        check(code == 2 and "not yet ported (ROADMAP" in err.getvalue(),
-              f"apps.benchmark {flag}: exit {code} {err.getvalue()!r}")
-    phase("benchmark", "apps.benchmark --host-ingest: exit 2, naming the "
-                       "item it waits for")
+INGEST_ARGV = ["--host-ingest", "--batch", "256", "--runs", "40", "--cam-res",
+               "640x480", "--ingest-threads", "4"]
+
+
+def host_ingest_path(card: str) -> None:
+    """``apps.benchmark --host-ingest``: 4 producer threads push 10,240 raw
+    640x480 BGR frames through the native frame ring (the C++ preprocess),
+    one consumer drains batches of 256. Host work only: no kernel."""
+    res, text = _quiet(benchmark.main, INGEST_ARGV)
+    line = next(ln.strip() for ln in text.splitlines() if "host ingest" in ln)
+    check(res["host_ingest"] > 0 and res["dropped"] >= 0,
+          f"apps.benchmark --host-ingest: {res}")
+    phase("benchmark", f"apps.benchmark {' '.join(INGEST_ARGV)} on the host "
+                       f"of {card}: exit 0; {line}; frames/s "
+                       f"{res['host_ingest']!r}, dropped {res['dropped']}")
+
+
+# ── the deployment path: the native front, the deployable, the load ──
+
+NATIVE_BATCH = 16  # serve_native's --max-batch on the card
+NATIVE_FRAMES = 24  # concurrent raw POSTs per serve_native run
+DEPLOY_DIR = os.path.join(ROOT, "build", "chip_smoke", "deploy")
+DEPLOY_BATCHES = "8,1536"  # the exported buckets
+DEPLOY_IMAGES = 1536 + 37  # one full bucket, then a remainder padded to it
+DEPLOY_SERVED = 8  # POSTs to serve --deployable
+SERVING_ARGV = ["--duration", "4", "--conc", "4,16,64", "--mode", "mega",
+                "--max-batch", "256", "--variant", "lyr3-std", "--device",
+                "cuda"]
+
+
+def _frames(variant: str, n: int, seed: int) -> np.ndarray:
+    """The family's shipped test images, then seeded noise, n in all."""
+    size = get_config(variant).img_size
+    shipped = [np.fromfile(p, np.uint8).reshape(size, size)
+               for p in shipped_images(variant)][:n]
+    rs = np.random.RandomState(seed)
+    noise = rs.randint(0, 256, (n - len(shipped), size, size)).astype(np.uint8)
+    return np.concatenate([np.stack(shipped), noise])
+
+
+def _post_raw(port: int, body, path="/detect", method="POST"):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request(method, path, body=body)
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def _native_answers(front, detect_fn, names, thr, frames) -> list:
+    """Serve ``frames`` through ``front`` as concurrent raw POSTs with one
+    worker thread on ``detect_fn`` (serve_native's loop); stop both and
+    return the (status, JSON) answers in frame order."""
+    stop = threading.Event()
+
+    def worker():
+        while not stop.is_set():
+            front.serve_once(detect_fn, names, timeout_s=0.05,
+                             multi_thresh=thr)
+
+    th = threading.Thread(target=worker, daemon=True)
+    th.start()
+    try:
+        with concurrent.futures.ThreadPoolExecutor(len(frames)) as pool:
+            answers = list(pool.map(lambda f: _post_raw(front.port, f.tobytes()),
+                                    frames))
+        check(front.served >= len(frames), f"served {front.served}")
+    finally:
+        stop.set()
+        th.join(timeout=30)
+        front.stop()
+    return answers
+
+
+def _same_answers(tag, got, want, detections: bool) -> None:
+    for i, ((gs, g), (ws, w)) in enumerate(zip(got, want)):
+        ok = (gs == ws == 200 and g["pred"] == w["pred"] and g["name"] == w["name"]
+              and g["bbox"] == w["bbox"]
+              and np.allclose(g["probs"], w["probs"], rtol=0, atol=SCORE_TOL))
+        if detections:
+            ok = ok and same_detections(
+                [(d["pred"], d["conf"], d["bbox"]) for d in g["detections"]],
+                [(d["pred"], d["conf"], d["bbox"]) for d in w["detections"]],
+                SCORE_TOL)
+        check(ok, f"{tag} frame {i}: {gs} {g} != {ws} {w}")
+
+
+def native_pushback(variant: str, detect_fn, names) -> str:
+    """A front whose worker is stalled: /healthz, 400 and 413 from the C++
+    side, then 12 POSTs into a queue of 8 (4 x max_batch 2): 4 answer 503
+    at once, and the 8 queued answer 200 once the worker drains them."""
+    size = get_config(variant).img_size
+    front = NativeFrontEnd("127.0.0.1", 0, size, max_batch=2)
+    try:
+        status, health = _post_raw(front.port, None, "/healthz", "GET")
+        check(status == 200 and health["status"] == "ok", f"/healthz {health}")
+        bad = {n: _post_raw(front.port, b"x" * n)[0]
+               for n in (16, size * size + 1)}
+        check(bad == {16: 400, size * size + 1: 413}, f"malformed bodies {bad}")
+        body = _frames(variant, 1, 3)[0].tobytes()
+        with concurrent.futures.ThreadPoolExecutor(12) as pool:
+            futs = [pool.submit(_post_raw, front.port, body) for _ in range(12)]
+            deadline = time.time() + 20
+            while time.time() < deadline and sum(
+                    f.done() and f.result()[0] == 503 for f in futs) < 4:
+                time.sleep(0.05)
+            for _ in range(8):
+                front.serve_once(detect_fn, names, timeout_s=0.5)
+            statuses = sorted(f.result()[0] for f in futs)
+    finally:
+        front.stop()
+    check(statuses == [200] * 8 + [503] * 4, f"push-back statuses {statuses}")
+    return "/healthz ok, 400 and 413 on malformed bodies, 503 x4 then 200 x8"
+
+
+def native_front_path(variant: str, instances: int = 1) -> None:
+    """serve_native --mode mega --device cuda (its worker through
+    ``build_worker``: make_engine, warm at --max-batch, then the bound
+    C++ front) over real sockets: NATIVE_FRAMES concurrent raw POSTs,
+    each answer equal to serve_native --mode cpu's (the host oracle and
+    the host head) on the same frames; with ``instances`` > 1 the
+    --multi --instances N answers, whose detections equal the live
+    engine's filtered ones (the host adapter has no instance head)."""
+    model = load_model(ARTIFACTS[variant], variant)
+    size = model.config.img_size
+    frames = _frames(variant, NATIVE_FRAMES, 17)
+    multi = instances > 1
+    fn, thr, backend = serve_native.build_worker(
+        model, "mega", "cuda", max_batch=NATIVE_BATCH, multi=multi,
+        instances=instances)
+    got = _native_answers(NativeFrontEnd("127.0.0.1", 0, size, NATIVE_BATCH),
+                          fn, model.class_names, thr, frames)
+    if multi:
+        engine = CUDAEngine(model, device="cuda", backend="mega")
+        res = engine.detect_multi_batch(frames, instances=instances)
+        dets = res.detections(thr)
+        want = [(200, {"pred": int(res.pred[i]),
+                       "name": model.class_names[int(res.pred[i])],
+                       "probs": res.probs[i].tolist(),
+                       "bbox": [int(v) for v in res.boxes[i, res.pred[i]]],
+                       "detections": [{"pred": k, "conf": p, "bbox": list(b)}
+                                      for k, p, b in dets[i]]})
+                for i in range(len(frames))]
+        what = f"--multi --instances {instances}: the live engine's detections"
+    else:
+        cpu_fn, _, cpu_backend = serve_native.build_worker(
+            model, "cpu", max_batch=NATIVE_BATCH)
+        want = _native_answers(NativeFrontEnd("127.0.0.1", 0, size, NATIVE_BATCH),
+                               cpu_fn, model.class_names, None, frames)
+        what = f"serve_native --mode cpu ({cpu_backend})"
+    _same_answers(f"{variant} serve_native", got, want, multi)
+    extra = native_pushback(variant, fn, model.class_names) if not multi else ""
+    n_dets = sum(len(a.get("detections", [])) for _, a in got)
+    phase("serve_native", f"{variant} --mode mega ({backend}): {len(frames)} "
+                          f"concurrent raw POSTs equal to {what}"
+                          f"{f' ({n_dets} detections)' if multi else ''}"
+                          f"{'; ' + extra if extra else ''}")
+
+
+_DEPLOY_CHILD = r"""
+import json, sys
+import numpy as np
+from tpu_cnn_torch.deploy import DeployedDetector
+from tpu_cnn_torch.ops import conv_pool, mega
+det = DeployedDetector.load(sys.argv[1], "cuda")
+out = det.detect(np.load(sys.argv[2]))
+np.savez(sys.argv[3], pred=out[0], conf=out[1], probs=out[2], bbox=out[3])
+print(json.dumps({
+    "launches": {"mega_cnn": mega.launches, "conv_pool_layer": conv_pool.launches},
+    "loaded": sorted(m for m in sys.modules if m.startswith(
+        ("tpu_cnn_torch.models", "tpu_cnn_torch.engine", "tpu_cnn_torch.apps",
+         "tpu_cnn.", "jax")))}))
+"""
+
+
+def deploy_file(variant: str) -> str:
+    return os.path.join(DEPLOY_DIR, f"{variant}.tcnnx")
+
+
+def deploy_path(variant: str, ops, instances: int = 1) -> None:
+    """export_model --backend mega --platforms cuda --batch 8,1536 (with
+    --multi --instances N when instances > 1): every program calls the
+    kernels' custom ops ``ops`` and no other; in a child process that
+    imports only the loader (``tpu_cnn_torch.deploy``), detect on
+    DEPLOY_IMAGES staged images, equal to CUDAEngine(mega); the multi
+    program's detections() equal to the live engine's; serve --deployable
+    behind HTTP equal to the engine."""
+    model = load_model(ARTIFACTS[variant], variant)
+    os.makedirs(DEPLOY_DIR, exist_ok=True)
+    out = deploy_file(variant)
+    argv = ["--variant", variant, "--output", out, "--backend", "mega",
+            "--platforms", "cuda", "--batch", DEPLOY_BATCHES]
+    if instances > 1:
+        argv += ["--multi", "--instances", str(instances)]
+    t0 = time.perf_counter()
+    rc, text = _quiet(export_model.main, argv)
+    t_export = time.perf_counter() - t0
+    check(rc == 0, f"export_model {' '.join(argv)}: exit {rc}")
+    want_ops = {f"tcnn.{op}.default" for op in ops}
+    with zipfile.ZipFile(out) as z:
+        names = sorted(n for n in z.namelist() if n.endswith(".pt2"))
+        for name in names:
+            ep = torch.export.load(io.BytesIO(z.read(name)))
+            got_ops = {str(n.target) for n in ep.graph.nodes
+                       if str(n.target).startswith("tcnn.")}
+            check(got_ops == want_ops, f"{name} calls {got_ops}, not {want_ops}")
+    n_programs = len(names)
+    imgs = _frames(variant, DEPLOY_IMAGES, 23)
+    staged = os.path.join(DEPLOY_DIR, f"{variant}_images.npy")
+    result = os.path.join(DEPLOY_DIR, f"{variant}_detect.npz")
+    np.save(staged, imgs)
+    # the child runs beside this process's checks below
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-c", _DEPLOY_CHILD, out, staged,
+                             result], cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    try:
+        engine = CUDAEngine(model, device="cuda", backend="mega")
+        want = engine.detect_batch(imgs)
+        extra = _deployable_checks(variant, model, out, engine, imgs, instances)
+        stdout, stderr = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    t_child = time.perf_counter() - t0
+    check(proc.returncode == 0, f"deployable child: exit {proc.returncode}: "
+                                f"{stderr[-3000:]}")
+    child = json.loads(stdout.splitlines()[-1])
+    check(child["loaded"] == [], f"the child imported {child['loaded']}")
+    check(all(child["launches"][op] > 0 for op in ops)
+          and sum(child["launches"].values()) == len(ops) * 2,
+          f"the child's launches {child['launches']}")
+    got = np.load(result)
+    check(np.array_equal(got["pred"], want.pred)
+          and np.array_equal(got["bbox"], want.bbox)
+          and np.allclose(got["probs"], want.probs, rtol=0, atol=SCORE_TOL),
+          f"{variant} deployable detect != CUDAEngine(mega)")
+    phase("deploy", f"{variant} export_model {' '.join(argv[4:])}: {n_programs} "
+                    f"programs ({os.path.getsize(out):,} bytes, {t_export:.1f} s) "
+                    f"calling {sorted(want_ops)}; a child importing only the "
+                    f"loader ({t_child:.1f} s, no models/engine/apps module, "
+                    f"launches {child['launches']}) detected {len(imgs)} images "
+                    f"equal to CUDAEngine(mega){extra}")
+
+
+def _deployable_checks(variant, model, out, engine, imgs, instances) -> str:
+    """In this process: the multi program's detections() against the live
+    engine's, then serve --deployable behind HTTP against the engine."""
+    det = DeployedDetector.load(out, "cuda")
+    extra = ""
+    if instances > 1:
+        thr = multi_thresh_of(model)
+        got_d = det.detections(imgs[:64])
+        want_d = engine.detect_multi_batch(imgs[:64], instances=instances).detections(thr)
+        check(all(same_detections(g, w, SCORE_TOL) for g, w in zip(got_d, want_d)),
+              f"{variant} deployable detections() != the live engine's")
+        extra = (f"; detections() on 64 images equal to the live engine's "
+                 f"({sum(len(d) for d in want_d)} detections)")
+    batcher, backend = serve.build_service(device="cuda", max_batch=8,
+                                           deployable=out, multi=instances > 1,
+                                           instances=instances)
+    served = imgs[:DEPLOY_SERVED]
+    ref = (engine.detect_multi_batch(served, instances=instances)
+           if instances > 1 else engine.detect_batch(served))
+    with http_service(batcher, backend) as request:
+        with concurrent.futures.ThreadPoolExecutor(DEPLOY_SERVED) as pool:
+            answers = list(pool.map(lambda im: request("POST", "/detect", im.tobytes()),
+                                    served))
+    for i, (status, ans) in enumerate(answers):
+        idx = int(ref.pred[i])
+        box = ref.boxes[i, idx] if instances > 1 else ref.bbox[i]
+        ok = status == 200 and ans["pred"] == idx and ans["bbox"] == [int(v) for v in box]
+        if instances > 1:
+            ok = ok and same_detections(
+                [(d["pred"], d["conf"], d["bbox"]) for d in ans["detections"]],
+                ref.detections(multi_thresh_of(model))[i], SCORE_TOL)
+        check(ok, f"{variant} serve --deployable POST {i}: {status} {ans}")
+    return (f"{extra}; serve --deployable ({backend}): {DEPLOY_SERVED} POSTs "
+            f"equal to the engine")
+
+
+def _load_script(name: str):
+    path = os.path.join(ROOT, "scripts", name + ".py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def serving_load_path(card: str) -> None:
+    """scripts/bench_serving_torch.py, short: one warm CUDAEngine (lyr3-std
+    mega) behind both fronts, a closed loop of ~4 s per concurrency (4,
+    16, 64), the fronts in turns; every answer 200."""
+    res, text = _quiet(_load_script("bench_serving_torch").main, SERVING_ARGV)
+    for row in res["rows"]:
+        check(row["req_s"] > 0 and row["non200"] == 0,
+              f"bench_serving_torch {row}")
+        phase("serving", f"{card}: lyr3-std {res['backend']} {row['front']} "
+                         f"front conc {row['conc']}: {row['req_s']!r} req/s, "
+                         f"p50 {row['p50_ms']!r} ms, p99 {row['p99_ms']!r} ms, "
+                         f"conn errors {row['conn_errors']}, 503 sheds "
+                         f"{row['shed_503']}")
+    for name, st in res["stats"].items():
+        phase("serving", f"{card}: {name} front /stats after the load: "
+                         f"{json.dumps(st)}")
 
 
 def doctor_path() -> None:
@@ -1989,6 +2315,43 @@ def _pipelined_fps(dispatch, resolve, pools, rounds: int = 52) -> float:
     return rounds * BENCH_BATCH / dt
 
 
+def deploy_times(card: str, rs) -> None:
+    """The deployable's detect (the lyr3-std and lyr4-wide ``mega``
+    containers of the deploy paths: numpy in, numpy out) against
+    ``CUDAEngine(mega).detect_batch``, the live engine's sync call, at
+    each exported bucket; host clock, in turns deployable, engine, engine,
+    deployable, 10 calls each, median per call."""
+    for variant in MEGA_KERNELS:
+        model = load_model(ARTIFACTS[variant], variant)
+        if not os.path.exists(deploy_file(variant)):  # times() on its own
+            os.makedirs(DEPLOY_DIR, exist_ok=True)
+            _quiet(export_model.main, ["--variant", variant, "--output",
+                                       deploy_file(variant), "--batch",
+                                       DEPLOY_BATCHES])
+        det = DeployedDetector.load(deploy_file(variant), "cuda")
+        engine = CUDAEngine(model, device="cuda", backend="mega")
+        s = model.config.img_size
+        for b in (int(v) for v in DEPLOY_BATCHES.split(",")):
+            imgs = rs.randint(0, 256, (b, s, s)).astype(np.uint8)
+            calls = {"deployable": lambda: det.detect(imgs),
+                     "engine": lambda: engine.detect_batch(imgs)}
+            ms = {k: [] for k in calls}
+            for k in calls:  # warm-up
+                calls[k]()
+            for k in ("deployable", "engine", "engine", "deployable"):
+                for _ in range(10):
+                    t0 = time.perf_counter()
+                    calls[k]()
+                    ms[k].append((time.perf_counter() - t0) * 1e3)
+            d_ms, e_ms = (statistics.median(ms[k]) for k in calls)
+            phase("7 times", f"{variant} mega deployable detect batch {b} on "
+                             f"{card}: median {d_ms!r} ms per sync call (n=20) "
+                             f"vs CUDAEngine.detect_batch {e_ms!r} ms (n=20), "
+                             f"ratio {d_ms / e_ms:.3f}")
+        del det, engine
+        torch.cuda.empty_cache()
+
+
 def engine_fps(variant: str, backend: str, rs) -> list[float]:
     """bench.py's async pipeline: 52 rounds over 4 staged pools, 3 passes."""
     engine = CUDAEngine(load_model(ARTIFACTS[variant], variant), device="cuda",
@@ -2313,6 +2676,7 @@ def times(dev: torch.device, card: str,
                          f"batch {BENCH_BATCH} on {card}: best {max(fps)!r} "
                          f"FPS of {fps!r}")
         torch.cuda.empty_cache()
+    deploy_times(card, rs)
     multi_times(card, rs, profile_out)  # lyr3-std on mega: single-box and multi
     torch.cuda.empty_cache()
     # after every host-bound FPS: a finished torch.profiler run leaves
@@ -2411,7 +2775,19 @@ def main(argv=None) -> None:
     for flags, path_kernels in BENCH_RUNS:
         main_path(f"benchmark {' '.join(flags)}", path_kernels,
                   lambda: benchmark_run(flags))
-    main_path("benchmark --host-ingest", (), benchmark_refusals)
+    for variant, path_kernels in MEGA_KERNELS.items():
+        main_path(f"{variant} serve_native --mode mega", path_kernels,
+                  lambda: native_front_path(variant),
+                  *([lambda: native_front_path(variant, 2)]
+                    if variant == "lyr3-std" else []))
+    for variant, path_kernels in MEGA_KERNELS.items():
+        main_path(f"{variant} export_model --backend mega, the deployable, "
+                  f"serve --deployable", path_kernels,
+                  lambda: deploy_path(variant, path_kernels,
+                                      2 if variant == "lyr3-std" else 1))
+    main_path("serving load (scripts/bench_serving_torch.py)", ("mega_cnn",),
+              lambda: serving_load_path(card))
+    main_path("benchmark --host-ingest", (), lambda: host_ingest_path(card))
     main_path("doctor", (), doctor_path)
 
     for variant in ARTIFACTS:

@@ -97,12 +97,27 @@ def test_per_layer_rows_equal_the_jax_apps(variant, mode):
     assert all(r["ms"] > 0 and r["us_per_img"] > 0 for r in ours)
 
 
-@pytest.mark.parametrize("flag,item", [("--host-ingest", "A.12")])
-def test_unported_items_exit_2_naming_what_they_wait_for(flag, item, capsys):
+@pytest.mark.parametrize("argv,item", [(["--modes", "mesh"], "A.14")])
+def test_unported_items_exit_2_naming_what_they_wait_for(argv, item, capsys):
     with pytest.raises(SystemExit) as e:
-        benchmark.main(CPU + [flag])
+        benchmark.main(CPU + argv)
     assert e.value.code == 2
     assert item in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("threads", [1, 3])
+def test_host_ingest_counts_every_frame(threads, capsys):
+    """``--host-ingest`` runs the native frame ring (host work only): the
+    frames consumed plus those dropped are the frames pushed, as in the
+    JAX app's loop."""
+    fps, dropped = benchmark.bench_host_ingest(8, 3, 96, 64, threads,
+                                               out_size=32)
+    assert fps > 0 and 0 <= dropped <= 8 * 3
+    res = benchmark.main(CPU + ["--host-ingest", "--batch", "4", "--runs", "2",
+                                "--cam-res", "64x48",
+                                "--ingest-threads", str(threads)])
+    assert res["host_ingest"] > 0 and res["dropped"] >= 0
+    assert "frames/s" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("argv", [

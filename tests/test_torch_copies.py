@@ -1,6 +1,8 @@
 """The port's own copies of the JAX package's JAX-free modules, each held
 equal to its ``tpu_cnn`` original on the same seeded numpy inputs: the
-numpy oracle, the C++ oracle and its batched preprocess, the host-oracle
+numpy oracle, the C++ oracle and its batched preprocess (and the frame
+ring's and HTTP front's C++ sources, equal to theirs but for the header
+comment), the host-oracle
 engine, the host head twins and the tracker, the weights.bin and bundle
 codecs, the registry and model holder, the CLI helpers, the luma
 constants, the stage timers and the camera app's host preprocess. Integer
@@ -774,3 +776,54 @@ def test_doctor_bundles_equal_the_original():
     from tpu_cnn_torch.apps import doctor
 
     assert doctor._DEFAULT_BUNDLES == j_doctor._DEFAULT_BUNDLES
+
+
+# ── the native ring and HTTP front sources ───────────────────────────
+
+
+def _code_after_header(path: str) -> str:
+    """A C++ source without its leading ``//`` comment block: the copies
+    change only that header, which names the port."""
+    with open(path) as f:
+        lines = f.read().splitlines()
+    i = 0
+    while i < len(lines) and lines[i].startswith("//"):
+        i += 1
+    return "\n".join(lines[i:])
+
+
+@pytest.mark.parametrize("name", ["frame_ring.cpp", "http_front.cpp"])
+def test_native_runtime_sources_equal_the_originals(name):
+    ours = os.path.join(REPO, "tpu_cnn_torch", "native", name)
+    theirs = os.path.join(REPO, "tpu_cnn", "native", name)
+    assert _code_after_header(ours) == _code_after_header(theirs)
+    with open(ours) as f:
+        assert "port" in f.read().split("\n\n")[0]
+
+
+def test_host_library_links_the_three_sources():
+    """One host library, as the JAX build links one shared object: the
+    oracle, the ring (which calls the oracle's preprocess) and the front;
+    the oracle, the preprocess, the ring and the front all load it."""
+    from tpu_cnn.native import build as j_build
+    from tpu_cnn_torch.ops import _build
+
+    assert (tuple(os.path.basename(s) for s in j_build.SRCS)
+            == _build.HOST_SOURCES)
+    from tpu_cnn_torch.native import ring
+    from tpu_cnn_torch.apps import serve_native
+
+    for mod in (oracle, native_pre, ring, serve_native):
+        with open(mod.__file__) as f:
+            assert "_build.build_host()" in f.read()
+
+
+def test_detection_filters_live_beside_the_engine():
+    """``head.detections`` holds the engine module's filters (one copy):
+    ``engine.cuda`` exports the same objects."""
+    from tpu_cnn_torch.engine import cuda
+    from tpu_cnn_torch.head import detections
+
+    for name in ("presence_scores", "detections_above", "instance_detections",
+                 "DEFAULT_MULTI_THRESH"):
+        assert getattr(cuda, name) is getattr(detections, name)

@@ -191,9 +191,13 @@ def test_infer_multi_flags_as_in_the_jax_cli(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv", [["--deployable", "x.tcnnx"],
                                   ["--deployable", "x.tcnnx", "--multi"]])
-def test_serve_unported_modes_exit(argv):
-    with pytest.raises(SystemExit):
+def test_serve_unported_modes_exit(argv, capsys):
+    """``--deployable`` is ported (tests/test_torch_export.py serves
+    containers); a container that is not there exits 2 naming it."""
+    with pytest.raises(SystemExit) as e:
         serve.main(argv + ["--device", "cpu"])
+    assert e.value.code == 2
+    assert "x.tcnnx: no such file" in capsys.readouterr().err
 
 
 _MULTI_SERVICE = """

@@ -18,7 +18,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_FILES = sorted(
     os.path.relpath(os.path.join(d, f), REPO)
     for d, _, fs in os.walk(os.path.join(REPO, "tpu_cnn_torch"))
-    for f in fs if f.endswith(".py")) + ["chip_smoke.py"]
+    for f in fs if f.endswith(".py")) + ["chip_smoke.py",
+                                         "scripts/bench_serving_torch.py"]
 REFUSED = ("jax", "tpu_cnn")
 VERDICT = "VERDICT: DESIGN IS BIT-ACCURATE across all backends"
 
@@ -89,16 +90,30 @@ for argv in (["tpu_cnn_torch.apps.verify", "--device", "cpu",
               "2", "--runs", "1", "--modes", "mega,cpu"],
              ["tpu_cnn_torch.train.train_cnn", "--device", "cpu",
               "--synthetic", "--variant", "lyr3-tiny", "--epochs", "1",
-              "--max-per-class", "50", "--output-dir", OUT]):
+              "--max-per-class", "50", "--output-dir", OUT],
+             ["tpu_cnn_torch.apps.benchmark", "--host-ingest", "--device", "cpu",
+              "--batch", "4", "--runs", "2", "--cam-res", "64x48"],
+             ["tpu_cnn_torch.apps.export_model", "--backend", "xla",
+              "--platforms", "cpu", "--batch", "2", "--output",
+              OUT + "/m.tcnnx"],
+             ["tpu_cnn_torch.apps.export_model", "--load", OUT + "/m.tcnnx",
+              "--device", "cpu", "--image",
+              "artifacts/pretrained/test_image_0_class3.bin"],
+             ["scripts/bench_serving_torch.py", "--device", "cpu", "--mode",
+              "mega", "--duration", "0.3", "--conc", "2", "--max-batch", "4"]):
     out = io.StringIO()
     sys.argv = [argv[0]] + argv[1:]
     code = 0
     with redirect_stdout(out):
         try:
-            runpy.run_module(argv[0], run_name="__main__", alter_sys=True)
+            if argv[0].endswith(".py"):
+                runpy.run_path(argv[0], run_name="__main__")
+            else:
+                runpy.run_module(argv[0], run_name="__main__", alter_sys=True)
         except SystemExit as e:
             code = e.code or 0
-    runs[argv[0]] = (code, out.getvalue())
+    runs[argv[0] if argv[0] not in runs else " ".join(argv[:2])] = (
+        code, out.getvalue())
 runs["bundle"] = sorted(__import__("os").listdir(OUT))
 loaded = sorted(m for m in sys.modules
                 if any(m == r or m.startswith(r + ".") for r in ("jax", "tpu_cnn")))
@@ -209,3 +224,29 @@ def test_train_cli_with_the_jax_package_refused(refusing_run):
               "tpu_cnn_torch.apps.calibrate_multi",
               "tpu_cnn_torch.apps.retrain_classifier"):
         assert n in refusing_run["modules"]
+
+
+def test_the_scan_sees_the_deployment_path():
+    for path in ("tpu_cnn_torch/native/ring.py",
+                 "tpu_cnn_torch/apps/serve_native.py",
+                 "tpu_cnn_torch/apps/export_model.py",
+                 "tpu_cnn_torch/deploy.py", "tpu_cnn_torch/ops/library.py",
+                 "tpu_cnn_torch/head/detections.py",
+                 "scripts/bench_serving_torch.py"):
+        assert path in PORT_FILES
+
+
+def test_deployment_path_with_the_jax_package_refused(refusing_run):
+    for n in ("tpu_cnn_torch.native.ring", "tpu_cnn_torch.apps.serve_native",
+              "tpu_cnn_torch.apps.export_model", "tpu_cnn_torch.deploy",
+              "tpu_cnn_torch.ops.library"):
+        assert n in refusing_run["modules"]
+    runs = refusing_run["runs"]
+    code, out = runs["tpu_cnn_torch.apps.benchmark --host-ingest"]
+    assert code == 0 and "frames/s" in out, out
+    code, out = runs["tpu_cnn_torch.apps.export_model"]
+    assert code == 0 and "exported" in out, out
+    code, out = runs["tpu_cnn_torch.apps.export_model --load"]
+    assert code == 0 and "(torch.export)" in out and "box [" in out, out
+    code, out = runs["scripts/bench_serving_torch.py"]
+    assert code == 0 and "native  conc=2" in out and "python  conc=2" in out, out

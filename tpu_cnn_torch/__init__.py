@@ -19,7 +19,12 @@ kernels (``csrc/``, built by ``ops._build``):
   - ``ops.bitcast``       — the bitcast/roll probe's kernel
                             (``csrc/bitcast.cu``)
   - ``ops.detect_head``   — the device head: classifier, CAM boxes, the
-                            multi-object and instance heads
+                            multi-object and instance heads (label loops
+                            exportable as ``while_loop``)
+  - ``ops.library``       — the megakernel and the layer kernel as the
+                            ``torch.library`` ops ``tcnn::mega_cnn`` and
+                            ``tcnn::conv_pool_layer`` (what an exported
+                            program calls)
   - ``ops.preprocess``    — batched camera-frame preprocess in torch on
                             the frames' device (crop, BT.601 luma, resize)
   - ``ops.luma``          — the BT.601 constants, ``pack_bgrx``
@@ -28,9 +33,17 @@ kernels (``csrc/``, built by ``ops._build``):
                             the host-oracle engine ``CPURefEngine``
   - ``native.oracle``     — the C++ oracle (``native/cnn_oracle.cpp``)
   - ``native.preprocess`` — the C++ batched frame preprocess (same source)
+  - ``native.ring``       — the native frame ring (``native/frame_ring.cpp``);
+                            the oracle, the preprocess, the ring and the
+                            HTTP front (``native/http_front.cpp``) load
+                            one host library, ``tcnn_host``
+  - ``deploy``            — the deployable's loader ``DeployedDetector``
+                            (imports no ``models``, ``engine`` or ``apps``)
   - ``head``              — the host numpy twins of the head (``cam``,
                             ``classify``, ``bbox`` with the ridge fit
-                            ``fit_bbox_head``) and the tracker
+                            ``fit_bbox_head``), the multi-object
+                            detection filters (``detections``) and the
+                            tracker
   - ``train.data``        — the numpy data generators: synthetic shapes,
                             composite and moving scenes (synthetic and
                             real photograph tiles), the folder and COCO
@@ -52,11 +65,14 @@ kernels (``csrc/``, built by ``ops._build``):
   - ``bench_gate``        — the bench's parity gate
   - ``apps``              — ``infer`` (with ``make_engine``, the engine
                             swap: ``--mode auto|mega|pallas|hybrid|xla|
-                            cpu``), ``serve``, ``realtime`` (the camera
-                            app), ``verify`` and ``probe_bitcast`` CLIs;
-                            the benchmark (``benchmark``: throughput per
-                            mode, latency, per-layer, roofline, camera
-                            pipeline, the train step); the offline tools
+                            cpu``), ``serve`` (``--deployable`` too),
+                            ``serve_native`` (the C++ HTTP front),
+                            ``export_model`` (the ``.tcnnx`` deployable),
+                            ``realtime`` (the camera app), ``verify`` and
+                            ``probe_bitcast`` CLIs; the benchmark
+                            (``benchmark``: throughput per mode, latency,
+                            per-layer, roofline, camera pipeline, host
+                            ingest, the train step); the offline tools
                             ``eval_detection``, ``eval_tracking``,
                             ``dump_features``, ``train_bbox`` and
                             ``doctor``; the head-fitting tools

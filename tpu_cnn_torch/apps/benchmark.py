@@ -33,9 +33,14 @@ here on the port's engine and kernels:
 
 Timing: every window ends with a device synchronise or a CUDA event (a
 result copied to the host through a recorded event counts), so no window
-times launches that nothing waited on. ``--host-ingest`` (the native frame
-ring) is not ported yet and exits 2. A mode that fails prints ``FAILED``
+times launches that nothing waited on. A mode that fails prints ``FAILED``
 as the JAX app does, and the run then exits 1.
+
+  - ``--host-ingest``: the native frame ring (``native.ring``):
+    ``--ingest-threads`` producers push raw ``--cam-res`` BGR frames
+    through the C++ preprocess, one consumer drains ``--batch`` batches;
+    frames/s and the frames the ring dropped. Host work only: no device,
+    no kernel.
 
 Usage:
   python -m tpu_cnn_torch.apps.benchmark --batch 1024 --runs 30
@@ -49,12 +54,14 @@ from __future__ import annotations
 import argparse
 import itertools
 import sys
+import threading
 import time
 
 import numpy as np
 import torch
 
 from tpu_cnn_torch.models.cnn import FpgaCNN, TorchFpgaCNN
+from tpu_cnn_torch.native.ring import NativeFrameRing
 from tpu_cnn_torch.train.train_cnn import resolve_device as _device
 from tpu_cnn_torch.utils.roofline import (PEAK_BF16_MACS, PEAK_F32_MACS,
                                           PEAK_HBM_BYTES, PEAK_INT8_MACS,
@@ -63,8 +70,6 @@ from tpu_cnn_torch.utils.roofline import (PEAK_BF16_MACS, PEAK_F32_MACS,
 
 FPGA_FPS = 22.0  # reference README.md:11
 FPGA_CONV_MS = 6.8  # reference README.md:12
-HOST_INGEST_NOT_PORTED = ("--host-ingest: not yet ported (ROADMAP A.12, "
-                          "serve_native's native frame ring)")
 # the card's float peak the train step's MFU is read against, per dtype
 TRAIN_PEAK_MACS = {"float32": PEAK_F32_MACS, "bfloat16": PEAK_BF16_MACS}
 
@@ -211,6 +216,42 @@ def print_roofline(model: FpgaCNN, batch: int, runs: int,
     out.update({"us_per_img": us, "bound_us": b_us, "bound_by": b_by,
                 "share": b_us / us})
     return out
+
+
+def bench_host_ingest(batch: int, runs: int, cam_w: int, cam_h: int,
+                      n_threads: int = 4, out_size: int = 128):
+    """Native frame-ring ingest throughput: ``n_threads`` producers push
+    raw BGR camera frames (the C++ preprocess runs off the GIL inside
+    push), one consumer drains engine-sized batches. Measures the host
+    side of the camera pipeline — the ceiling the native data-loader puts
+    on feeding the device (``native/frame_ring.cpp``). Returns (frames/s,
+    frames dropped); consumed + dropped = the frames pushed."""
+    rng = np.random.RandomState(0)
+    per_thread = batch * runs // n_threads
+    total = per_thread * n_threads
+    frame_pool = [rng.randint(0, 256, (cam_h, cam_w, 3), dtype=np.uint8)
+                  for _ in range(8)]
+    ring = NativeFrameRing(capacity=4 * batch, out_size=out_size)
+    try:
+        def producer(tid):
+            for i in range(per_thread):
+                ring.push(frame_pool[(tid + i) % len(frame_pool)])
+
+        threads = [threading.Thread(target=producer, args=(t,))
+                   for t in range(n_threads)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        consumed = 0
+        while consumed + ring.dropped < total:
+            ring.wait(min_frames=min(batch, total - consumed), timeout_s=0.2)
+            consumed += len(ring.pop_batch(batch))
+        dt = time.perf_counter() - t0
+        for t in threads:
+            t.join()
+        return total / dt, ring.dropped
+    finally:
+        ring.close()
 
 
 def bench_train(model: FpgaCNN, batch: int, runs: int, compute_dtype: str,
@@ -460,8 +501,6 @@ def main(argv=None):
                         "time and its share of the bound")
     add_variant_arg(p)
     args = p.parse_args(argv)
-    if args.host_ingest:
-        p.error(HOST_INGEST_NOT_PORTED)
     if "mesh" in (m.strip() for m in args.modes.split(",")):
         p.error(MESH_NOT_PORTED)
     args.artifacts = args.artifacts or default_artifacts(args.variant)
@@ -485,6 +524,15 @@ def main(argv=None):
     rng = np.random.RandomState(0)
     s = model.config.img_size
     images = rng.randint(0, 256, size=(args.batch, s, s)).astype(np.uint8)
+
+    if args.host_ingest:
+        cam_w, cam_h = (int(v) for v in args.cam_res.split("x"))
+        fps, dropped = bench_host_ingest(args.batch, args.runs, cam_w, cam_h,
+                                         args.ingest_threads, out_size=s)
+        print(f"\n  host ingest ({cam_w}x{cam_h}x3 -> {s}^2 gray, "
+              f"{args.ingest_threads} producer threads, native ring): "
+              f"{fps:12,.0f} frames/s  ({dropped} dropped)")
+        return {"host_ingest": fps, "dropped": dropped}
 
     if args.train:
         ms, ips, mfu = bench_train(model, args.batch, args.runs,

@@ -27,8 +27,11 @@ Usage:
   python -m tpu_cnn_torch.apps.serve --mode hybrid --device cuda --port 8000
   python -m tpu_cnn_torch.apps.serve --multi --instances 2 --device cuda --port 8000
   python -m tpu_cnn_torch.apps.serve --mode cpu --port 8000
+  python -m tpu_cnn_torch.apps.serve --deployable model.tcnnx --device cuda
 
-``--mode`` picks the engine, as in ``apps.infer`` (``MODES``).
+``--mode`` picks the engine, as in ``apps.infer`` (``MODES``);
+``--deployable`` serves an exported ``.tcnnx`` (``apps.export_model``)
+through ``_DeployableAdapter`` instead.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from __future__ import annotations
 import argparse
 import io
 import json
+import os
 import queue
 import threading
 import time
@@ -45,6 +49,7 @@ import numpy as np
 
 from tpu_cnn_torch.apps.common import load_model
 from tpu_cnn_torch.apps.infer import MESH_NOT_PORTED, MODES, make_engine
+from tpu_cnn_torch.deploy import DeployedDetector
 from tpu_cnn_torch.engine.cuda import (DEFAULT_MULTI_THRESH, DetectResult,
                                        MultiDetectResult, detections_above,
                                        instance_detections, presence_scores)
@@ -308,8 +313,16 @@ class DynamicBatcher:
                                            int(len(lats) * 0.99))], 3)
         return out
 
-    def stop(self):
+    def stop(self, timeout_s: float = 5.0):
+        """Stop the dispatch threads and wait for them (each wakes within
+        0.25 s): a daemon thread left running into interpreter shutdown
+        can abort the process on its way out."""
         self.running = False
+        if self._thread is not threading.current_thread():
+            self._thread.join(timeout_s)
+        collector = getattr(self, "_collector", None)
+        if collector is not None:
+            collector.join(timeout_s)
 
 
 def decode_image(body: bytes, img_size: int = IMG_SIZE) -> np.ndarray:
@@ -407,14 +420,40 @@ def build_service(artifacts_dir: str | None = None, device: str = "cuda",
                   max_batch: int = 256, max_wait_ms: float = 5.0,
                   variant: str = "lyr3-std", box: str = "ref",
                   head_prefix: str = "", mode: str = "mega",
-                  multi: bool = False, multi_thresh=None, instances: int = 1):
+                  multi: bool = False, multi_thresh=None, instances: int = 1,
+                  deployable: str | None = None):
     """Load the bundle, build the engine for ``mode`` through
     ``make_engine`` (a ``CUDAEngine`` on ``device``, warmed at
     ``max_batch`` since the batcher pads every batch to it, the multi
     program too with ``multi``; or with ``mode="cpu"`` the host oracle
     behind ``_HostDetectAdapter``), and put a ``DynamicBatcher`` in front.
     ``multi_thresh`` None: the bundle's ``multi_thresh.json``, else 0.15.
+    With ``deployable`` (a ``.tcnnx`` of ``apps.export_model``) it serves
+    that container's programs on ``device`` instead, with no bundle and no
+    model construction (``mode``, ``box`` and the bundle arguments are
+    unused); ``multi_thresh`` None then reads the manifest's floors.
     Returns (batcher, backend name)."""
+    if deployable:
+        det = DeployedDetector.load(deployable, device)
+        m = det.manifest
+        if multi and not m.get("multi"):
+            raise ValueError(
+                "--multi needs a multi-object program in the .tcnnx — "
+                "re-export with apps.export_model --multi")
+        adapter = (_DeployableMultiAdapter if m.get("multi")
+                   else _DeployableAdapter)(det)
+        if multi_thresh is None:
+            multi_thresh = m.get("multi_thresh") or DEFAULT_MULTI_THRESH
+        zeros = np.zeros((1, m["img_size"], m["img_size"]), np.uint8)
+        adapter.detect_batch(zeros)  # warm the serving program
+        if multi:
+            adapter.detect_multi_batch(zeros)
+        batcher = DynamicBatcher(adapter, m["classes"], max_batch=max_batch,
+                                 max_wait_ms=max_wait_ms,
+                                 img_size=m["img_size"], multi=multi,
+                                 multi_thresh=multi_thresh,
+                                 instances=instances)
+        return batcher, adapter.backend
     model = load_model(artifacts_dir or default_artifacts(variant), variant,
                        head_prefix)
     if box == "reg" and model.bbox_weight is None:
@@ -436,6 +475,38 @@ def build_service(artifacts_dir: str | None = None, device: str = "cuda",
                              img_size=model.config.img_size, multi=multi,
                              multi_thresh=multi_thresh, instances=instances)
     return batcher, engine.backend
+
+
+class _DeployableAdapter:
+    """The detect_batch protocol over a loaded ``.tcnnx`` deployable."""
+
+    def __init__(self, det: DeployedDetector):
+        self.det = det
+        self.backend = (f"deployable:{det.manifest['backend']}"
+                        f"@{det.device.type}")
+
+    def detect_batch(self, images):
+        return DetectResult(*self.det.detect(images))
+
+
+class _DeployableMultiAdapter(_DeployableAdapter):
+    """Adds detect_multi_batch only when the container carries the
+    multi-object program (a subclass, so that DynamicBatcher's
+    hasattr-based capability check stays honest)."""
+
+    def detect_multi_batch(self, images, instances: int = 1):
+        out = self.det.detect_multi(images)
+        scores = None
+        if self.det.manifest.get("multi_head"):  # scores ride LAST
+            scores, out = out[-1], out[:-1]
+        if instances > 1 and int(self.det.manifest.get("instances", 1)) < 2:
+            raise ValueError(
+                "this .tcnnx has no instance program — re-export with "
+                "apps.export_model --multi --instances N")
+        # the container bakes ONE instance count; instances=1 requests
+        # strip the extra outputs (plain multi semantics)
+        inst = out[4:6] if instances > 1 and len(out) > 4 else (None, None)
+        return MultiDetectResult(*out[:4], *inst, scores=scores)
 
 
 class _HostDetectAdapter:
@@ -519,17 +590,18 @@ def main(argv=None):
                    help="with --multi: up to N watershed component boxes "
                         "per class in 'detections' (default 1)")
     p.add_argument("--deployable", default=None,
-                   help="not yet ported (ROADMAP A.12, export)")
+                   help="serve a .tcnnx from tpu_cnn_torch.apps.export_model "
+                        "on --device (no bundle, no model construction)")
     args = p.parse_args(argv)
     if args.mode == "mesh":
         p.error(MESH_NOT_PORTED)
-    if args.deployable:
-        p.error("--deployable: not yet ported (ROADMAP A.12, export)")
+    if args.deployable and not os.path.isfile(args.deployable):
+        p.error(f"--deployable {args.deployable}: no such file")
     batcher, backend = build_service(
         args.artifacts, args.device, args.max_batch, args.max_wait_ms,
         variant=args.variant, box=args.box, head_prefix=args.head_prefix,
         mode=args.mode, multi=args.multi, multi_thresh=args.multi_thresh,
-        instances=args.instances)
+        instances=args.instances, deployable=args.deployable)
     srv = ServiceHTTPServer((args.host, args.port),
                             make_handler(batcher, backend))
     print(f"serving on {args.host}:{srv.server_address[1]} (backend {backend}, "

@@ -21,8 +21,10 @@ the head's outputs come back to the host, through pinned buffers and a
 recorded event (the multi head's boxes as u8 and its instance counts as
 int16 on that copy, restored to int32 on the host).
 
-``presence_scores``, ``detections_above``, ``instance_detections`` and
-``MultiDetectResult`` are the JAX engine module's, copied.
+``MultiDetectResult`` is the JAX engine module's, copied; its filters
+``presence_scores``, ``detections_above`` and ``instance_detections``
+(copies too) live in ``head.detections``, which the deployable's loader
+reads without this module, and are importable from here as before.
 
 The device is explicit: ``"cuda"`` runs the kernels and raises when there
 is no card; ``"cpu"`` runs their plain versions (for tests on machines
@@ -43,6 +45,10 @@ import time
 import numpy as np
 import torch
 
+from tpu_cnn_torch.head.detections import (DEFAULT_MULTI_THRESH,  # noqa: F401
+                                           detections_above,
+                                           instance_detections,
+                                           presence_scores)
 from tpu_cnn_torch.models.cnn import FpgaCNN, TorchFpgaCNN
 from tpu_cnn_torch.ops import detect_head, int8, mega, quant
 from tpu_cnn_torch.utils.failguard import wait_event
@@ -56,63 +62,6 @@ class DetectResult:
     conf: np.ndarray  # (B,) float32
     probs: np.ndarray  # (B, num_classes) float32
     bbox: np.ndarray  # (B, 4) int32 (x1, y1, x2, y2)
-
-
-# the multi-object filter's floor when neither the caller nor the bundle
-# (multi_thresh.json) gives one
-DEFAULT_MULTI_THRESH = 0.15
-
-
-def presence_scores(res) -> np.ndarray:
-    """The (B, K) presence matrix the multi-object filter thresholds: the
-    presence head's sigmoid scores when the bundle ships one, else the
-    softmax probabilities."""
-    sc = getattr(res, "scores", None)
-    return sc if sc is not None else res.probs
-
-
-def detections_above(probs_row, boxes_row, threshold):
-    """One image's multi-object detections: [(class_idx, prob, (x1, y1,
-    x2, y2)), ...] for every class with prob >= its threshold (a scalar or
-    a per-class vector), by descending probability."""
-    thr = np.broadcast_to(np.asarray(threshold, np.float64),
-                          (len(probs_row),))
-    dets = [(int(k), float(probs_row[k]), tuple(int(v) for v in boxes_row[k]))
-            for k in range(len(probs_row)) if probs_row[k] >= thr[k]]
-    dets.sort(key=lambda d: -d[1])
-    return dets
-
-
-def instance_detections(probs_row, boxes_row, inst_boxes_row,
-                        inst_counts_row, threshold,
-                        min_pixels: int | None = None,
-                        min_frac: float | None = None):
-    """One image's multi-instance detections: for every class with prob >=
-    its threshold, one detection per watershed component with at least
-    ``min_pixels`` pixels and ``min_frac`` of the class's largest; the
-    class box instead unless two or more survive. Sorted by descending
-    probability, then instance size."""
-    if min_pixels is None:
-        min_pixels = detect_head.INSTANCE_MIN_PIXELS
-    if min_frac is None:
-        min_frac = detect_head.INSTANCE_MIN_FRAC
-    thr = np.broadcast_to(np.asarray(threshold, np.float64),
-                          (len(probs_row),))
-    dets = []
-    for k in range(len(probs_row)):
-        if probs_row[k] < thr[k]:
-            continue
-        floor = max(min_pixels, 1,
-                    int(np.ceil(min_frac * int(np.max(inst_counts_row[k])))))
-        inst = [(int(k), float(probs_row[k]), tuple(int(v) for v in b), int(c))
-                for b, c in zip(inst_boxes_row[k], inst_counts_row[k])
-                if c >= floor]
-        if len(inst) < 2:
-            inst = [(int(k), float(probs_row[k]),
-                     tuple(int(v) for v in boxes_row[k]), 0)]
-        dets.extend(inst)
-    dets.sort(key=lambda d: (-d[1], -d[3]))
-    return [(k, p, b) for k, p, b, _ in dets]
 
 
 @dataclasses.dataclass

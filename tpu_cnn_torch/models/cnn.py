@@ -28,6 +28,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from tpu_cnn_torch.ops.quant import ACCUM_BITS  # noqa: F401  (the contract's)
+
 # (in_channels, out_channels, input_size) per layer
 LAYER_CONFIGS: tuple[tuple[int, int, int], ...] = (
     (1, 16, 128),
@@ -41,7 +43,6 @@ DEFAULT_SHIFTS: tuple[int, int, int] = (2, 4, 6)
 
 IMG_SIZE = 128
 NUM_CLASSES = 6
-ACCUM_BITS = 24  # the QAT sim's accumulator width
 QUANT_MAX = 127  # symmetric int8 range
 
 # shipped class set (the bundle's classes.json)

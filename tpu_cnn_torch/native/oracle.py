@@ -16,7 +16,7 @@ class NativeOracle:
     paths."""
 
     def __init__(self):
-        lib = ctypes.CDLL(_build.build_host("cnn_oracle"))
+        lib = ctypes.CDLL(_build.build_host())
         lib.tcnn_forward.argtypes = [
             ctypes.c_void_p,  # images
             ctypes.c_int,  # batch

@@ -23,7 +23,7 @@ _lib = None
 def _get_lib():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(_build.build_host("cnn_oracle"))
+        lib = ctypes.CDLL(_build.build_host())
         lib.tcnn_preprocess.argtypes = [
             ctypes.c_void_p,  # frames
             ctypes.c_int,  # batch

@@ -7,9 +7,14 @@ named by a hash of the source and of every header it includes from its own
 directory (``source_digest``), so that an edit to either rebuilds it, and
 loaded with
 ``ctypes``. Nothing is built when a module is imported: the first call on
-a CUDA tensor builds, later calls reuse the loaded library. The C++ oracle
-``tpu_cnn_torch/native/cnn_oracle.cpp`` is built the same way with ``g++``
-(``build_host``) on its first use.
+a CUDA tensor builds, later calls reuse the loaded library. The host
+library ``tcnn_host`` is built the same way with ``g++`` (``build_host``)
+on its first use, from the sources ``HOST_SOURCES`` lists under
+``tpu_cnn_torch/native``: the C++ oracle and batched frame preprocess
+(``cnn_oracle.cpp``), the frame ring (``frame_ring.cpp``, which calls that
+preprocess) and the HTTP front (``http_front.cpp``), as the JAX package
+links them into one shared object. Its name hashes all three, so an edit
+to any one rebuilds it.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+from typing import Sequence
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 NATIVE_DIR = os.path.join(os.path.dirname(CSRC_DIR), "native")
@@ -32,9 +38,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
-# g++ flag sets for the native oracle, tried in order
+# g++ flag sets for the host library, tried in order
 GXX_FLAG_SETS = (["-O3", "-march=native", "-fopenmp"], ["-O3", "-fopenmp"],
                  ["-O3"])
+# the host library's sources under native/, linked into one shared object
+HOST_SOURCES = ("cnn_oracle.cpp", "frame_ring.cpp", "http_front.cpp")
 
 
 class KernelBuildError(RuntimeError):
@@ -56,12 +64,13 @@ def _nvcc() -> str:
 _INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 
-def source_digest(src: str, extra: bytes = b"") -> str:
-    """SHA-256 (hex) of ``src``, of every file it ``#include "..."``s
-    relative to its own directory (recursively, each once) and of
-    ``extra``. System headers (``<...>``) are not hashed."""
+def source_digest(src: str | Sequence[str], extra: bytes = b"") -> str:
+    """SHA-256 (hex) of ``src`` (one path or several), of every file they
+    ``#include "..."`` relative to their own directory (recursively, each
+    once) and of ``extra``. System headers (``<...>``) are not hashed."""
     digest = hashlib.sha256()
-    seen, todo = set(), [os.path.abspath(src)]
+    srcs = [src] if isinstance(src, str) else list(src)
+    seen, todo = set(), [os.path.abspath(s) for s in srcs]
     while todo:
         path = todo.pop(0)
         if path in seen or not os.path.exists(path):
@@ -76,13 +85,14 @@ def source_digest(src: str, extra: bytes = b"") -> str:
     return digest.hexdigest()
 
 
-def _compile(src: str, name: str, commands) -> tuple[str, str, float]:
-    """Build ``src`` into ``BUILD_DIR`` with the first of ``commands`` (each
-    a function of the output path -> argv) that succeeds, unless a library
-    of the same sources (``source_digest``) and commands exists. Returns
-    (library path, the compiler's output, seconds spent building; 0 when
-    cached)."""
-    digest = source_digest(src, repr([cmd("") for cmd in commands]).encode())
+def _compile(srcs: Sequence[str], name: str,
+             commands) -> tuple[str, str, float]:
+    """Build ``srcs`` into one library in ``BUILD_DIR`` with the first of
+    ``commands`` (each a function of the output path -> argv) that
+    succeeds, unless a library of the same sources (``source_digest``) and
+    commands exists. Returns (library path, the compiler's output, seconds
+    spent building; 0 when cached)."""
+    digest = source_digest(srcs, repr([cmd("") for cmd in commands]).encode())
     lib = os.path.join(BUILD_DIR, f"lib{name}_{digest[:16]}.so")
     if os.path.exists(lib):
         return lib, "", 0.0
@@ -98,7 +108,8 @@ def _compile(src: str, name: str, commands) -> tuple[str, str, float]:
             if proc.returncode == 0:
                 os.replace(tmp, lib)  # atomic: a concurrent build sees all or none
                 return lib, proc.stderr + proc.stdout, time.perf_counter() - t0
-            errors.append(f"{argv[0]} failed on {src} (exit {proc.returncode}):"
+            errors.append(f"{argv[0]} failed on {', '.join(srcs)} "
+                          f"(exit {proc.returncode}):"
                           f"\n{proc.stderr}{proc.stdout}")
         raise KernelBuildError("\n".join(errors))
     finally:
@@ -113,20 +124,22 @@ def build(name: str) -> tuple[str, str, float]:
     cached)."""
     nvcc = _nvcc()
     src = os.path.join(CSRC_DIR, name + ".cu")
-    return _compile(src, name, [lambda out: [nvcc, *NVCC_FLAGS, "-o", out, src]])
+    return _compile([src], name,
+                    [lambda out: [nvcc, *NVCC_FLAGS, "-o", out, src]])
 
 
 @functools.lru_cache(maxsize=None)
-def build_host(name: str) -> str:
-    """Compile ``native/<name>.cpp`` with g++ into a shared library (with
-    OpenMP where the compiler has it) and return its path."""
+def build_host() -> str:
+    """Compile the host library ``tcnn_host`` (the ``HOST_SOURCES``) with
+    g++ into one shared library (with OpenMP where the compiler has it)
+    and return its path."""
     gxx = shutil.which("g++")
     if gxx is None:
-        raise KernelBuildError("g++ not found: the native oracle needs it")
-    src = os.path.join(NATIVE_DIR, name + ".cpp")
-    return _compile(src, name, [
+        raise KernelBuildError("g++ not found: the host library needs it")
+    srcs = [os.path.join(NATIVE_DIR, f) for f in HOST_SOURCES]
+    return _compile(srcs, "tcnn_host", [
         lambda out, flags=flags: [gxx, "-std=c++17", "-shared", "-fPIC",
-                                  *flags, "-o", out, src]
+                                  *flags, "-o", out, *srcs]
         for flags in GXX_FLAG_SETS])[0]
 
 

@@ -22,6 +22,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch._higher_order_ops import while_loop
 
 from tpu_cnn_torch.head.cam import CAM_CENTROID_K, SATURATION_MEAN
 
@@ -283,7 +284,18 @@ def _neighbour_min(lab: torch.Tensor, sent: int) -> torch.Tensor:
 def _to_fixed_point(step, lab: torch.Tensor) -> torch.Tensor:
     """Apply ``step`` until it changes nothing, in blocks of
     ``LABEL_BLOCK`` steps with one host sync per block (the JAX package's
-    ``lax.while_loop`` tests after every step on the device)."""
+    ``lax.while_loop`` tests after every step on the device).
+
+    While ``torch.export`` traces (``apps.export_model``), the host test
+    cannot be captured: there the loop is ``while_loop``, one step per
+    iteration until the step changes nothing, as the JAX head's
+    ``lax.while_loop``. Both stop at the same fixed point. The body
+    returns a clone of the carried labels as the previous ones: a carried
+    value returned unchanged is an alias, which the export refuses."""
+    if torch.compiler.is_exporting():
+        return while_loop(lambda cur, prev: (cur != prev).any(),
+                          lambda cur, prev: (step(cur), cur.clone()),
+                          (step(lab), lab))[0]
     while True:
         for _ in range(LABEL_BLOCK - 1):
             lab = step(lab)

@@ -36,8 +36,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tpu_cnn_torch.models.cnn import ACCUM_BITS
-
+ACCUM_BITS = 24  # the QAT sim's accumulator width
 SHIFT_MAX = 31
 
 
