@@ -163,6 +163,26 @@ one line each, in order; any failure raises:
   ingest      — apps.benchmark --host-ingest: 4 producers, 10,240 frames
                 at 640x480 through the native frame ring: frames/s, drops
   doctor      — apps.doctor: exit 0, the runtime line names the card
+  mesh        — parallel.MeshEngine(mega) on make_mesh() (the one card)
+                and on two positions of cuda:0, per family (lyr3-std at
+                batch 1536, lyr4-wide at 256): run_batch bit-equal to
+                CUDAEngine(mega), detect_batch and detect_multi_batch at
+                instances 1 and 2 under the gate, each of the family's
+                kernels launched once per position per detect;
+                MeshEngine(xla) on four positions with model axis 2 (the
+                plain contract, the conv kernels split by output
+                channel); infer and serve --mode mesh against the host
+                oracle; dryrun_mesh on four positions (the meshed mega,
+                multi and instance heads against one device, pipeline
+                and spatial bit-equal to the contract); MultiHostEngine
+                in two gloo processes on the card (local batches 37 and
+                11, then 5 and 0), each rank's rows equal to the host
+                oracle
+  nvcc-free   — the lyr3-std deployable in a child with PATH, CUDA_HOME
+                and CUDA_PATH cleared of the toolkit (and ops._build's
+                nvcc lookup refusing) and the kernel cache moved aside:
+                it installs the container's sm_90a library and detects
+                equal to CUDAEngine(mega)
   verify      — tpu_cnn_torch.apps.verify --device cuda for lyr3-std
                 (shipped weights) and lyr4-wide (seeded weights): all seven
                 backends bit-exact and every engine head, multi boxes,
@@ -190,7 +210,12 @@ one line each, in order; any failure raises:
                 EMA FPS and median engine ms (lyr3-std mega, --fused and the
                 host-head protocol) and its stages timed one by one; the
                 deployable's detect (each family's mega container) against
-                CUDAEngine.detect_batch at buckets 8 and 1536. The
+                CUDAEngine.detect_batch at buckets 8 and 1536;
+                lyr3-std's async-pipelined FPS at batch 1536 of
+                CUDAEngine(mega) against MeshEngine(mega) on one and two
+                positions (in turns; the wrapper's overhead on one card),
+                and a torch.profiler list of one 2-position mesh detect
+                (mega_cnn_kernel twice, no im2col). The
                 conv kernel's per-layer times are device time per call with
                 50 calls queued (the one-call window, printed beside them,
                 also times the launch); the benchmark's --per-layer --modes pallas
@@ -215,7 +240,11 @@ and benchmark --train: none; the recipe, tune_shifts and calibrate_multi:
 the megakernel; each benchmark run: what its modes run; serve_native and
 the deployable: what mega runs on the family (in this process: the
 deployable child's launches are its own, printed and checked apart); the
-serving load: the megakernel; the host ingest and the doctor: none). The line before the last
+serving load: the megakernel; the host ingest and the doctor: none; the
+mesh paths, infer/serve --mode mesh and the dry run: what mega runs on
+the family; the nvcc-free deployable: the engine it is held to; the
+multi-process engine: none
+here, their children's launches checked apart). The line before the last
 is a JSON object with each
 kernel's launches (summed over the paths), error, times and bound (and
 the conv kernel's pooled time and bound on lyr3-std); the last line is
@@ -237,6 +266,7 @@ import json
 import os
 import pickle
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -267,6 +297,8 @@ from tpu_cnn_torch.head.classify import classify_np, multi_scores_np, pool_for_h
 from tpu_cnn_torch.head.tracker import Tracker  # noqa: E402
 from tpu_cnn_torch.models.registry import default_shifts, get_config  # noqa: E402
 from tpu_cnn_torch.native.preprocess import preprocess_frames_native  # noqa: E402
+from tpu_cnn_torch.parallel.dryrun import dryrun_mesh  # noqa: E402
+from tpu_cnn_torch.parallel.mesh import MeshEngine, make_mesh  # noqa: E402
 from tpu_cnn_torch.ops import _build, bitcast, conv_pool, detect_head, int8, mega, quant  # noqa: E402
 from tpu_cnn_torch.ops import preprocess as dev_preprocess  # noqa: E402
 from tpu_cnn_torch.ops.luma import pack_bgrx  # noqa: E402
@@ -1863,6 +1895,318 @@ def doctor_path() -> None:
     phase("doctor", f"tpu_cnn_torch.apps.doctor: exit 0; {line}")
 
 
+# ── the mesh axes: MeshEngine, the CLIs, the dry run, the multi-process
+# engine, and the deployable on a host without nvcc ────────────────────
+
+MESH_BATCH = {"lyr3-std": BENCH_BATCH, "lyr4-wide": 256}
+MESH_XLA_BATCH = 256  # the xla backend's plain contract on 4 positions
+MULTIHOST_FEEDS = (37, 11)  # each rank's frames: uneven
+
+
+def _card_positions(n: int) -> list:
+    return [torch.device("cuda", 0)] * n
+
+
+def _same_detect(tag: str, got, want) -> None:
+    check(np.array_equal(got.pred, want.pred)
+          and np.array_equal(got.bbox, want.bbox)
+          and np.allclose(got.probs, want.probs, rtol=0, atol=SCORE_TOL),
+          f"{tag}: detect differs from CUDAEngine(mega)")
+
+
+def _same_multi(tag: str, got, want) -> None:
+    same = (np.array_equal(got.pred, want.pred)
+            and np.array_equal(got.boxes, want.boxes)
+            and np.allclose(got.probs, want.probs, rtol=0, atol=SCORE_TOL))
+    for a, b in ((got.inst_boxes, want.inst_boxes),
+                 (got.inst_counts, want.inst_counts)):
+        same = same and (a is None) == (b is None) and (
+            a is None or np.array_equal(a, b))
+    if want.scores is not None:
+        same = same and np.allclose(got.scores, want.scores, rtol=0,
+                                    atol=SCORE_TOL)
+    check(same, f"{tag}: multi detect differs from CUDAEngine(mega)")
+
+
+def mesh_engine_path(variant: str) -> None:
+    """MeshEngine(mega) on make_mesh() (the one real device) and on two
+    positions of cuda:0 against CUDAEngine(mega) at MESH_BATCH shipped and
+    noise frames: run_batch bit-equal, detect_batch and detect_multi_batch
+    (instances 1, 2) under the gate; every detect launches each of the
+    family's kernels once per position."""
+    model = load_model(ARTIFACTS[variant], variant)
+    imgs = _frames(variant, MESH_BATCH[variant], 31)
+    ref = CUDAEngine(model, device="cuda", backend="mega")
+    want_f = ref.run_batch(imgs)
+    want_d = ref.detect_batch(imgs)
+    want_m = {i: ref.detect_multi_batch(imgs, instances=i) for i in (1, 2)}
+    for mesh_ in (make_mesh(), make_mesh(devices=_card_positions(2))):
+        eng = MeshEngine(model, mesh_, backend="mega")
+        tag = f"{variant} {eng.backend}"
+        check(np.array_equal(eng.run_batch(imgs), want_f),
+              f"{tag}: features differ from CUDAEngine(mega)")
+        before = {k: MODULES[k].launches for k in MEGA_KERNELS[variant]}
+        got = eng.detect_batch(imgs)
+        per_call = {k: MODULES[k].launches - n for k, n in before.items()}
+        check(all(n == mesh_.size for n in per_call.values()),
+              f"{tag}: one detect launched {per_call}, not one per position")
+        _same_detect(tag, got, want_d)
+        for i, want in want_m.items():
+            _same_multi(f"{tag} instances {i}", eng.detect_multi_batch(
+                imgs, instances=i), want)
+        phase("mesh", f"{tag} batch {len(imgs)}: features bit-equal, detect "
+                      f"and multi (instances 1, 2) equal to CUDAEngine(mega); "
+                      f"launches per detect {per_call}")
+    del ref
+    torch.cuda.empty_cache()
+
+
+def mesh_xla_path() -> None:
+    """MeshEngine(xla) on four positions of cuda:0 with model axis 2 (the
+    conv kernels split by output channel, the fc feature dimension split):
+    the plain contract, equal to CUDAEngine(mega) under the gate."""
+    model = load_model(ARTIFACTS["lyr3-std"], "lyr3-std")
+    imgs = _frames("lyr3-std", MESH_XLA_BATCH, 37)
+    ref = CUDAEngine(model, device="cuda", backend="mega")
+    eng = MeshEngine(model, make_mesh(model_axis=2, devices=_card_positions(4)),
+                     backend="xla")
+    check(np.array_equal(eng.run_batch(imgs), ref.run_batch(imgs)),
+          f"{eng.backend}: features differ from CUDAEngine(mega)")
+    _same_detect(eng.backend, eng.detect_batch(imgs), ref.detect_batch(imgs))
+    _same_multi(eng.backend, eng.detect_multi_batch(imgs, instances=2),
+                ref.detect_multi_batch(imgs, instances=2))
+    phase("mesh", f"lyr3-std {eng.backend} batch {len(imgs)}: features "
+                  f"bit-equal, detect and multi (instances 2) equal to "
+                  f"CUDAEngine(mega)")
+
+
+def dryrun_path() -> None:
+    done = dryrun_mesh(4, _card_positions(4))
+    phase("mesh", "dryrun_mesh on 4 positions of cuda:0: " + "; ".join(
+        f"{k} {v}" for k, v in done.items()) + ": each equal to the single "
+        "device")
+
+
+_MULTIHOST_CHILD = r"""
+import json, sys
+import numpy as np, torch
+from tpu_cnn_torch.apps.common import load_model
+from tpu_cnn_torch.ops import mega
+from tpu_cnn_torch.parallel import multihost as mh
+rank, world, port, art_dir, frames, out = sys.argv[1:7]
+rank, world = int(rank), int(world)
+mh.init_multihost(f"127.0.0.1:{port}", world, rank)
+imgs = np.load(frames)
+eng = mh.MultiHostEngine(load_model(art_dir), backend="mega",
+                         devices=[torch.device("cuda", 0)])
+feats = eng.run_batch(imgs)
+res = eng.detect_batch(imgs)
+n0 = 5 if rank == 0 else 0  # a tick where only rank 0 feeds
+tick = eng.detect_batch(imgs[:n0])
+everyone = mh.allgather_to_host(res.pred)
+np.savez(out, feats=feats, pred=res.pred, probs=res.probs, bbox=res.bbox,
+         tick_pred=tick.pred, everyone=everyone)
+mh.shutdown_multihost()
+print(json.dumps({"backend": eng.backend, "launches": mega.launches}))
+"""
+
+
+def multihost_path() -> None:
+    """Two processes on the card joined over gloo, each a MultiHostEngine
+    on cuda:0, on uneven local batches (MULTIHOST_FEEDS), then a tick where
+    rank 1 feeds 0 frames: each rank's own rows equal to the host oracle
+    (features bit-equal, predictions and boxes equal), the empty rank gets
+    an empty result, and allgather_to_host gives both ranks every row.
+    Each child has a time limit and is killed on failure."""
+    model = load_model(ARTIFACTS["lyr3-std"], "lyr3-std")
+    bundle = bundle_of("lyr3-std")
+    d = os.path.join(ROOT, "build", "chip_smoke", "multihost")
+    os.makedirs(d, exist_ok=True)
+    imgs = _frames("lyr3-std", sum(MULTIHOST_FEEDS), 41)
+    parts = np.split(imgs, np.cumsum(MULTIHOST_FEEDS)[:-1])
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    try:
+        for rank, part in enumerate(parts):
+            np.save(os.path.join(d, f"frames{rank}.npy"), part)
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", _MULTIHOST_CHILD, str(rank),
+                 str(len(parts)), str(port), ARTIFACTS["lyr3-std"],
+                 os.path.join(d, f"frames{rank}.npy"),
+                 os.path.join(d, f"out{rank}.npz")],
+                cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:  # a wedged rank must not outlive the phase
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    infos = []
+    for rank, (p, (stdout, stderr)) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"MultiHostEngine rank {rank}: exit "
+                                 f"{p.returncode}: {stderr[-3000:]}")
+        infos.append(json.loads(stdout.splitlines()[-1]))
+        check(infos[-1]["launches"] > 0, f"rank {rank} launched no mega_cnn")
+    for rank, part in enumerate(parts):
+        got = np.load(os.path.join(d, f"out{rank}.npz"))
+        feats = oracle_feats(part, bundle.kernels, model.shifts)
+        idx = classify_np(feats, bundle.fc_weight, bundle.fc_bias)[0]
+        boxes = np.asarray([cam_bbox_fast(f, int(i), bundle.fc_weight,
+                                          img_size=128)
+                            for f, i in zip(feats, idx)])
+        check(np.array_equal(got["feats"], feats)
+              and np.array_equal(got["pred"], idx)
+              and np.array_equal(got["bbox"], boxes),
+              f"MultiHostEngine rank {rank}: its rows differ from the oracle")
+        check(got["tick_pred"].shape == ((5,) if rank == 0 else (0,)),
+              f"rank {rank}: the uneven tick gave {got['tick_pred'].shape}")
+        check(np.array_equal(got["everyone"], np.concatenate(
+            [np.load(os.path.join(d, f"out{r}.npz"))["pred"]
+             for r in range(len(parts))])),
+              f"rank {rank}: allgather_to_host differs")
+    phase("mesh", f"MultiHostEngine in 2 gloo processes on cuda:0 "
+                  f"({infos[0]['backend']}): local batches "
+                  f"{list(MULTIHOST_FEEDS)} and a tick of 5 and 0, each "
+                  f"rank's rows equal to the host oracle; child mega_cnn "
+                  f"launches {[i['launches'] for i in infos]}")
+
+
+_NVCC_FREE_CHILD = r"""
+import json, os, shutil, sys
+import numpy as np
+from tpu_cnn_torch.ops import _build
+
+def hidden():
+    raise _build.KernelBuildError("nvcc hidden")
+
+# PATH, CUDA_HOME and CUDA_PATH are cleared; the toolkit's default path
+# cannot be taken off a running machine, so the lookup refuses as well
+_build._nvcc = hidden
+from tpu_cnn_torch.deploy import DeployedDetector
+from tpu_cnn_torch.ops import conv_pool, mega
+det = DeployedDetector.load(sys.argv[1], "cuda")
+out = det.detect(np.load(sys.argv[2]))
+np.savez(sys.argv[3], pred=out[0], conf=out[1], probs=out[2], bbox=out[3])
+print(json.dumps({
+    "installed": det.installed, "nvcc": shutil.which("nvcc"),
+    "cuda_home": os.environ.get("CUDA_HOME"),
+    "launches": {"mega_cnn": mega.launches, "conv_pool_layer": conv_pool.launches}}))
+"""
+
+
+def nvcc_free_deploy_path() -> None:
+    """The lyr3-std .tcnnx of the deploy path on a host without the CUDA
+    toolkit: the cached kernel libraries moved aside (put back after), a
+    child with PATH, CUDA_HOME and CUDA_PATH cleared of the toolkit loads
+    it, installs the container's sm_90a library into the empty cache and
+    detects, equal to CUDAEngine(mega)."""
+    src = deploy_file("lyr3-std")
+    check(os.path.exists(src), "the lyr3-std deployable was not exported")
+    with zipfile.ZipFile(src) as z:
+        entries = json.loads(z.read("manifest.json"))["kernel_libraries"]
+    check([e["name"] for e in entries] == ["mega_cnn"]
+          and all(e["arch"] == _build.ARCH for e in entries),
+          f"the container lists {entries}")
+    aside = os.path.join(ROOT, "build", "chip_smoke", "aside")
+    os.makedirs(aside, exist_ok=True)
+    moved = [p for p in glob.glob(os.path.join(_build.BUILD_DIR, "lib*.so"))
+             if not os.path.basename(p).startswith("libtcnn_host_")]
+    staged = os.path.join(DEPLOY_DIR, "lyr3-std_images.npy")
+    result = os.path.join(DEPLOY_DIR, "lyr3-std_nvcc_free.npz")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("CUDA_HOME", "CUDA_PATH")}
+    env["PATH"] = os.pathsep.join(p for p in env.get("PATH", "").split(os.pathsep)
+                                  if "cuda" not in p.lower())
+    env["PYTHONPATH"] = ROOT
+    for p in moved:
+        os.replace(p, os.path.join(aside, os.path.basename(p)))
+    try:
+        proc = subprocess.run([sys.executable, "-c", _NVCC_FREE_CHILD, src,
+                               staged, result], cwd=ROOT, env=env,
+                              capture_output=True, text=True, timeout=600)
+    finally:
+        for p in moved:
+            os.replace(os.path.join(aside, os.path.basename(p)), p)
+    check(proc.returncode == 0, f"the nvcc-free child: exit {proc.returncode}: "
+                                f"{proc.stderr[-3000:]}")
+    child = json.loads(proc.stdout.splitlines()[-1])
+    check(child["installed"] == ["mega_cnn"] and child["nvcc"] is None
+          and child["cuda_home"] is None and child["launches"]["mega_cnn"] > 0,
+          f"the nvcc-free child: {child}")
+    imgs = np.load(staged)
+    want = CUDAEngine(load_model(ARTIFACTS["lyr3-std"], "lyr3-std"),
+                      device="cuda", backend="mega").detect_batch(imgs)
+    got = np.load(result)
+    check(np.array_equal(got["pred"], want.pred)
+          and np.array_equal(got["bbox"], want.bbox)
+          and np.allclose(got["probs"], want.probs, rtol=0, atol=SCORE_TOL),
+          "the nvcc-free deployable's detect != CUDAEngine(mega)")
+    phase("deploy", f"lyr3-std deployable with nvcc hidden ({len(moved)} "
+                    f"cached kernel libraries moved aside): the child "
+                    f"installed {child['installed']} from the container, "
+                    f"launched {child['launches']}, and detected {len(imgs)} "
+                    f"images equal to CUDAEngine(mega)")
+
+
+def mesh_times(card: str, rs) -> None:
+    """lyr3-std at batch 1536, async-pipelined as bench.py: CUDAEngine(mega)
+    against MeshEngine(mega) on the one real device and on two positions
+    of cuda:0, in turns engine, mesh 1, mesh 2, mesh 2, mesh 1, engine
+    (one pass of 52 rounds each): the mesh wrapper's overhead on one card,
+    not a scaling figure."""
+    model = load_model(ARTIFACTS["lyr3-std"], "lyr3-std")
+    engines = {"engine": CUDAEngine(model, device="cuda", backend="mega"),
+               "mesh 1": MeshEngine(model, make_mesh(), backend="mega"),
+               "mesh 2": MeshEngine(model, make_mesh(devices=_card_positions(2)),
+                                    backend="mega")}
+    pools = {k: _staged_pools(e, rs) for k, e in engines.items()}
+    fps = {k: [] for k in engines}
+    for k in ("engine", "mesh 1", "mesh 2", "mesh 2", "mesh 1", "engine"):
+        e = engines[k]
+        fps[k].append(_pipelined_fps(e.detect_batch_async, e.detect_resolve,
+                                     pools[k]))
+    phase("7 times", f"lyr3-std detect async-pipelined batch {BENCH_BATCH} on "
+                     f"{card}: CUDAEngine(mega) {fps['engine']!r} FPS; "
+                     f"MeshEngine(mega) on make_mesh() {fps['mesh 1']!r}, on 2 "
+                     f"positions of cuda:0 {fps['mesh 2']!r} (one card: the "
+                     f"wrapper's overhead, not scaling)")
+    del engines, pools
+    torch.cuda.empty_cache()
+
+
+def mesh_profile(card: str, rs) -> None:
+    """torch.profiler over one lyr3-std detect of MeshEngine(mega) on two
+    positions of cuda:0 at batch 1536: the megakernel once per position,
+    and no plain version (``quant.conv3x3_same``'s im2col)."""
+    model = load_model(ARTIFACTS["lyr3-std"], "lyr3-std")
+    eng = MeshEngine(model, make_mesh(devices=_card_positions(2)), backend="mega")
+    staged = eng.stage_batch(rs.randint(0, 256, (BENCH_BATCH, 128, 128))
+                             .astype(np.uint8))
+    eng.detect_resolve(eng.detect_batch_async(staged))  # warm-up
+    cuda = torch.autograd.DeviceType.CUDA
+    act = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=act) as prof:
+        eng.detect_resolve(eng.detect_batch_async(staged))
+        torch.cuda.synchronize()
+    names: dict[str, int] = {}
+    for e in prof.events():
+        if e.device_type == cuda:
+            names[e.name] = names.get(e.name, 0) + 1
+    n_mega = sum(n for name, n in names.items() if "mega_cnn_kernel" in name)
+    plain = [name for name in names if "im2col" in name.lower()]
+    check(n_mega == 2 and not plain,
+          f"the 2-position mesh detect launched {n_mega} megakernels, plain "
+          f"kernels {plain}: {names}")
+    phase("7 times", f"MeshEngine(mega) on 2 positions of cuda:0, one detect "
+                     f"at batch {BENCH_BATCH} on {card}, torch.profiler: "
+                     f"mega_cnn_kernel x{n_mega}, no im2col; "
+                     f"{sum(names.values())} device kernels of {len(names)} "
+                     f"kinds (the head's)")
+
+
 REALPHOTO = os.path.join(ROOT, "artifacts", "realphoto")
 TRAIN_BINS = os.path.join(REALPHOTO, "train_bins")
 VAL_BINS = os.path.join(REALPHOTO, "val_bins")
@@ -2677,11 +3021,13 @@ def times(dev: torch.device, card: str,
                          f"FPS of {fps!r}")
         torch.cuda.empty_cache()
     deploy_times(card, rs)
+    mesh_times(card, rs)
     multi_times(card, rs, profile_out)  # lyr3-std on mega: single-box and multi
     torch.cuda.empty_cache()
     # after every host-bound FPS: a finished torch.profiler run leaves
     # CUPTI's launch overhead behind it
     pallas_profile(card, rs)
+    mesh_profile(card, rs)
     torch.cuda.empty_cache()
     r, l = BITCAST_SHAPES[-1]
     k_ms, p_ms = bitcast_times(dev, card, rs)
@@ -2789,6 +3135,17 @@ def main(argv=None) -> None:
               lambda: serving_load_path(card))
     main_path("benchmark --host-ingest", (), lambda: host_ingest_path(card))
     main_path("doctor", (), doctor_path)
+    main_path("lyr3-std mesh (MeshEngine mega on 1 and 2 positions, xla on "
+              "4)", ("mega_cnn",), lambda: mesh_engine_path("lyr3-std"),
+              mesh_xla_path)
+    main_path("lyr4-wide mesh (MeshEngine mega on 1 and 2 positions)",
+              MEGA_KERNELS["lyr4-wide"], lambda: mesh_engine_path("lyr4-wide"))
+    main_path("lyr3-std infer and serve --mode mesh", ("mega_cnn",),
+              lambda: cli("lyr3-std", "mesh"), lambda: server("lyr3-std", "mesh"))
+    main_path("dryrun_mesh (4 positions of cuda:0)", ("mega_cnn",), dryrun_path)
+    main_path("MultiHostEngine (2 gloo processes)", (), multihost_path)
+    main_path("the deployable with nvcc hidden (the engine it is held to "
+              "launches K1 here)", ("mega_cnn",), nvcc_free_deploy_path)
 
     for variant in ARTIFACTS:
         verify_cli(variant)

@@ -5,7 +5,8 @@ ring's and HTTP front's C++ sources, equal to theirs but for the header
 comment), the host-oracle
 engine, the host head twins and the tracker, the weights.bin and bundle
 codecs, the registry and model holder, the CLI helpers, the luma
-constants, the stage timers and the camera app's host preprocess. Integer
+constants, the stage timers, the progress watchdog and the camera app's
+host preprocess. Integer
 results are compared exactly; float results bit for bit too, since both
 sides run the same numpy code on the same arrays."""
 
@@ -13,6 +14,7 @@ import json
 import time
 
 import glob
+import inspect
 import io
 import os
 
@@ -827,3 +829,41 @@ def test_detection_filters_live_beside_the_engine():
     for name in ("presence_scores", "detections_above", "instance_detections",
                  "DEFAULT_MULTI_THRESH"):
         assert getattr(cuda, name) is getattr(detections, name)
+
+
+# ── the progress watchdog ────────────────────────────────────────────
+
+
+def test_watchdog_equals_the_original():
+    """``utils.failguard.Watchdog`` is the JAX package's class, line for
+    line (it is pure ``threading``)."""
+    from tpu_cnn.utils import failguard as j_failguard
+    from tpu_cnn_torch.utils import failguard
+
+    assert (inspect.getsource(failguard.Watchdog)
+            == inspect.getsource(j_failguard.Watchdog))
+
+
+@pytest.mark.parametrize("case", ["fires_and_stops", "kick_defers"])
+def test_watchdog_behaves_as_the_original(case):
+    """``tests/test_aux_subsystems.py``'s two watchdog tests on the copy."""
+    from tpu_cnn_torch.utils.failguard import Watchdog
+
+    fired = []
+    if case == "fires_and_stops":
+        wd = Watchdog(stall_s=0.1, on_stall=lambda: fired.append(1))
+        wd.kick()
+        time.sleep(0.3)
+        assert fired, "watchdog should fire after stall"
+        wd.stop()
+        n = len(fired)
+        wd.kick()  # no-op after stop
+        time.sleep(0.2)
+        assert len(fired) == n
+    else:
+        wd = Watchdog(stall_s=0.25, on_stall=lambda: fired.append(1))
+        for _ in range(4):
+            wd.kick()
+            time.sleep(0.1)  # keep kicking before the stall window closes
+        assert not fired
+        wd.stop()

@@ -70,15 +70,35 @@ def test_auto_falls_back_to_hybrid_without_a_plan(model, monkeypatch):
     assert infer.make_engine(model, "auto", device="cpu").mode == "hybrid"
 
 
-def test_make_engine_refuses_mesh_and_unknown_modes(model):
-    with pytest.raises(ValueError, match="A.14"):
-        infer.make_engine(model, "mesh", device="cpu")
+def test_make_engine_refuses_mesh_and_unknown_modes(model, capsys):
+    """``--mode mesh`` runs since the mesh was ported: ``make_engine`` gives
+    a ``MeshEngine`` over the CPU (one position; the kernels' plain
+    versions), whose features are the oracle's, and infer and serve take
+    it, infer scoring what ``--mode cpu`` scores; unknown modes are still
+    refused."""
+    from tpu_cnn_torch.parallel.mesh import MeshEngine
+
+    eng = infer.make_engine(model, "mesh", device="cpu")
+    assert isinstance(eng, MeshEngine) and eng.backend == "mesh[(1, 1)]:mega"
+    img = np.fromfile(os.path.join(ART, "test_image_0_class3.bin"), np.uint8)
+    np.testing.assert_array_equal(eng.run(img)[0],
+                                  numpy_cnn_forward(img, model.kernels, model.shifts))
     with pytest.raises(ValueError, match="unknown mode"):
         infer.make_engine(model, "tpu", device="cpu")
-    for main in (infer.main, serve.main):
-        with pytest.raises(SystemExit) as e:
-            main(["--mode", "mesh", "--device", "cpu"])
-        assert e.value.code == 2
+    infer.main(["--mode", "mesh", "--device", "cpu", "--no-save"])
+    mesh_out = capsys.readouterr().out
+    infer.main(["--mode", "cpu", "--no-save"])
+    cpu_out = capsys.readouterr().out
+    assert "MeshEngine (mesh[(1, 1)]:mega)" in mesh_out
+    assert _accuracy(mesh_out) == _accuracy(cpu_out)
+    batcher, backend = serve.build_service(device="cpu", mode="mesh",
+                                           max_batch=2)
+    batcher.stop()
+    assert backend == "mesh[(1, 1)]:mega"
+
+
+def _accuracy(text: str) -> str:
+    return next(ln for ln in text.splitlines() if "Accuracy:" in ln)
 
 
 def _lines(text: str) -> list[str]:

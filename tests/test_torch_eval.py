@@ -144,10 +144,16 @@ def test_cli_lyr4_wide(capsys):
     assert _metric_lines(ours) == _metric_lines(capsys.readouterr().out)
 
 
-def test_cli_refuses_mesh_and_a_missing_reg_head(tmp_path, models):
-    with pytest.raises(SystemExit) as e:
-        eval_detection.main(["--device", "cpu", "--mode", "mesh"])
-    assert e.value.code == 2
+def test_cli_refuses_mesh_and_a_missing_reg_head(tmp_path, models, capsys):
+    """``--mode mesh`` runs since the mesh was ported (``MeshEngine`` on
+    the CPU): the metric lines of ``--mode cpu``; a missing reg head is
+    still refused."""
+    argv = ["--device", "cpu", "--n-per-class", "2"]
+    eval_detection.main(argv + ["--mode", "mesh"])
+    mesh_out = capsys.readouterr().out
+    eval_detection.main(argv + ["--mode", "cpu"])
+    assert _metric_lines(mesh_out) == _metric_lines(capsys.readouterr().out)
+    assert _metric_lines(mesh_out)
     ours, _ = models
     ours.bbox_weight, saved = None, ours.bbox_weight
     try:

@@ -116,6 +116,9 @@ def test_cli_real_head_prefix_and_mesh(capsys):
     ours = capsys.readouterr().out
     j_track.main(["--mode", "cpu"] + argv)
     assert ours.splitlines()[3:] == capsys.readouterr().out.splitlines()[3:]
-    with pytest.raises(SystemExit) as e:
-        eval_tracking.main(["--mode", "mesh"])
-    assert e.value.code == 2
+    # --mode mesh (MeshEngine on the CPU) runs and prints --mode cpu's rows
+    argv = ["--device", "cpu", "--n-seqs", "1", "--n-frames", "4"]
+    eval_tracking.main(argv + ["--mode", "mesh"])
+    mesh_rows = capsys.readouterr().out.splitlines()[3:]
+    eval_tracking.main(argv + ["--mode", "cpu"])
+    assert mesh_rows == capsys.readouterr().out.splitlines()[3:]

@@ -12,8 +12,12 @@ instances; the CLI; ``mega`` refused for ``cpu``; a JAX container refused.
 The ``mega`` program's graph on CPU tensors (the custom ops' plain
 versions), ``torch.library.opcheck`` on both ops, the exportable fixed
 point against the eager one, and a child process that loads a deployable
-without the code that builds the model. On the card (``-m cuda``): the
-``mega`` deployable equals ``CUDAEngine(mega)``.
+without the code that builds the model. The kernel libraries a ``mega``
+container carries for a host without nvcc (a dummy file in place of the
+``.so`` here): the manifest key and the bytes round-trip into an empty
+build cache, where ``ops._build`` finds them with ``_nvcc`` refusing; a
+wrong digest or an old container without the key installs nothing. On the
+card (``-m cuda``): the ``mega`` deployable equals ``CUDAEngine(mega)``.
 
 Tolerances: predictions, boxes, instance boxes and counts, and detected
 classes exact; probabilities, presence scores and detection scores within
@@ -267,6 +271,98 @@ def test_refusals(models, blob):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             DeployedDetector(buf.getvalue(), "cuda")
+
+
+def _with_manifest(blob: bytes, edit) -> bytes:
+    """The container with ``edit(manifest)`` applied."""
+    buf = io.BytesIO()
+    with zipfile.ZipFile(io.BytesIO(blob)) as src, \
+            zipfile.ZipFile(buf, "w") as dst:
+        for name in src.namelist():
+            data = src.read(name)
+            if name == "manifest.json":
+                m = json.loads(data)
+                edit(m)
+                data = json.dumps(m)
+            dst.writestr(name, data)
+    return buf.getvalue()
+
+
+def test_kernel_libraries_round_trip_into_the_cache(tmp_path, models,
+                                                    monkeypatch):
+    from tpu_cnn_torch.ops import _build
+
+    assert export_model.kernel_names(models[0], "mega") == ["mega_cnn"]
+    assert export_model.kernel_names(load_model(
+        os.path.join(REPO, "artifacts", "pretrained-lyr4"), "lyr4-wide"),
+        "mega") == ["conv_pool_layer", "mega_cnn"]
+    assert export_model.kernel_names(models[0], "xla") == []
+    # the exporting host's cache: a dummy file where the library would be
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "export_cache"))
+    os.makedirs(_build.BUILD_DIR)
+    dummy = b"\x7fELF a stand-in for the sm_90a library"
+    with open(_build.kernel_library("mega_cnn"), "wb") as f:
+        f.write(dummy)
+    _build.build.cache_clear()
+    monkeypatch.setattr(export_model, "kernel_names",
+                        lambda model, backend: ["mega_cnn"])
+    try:
+        blob = export_bundle(models[0], batch=1, backend="xla",
+                             platforms=("cpu",))
+        digest = _build.kernel_digest("mega_cnn")
+        member = f"kernels/sm_90a/libmega_cnn_{digest[:16]}.so"
+        with zipfile.ZipFile(io.BytesIO(blob)) as z:
+            entries = json.loads(z.read("manifest.json"))["kernel_libraries"]
+            assert z.read(member) == dummy
+        assert entries == [{"name": "mega_cnn", "digest": digest,
+                            "arch": "sm_90a", "file": member}]
+
+        # the serving host: an empty cache and no CUDA toolkit
+        def no_nvcc():
+            raise _build.KernelBuildError("nvcc not found")
+
+        monkeypatch.setattr(_build, "_nvcc", no_nvcc)
+        monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "serve_cache"))
+        _build.build.cache_clear()
+        assert DeployedDetector(blob, "cpu").installed == ["mega_cnn"]
+        lib, log, seconds = _build.build("mega_cnn")
+        assert (lib, log, seconds) == (_build.kernel_library("mega_cnn"), "", 0.0)
+        with open(lib, "rb") as f:
+            assert f.read() == dummy
+        assert DeployedDetector(blob, "cpu").installed == []  # cached now
+
+        # a digest that is not this csrc/'s, or no key: nothing installed
+        monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "other_cache"))
+        _build.build.cache_clear()
+        wrong = _with_manifest(blob, lambda m: m["kernel_libraries"][0].update(
+            digest="0" * 64))
+        old = _with_manifest(blob, lambda m: m.pop("kernel_libraries"))
+        for b in (wrong, old):
+            det = DeployedDetector(b, "cpu")
+            assert det.installed == []
+            assert det.detect(np.zeros((1, 128, 128), np.uint8))[0].shape == (1,)
+        assert not os.path.exists(_build.BUILD_DIR)
+        with pytest.raises(_build.KernelBuildError, match="nvcc"):
+            _build.build("mega_cnn")
+    finally:
+        _build.build.cache_clear()
+
+
+def test_kernel_library_names_hold_nothing_of_the_host(monkeypatch):
+    """A library's name is its sources and ``NVCC_FLAGS`` (the arch among
+    them): the same on a host with the toolkit elsewhere, or none."""
+    from tpu_cnn_torch.ops import _build
+
+    names = {k: _build.kernel_library(k) for k in
+             ("mega_cnn", "conv_pool_layer", "conv_act", "bitcast")}
+    monkeypatch.setenv("CUDA_HOME", "/elsewhere/cuda")
+    monkeypatch.setenv("PATH", "/elsewhere/bin")
+    for k, path in names.items():
+        assert _build.kernel_library(k) == path
+        digest = _build.source_digest(os.path.join(_build.CSRC_DIR, k + ".cu"),
+                                      repr(_build.NVCC_FLAGS).encode())
+        assert os.path.basename(path) == f"lib{k}_{digest[:16]}.so"
+    assert "code=sm_90a" in " ".join(_build.NVCC_FLAGS)
 
 
 @pytest.mark.parametrize("variant,ops", [

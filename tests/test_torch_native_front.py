@@ -210,11 +210,16 @@ def _same_answer(got, want):
                                rtol=0, atol=TOL)
 
 
-@pytest.mark.parametrize("case", ["single", "multi", "instances"])
+@pytest.mark.parametrize("case", ["single", "multi", "instances", "mesh"])
 def test_native_front_equals_the_jax_front(case, models, frames):
     ours_m, theirs_m = models
-    multi = case != "single"
-    if case == "instances":
+    multi = case not in ("single", "mesh")
+    if case == "mesh":  # MeshEngine on the CPU against the JAX host oracle
+        detect_fn, thr, backend = build_worker(ours_m, "mesh", "cpu",
+                                               max_batch=8)
+        j_fn = j_serve._HostDetectAdapter(j_infer.make_engine(theirs_m, "cpu"),
+                                          theirs_m).detect_batch
+    elif case == "instances":
         detect_fn, thr, backend = build_worker(ours_m, "mega", "cpu",
                                                max_batch=8, multi=True,
                                                instances=2)
@@ -236,8 +241,8 @@ def test_native_front_equals_the_jax_front(case, models, frames):
         _same_answer(g, w)
     if multi:
         assert sum(len(a["detections"]) for _, a in got) >= len(frames)
-    assert backend == ("reference-cpu" if case == "instances"
-                       else "host:native-c++")
+    assert backend == {"instances": "reference-cpu",
+                       "mesh": "mesh[(1, 1)]:mega"}.get(case, "host:native-c++")
 
 
 def test_native_front_health_and_malformed_bodies(models):
@@ -300,7 +305,7 @@ def test_native_front_pushes_back_with_503(models):
 
 
 @pytest.mark.parametrize("argv,msg", [
-    (["--mode", "mesh"], "A.14"),
+    (["--mode", "mesh", "--instances", "2"], "--instances needs --multi"),
     (["--mode", "cpu", "--instances", "2"], "--instances needs --multi"),
     (["--variant", "lyr4-wide", "--head-prefix", "gap_", "--multi",
       "--mode", "cpu"], "spatial-bin head")])

@@ -161,10 +161,10 @@ def test_mode_cpu_loop_equals_the_jax_app(loop, model, monkeypatch, capsys):
 
 @pytest.mark.parametrize("flags", [[], ["--multi"],
                                    ["--multi", "--instances", "2", "--track"]])
-@pytest.mark.parametrize("mode", ["mega", "pallas"])
+@pytest.mark.parametrize("mode", ["mega", "pallas", "mesh"])
 def test_fused_device_head_equals_the_host_oracle(flags, mode, model, monkeypatch,
                                                   capsys):
-    """``--device cpu --mode mega|pallas --fused``: the engine's fused
+    """``--device cpu --mode mega|pallas|mesh --fused``: the engine's fused
     detect (the kernels' plain versions) against the host oracle's loop,
     10 frames: the same classes, boxes and detections, probabilities
     within 1e-4."""
@@ -238,7 +238,7 @@ def _bundle_without_bbox(tmp_path):
     ["--score-ema", "0.5"],                        # needs --multi
     ["--variant", "lyr4-wide", "--head-prefix", "gap_", "--multi"],  # GAP head
     ["--box", "reg", "--artifacts", "NOBBOX"],     # no bbox_weight.npy
-    ["--mode", "mesh"],                            # not ported (A.14)
+    ["--mode", "mesh", "--box", "reg", "--artifacts", "NOBBOX"],  # no bbox head
 ])
 def test_realtime_argument_errors(argv, tmp_path):
     argv = [_bundle_without_bbox(tmp_path) if a == "NOBBOX" else a for a in argv]

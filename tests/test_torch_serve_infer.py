@@ -319,9 +319,36 @@ def test_service_mode_hybrid_answers_like_the_host_oracle():
 
 
 @pytest.mark.parametrize("argv,exc", [
-    (["--mode", "mesh"], SystemExit),  # not ported yet (ROADMAP A.14)
+    (["--mode", "tpu"], SystemExit),  # no such mode
     (["--shifts", "2,4,-1"], ValueError),
     (["--shifts", "2,32,6"], ValueError)])
 def test_infer_refuses_bad_mode_and_shifts(argv, exc):
     with pytest.raises(exc):
         infer.main(argv + ["--device", "cpu", "--no-save"])
+
+
+def test_infer_and_service_mode_mesh(tmp_path, capsys):
+    """``--mode mesh`` (``MeshEngine`` over the CPU, the megakernel's plain
+    version): the infer CLI scores what the host oracle scores, and the
+    service answers as it does."""
+    bundle = art.load_bundle(ART)
+    paths = sorted(glob.glob(os.path.join(ART, "test_image_*.bin")))[:3]
+    for p in paths:
+        shutil.copy(p, tmp_path)
+    infer.main(["--mode", "mesh", "--device", "cpu", "--no-save",
+                "--image-dir", str(tmp_path)])
+    out = capsys.readouterr().out
+    want = sum(_oracle(open(p, "rb").read(), bundle)[0]
+               == art.label_from_filename(p) for p in paths)
+    assert f"Accuracy: {want}/3 " in out
+    assert "MeshEngine (mesh[(1, 1)]:mega)" in out
+    with _service(artifacts_dir=ART, max_batch=2, mode="mesh") as request:
+        assert request("GET", "/healthz") == (
+            200, {"ok": True, "backend": "mesh[(1, 1)]:mega"})
+        for p in paths[:2]:
+            body = open(p, "rb").read()
+            status, ans = request("POST", "/detect", body)
+            idx, probs, box = _oracle(body, bundle)
+            assert status == 200, ans
+            assert ans["pred"] == idx and ans["bbox"] == box
+            np.testing.assert_allclose(ans["probs"], probs, rtol=0, atol=1e-4)

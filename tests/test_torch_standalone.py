@@ -19,7 +19,8 @@ PORT_FILES = sorted(
     os.path.relpath(os.path.join(d, f), REPO)
     for d, _, fs in os.walk(os.path.join(REPO, "tpu_cnn_torch"))
     for f in fs if f.endswith(".py")) + ["chip_smoke.py",
-                                         "scripts/bench_serving_torch.py"]
+                                         "scripts/bench_serving_torch.py",
+                                         "scripts/build_pretrained_torch.py"]
 REFUSED = ("jax", "tpu_cnn")
 VERDICT = "VERDICT: DESIGN IS BIT-ACCURATE across all backends"
 
@@ -100,7 +101,13 @@ for argv in (["tpu_cnn_torch.apps.verify", "--device", "cpu",
               "--device", "cpu", "--image",
               "artifacts/pretrained/test_image_0_class3.bin"],
              ["scripts/bench_serving_torch.py", "--device", "cpu", "--mode",
-              "mega", "--duration", "0.3", "--conc", "2", "--max-batch", "4"]):
+              "mega", "--duration", "0.3", "--conc", "2", "--max-batch", "4"],
+             ["tpu_cnn_torch.parallel.dryrun", "--devices", "4", "--cpu"],
+             ["tpu_cnn_torch.apps.infer", "--mode", "mesh", "--device", "cpu",
+              "--no-save"],
+             ["scripts/build_pretrained_torch.py", "--device", "cpu", "--mode",
+              "cpu", "--epochs", "1", "--n-per-class", "16", "--out",
+              OUT + "/pre"]):
     out = io.StringIO()
     sys.argv = [argv[0]] + argv[1:]
     code = 0
@@ -126,7 +133,9 @@ def refusing_run(tmp_path_factory):
     """One process that refuses ``tpu_cnn`` and ``jax``: imports every
     port module, then runs the port's CLIs as ``python -m`` (the trainer
     into a temporary bundle directory)."""
-    env = dict(os.environ, PYTHONPATH=REPO)
+    # one thread, as the suite pins torch in every file: the process runs
+    # beside the other workers, and unpinned it slows past its timeout
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     out = str(tmp_path_factory.mktemp("trained"))
     proc = subprocess.run([sys.executable, "-c", _REFUSING_PROCESS, out],
                           cwd=REPO, env=env, capture_output=True, text=True,
@@ -250,3 +259,29 @@ def test_deployment_path_with_the_jax_package_refused(refusing_run):
     assert code == 0 and "(torch.export)" in out and "box [" in out, out
     code, out = runs["scripts/bench_serving_torch.py"]
     assert code == 0 and "native  conc=2" in out and "python  conc=2" in out, out
+
+
+def test_the_scan_sees_the_mesh():
+    for path in ("tpu_cnn_torch/parallel/__init__.py",
+                 "tpu_cnn_torch/parallel/mesh.py",
+                 "tpu_cnn_torch/parallel/pipeline.py",
+                 "tpu_cnn_torch/parallel/spatial.py",
+                 "tpu_cnn_torch/parallel/multihost.py",
+                 "tpu_cnn_torch/parallel/dryrun.py",
+                 "scripts/build_pretrained_torch.py"):
+        assert path in PORT_FILES
+
+
+def test_mesh_and_build_pretrained_with_the_jax_package_refused(refusing_run):
+    for n in ("tpu_cnn_torch.parallel", "tpu_cnn_torch.parallel.mesh",
+              "tpu_cnn_torch.parallel.pipeline", "tpu_cnn_torch.parallel.spatial",
+              "tpu_cnn_torch.parallel.multihost", "tpu_cnn_torch.parallel.dryrun"):
+        assert n in refusing_run["modules"]
+    runs = refusing_run["runs"]
+    code, out = runs["tpu_cnn_torch.parallel.dryrun"]
+    assert code == 0 and "every meshed path equals" in out, out
+    code, out = runs["tpu_cnn_torch.apps.infer --mode"]
+    assert code == 0 and "MeshEngine (mesh[(1, 1)]:mega)" in out, out
+    code, out = runs["scripts/build_pretrained_torch.py"]
+    assert code == 0 and "Bundle complete in" in out, out
+    assert "pre" in refusing_run["runs"]["bundle"]

@@ -120,9 +120,11 @@ def test_train_returns_the_held_out_iou():
     want = j_train_bbox.train(j_common.load_model(ART), "cpu", n_per_class=4,
                               verbose=False)
     assert abs(got[1] - want[1]) <= 1e-3 and got[1] > 0.3
-    with pytest.raises(SystemExit) as e:
-        train_bbox.main(["--mode", "mesh"])
-    assert e.value.code == 2
+    # --mode mesh: MeshEngine's features through the host bin pool
+    mesh = train_bbox.train(load_model(ART), "mesh", n_per_class=4,
+                            verbose=False, device="cpu")
+    np.testing.assert_allclose(mesh[0], got[0], rtol=0, atol=1e-3)
+    assert abs(mesh[1] - want[1]) <= 1e-3
 
 
 def test_doctor_host_only_passes(capsys):

@@ -744,7 +744,7 @@ def test_train_cli_mesh_flags_exit_2(argv, flag, capsys):
         T.main(["--device", "cpu", "--synthetic"] + argv)
     assert e.value.code == 2
     err = capsys.readouterr().err
-    assert flag in err and "ROADMAP A.14" in err
+    assert flag in err and "ROADMAP A.14b" in err
 
 
 def test_bench_train_counts_the_macs():

@@ -56,16 +56,23 @@ kernels (``csrc/``, built by ``ops._build``):
   - ``train.checkpoint``  — the ``.npz`` checkpoint (reads the JAX
                             trainer's too)
   - ``utils``             — the weights.bin, bundle and feature-dump
-                            codecs, artifact paths, the completion wait,
+                            codecs, artifact paths, the completion wait
+                            and the progress watchdog,
                             stage timers and the torch.profiler trace
                             context, the JSONL metrics sink and accuracy
                             reports (``metrics``), the export quantisers
                             (``weights``), and the card's peaks and
                             bounds (``roofline``)
+  - ``parallel``          — the mesh axes' serving half: ``Mesh`` and
+                            ``MeshEngine`` (``mesh``: data and model
+                            axes, one CUDA stream per position), the
+                            GPipe ``pipeline``, the row-sharded
+                            ``spatial`` forward, ``MultiHostEngine`` over
+                            gloo (``multihost``) and ``dryrun_mesh``
   - ``bench_gate``        — the bench's parity gate
   - ``apps``              — ``infer`` (with ``make_engine``, the engine
                             swap: ``--mode auto|mega|pallas|hybrid|xla|
-                            cpu``), ``serve`` (``--deployable`` too),
+                            mesh|cpu``), ``serve`` (``--deployable`` too),
                             ``serve_native`` (the C++ HTTP front),
                             ``export_model`` (the ``.tcnnx`` deployable),
                             ``realtime`` (the camera app), ``verify`` and

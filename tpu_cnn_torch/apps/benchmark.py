@@ -432,7 +432,7 @@ def main(argv=None):
     """The JAX CLI's flags plus ``--device``; returns the results dict, and
     exits 1 after the summary when a ``--modes`` entry failed."""
     from tpu_cnn_torch.apps.common import add_variant_arg, load_model
-    from tpu_cnn_torch.apps.infer import MESH_NOT_PORTED, make_engine
+    from tpu_cnn_torch.apps.infer import make_engine
     from tpu_cnn_torch.utils.paths import default_artifacts
     from tpu_cnn_torch.utils.profiling import torch_trace
 
@@ -445,8 +445,7 @@ def main(argv=None):
     p.add_argument("--runs", type=int, default=20)
     p.add_argument("--modes", default="auto",
                    help="comma list of: auto, mega, hybrid, pallas, xla, "
-                        "cpu (auto = production backend; mesh is not "
-                        "ported yet)")
+                        "mesh, cpu (auto = production backend)")
     p.add_argument("--detect", dest="detect", action="store_true",
                    default=True,
                    help="benchmark the fused detect pipeline (the default: "
@@ -473,8 +472,10 @@ def main(argv=None):
                    help="with --camera-pipeline: capture a torch.profiler "
                         "trace of the measured loop (trace.json)")
     p.add_argument("--host-ingest", action="store_true",
-                   help="benchmark the NATIVE host ingest through the C++ "
-                        "frame ring (not ported yet: exits 2)")
+                   help="benchmark the NATIVE host ingest: threaded "
+                        "producers push raw camera frames through the C++ "
+                        "frame ring (off-GIL preprocess), one consumer "
+                        "drains engine batches")
     p.add_argument("--ingest-threads", type=int, default=4)
     p.add_argument("--train", action="store_true",
                    help="benchmark the phase-1 TRAIN step (fwd+bwd+Adam) "
@@ -501,8 +502,6 @@ def main(argv=None):
                         "time and its share of the bound")
     add_variant_arg(p)
     args = p.parse_args(argv)
-    if "mesh" in (m.strip() for m in args.modes.split(",")):
-        p.error(MESH_NOT_PORTED)
     args.artifacts = args.artifacts or default_artifacts(args.variant)
 
     print("=" * 64)

@@ -352,7 +352,7 @@ def main(argv=None):
     """The JAX CLI's flags plus ``--device``; returns (thresholds, report),
     and the fitted head as a third item under ``--fit-head``."""
     from tpu_cnn_torch.apps.common import add_variant_arg, load_model
-    from tpu_cnn_torch.apps.infer import MESH_NOT_PORTED, MODES
+    from tpu_cnn_torch.apps.infer import MODES
     from tpu_cnn_torch.utils import artifacts as art
     from tpu_cnn_torch.utils.paths import default_artifacts
 
@@ -385,8 +385,6 @@ def main(argv=None):
                         "every --multi surface then defaults to them")
     add_variant_arg(p)
     args = p.parse_args(argv)
-    if args.mode == "mesh":
-        p.error(MESH_NOT_PORTED)
     args.artifacts = args.artifacts or default_artifacts(args.variant)
 
     print("=" * 60)

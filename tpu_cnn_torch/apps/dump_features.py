@@ -79,7 +79,7 @@ def dump_features(
 def main(argv=None):
     """The JAX CLI's flags plus ``--device``."""
     from tpu_cnn_torch.apps.common import add_variant_arg, load_model
-    from tpu_cnn_torch.apps.infer import MESH_NOT_PORTED, MODES
+    from tpu_cnn_torch.apps.infer import MODES
     from tpu_cnn_torch.utils.paths import default_artifacts
 
     p = argparse.ArgumentParser(description="Dump CNN features to .npz")
@@ -98,8 +98,6 @@ def main(argv=None):
     p.add_argument("--s2", type=int, default=None)
     add_variant_arg(p)
     args = p.parse_args(argv)
-    if args.mode == "mesh":
-        p.error(MESH_NOT_PORTED)
     args.artifacts = args.artifacts or default_artifacts(args.variant)
     shifts = None
     if args.shifts is not None:

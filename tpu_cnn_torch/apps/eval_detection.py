@@ -14,7 +14,8 @@ composite scenes (``evaluate_multi``), and with ``--instances N`` or
 The engine comes from ``apps.infer.make_engine``: a ``CUDAEngine`` backend
 on ``--device`` (its fused detect and multi detect), or with ``--mode cpu``
 the host oracle, whose features go through the host head twins as in the
-JAX CLI. ``--mode mesh`` is not ported yet (ROADMAP A.14).
+JAX CLI; ``--mode mesh`` is ``parallel.MeshEngine`` over ``--device``'s
+devices.
 
 Usage:
   python -m tpu_cnn_torch.apps.eval_detection [--n-per-class 30] [--mode auto]
@@ -332,7 +333,7 @@ def evaluate_instances(model: FpgaCNN, mode: str = "auto",
 def main(argv=None):
     """The JAX CLI's flags plus ``--device``; returns the metrics dict."""
     from tpu_cnn_torch.apps.common import add_variant_arg, load_model
-    from tpu_cnn_torch.apps.infer import MESH_NOT_PORTED, MODES
+    from tpu_cnn_torch.apps.infer import MODES
     from tpu_cnn_torch.utils.paths import default_artifacts
 
     p = argparse.ArgumentParser(description="Detection quality evaluation")
@@ -370,8 +371,6 @@ def main(argv=None):
                         "held-out val_bins split)")
     add_variant_arg(p)
     args = p.parse_args(argv)
-    if args.mode == "mesh":
-        p.error(MESH_NOT_PORTED)
     args.artifacts = args.artifacts or default_artifacts(args.variant)
 
     print("=" * 60)

@@ -236,7 +236,7 @@ def evaluate_tracking(model: FpgaCNN, mode: str = "auto", n_seqs: int = 8,
 def main(argv=None):
     """The JAX CLI's flags plus ``--device``; returns the results dict."""
     from tpu_cnn_torch.apps.common import add_variant_arg, load_model
-    from tpu_cnn_torch.apps.infer import MESH_NOT_PORTED, MODES
+    from tpu_cnn_torch.apps.infer import MODES
     from tpu_cnn_torch.utils.paths import default_artifacts
 
     p = argparse.ArgumentParser(description="Tracking quality evaluation")
@@ -272,8 +272,6 @@ def main(argv=None):
                         "production tracker (e.g. 0.5,0.3)")
     add_variant_arg(p)
     args = p.parse_args(argv)
-    if args.mode == "mesh":
-        p.error(MESH_NOT_PORTED)
     args.artifacts = args.artifacts or default_artifacts(args.variant)
     print("=" * 60)
     print("  TRACKING QUALITY EVALUATION")

@@ -16,11 +16,13 @@ The container (``tpu_cnn_torch.deploy``, where ``DeployedDetector``
 lives) is the JAX package's zip and manifest, plus ``"runtime":
 "torch.export"`` and ``torch_version`` in place of ``jax_version``, with
 one program per platform and batch bucket, ``<platform>/detect_b<b>.pt2``.
-One difference from the JAX container: StableHLO embeds the Mosaic
-kernels, while the torch container freezes the program and the weights
-and calls the port's kernel library, so the serving host needs
-``tpu_cnn_torch.ops`` (built from ``csrc/`` at first use), though not the
-code that builds the model. ``mega`` exports for ``cuda`` only (the JAX
+StableHLO embeds the Mosaic kernels; a ``torch.export`` program calls
+the port's kernels through their custom ops, so a ``mega`` container also
+carries the built ``sm_90a`` libraries of the kernels its programs call,
+under ``kernels/sm_90a/``, listed in the manifest's ``kernel_libraries``
+(name, member, source digest, arch). The loader puts them in the build
+cache, so that the serving host needs ``tpu_cnn_torch.ops`` but no CUDA
+toolkit, nor the code that builds the model. ``mega`` exports for ``cuda`` only (the JAX
 package's "the megakernel lowers for TPU only"); ``xla`` exports for
 ``cpu`` too.
 
@@ -48,7 +50,7 @@ from tpu_cnn_torch.apps.common import add_variant_arg, load_model
 from tpu_cnn_torch.deploy import (FORMAT_VERSION, MANIFEST, RUNTIME,
                                   DeployedDetector, program_name)
 from tpu_cnn_torch.models.cnn import params_from_numpy
-from tpu_cnn_torch.ops import detect_head, library, mega, quant  # noqa: F401
+from tpu_cnn_torch.ops import _build, detect_head, library, mega, quant  # noqa: F401
 from tpu_cnn_torch.utils.paths import default_artifacts
 
 __all__ = ["DeployedDetector", "build_detect_fn", "build_detect_multi_fn",
@@ -176,6 +178,31 @@ def _export(program: DetectProgram, batch: int, device) -> bytes:
     return buf.getvalue()
 
 
+def kernel_names(model, backend: str) -> list[str]:
+    """The kernels an exported program calls: on ``mega`` the layer kernel
+    for the chained plan's head layers, if any, then the megakernel."""
+    if backend != "mega":
+        return []
+    n_head = mega.mega_plan(model.config.layer_configs)
+    return (["conv_pool_layer"] if n_head else []) + ["mega_cnn"]
+
+
+def kernel_libraries(names) -> list[tuple[dict, bytes]]:
+    """(manifest entry, library bytes) of each kernel, built here if the
+    cache lacks it: the entry names the kernel, its member in the
+    container, its ``_build.kernel_digest`` and the arch."""
+    out = []
+    for name in names:
+        path = _build.build(name)[0]
+        with open(path, "rb") as f:
+            blob = f.read()
+        out.append(({"name": name, "digest": _build.kernel_digest(name),
+                     "arch": _build.ARCH,
+                     "file": f"kernels/{_build.ARCH}/{os.path.basename(path)}"},
+                    blob))
+    return out
+
+
 def export_bundle(model, batch=1536, backend: str = "mega",
                   box_mode: str = "ref", platforms=("cuda",),
                   multi: bool = False, instances: int = 1) -> bytes:
@@ -203,6 +230,7 @@ def export_bundle(model, batch=1536, backend: str = "mega",
             for b in batches:
                 programs[program_name(platform, b, is_multi)] = _export(
                     prog, b, platform)
+    libraries = kernel_libraries(kernel_names(model, backend))
     manifest = {
         "format": FORMAT_VERSION,
         "runtime": RUNTIME,
@@ -227,12 +255,16 @@ def export_bundle(model, batch=1536, backend: str = "mega",
         "instance_min_pixels": detect_head.INSTANCE_MIN_PIXELS,
         "instance_min_frac": detect_head.INSTANCE_MIN_FRAC,
         "torch_version": torch.__version__,
+        # the built kernels the programs call, for a host without nvcc
+        "kernel_libraries": [entry for entry, _ in libraries],
     }
     buf = io.BytesIO()
     with zipfile.ZipFile(buf, "w", zipfile.ZIP_DEFLATED) as z:
         z.writestr(MANIFEST, json.dumps(manifest, indent=1))
         for name, blob in programs.items():
             z.writestr(name, blob)
+        for entry, blob in libraries:
+            z.writestr(entry["file"], blob)
     return buf.getvalue()
 
 

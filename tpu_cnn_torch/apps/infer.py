@@ -25,7 +25,9 @@ Usage:
 ``pallas``, ``hybrid`` or ``xla`` run that ``CUDAEngine`` backend on
 ``--device``; ``auto`` resolves to ``mega`` where the chained plan fits
 the geometry, else ``hybrid``; ``cpu`` runs the host oracle and ignores
-``--device``; ``mesh`` is not ported yet (ROADMAP A.14).
+``--device``; ``mesh`` is ``parallel.MeshEngine`` over every device of
+``--device``'s type (one position per device: one on a one-card host, the
+CPU with ``--device cpu``).
 
 ``--no-save`` skips the annotated JPEG (which needs PIL); raw ``.bin``
 images need nothing beyond numpy.
@@ -39,6 +41,7 @@ import os
 import time
 
 import numpy as np
+import torch
 
 from tpu_cnn_torch.apps.common import load_model
 from tpu_cnn_torch.engine.cpu_ref import CPURefEngine
@@ -52,10 +55,9 @@ from tpu_cnn_torch.ops import mega
 from tpu_cnn_torch.utils import artifacts as art
 from tpu_cnn_torch.utils.paths import default_artifacts
 
-# the engine swap's modes: the CUDAEngine backends, "auto", the mesh (not
-# ported yet) and the host oracle
+# the engine swap's modes: the CUDAEngine backends, "auto", the mesh and
+# the host oracle
 MODES = ("auto", *BACKENDS, "mesh", "cpu")
-MESH_NOT_PORTED = "--mode mesh: not yet ported (ROADMAP A.14, the mesh axes)"
 
 
 def auto_backend(model: FpgaCNN) -> str:
@@ -71,13 +73,19 @@ def make_engine(model: FpgaCNN, mode: str, device: str = "cuda",
     ``realtime_detect.py:556``): "cpu" is the host oracle
     (``CPURefEngine``, the native C++ oracle or numpy; ``device`` ignored);
     "mega", "pallas", "hybrid" and "xla" are that ``CUDAEngine`` backend on
-    ``device``; "auto" is :func:`auto_backend`'s. ``box_mode`` picks the
-    fused CAM box ("ref", "centroid", "reg"); the host oracle has no fused
-    head, its callers pick the host twin themselves."""
+    ``device``; "auto" is :func:`auto_backend`'s; "mesh" is
+    ``parallel.MeshEngine`` (its own auto backend) over every device of
+    ``device``'s type. ``box_mode`` picks the fused CAM box ("ref",
+    "centroid", "reg"); the host oracle has no fused head, its callers
+    pick the host twin themselves."""
     if mode == "cpu":
         return CPURefEngine(model.kernels, model.shifts)
     if mode == "mesh":
-        raise ValueError(MESH_NOT_PORTED)
+        from tpu_cnn_torch.parallel.mesh import MeshEngine, local_devices, make_mesh
+
+        dev = torch.device(device)
+        devices = [dev] if dev.type == "cpu" else local_devices()
+        return MeshEngine(model, make_mesh(devices=devices), box_mode=box_mode)
     if mode == "auto":
         mode = auto_backend(model)
     if mode not in BACKENDS:
@@ -306,8 +314,6 @@ def main(argv=None):
                         "class, so two objects of one class get two boxes "
                         "(default 1)")
     args = p.parse_args(argv)
-    if args.mode == "mesh":
-        p.error(MESH_NOT_PORTED)
     args.artifacts = args.artifacts or default_artifacts(args.variant)
     shifts = ([int(s) for s in args.shifts.split(",")]
               if args.shifts is not None else None)

@@ -36,7 +36,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 
 from tpu_cnn_torch.apps.common import add_variant_arg, load_model
-from tpu_cnn_torch.apps.infer import MESH_NOT_PORTED, MODES, make_engine
+from tpu_cnn_torch.apps.infer import MODES, make_engine
 from tpu_cnn_torch.engine.cuda import (DEFAULT_MULTI_THRESH, detections_above,
                                        instance_detections, presence_scores)
 from tpu_cnn_torch.head import cam as cam_host
@@ -695,8 +695,6 @@ def main(argv=None):
                          "engine.run() features + host classify/CAM twins.")
     add_variant_arg(ap)
     args = ap.parse_args(argv)
-    if args.mode == "mesh":
-        ap.error(MESH_NOT_PORTED)
     args.artifacts = args.artifacts or default_artifacts(args.variant)
     cam_w, cam_h = (int(v) for v in args.res.split("x"))
 

@@ -48,7 +48,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 
 from tpu_cnn_torch.apps.common import load_model
-from tpu_cnn_torch.apps.infer import MESH_NOT_PORTED, MODES, make_engine
+from tpu_cnn_torch.apps.infer import MODES, make_engine
 from tpu_cnn_torch.deploy import DeployedDetector
 from tpu_cnn_torch.engine.cuda import (DEFAULT_MULTI_THRESH, DetectResult,
                                        MultiDetectResult, detections_above,
@@ -593,8 +593,6 @@ def main(argv=None):
                    help="serve a .tcnnx from tpu_cnn_torch.apps.export_model "
                         "on --device (no bundle, no model construction)")
     args = p.parse_args(argv)
-    if args.mode == "mesh":
-        p.error(MESH_NOT_PORTED)
     if args.deployable and not os.path.isfile(args.deployable):
         p.error(f"--deployable {args.deployable}: no such file")
     batcher, backend = build_service(

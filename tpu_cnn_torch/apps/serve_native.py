@@ -38,7 +38,7 @@ import json
 import numpy as np
 
 from tpu_cnn_torch.apps.common import add_variant_arg, load_model
-from tpu_cnn_torch.apps.infer import MESH_NOT_PORTED, MODES, make_engine
+from tpu_cnn_torch.apps.infer import MODES, make_engine
 from tpu_cnn_torch.apps.serve import _HostDetectAdapter
 from tpu_cnn_torch.head.detections import (DEFAULT_MULTI_THRESH,
                                            detections_above,
@@ -207,8 +207,6 @@ def main(argv=None):
     p.add_argument("--head-prefix", default="")
     add_variant_arg(p)
     args = p.parse_args(argv)
-    if args.mode == "mesh":
-        p.error(MESH_NOT_PORTED)
     args.artifacts = args.artifacts or default_artifacts(args.variant)
     model = load_model(args.artifacts, args.variant, args.head_prefix)
     try:

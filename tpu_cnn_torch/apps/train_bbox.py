@@ -94,7 +94,7 @@ def main(argv=None):
     """The JAX CLI's flags plus ``--device``; returns (bbox_weight,
     held-out mean IoU)."""
     from tpu_cnn_torch.apps.common import add_variant_arg, load_model
-    from tpu_cnn_torch.apps.infer import MESH_NOT_PORTED, MODES
+    from tpu_cnn_torch.apps.infer import MODES
     from tpu_cnn_torch.utils.paths import default_artifacts
 
     p = argparse.ArgumentParser(description="Train the box-regression head")
@@ -109,8 +109,6 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=7)
     add_variant_arg(p)
     args = p.parse_args(argv)
-    if args.mode == "mesh":
-        p.error(MESH_NOT_PORTED)
     args.artifacts = args.artifacts or default_artifacts(args.variant)
     out_dir = args.output_dir or args.artifacts
 

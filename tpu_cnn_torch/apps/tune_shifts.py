@@ -112,7 +112,7 @@ def main(argv=None):
     """The JAX CLI's flags plus ``--device``; returns (best shifts,
     results)."""
     from tpu_cnn_torch.apps.common import add_variant_arg, load_model
-    from tpu_cnn_torch.apps.infer import MESH_NOT_PORTED, MODES
+    from tpu_cnn_torch.apps.infer import MODES
     from tpu_cnn_torch.utils.paths import default_artifacts
 
     p = argparse.ArgumentParser(description="Auto-tune per-layer ReLU shifts")
@@ -140,8 +140,6 @@ def main(argv=None):
                         "to the head they were tuned for")
     add_variant_arg(p)
     args = p.parse_args(argv)
-    if args.mode == "mesh":
-        p.error(MESH_NOT_PORTED)
     args.artifacts = args.artifacts or default_artifacts(args.variant)
 
     print("=" * 60)

@@ -13,16 +13,24 @@ shifts a runtime argument.
 One difference from the JAX container: StableHLO embeds the Mosaic
 kernels, while a ``torch.export`` program calls the port's kernels as the
 custom ops ``tcnn::mega_cnn`` and ``tcnn::conv_pool_layer``
-(``ops.library``). So the serving host needs ``tpu_cnn_torch.ops`` (the
-kernels are built from ``csrc/`` at first use), though not the code that
-builds the model: this module imports no ``models``, ``engine`` or
-``apps`` module.
+(``ops.library``). So a ``mega`` container carries the built kernel
+libraries (``kernel_libraries`` in the manifest), which the loader copies
+into the build cache before the programs load
+(:func:`install_kernel_libraries`): the serving host needs
+``tpu_cnn_torch.ops`` but no CUDA toolkit, nor the code that builds the
+model (this module imports no ``models``, ``engine`` or ``apps``
+module). A library whose digest is not what ``ops._build`` computes for
+the ``csrc/`` beside this module is left out, and that kernel is built
+from ``csrc/`` at first use as before; so is every kernel of a container
+written before the key existed.
 """
 
 from __future__ import annotations
 
 import io
 import json
+import os
+import tempfile
 import zipfile
 
 import numpy as np
@@ -31,6 +39,7 @@ import torch
 from tpu_cnn_torch.head.detections import (DEFAULT_MULTI_THRESH,
                                            detections_above,
                                            instance_detections)
+from tpu_cnn_torch.ops import _build
 from tpu_cnn_torch.ops import library  # noqa: F401  (registers tcnn::*)
 from tpu_cnn_torch.ops.quant import check_shifts
 
@@ -42,6 +51,28 @@ RUNTIME = "torch.export"
 def program_name(platform: str, batch: int, multi: bool = False) -> str:
     """The container's member for one platform's program at one bucket."""
     return f"{platform}/detect{'_multi' if multi else ''}_b{batch}.pt2"
+
+
+def install_kernel_libraries(z: zipfile.ZipFile, manifest: dict) -> list[str]:
+    """Copy each kernel library the manifest lists into the build cache,
+    where the cache lacks it and its arch and source digest are what
+    ``ops._build`` would build from the ``csrc/`` here. Returns the names
+    copied."""
+    copied = []
+    for entry in manifest.get("kernel_libraries", []):
+        if (entry["arch"] != _build.ARCH
+                or entry["digest"] != _build.kernel_digest(entry["name"])):
+            continue
+        dst = _build.kernel_library(entry["name"])
+        if os.path.exists(dst):
+            continue
+        os.makedirs(os.path.dirname(dst), exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(dst))
+        with os.fdopen(fd, "wb") as f:
+            f.write(z.read(entry["file"]))
+        os.replace(tmp, dst)  # atomic: a concurrent loader sees all or none
+        copied.append(entry["name"])
+    return copied
 
 
 class DeployedDetector:
@@ -77,6 +108,7 @@ class DeployedDetector:
                         "torch.backends.cuda.matmul.allow_tf32 is on: the "
                         "exported head's f32 matmuls would run in TF32 and "
                         "drift from the reference; switch it off")
+            self.installed = install_kernel_libraries(z, m)
             self._calls = self._programs(z, platform, False)
             self._multi_calls = (self._programs(z, platform, True)
                                  if m.get("multi") else {})

@@ -3,10 +3,13 @@
 Each source under ``tpu_cnn_torch/csrc`` has a plain C interface. It is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/tpu_cnn_torch/`` at the repository root (listed in ``.gitignore``),
-named by a hash of the source and of every header it includes from its own
-directory (``source_digest``), so that an edit to either rebuilds it, and
-loaded with
-``ctypes``. Nothing is built when a module is imported: the first call on
+named by a hash of the source, of every header it includes from its own
+directory and of ``NVCC_FLAGS`` (the arch among them; ``kernel_digest``),
+so that an edit to either rebuilds it, and loaded with ``ctypes``. The
+name holds nothing of the host (not the compiler's path): a library built
+on one host, or shipped in a deployable (``apps.export_model``), is found
+in the cache on another, and a host with the library cached needs no
+``nvcc``. Nothing is built when a module is imported: the first call on
 a CUDA tensor builds, later calls reuse the loaded library. The host
 library ``tcnn_host`` is built the same way with ``g++`` (``build_host``)
 on its first use, from the sources ``HOST_SOURCES`` lists under
@@ -34,7 +37,8 @@ CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 NATIVE_DIR = os.path.join(os.path.dirname(CSRC_DIR), "native")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC_DIR)), "build",
                          "tpu_cnn_torch")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+ARCH = "sm_90a"  # the one architecture the kernels are built for
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=" + ARCH, "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
@@ -85,17 +89,24 @@ def source_digest(src: str | Sequence[str], extra: bytes = b"") -> str:
     return digest.hexdigest()
 
 
-def _compile(srcs: Sequence[str], name: str,
+def kernel_digest(name: str) -> str:
+    """``source_digest`` of ``csrc/<name>.cu`` (and its headers) with
+    ``NVCC_FLAGS``: what names the kernel's library."""
+    return source_digest(os.path.join(CSRC_DIR, name + ".cu"),
+                         repr(NVCC_FLAGS).encode())
+
+
+def kernel_library(name: str) -> str:
+    """The path the kernel's library has in the cache, built or not."""
+    return os.path.join(BUILD_DIR, f"lib{name}_{kernel_digest(name)[:16]}.so")
+
+
+def _compile(srcs: Sequence[str], lib: str,
              commands) -> tuple[str, str, float]:
-    """Build ``srcs`` into one library in ``BUILD_DIR`` with the first of
+    """Build ``srcs`` into the library ``lib`` with the first of
     ``commands`` (each a function of the output path -> argv) that
-    succeeds, unless a library of the same sources (``source_digest``) and
-    commands exists. Returns (library path, the compiler's output, seconds
-    spent building; 0 when cached)."""
-    digest = source_digest(srcs, repr([cmd("") for cmd in commands]).encode())
-    lib = os.path.join(BUILD_DIR, f"lib{name}_{digest[:16]}.so")
-    if os.path.exists(lib):
-        return lib, "", 0.0
+    succeeds. Returns (library path, the compiler's output, seconds spent
+    building)."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     t0 = time.perf_counter()
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
@@ -119,12 +130,16 @@ def _compile(srcs: Sequence[str], name: str,
 
 @functools.lru_cache(maxsize=None)
 def build(name: str) -> tuple[str, str, float]:
-    """Compile ``csrc/<name>.cu`` with nvcc if its hash has no library yet.
-    Returns (library path, nvcc's output, seconds spent building; 0 when
+    """Compile ``csrc/<name>.cu`` with nvcc if the cache has no library of
+    its ``kernel_digest`` yet (nvcc is looked for only then). Returns
+    (library path, nvcc's output, seconds spent building; 0 when
     cached)."""
+    lib = kernel_library(name)
+    if os.path.exists(lib):
+        return lib, "", 0.0
     nvcc = _nvcc()
     src = os.path.join(CSRC_DIR, name + ".cu")
-    return _compile([src], name,
+    return _compile([src], lib,
                     [lambda out: [nvcc, *NVCC_FLAGS, "-o", out, src]])
 
 
@@ -132,12 +147,17 @@ def build(name: str) -> tuple[str, str, float]:
 def build_host() -> str:
     """Compile the host library ``tcnn_host`` (the ``HOST_SOURCES``) with
     g++ into one shared library (with OpenMP where the compiler has it)
-    and return its path."""
+    and return its path. Its name hashes the sources and the flag sets;
+    g++ is looked for only when the cache lacks it."""
+    srcs = [os.path.join(NATIVE_DIR, f) for f in HOST_SOURCES]
+    digest = source_digest(srcs, repr(GXX_FLAG_SETS).encode())
+    lib = os.path.join(BUILD_DIR, f"libtcnn_host_{digest[:16]}.so")
+    if os.path.exists(lib):
+        return lib
     gxx = shutil.which("g++")
     if gxx is None:
         raise KernelBuildError("g++ not found: the host library needs it")
-    srcs = [os.path.join(NATIVE_DIR, f) for f in HOST_SOURCES]
-    return _compile(srcs, "tcnn_host", [
+    return _compile(srcs, lib, [
         lambda out, flags=flags: [gxx, "-std=c++17", "-shared", "-fPIC",
                                   *flags, "-o", out, *srcs]
         for flags in GXX_FLAG_SETS])[0]

@@ -71,7 +71,12 @@ def _classify_pooled(pooled: torch.Tensor, fc_weight: torch.Tensor,
                      fc_bias: torch.Tensor):
     """(pred (B,) int32, conf (B,) f32, probs (B, K) f32) from pooled
     features."""
-    logits = _fc_logits(pooled, fc_weight, fc_bias)
+    return classify_logits(_fc_logits(pooled, fc_weight, fc_bias))
+
+
+def classify_logits(logits: torch.Tensor):
+    """(pred (B,) int32, conf (B,) f32, probs (B, K) f32) from the
+    classifier's (B, K) logits."""
     probs = torch.softmax(logits, dim=-1)
     pred = torch.argmax(logits, dim=-1)
     conf = probs.gather(1, pred[:, None])[:, 0]
@@ -451,11 +456,15 @@ def detect_multi_with_pooled(pooled: torch.Tensor,
 def detect_multi(features: torch.Tensor, fc_weight: torch.Tensor,
                  fc_bias: torch.Tensor, head_mode: str = "bins",
                  img_size: int = 128, box_mode: str = "ref",
-                 instances: int = 1, multi_head=None):
+                 instances: int = 1, multi_head=None,
+                 logits: torch.Tensor | None = None):
     """The multi-object head on u8 features; outputs as
     :func:`detect_multi_with_pooled`. The 64-d GAP head has no spatial
-    weights: every class shares the unweighted activation-map CAM."""
-    pred, conf, probs = classify(features, fc_weight, fc_bias, head_mode)
+    weights: every class shares the unweighted activation-map CAM.
+    ``logits``: the classifier's logits where the caller summed them
+    itself (the mesh's feature-split head), else from the features."""
+    pred, conf, probs = (classify(features, fc_weight, fc_bias, head_mode)
+                         if logits is None else classify_logits(logits))
     if head_mode == "bins":
         cam_w = fc_weight
     else:
@@ -508,9 +517,12 @@ def detect_with_pooled(features: torch.Tensor | None, pooled: torch.Tensor,
 def detect(features: torch.Tensor, fc_weight: torch.Tensor,
            fc_bias: torch.Tensor, head_mode: str = "bins",
            img_size: int = 128, box_mode: str = "ref",
-           bbox_weight: torch.Tensor | None = None):
-    """Classify + box from u8 features. Returns (pred, conf, probs, bbox)."""
-    pred, conf, probs = classify(features, fc_weight, fc_bias, head_mode)
+           bbox_weight: torch.Tensor | None = None,
+           logits: torch.Tensor | None = None):
+    """Classify + box from u8 features. Returns (pred, conf, probs, bbox).
+    ``logits`` as in :func:`detect_multi`."""
+    pred, conf, probs = (classify(features, fc_weight, fc_bias, head_mode)
+                         if logits is None else classify_logits(logits))
     if box_mode == "reg":
         bbox = bbox_regress(bin_pool(features), bbox_weight, img_size)
     elif head_mode == "bins":

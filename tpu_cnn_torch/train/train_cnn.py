@@ -21,7 +21,7 @@ and backward, with TF32 off and deterministic cuDNN (``exact_float``). Phase 2 r
 plain int32 version on the trainer's device, not the CUDA kernels: they
 implement no 24-bit wrap.
 
-Not ported (ROADMAP A.14): the JAX trainer's device mesh, pipeline,
+Not ported (ROADMAP A.14b): the JAX trainer's device mesh, pipeline,
 spatial, ZeRO-1, remat and multi-host options and its orbax sharded
 checkpoint directory; the CLI refuses each with exit 2.
 """
@@ -58,7 +58,7 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def mesh_not_ported(flag: str) -> str:
-    return f"{flag}: not yet ported (ROADMAP A.14, the mesh axes)"
+    return f"{flag}: not yet ported (ROADMAP A.14b, the training mesh)"
 
 
 @dataclasses.dataclass
@@ -370,7 +370,7 @@ def make_train_step(cfg: TrainConfig, optimizer: AdamCosine, *,
     training step (forward, backward, optimiser update, with TF32 off),
     updating ``net`` and ``opt_state`` in place; loss and accuracy stay
     on the device. The JAX trainer's mesh, pipeline and spatial steps are
-    not ported (ROADMAP A.14)."""
+    not ported (ROADMAP A.14b)."""
     n_layers = len(cfg.layer_configs)
     per_layer = cfg.per_layer_scale if qat_per_layer is None else qat_per_layer
 
@@ -538,7 +538,7 @@ def train(cfg: TrainConfig, train_data, val_data, out_dir: str,
           checkpoint_path: str | None = None, resume: bool = False,
           compute_dtype: str = "float32", grad_accum: int = 1,
           augment: bool = False, qat: bool = False, aux_data=None,
-          aux_bce: bool = False, device="cuda"):
+          aux_bce: bool = False, device="cuda", init=None):
     """Full two-phase pipeline on ``device``. ``train_data``/``val_data``
     are (images (N, S, S) f32 [0,1], labels (N,)) tuples. Returns the
     exported ArtifactBundle, or None when SIGTERM stopped phase 1.
@@ -549,6 +549,9 @@ def train(cfg: TrainConfig, train_data, val_data, out_dir: str,
     every phase-1 frame to per-class sigmoid BCE and binarises the
     composite targets to multi-hot 1/1. Phase 2, best-val selection and
     export see only the clean single-label data.
+
+    ``init``: phase 1's starting parameters as a ``params_to_numpy`` dict
+    (the JAX trainer's draw, say), in place of ``init_params``' draw.
 
     SIGTERM (from the main thread) finishes the current epoch, writes the
     checkpoint and returns None for a later ``resume``; the previous
@@ -574,7 +577,8 @@ def train(cfg: TrainConfig, train_data, val_data, out_dir: str,
         imgs_p1 = np.concatenate([imgs_t, np.asarray(aux_imgs, np.float32)])
         labels_p1 = np.concatenate([onehot, aux_soft])
 
-    net = init_params(cfg, torch.Generator().manual_seed(cfg.seed)).to(dev)
+    net = (init_params(cfg, torch.Generator().manual_seed(cfg.seed))
+           if init is None else params_from_numpy(init)).to(dev)
     # the schedule steps once per optimiser update, so the cosine spans
     # epochs * updates_per_epoch; with accumulation an update is grad_accum
     # steps
