@@ -183,6 +183,23 @@ one line each, in order; any failure raises:
                 nvcc lookup refusing) and the kernel cache moved aside:
                 it installs the container's sm_90a library and detects
                 equal to CUDAEngine(mega)
+  train mesh  — the training mesh at lyr3-std full width (128x128,
+                1->16->32->64), batch 256 real-photo tiles, from the JAX
+                trainer's seed-0 draw, on positions of cuda:0: one step
+                per layout (dp 2, dp x tp 2x2, ZeRO-1 on 4 with its
+                moments in 4 blocks, pipe 3 at microbatch 32 with and
+                without remat, pipe 2x3, space 4, space 2x4) held to the
+                plain step on the card (train parity's tolerance), then
+                3 more steps, the loss falling; train_cnn --mesh 1
+                --zero1 --checkpoint DIR for 2 epochs, then --resume
+                --epochs 3 ("(sharded) at epoch 2", steps 2 and 3 kept,
+                a bundle), and infer --mode mega on that bundle; two gloo
+                processes on cuda:0: one global step through
+                global_batches (dp, then ZeRO-1 with the moments' blocks
+                split across them) bit-equal across ranks and held to
+                the plain step, a ShardedCheckpointer round trip, then
+                train_cnn --num-processes 2 --epochs 1 (both exit 0, the
+                primary alone exports); dryrun_train on 4 positions
   verify      — tpu_cnn_torch.apps.verify --device cuda for lyr3-std
                 (shipped weights) and lyr4-wide (seeded weights): all seven
                 backends bit-exact and every engine head, multi boxes,
@@ -210,7 +227,9 @@ one line each, in order; any failure raises:
                 EMA FPS and median engine ms (lyr3-std mega, --fused and the
                 host-head protocol) and its stages timed one by one; the
                 deployable's detect (each family's mega container) against
-                CUDAEngine.detect_batch at buckets 8 and 1536;
+                CUDAEngine.detect_batch at buckets 8 and 1536; the train
+                step of each training layout against the plain step at
+                batch 256 (host clock around synchronised steps, in turns);
                 lyr3-std's async-pipelined FPS at batch 1536 of
                 CUDAEngine(mega) against MeshEngine(mega) on one and two
                 positions (in turns; the wrapper's overhead on one card),
@@ -224,8 +243,9 @@ one line each, in order; any failure raises:
 Phases 4-6, the probe, the swap, the host server, the preprocess, the
 realtime runs, the eval, tracking, dump and train_bbox runs, the six
 train paths, each benchmark run, the deployment paths (serve_native,
-the deployable, the serving load, the host ingest) and the doctor are
-the main paths, once per path: every
+the deployable, the serving load, the host ingest), the doctor, the
+mesh paths and the training mesh paths are the main paths, once per
+path: every
 kernel launch
 counter is set to 0 before a path's phases and read after them, and each
 kernel of that path must have launched there and no other kernel
@@ -244,7 +264,9 @@ serving load: the megakernel; the host ingest and the doctor: none; the
 mesh paths, infer/serve --mode mesh and the dry run: what mega runs on
 the family; the nvcc-free deployable: the engine it is held to; the
 multi-process engine: none
-here, their children's launches checked apart). The line before the last
+here, their children's launches checked apart; the training mesh paths,
+the sharded CLI run, the multi-process training and dryrun_train: none;
+infer on the sharded run's bundle: the megakernel). The line before the last
 is a JSON object with each
 kernel's launches (summed over the paths), error, times and bound (and
 the conv kernel's pooled time and bound on lyr3-std); the last line is
@@ -297,8 +319,10 @@ from tpu_cnn_torch.head.classify import classify_np, multi_scores_np, pool_for_h
 from tpu_cnn_torch.head.tracker import Tracker  # noqa: E402
 from tpu_cnn_torch.models.registry import default_shifts, get_config  # noqa: E402
 from tpu_cnn_torch.native.preprocess import preprocess_frames_native  # noqa: E402
-from tpu_cnn_torch.parallel.dryrun import dryrun_mesh  # noqa: E402
-from tpu_cnn_torch.parallel.mesh import MeshEngine, make_mesh  # noqa: E402
+from tpu_cnn_torch.parallel.dryrun import dryrun_mesh, dryrun_train  # noqa: E402
+from tpu_cnn_torch.parallel.mesh import MeshEngine, RowShards, make_mesh  # noqa: E402
+from tpu_cnn_torch.parallel.pipeline import make_pipeline_mesh  # noqa: E402
+from tpu_cnn_torch.parallel.spatial import make_spatial_mesh  # noqa: E402
 from tpu_cnn_torch.ops import _build, bitcast, conv_pool, detect_head, int8, mega, quant  # noqa: E402
 from tpu_cnn_torch.ops import preprocess as dev_preprocess  # noqa: E402
 from tpu_cnn_torch.ops.luma import pack_bgrx  # noqa: E402
@@ -2499,6 +2523,291 @@ def _same_calibration(flags, got, want, t_mega, t_cpu) -> None:
                    f"(in a child, {CHILD_THREADS} OpenMP threads)")
 
 
+TRAIN_MESH_BATCH = 256  # the training mesh paths: the first real-photo tiles
+TRAIN_MESH_STEPS = 4  # one step held to the plain step, then 3 more: falling
+# the training layouts on positions of cuda:0: (name, mesh, step options)
+TRAIN_MESH_LAYOUTS = [
+    ("dp 2", lambda: make_mesh(devices=_card_positions(2)), {}),
+    ("dp x tp 2x2", lambda: make_mesh(model_axis=2, devices=_card_positions(4)), {}),
+    ("zero1 4", lambda: make_mesh(devices=_card_positions(4)), {"zero1": True}),
+    ("pipe 3", lambda: make_pipeline_mesh(3, devices=_card_positions(3)),
+     {"microbatch": 32}),
+    ("pipe 3 remat", lambda: make_pipeline_mesh(3, devices=_card_positions(3)),
+     {"microbatch": 32, "remat": True}),
+    ("pipe 2x3", lambda: make_pipeline_mesh(6, data_axis=2,
+                                            devices=_card_positions(6)),
+     {"microbatch": 32}),
+    ("space 4", lambda: make_spatial_mesh(4, devices=_card_positions(4)), {}),
+    ("space 2x4", lambda: make_spatial_mesh(8, data_axis=2,
+                                            devices=_card_positions(8)), {}),
+]
+
+
+def _mesh_batch(dev: torch.device):
+    imgs, labels = BinFolderDataset(TRAIN_BINS).arrays()
+    return (torch.from_numpy(imgs[:TRAIN_MESH_BATCH]).to(dev),
+            torch.from_numpy(labels[:TRAIN_MESH_BATCH].astype(np.int64)).to(dev))
+
+
+def _mesh_steps(mesh, kw, bi, bl, n: int):
+    """n train steps of lyr3-std from the JAX trainer's seed-0 draw with
+    Adam at the trainer's lr: (losses, parameters after the first step,
+    the optimiser state, the step)."""
+    cfg = train_cnn.TrainConfig()
+    net = train_cnn.params_from_numpy(jax_seed0_draw(), device=bi.device)
+    opt = train_cnn.AdamCosine(cfg.lr)
+    state = opt.init(net.params())
+    step = train_cnn.make_train_step(cfg, opt, mesh, **kw)
+    losses, first = [], None
+    for i in range(n):
+        losses.append(float(step(net, state, bi, bl)[0]))
+        if i == 0:
+            first = train_cnn.params_to_numpy(net)
+    return losses, first, state, lambda: step(net, state, bi, bl)
+
+
+def _held_to(tag: str, loss, params, want_loss, want_params) -> str:
+    """train_parity's tolerance for one step against the plain step: the
+    loss within LOSS_RTOL, the parameters within PARAM_ATOL or at most
+    FAR_SHARE of them off, each by under 2 lr."""
+    rel = abs(loss - want_loss) / abs(want_loss)
+    check(rel <= LOSS_RTOL, f"{tag}: loss {loss!r}, the plain step's {want_loss!r}")
+    limit = 2 * train_cnn.TrainConfig().lr
+    worst, far = 0.0, 0
+    for k, want in want_params.items():
+        diff = np.abs(params[k] - want)
+        off = diff > PARAM_ATOL
+        check(off.mean() <= FAR_SHARE and diff.max() < limit,
+              f"{tag}: {k} off by up to {diff.max()!r}, {int(off.sum())} of "
+              f"{diff.size} elements past {PARAM_ATOL}")
+        worst, far = max(worst, float(diff.max())), far + int(off.sum())
+    return f"loss within {rel:.1e} rel, params within {worst:.1e} ({far} past {PARAM_ATOL})"
+
+
+def train_mesh_path(dev: torch.device) -> None:
+    """Every training layout on positions of cuda:0 at lyr3-std full width
+    (128x128, 1->16->32->64), batch TRAIN_MESH_BATCH real-photo tiles,
+    from the JAX trainer's seed-0 draw: its first step held to the plain
+    step on the card (_held_to), then 3 more steps, the loss falling; the
+    ZeRO-1 moments held as one block per data position."""
+    bi, bl = _mesh_batch(dev)
+    plain, plain_p, _, _ = _mesh_steps(None, {}, bi, bl, TRAIN_MESH_STEPS)
+    check(plain[-1] < plain[0], f"the plain step's losses {plain} do not fall")
+    lines = []
+    for name, make, kw in TRAIN_MESH_LAYOUTS:
+        mesh = make()
+        losses, first, state, _ = _mesh_steps(mesh, kw, bi, bl, TRAIN_MESH_STEPS)
+        line = _held_to(name, losses[0], first, plain[0], plain_p)
+        check(losses[-1] < losses[0], f"{name}: losses {losses} do not fall")
+        if kw.get("zero1"):
+            mu = state["mu"]["conv0"]
+            check(isinstance(mu, RowShards) and len(mu.parts) == 4,
+                  f"{name}: conv0's moments are {type(mu).__name__}, not 4 blocks")
+            line += "; moments in 4 blocks"
+        lines.append(f"{name} {mesh.devices.shape}: {line}, losses "
+                     f"{losses[0]:.5f} -> {losses[-1]:.5f}")
+    phase("train mesh", f"lyr3-std batch {TRAIN_MESH_BATCH}, one step per layout "
+                        f"on positions of cuda:0 against the plain step (losses "
+                        f"{plain[0]:.5f} -> {plain[-1]:.5f}): " + "; ".join(lines))
+
+
+def train_cli_sharded_path() -> None:
+    """train_cnn --device cuda --mesh 1 --zero1 --checkpoint DIR on the
+    real-photo tiles for 2 epochs, then --resume --epochs 3: the resume
+    line says "(sharded) at epoch 2", steps 2 and 3 are kept, a bundle is
+    exported."""
+    out = os.path.join(ROOT, "build", "chip_smoke", "train_sharded")
+    ck = os.path.join(out, "ckpt")
+    shutil.rmtree(out, ignore_errors=True)
+    argv = ["--device", "cuda", "--mesh", "1", "--zero1", "--checkpoint", ck,
+            "--bin-folder", TRAIN_BINS, "--val-bin-folder", VAL_BINS,
+            "--output-dir", out]
+    t0 = time.perf_counter()
+    _, text = _quiet(train_cnn.main, argv + ["--epochs", "2"])
+    check("Mesh: 1 data x 1 model over 1 devices" in text, text[-2000:])
+    bundle, text = _quiet(train_cnn.main, argv + ["--epochs", "3", "--resume"])
+    wall = time.perf_counter() - t0
+    resumed = next((ln for ln in text.splitlines() if "Resumed from" in ln), "")
+    check("(sharded) at epoch 2" in resumed and bundle is not None
+          and os.path.exists(os.path.join(out, "weights.bin")),
+          f"the sharded resume: {text[-2000:]}")
+    check(sorted(os.listdir(ck)) == ["2", "3"], f"kept steps {os.listdir(ck)}")
+    phase("train mesh", f"train_cnn --mesh 1 --zero1 --checkpoint DIR, 2 epochs "
+                        f"then --resume --epochs 3: '{resumed.strip()}', steps "
+                        f"2 and 3 kept, bundle exported; {wall:.2f} s")
+
+
+def infer_sharded_bundle_path() -> None:
+    """infer --mode mega on the bundle of train_cli_sharded_path."""
+    out = os.path.join(ROOT, "build", "chip_smoke", "train_sharded")
+    acc = _accuracy_line(["--mode", "mega", "--device", "cuda", "--artifacts", out,
+                          "--image-dir", VAL_BINS, "--no-save"])
+    phase("train mesh", f"infer --mode mega on the sharded run's bundle: {acc}")
+
+
+_TRAIN_CHILD = r"""
+import json, sys
+import numpy as np, torch, torch.distributed as dist
+from tpu_cnn_torch.parallel import multihost as mh
+from tpu_cnn_torch.parallel.mesh import make_mesh
+from tpu_cnn_torch.train import train_cnn as T
+from tpu_cnn_torch.train.checkpoint_sharded import ShardedCheckpointer
+rank, world, port, data, out, ck = sys.argv[1:7]
+rank, world = int(rank), int(world)
+mh.init_multihost(f"127.0.0.1:{port}", world, rank)
+d = np.load(data)
+dev = torch.device("cuda", 0)
+mesh = make_mesh(devices=[dev])
+cfg = T.TrainConfig()
+res = {}
+for tag, zero1 in (("dp", False), ("zero1", True)):
+    net = T.params_from_numpy({k: d[k] for k in ("conv0", "conv1", "conv2",
+                                                 "fc_w", "fc_b")}, device=dev)
+    opt = T.AdamCosine(cfg.lr)
+    state = opt.init(net.params())
+    (bi, bl), = mh.global_batches(mesh, [(d["images"], d["labels"])])
+    loss, _ = T.make_train_step(cfg, opt, mesh, zero1=zero1)(
+        net, state, torch.from_numpy(bi).to(dev), torch.from_numpy(bl).to(dev))
+    res[tag + "_loss"] = float(loss)
+    res.update({f"{tag}_{k}": v for k, v in T.params_to_numpy(net).items()})
+blocks = {k: (v.first, len(v.parts)) for k, v in state["mu"].items()}
+with ShardedCheckpointer(ck) as c:
+    c.save(1, net.params(), state, 0.5, net.params())
+dist.barrier()  # every piece in place before anyone restores
+like = T.AdamCosine(cfg.lr).init(net.params())
+T.zero1_constrain(like, mesh)
+p, o, epoch, acc, _ = ShardedCheckpointer(ck).restore(net.params(), like)
+same = (epoch, acc) == (1, 0.5) and all(
+    torch.equal(a, b) for g in ("mu", "nu") for k in o[g]
+    for a, b in zip(o[g][k].parts, state[g][k].parts)) and all(
+    torch.equal(p[k], v) for k, v in net.params().items())
+np.savez(out, **res)
+mh.shutdown_multihost()
+print(json.dumps({"blocks": blocks, "restored": bool(same)}))
+"""
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _run_ranks(argvs, tag: str, timeout: float = 600) -> list[str]:
+    """One process per argv, each with a time limit and killed on failure;
+    returns their standard outputs."""
+    procs = []
+    try:
+        for argv in argvs:
+            procs.append(subprocess.Popen(
+                [sys.executable, *argv], cwd=ROOT,
+                env=dict(os.environ, PYTHONPATH=ROOT), stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True))
+        outs = [p.communicate(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:  # a wedged rank must not outlive the phase
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for rank, (p, (_, err)) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"{tag} rank {rank}: exit {p.returncode}: "
+                                 f"{err[-3000:]}")
+    return [o for o, _ in outs]
+
+
+def multihost_train_path(dev: torch.device) -> None:
+    """Two gloo processes on cuda:0, one position each: one global step
+    through global_batches (dp, then ZeRO-1 with the moments' blocks split
+    across the processes), the parameters bit-equal across ranks and held
+    to the single-process plain step (_held_to); a ShardedCheckpointer
+    round trip of the ZeRO-1 state under both ranks; then the train_cnn
+    CLI with --num-processes 2 for one epoch, both ranks exiting 0 and
+    only the primary writing its bundle."""
+    d = os.path.join(ROOT, "build", "chip_smoke", "multihost_train")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    bi, bl = _mesh_batch(dev)
+    draw = jax_seed0_draw()
+    data = os.path.join(d, "data.npz")
+    np.savez(data, images=bi.cpu().numpy(), labels=bl.cpu().numpy(), **draw)
+    port = _free_port()
+    t0 = time.perf_counter()
+    outs = _run_ranks([["-c", _TRAIN_CHILD, str(r), "2", str(port), data,
+                        os.path.join(d, f"step{r}.npz"), os.path.join(d, "ckpt")]
+                       for r in range(2)], "multi-process step")
+    infos = [json.loads(o.splitlines()[-1]) for o in outs]
+    plain, plain_p, _, _ = _mesh_steps(None, {}, bi, bl, 1)
+    got = [np.load(os.path.join(d, f"step{r}.npz")) for r in range(2)]
+    lines = []
+    for tag in ("dp", "zero1"):
+        p0 = {k: got[0][f"{tag}_{k}"] for k in plain_p}
+        check(all(np.array_equal(p0[k], got[1][f"{tag}_{k}"]) for k in p0),
+              f"multi-process {tag} step: the ranks' parameters differ")
+        lines.append(f"{tag} " + _held_to(f"multi-process {tag}",
+                                         float(got[0][f"{tag}_loss"]), p0,
+                                         plain[0], plain_p))
+    check([i["blocks"]["conv0"] for i in infos] == [[0, 1], [1, 1]]
+          and all(i["restored"] for i in infos),
+          f"multi-process ZeRO-1 blocks or restore: {infos}")
+    t_step = time.perf_counter() - t0
+    port = _free_port()
+    t0 = time.perf_counter()
+    _run_ranks([["-m", "tpu_cnn_torch.train.train_cnn", "--device", "cuda",
+                 "--num-processes", "2", "--coordinator", f"127.0.0.1:{port}",
+                 "--process-id", str(r), "--epochs", "1", "--bin-folder",
+                 TRAIN_BINS, "--val-bin-folder", VAL_BINS, "--output-dir",
+                 os.path.join(d, f"bundle{r}")] for r in range(2)],
+               "train_cnn --num-processes 2")
+    check(os.path.exists(os.path.join(d, "bundle0", "weights.bin"))
+          and not os.path.exists(os.path.join(d, "bundle1")),
+          "train_cnn --num-processes 2: the bundle was not written by the "
+          "primary alone")
+    phase("train mesh", f"2 gloo processes on cuda:0, batch {TRAIN_MESH_BATCH} "
+                        f"split by global_batches: ranks bit-equal; "
+                        + "; ".join(lines) + f"; ZeRO-1 blocks "
+                        f"{[i['blocks']['conv0'] for i in infos]} restored by "
+                        f"both ({t_step:.2f} s); train_cnn --num-processes 2 "
+                        f"--epochs 1: both exit 0, the primary alone exported "
+                        f"({time.perf_counter() - t0:.2f} s)")
+
+
+def dryrun_train_path() -> None:
+    done = dryrun_train(4, _card_positions(4))
+    phase("train mesh", "dryrun_train on 4 positions of cuda:0: " + "; ".join(
+        f"{k} {v}" for k, v in done.items()))
+
+
+def train_mesh_times(card: str) -> None:
+    """ms per train step at batch TRAIN_MESH_BATCH (lyr3-std, 128x128) of
+    each layout against the plain step, in turns plain, layout, layout,
+    plain (3 steps each after one warm-up, host clock around
+    synchronised steps), on positions of cuda:0: one card, so the mesh's
+    overhead, not scaling."""
+    dev = torch.device("cuda", 0)
+    bi, bl = _mesh_batch(dev)
+    plain_step = _mesh_steps(None, {}, bi, bl, 1)[3]
+
+    def ms(step, n: int = 3) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    rows = []
+    for name, make, kw in TRAIN_MESH_LAYOUTS:
+        step = _mesh_steps(make(), kw, bi, bl, 1)[3]
+        t = {"plain": [], name: []}
+        for k in ("plain", name, name, "plain"):
+            t[k].append(ms(plain_step if k == "plain" else step))
+        rows.append(f"{name} {statistics.median(t[name]):.2f} ms (plain "
+                    f"{statistics.median(t['plain']):.2f} ms)")
+    phase("7 times", f"train step, lyr3-std batch {TRAIN_MESH_BATCH} on {card}, "
+                     f"positions of cuda:0 (one card: the mesh's overhead, not "
+                     f"scaling): " + "; ".join(rows))
+
+
 def per_layer_agreement(phase7: dict[int, float]) -> None:
     """The benchmark's ``--per-layer --modes pallas`` rows against phase 7's
     pooled conv_act medians on the same lyr3-std layers at the same batch."""
@@ -3146,12 +3455,22 @@ def main(argv=None) -> None:
     main_path("MultiHostEngine (2 gloo processes)", (), multihost_path)
     main_path("the deployable with nvcc hidden (the engine it is held to "
               "launches K1 here)", ("mega_cnn",), nvcc_free_deploy_path)
+    main_path("training mesh (every layout on positions of cuda:0)", (),
+              lambda: train_mesh_path(dev))
+    main_path("train_cnn --mesh 1 --zero1 --checkpoint DIR, --resume", (),
+              train_cli_sharded_path)
+    main_path("infer --mode mega on that bundle", ("mega_cnn",),
+              infer_sharded_bundle_path)
+    main_path("multi-process training (2 gloo processes)", (),
+              lambda: multihost_train_path(dev))
+    main_path("dryrun_train (4 positions of cuda:0)", (), dryrun_train_path)
 
     for variant in ARTIFACTS:
         verify_cli(variant)
 
     ms = times(dev, card, args.profile_out)
     per_layer_agreement(ms["conv_act pooled layers"])
+    train_mesh_times(card)
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "tpu_cnn")]
     check(not loaded, f"the JAX package or jax was imported: {loaded[:5]}")

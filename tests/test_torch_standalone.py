@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``tpu_cnn_torch`` and not
-``chip_smoke.py`` imports the JAX package ``tpu_cnn`` or ``jax``, at the
-top or inside a function, and the port's modules and CLIs run in a process
-that refuses both imports.
+``chip_smoke.py`` imports the JAX package ``tpu_cnn``, ``jax`` or JAX's
+optimiser and checkpoint libraries ``optax`` and ``orbax``, at the top or
+inside a function, and the port's modules and CLIs run in a process that
+refuses those imports.
 
 The tests themselves import ``tpu_cnn``: holding the port's copies against
 their originals is their job (``test_torch_copies.py``)."""
@@ -21,7 +22,7 @@ PORT_FILES = sorted(
     for f in fs if f.endswith(".py")) + ["chip_smoke.py",
                                          "scripts/bench_serving_torch.py",
                                          "scripts/build_pretrained_torch.py"]
-REFUSED = ("jax", "tpu_cnn")
+REFUSED = ("jax", "tpu_cnn", "optax", "orbax")
 VERDICT = "VERDICT: DESIGN IS BIT-ACCURATE across all backends"
 
 
@@ -51,6 +52,7 @@ def test_the_scan_sees_the_port():
     assert _imports("tpu_cnn_torch/ops/_build.py")  # it does parse imports
     assert not _refused("tpu_cnn_torch.ops") and _refused("tpu_cnn.ops")
     assert _refused("jax.numpy") and not _refused("jaxlib_free")
+    assert _refused("optax") and _refused("orbax.checkpoint")
 
 
 @pytest.mark.parametrize("path", PORT_FILES)
@@ -63,9 +65,11 @@ _REFUSING_PROCESS = r"""
 import importlib, io, json, pkgutil, runpy, sys
 from contextlib import redirect_stdout
 
+REFUSED = ("jax", "tpu_cnn", "optax", "orbax")
+
 class Refuse:
     def find_spec(self, name, path=None, target=None):
-        if any(name == r or name.startswith(r + ".") for r in ("jax", "tpu_cnn")):
+        if any(name == r or name.startswith(r + ".") for r in REFUSED):
             raise ImportError(f"refused: {name}")
         return None
 
@@ -123,14 +127,15 @@ for argv in (["tpu_cnn_torch.apps.verify", "--device", "cpu",
         code, out.getvalue())
 runs["bundle"] = sorted(__import__("os").listdir(OUT))
 loaded = sorted(m for m in sys.modules
-                if any(m == r or m.startswith(r + ".") for r in ("jax", "tpu_cnn")))
+                if any(m == r or m.startswith(r + ".") for r in REFUSED))
 print(json.dumps({"modules": names, "runs": runs, "loaded": loaded}))
 """
 
 
 @pytest.fixture(scope="module")
 def refusing_run(tmp_path_factory):
-    """One process that refuses ``tpu_cnn`` and ``jax``: imports every
+    """One process that refuses ``tpu_cnn``, ``jax``, ``optax`` and
+    ``orbax``: imports every
     port module, then runs the port's CLIs as ``python -m`` (the trainer
     into a temporary bundle directory)."""
     # one thread, as the suite pins torch in every file: the process runs

@@ -692,32 +692,45 @@ def _folder(tmp_path):
 
 
 @pytest.mark.parametrize("case", ["synthetic-bf16", "synthetic-qat", "bins",
-                                  "folder", "coco"])
+                                  "folder", "coco", "mesh-4x2", "pipeline-2x3",
+                                  "spatial-2x4", "mesh-8-zero1"])
 def test_train_cli_every_ported_flag(case, tmp_path, capsys):
     from tpu_cnn_torch.apps.common import load_model
 
     out = str(tmp_path / "out")
     base = ["--device", "cpu", "--variant", "lyr3-tiny", "--epochs", "1",
             "--batch-size", "8", "--output-dir", out]
+    synthetic = ["--synthetic", "--max-per-class", "50"]
+
+    def bins():
+        return ["--bin-folder", _bins(str(tmp_path / "tr"), 4),
+                "--val-bin-folder", _bins(str(tmp_path / "va"), 2, seed=1),
+                "--max-per-class", "3"]
+
     argv = {
-        "synthetic-bf16": ["--synthetic", "--max-per-class", "50", "--bf16",
-                           "--grad-accum", "2", "--per-layer-scale",
-                           "--lr", "2e-3", "--seed", "3"],
-        "synthetic-qat": ["--synthetic", "--max-per-class", "50", "--qat",
-                          "--augment", "--composite-frac", "0.25",
-                          "--composite-loss", "bce", "--shifts", "1,3,5"],
-        "bins": ["--bin-folder", _bins(str(tmp_path / "tr"), 4),
-                 "--val-bin-folder", _bins(str(tmp_path / "va"), 2, seed=1),
-                 "--max-per-class", "3", "--checkpoint",
-                 str(tmp_path / "c.npz")],
+        "synthetic-bf16": synthetic + ["--bf16", "--grad-accum", "2",
+                                       "--per-layer-scale", "--lr", "2e-3",
+                                       "--seed", "3"],
+        "synthetic-qat": synthetic + ["--qat", "--augment", "--composite-frac",
+                                      "0.25", "--composite-loss", "bce",
+                                      "--shifts", "1,3,5"],
+        "bins": bins() + ["--checkpoint", str(tmp_path / "c.npz")],
         "folder": _folder(tmp_path),
         "coco": _coco(tmp_path),
+        "mesh-4x2": bins() + ["--mesh", "4x2", "--bf16", "--qat", "--grad-accum",
+                              "2", "--composite-frac", "0.5"],
+        "pipeline-2x3": bins() + ["--pipeline", "2x3", "--microbatch", "4",
+                                  "--remat", "--augment"],
+        "spatial-2x4": bins() + ["--spatial", "2x4"],
+        "mesh-8-zero1": bins() + ["--mesh", "8", "--zero1", "--grad-accum", "2",
+                                  "--checkpoint", str(tmp_path / "ckpt")],
     }[case]
     bundle = T.main(base + argv)
     text = capsys.readouterr().out
     assert "Exported: weights.bin" in text
     model = load_model(out, "lyr3-tiny")
     assert model.kernels[0].shape == (16, 1, 3, 3)
+    assert all(np.isfinite(k).all() for k in bundle.kernels)
     if case == "synthetic-bf16":
         assert all(np.abs(k).max() == 127 for k in bundle.kernels)
     if case == "synthetic-qat":
@@ -730,21 +743,61 @@ def test_train_cli_every_ported_flag(case, tmp_path, capsys):
     if case == "folder":
         assert json.load(open(os.path.join(out, "classes.json"))) == [
             "alpha", "beta", "gamma"]
+    banner = {"mesh-4x2": "Mesh: 4 data x 2 model over 8 devices",
+              "pipeline-2x3": "Pipeline: 2 data x 3 stages over 6 devices "
+                              "(microbatch 4)",
+              "spatial-2x4": "Spatial: 2 data x 4 row shards over 8 devices",
+              "mesh-8-zero1": "Mesh: 8 data x 1 model over 8 devices"}.get(case)
+    if banner:
+        assert banner in text
+    if case == "mesh-8-zero1":
+        T.main(base + argv + ["--resume", "--epochs", "2"])
+        assert (f"Resumed from {tmp_path / 'ckpt'} (sharded) at epoch 1"
+                in capsys.readouterr().out)
 
 
-@pytest.mark.parametrize("argv,flag", [
-    (["--mesh", "2"], "--mesh"), (["--pipeline", "2"], "--pipeline"),
-    (["--spatial", "2"], "--spatial"), (["--zero1"], "--zero1"),
-    (["--remat"], "--remat"), (["--microbatch", "2"], "--microbatch"),
-    (["--coordinator", "localhost:1234"], "--coordinator"),
-    (["--num-processes", "2"], "--num-processes"),
-    (["--checkpoint", "ckpt_dir"], "--checkpoint DIR")])
-def test_train_cli_mesh_flags_exit_2(argv, flag, capsys):
+MESH_REFUSALS = {  # name -> (argv, the refusal's exit code or exception)
+    "exclusive": (["--mesh", "2", "--pipeline", "3"], 2),
+    "no coordinator": (["--num-processes", "2"], 2),
+    "multi-host pipeline": (["--num-processes", "2", "--coordinator",
+                             "127.0.0.1:1", "--pipeline", "3"], 2),
+    "mesh batch": (["--mesh", "3", "--batch-size", "16"], 2),
+    "pipeline batch": (["--pipeline", "2x3", "--microbatch", "3",
+                        "--batch-size", "16"], 2),
+    "spatial batch": (["--spatial", "3x2", "--batch-size", "16"], 2),
+    "zero1 on 4x2": (["--mesh", "4x2", "--zero1"], ValueError),
+    "bf16 pipeline": (["--pipeline", "3", "--bf16"], ValueError),
+    "bf16 spatial": (["--spatial", "4", "--bf16"], ValueError),
+    "qat pipeline": (["--pipeline", "3", "--qat"], ValueError),
+    "qat spatial": (["--spatial", "4", "--qat"], ValueError),
+    "straddling spatial": (["--spatial", "8"], ValueError),
+}
+
+
+def _refusal(main, argv, kind, capsys):
+    """What ``main(argv)`` refuses with: the exit code and argparse's
+    message, or the exception's text."""
+    if kind is ValueError:
+        with pytest.raises(ValueError) as e:
+            main(argv)
+        return str(e.value)
     with pytest.raises(SystemExit) as e:
-        T.main(["--device", "cpu", "--synthetic"] + argv)
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert flag in err and "ROADMAP A.14b" in err
+        main(argv)
+    assert e.value.code == kind
+    return capsys.readouterr().err.strip().splitlines()[-1].split("error: ", 1)[1]
+
+
+@pytest.mark.parametrize("name", list(MESH_REFUSALS))
+def test_train_cli_mesh_refusals_match_jax(name, tmp_path, capsys):
+    """The JAX CLI's own p.errors and ValueErrors for the mesh flags: the
+    same exit code and message from the port (on virtual CPU positions)."""
+    argv, kind = MESH_REFUSALS[name]
+    base = ["--synthetic", "--variant", "lyr3-tiny", "--epochs", "1",
+            "--max-per-class", "100", "--output-dir", str(tmp_path / "out")]
+    want = _refusal(J.main, base + argv, kind, capsys)
+    got = _refusal(T.main, ["--device", "cpu"] + base + argv, kind, capsys)
+    assert got == want
+    assert not os.path.exists(tmp_path / "out")
 
 
 def test_bench_train_counts_the_macs():

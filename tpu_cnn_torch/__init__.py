@@ -50,11 +50,17 @@ kernels (``csrc/``, built by ``ops._build``):
                             datasets, batching and augmentation
   - ``train.train_cnn``   — the two-phase QAT trainer: ``TrainNet`` (the
                             float net, ``F.conv2d`` with TF32 off), the
-                            optimiser ``AdamCosine``, phase 2 on the
-                            contract's plain int32 version, the Adam head
-                            fit ``fit_head``, export; its CLI
+                            optimiser ``AdamCosine``, the plain, (data,
+                            model) and ZeRO-1 train steps and the
+                            dispatch to the pipe/space twins, phase 2 on
+                            the contract's plain int32 version, the Adam
+                            head fit ``fit_head``, export; its CLI (every
+                            mesh and multi-host flag)
   - ``train.checkpoint``  — the ``.npz`` checkpoint (reads the JAX
                             trainer's too)
+  - ``train.checkpoint_sharded`` — the sharded checkpoint directory
+                            (``ShardedCheckpointer``: per-shard,
+                            asynchronous, retention)
   - ``utils``             — the weights.bin, bundle and feature-dump
                             codecs, artifact paths, the completion wait
                             and the progress watchdog,
@@ -63,12 +69,15 @@ kernels (``csrc/``, built by ``ops._build``):
                             reports (``metrics``), the export quantisers
                             (``weights``), and the card's peaks and
                             bounds (``roofline``)
-  - ``parallel``          — the mesh axes' serving half: ``Mesh`` and
-                            ``MeshEngine`` (``mesh``: data and model
-                            axes, one CUDA stream per position), the
-                            GPipe ``pipeline``, the row-sharded
-                            ``spatial`` forward, ``MultiHostEngine`` over
-                            gloo (``multihost``) and ``dryrun_mesh``
+  - ``parallel``          — the mesh axes: ``Mesh`` and ``MeshEngine``
+                            (``mesh``: data and model axes, one CUDA
+                            stream per position, the differentiable hop
+                            ``Mesh.hop``), the GPipe ``pipeline`` and
+                            ``pipeline_train``, the row-sharded
+                            ``spatial`` and ``spatial_train``,
+                            ``MultiHostEngine`` and ``global_batches``
+                            over gloo (``multihost``), and ``dryrun``
+                            (serving and training checks)
   - ``bench_gate``        — the bench's parity gate
   - ``apps``              — ``infer`` (with ``make_engine``, the engine
                             swap: ``--mode auto|mega|pallas|hybrid|xla|

@@ -103,12 +103,19 @@ class Mesh:
         with torch.cuda.stream(s):
             yield
 
-    def send(self, t: torch.Tensor, src: tuple, dst: tuple) -> torch.Tensor:
+    def _place(self, p) -> tuple[torch.device, torch.cuda.Stream | None]:
+        """The device and stream of a position, or of a :class:`Home`."""
+        if isinstance(p, Home):
+            return p.device, p.stream
+        return self.devices[p], self.stream(p)
+
+    def send(self, t: torch.Tensor, src, dst) -> torch.Tensor:
         """``t``, made on ``src``'s stream, for use on ``dst``'s (call it
         inside ``on(dst)``): ``dst`` waits for ``src``'s work so far, and
-        ``t`` moves to ``dst``'s device."""
-        dev = self.devices[dst]
-        s_src, s_dst = self.stream(src), self.stream(dst)
+        ``t`` moves to ``dst``'s device. ``src`` and ``dst`` are positions
+        or a :class:`Home`."""
+        dev, s_dst = self._place(dst)
+        s_src = self._place(src)[1]
         if s_src is not None and s_dst is not None and s_src != s_dst:
             s_dst.wait_stream(s_src)
             if t.device == dev:
@@ -119,6 +126,25 @@ class Mesh:
                 return out
         return t.to(dev, non_blocking=True)
 
+    def hop(self, t: torch.Tensor, src, dst) -> torch.Tensor:
+        """:meth:`send` as a differentiable op: the backward sends the
+        gradient from ``dst`` back to ``src``, ``src``'s stream waiting for
+        ``dst``'s (the transpose of the JAX package's ``ppermute`` hop).
+        Autograd runs the backward on the forward's stream, ``dst``'s."""
+        if not t.requires_grad:
+            return self.send(t, src, dst)
+        return _Hop.apply(t, self, src, dst)
+
+    def join(self, home: Home) -> None:
+        """``home``'s stream waits for the work queued so far on every
+        position."""
+        if home.stream is None:
+            return
+        for pos in self.positions():
+            s = self.stream(pos)
+            if s is not None and s != home.stream:
+                home.stream.wait_stream(s)
+
     def synchronize(self, timeout_s: float | None = TIMEOUT_S) -> None:
         """Bounded wait for the work queued so far on every position."""
         for pos in self.positions():
@@ -127,6 +153,66 @@ class Mesh:
                 ev = torch.cuda.Event()
                 ev.record(s)
                 wait_event(ev, timeout_s, diagnostics=lambda: f"mesh {pos}")
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Home:
+    """The caller's place beside a mesh: a device and the stream that was
+    current there when a step began (None on the CPU). Inside
+    ``Mesh.on(pos)`` the current stream is the position's, so a step takes
+    its home first."""
+
+    device: torch.device
+    stream: torch.cuda.Stream | None
+
+    @classmethod
+    def of(cls, device) -> "Home":
+        device = torch.device(device)
+        return cls(device, torch.cuda.current_stream(device)
+                   if device.type == "cuda" else None)
+
+
+class _Hop(torch.autograd.Function):
+    """``Mesh.send`` forward, the reverse send backward."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, src, dst):
+        ctx.mesh, ctx.src, ctx.dst = mesh, src, dst
+        out = mesh.send(t, src, dst)
+        return t.view_as(t) if out is t else out
+
+    @staticmethod
+    def backward(ctx, g):
+        out = ctx.mesh.send(g, ctx.dst, ctx.src)
+        return out, None, None, None
+
+
+@dataclasses.dataclass
+class RowShards:
+    """A tensor held as equal row blocks on a mesh's data positions (the
+    ZeRO-1 layout): ``parts[i]`` is row block ``first + i`` of
+    ``n_blocks``, held on ``positions[i]``'s device. Under multi-host the
+    other blocks belong to the other processes."""
+
+    parts: list
+    positions: list
+    first: int
+    n_blocks: int
+
+    @property
+    def shape(self) -> tuple:
+        rows, *rest = self.parts[0].shape
+        return (rows * self.n_blocks, *rest)
+
+    @property
+    def local(self) -> bool:
+        """Whether this process holds every block."""
+        return len(self.parts) == self.n_blocks
+
+    def rows(self, i: int) -> slice:
+        """The rows of ``parts[i]`` in the whole tensor."""
+        n = self.parts[0].shape[0]
+        return slice((self.first + i) * n, (self.first + i + 1) * n)
 
 
 def _grid(devices: Sequence[torch.device], shape: tuple) -> np.ndarray:

@@ -1,5 +1,5 @@
-"""Multi-process serving over ``torch.distributed`` (gloo) — the port of
-``tpu_cnn.parallel.multihost``'s inference half.
+"""Multi-process serving and training over ``torch.distributed`` (gloo) —
+the port of ``tpu_cnn.parallel.multihost``.
 
 The JAX package joins one process per host into one global runtime
 (``jax.distributed``) and runs one SPMD program over every chip of every
@@ -12,6 +12,13 @@ gathering of results to the host (:func:`allgather_to_host`). Results go
 to the host anyway, and NCCL refuses two ranks on one GPU, so gloo
 carries these small collectives. Each host feeds its own frames and gets
 exactly their results back (:func:`local_rows`).
+
+Training rides pure data parallelism: every process walks the same batch
+stream and takes its slice of each global batch (:func:`global_batches`),
+and the train step all-reduces its gradient over the processes as one
+flattened buffer staged through the host (:func:`allreduce_mean_`);
+ZeRO-1 gathers each process's updated parameter blocks the same way
+(:func:`allgather_blocks_`).
 """
 
 from __future__ import annotations
@@ -26,6 +33,9 @@ from tpu_cnn_torch.parallel.mesh import (MeshEngine, Sharded, local_devices,
 
 __all__ = [
     "MultiHostEngine",
+    "allgather_blocks_",
+    "allreduce_mean_",
+    "global_batches",
     "init_multihost",
     "shutdown_multihost",
     "is_primary",
@@ -141,6 +151,62 @@ def allgather_to_host(x) -> np.ndarray:
     out = [torch.empty_like(t) for _ in sizes]
     dist.all_gather(out, t)
     return np.concatenate([o.numpy()[:n] for o, n in zip(out, sizes)])
+
+
+def global_batches(mesh, host_batches):
+    """This process's slices of the global batches.
+
+    Every process iterates the same batch stream (same seed, same
+    permutation) and takes the contiguous slice of each global batch that
+    belongs to its positions: rows ``pid * k:(pid + 1) * k`` for ``k`` =
+    batch / processes. A global batch that does not tile every position
+    of every process is refused. Labels keep their dtype: integer labels
+    stay integers and dense (soft) targets float32 (the JAX version casts
+    both to int32, which zeroes 0.5/0.5 targets)."""
+    n_proc, pid = process_count(), process_index()
+    n_pos = mesh.size * n_proc
+    for bi, bl in host_batches:
+        if len(bi) % n_pos:
+            # no silent row drop: the data axis spans every position of
+            # every process, so the global batch must tile exactly
+            raise ValueError(
+                f"global batch {len(bi)} must divide by the mesh's device "
+                f"count {n_pos} ({n_proc} processes)")
+        k = len(bi) // n_proc
+        sl = slice(pid * k, (pid + 1) * k)
+        yield np.ascontiguousarray(bi[sl]), np.ascontiguousarray(bl[sl])
+
+
+def allreduce_mean_(tensors) -> None:
+    """Replace each tensor by its mean over the processes: one flattened
+    f32 buffer, summed over gloo on the host, divided by the process
+    count, copied back. Every process gets the same bits."""
+    flat = torch.cat([t.detach().reshape(-1).to("cpu", torch.float32)
+                      for t in tensors])
+    dist.all_reduce(flat)
+    flat /= process_count()
+    o = 0
+    for t in tensors:
+        n = t.numel()
+        t.copy_(flat[o:o + n].view(t.shape).to(t.dtype))
+        o += n
+
+
+def allgather_blocks_(tensors, shards) -> None:
+    """ZeRO-1's gather over processes: each process updated the rows of
+    ``tensors[i]`` that ``shards[i]`` (a ``RowShards``) holds; every
+    process's rows, flattened into one buffer, go to every process."""
+    per = [len(s.parts) * s.parts[0].shape[0] for s in shards]
+    mine = torch.cat([t[s.first * s.parts[0].shape[0]:][:n].reshape(-1).cpu()
+                      for t, s, n in zip(tensors, shards, per)])
+    out = [torch.empty_like(mine) for _ in range(process_count())]
+    dist.all_gather(out, mine)
+    for rank, buf in enumerate(out):
+        o = 0
+        for t, n in zip(tensors, per):
+            size = n * t[0].numel()
+            t[rank * n:(rank + 1) * n].copy_(buf[o:o + size].view(n, *t.shape[1:]))
+            o += size
 
 
 class MultiHostEngine:

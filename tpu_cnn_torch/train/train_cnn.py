@@ -21,9 +21,12 @@ and backward, with TF32 off and deterministic cuDNN (``exact_float``). Phase 2 r
 plain int32 version on the trainer's device, not the CUDA kernels: they
 implement no 24-bit wrap.
 
-Not ported (ROADMAP A.14b): the JAX trainer's device mesh, pipeline,
-spatial, ZeRO-1, remat and multi-host options and its orbax sharded
-checkpoint directory; the CLI refuses each with exit 2.
+The train step runs on a mesh of positions (``parallel.mesh.Mesh``) as the
+JAX trainer's does: the (data, model) step and ZeRO-1 here, the GPipe
+pipeline (``parallel.pipeline_train``) and the row-sharded step
+(``parallel.spatial_train``); one process per host joins the others over
+gloo (``parallel.multihost``), and a checkpoint path that is not a
+``.npz`` is the sharded checkpoint directory (``train.checkpoint_sharded``).
 """
 
 from __future__ import annotations
@@ -50,15 +53,12 @@ from tpu_cnn_torch.models.cnn import (
     QUANT_MAX,
 )
 from tpu_cnn_torch.ops import quant
+from tpu_cnn_torch.parallel.mesh import Home, Mesh, RowShards
 from tpu_cnn_torch.utils import artifacts as art
 from tpu_cnn_torch.utils import weights as weights_codec
 
 Params = dict[str, torch.Tensor]
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
-def mesh_not_ported(flag: str) -> str:
-    return f"{flag}: not yet ported (ROADMAP A.14b, the training mesh)"
 
 
 @dataclasses.dataclass
@@ -172,6 +172,19 @@ def params_to_numpy(net: TrainNet) -> dict[str, np.ndarray]:
     return {k: v.detach().cpu().numpy() for k, v in net.named_parameters()}
 
 
+def float_layer(x: torch.Tensor, k: torch.Tensor, padding=1) -> torch.Tensor:
+    """One float phase-1 layer: conv3x3 -> relu -> 2x2 max pool. The pool
+    is a max over a reshape, whose gradient splits evenly between equal
+    values, as the JAX trainer's does (``F.max_pool2d`` would send it all
+    to one of them, and after the ReLU many values tie at zero)."""
+    # a float conv, as the JAX trainer's lax.conv_general_dilated: the rule
+    # that the plain versions never call conv2d (ROADMAP C.3) binds the
+    # exact integer contract, not this float trainer
+    x = F.relu(F.conv2d(x, k, padding=padding))
+    b, c, h, w = x.shape
+    return x.reshape(b, c, h // 2, 2, w // 2, 2).amax(dim=(3, 5))
+
+
 def float_forward(params: Params, images: torch.Tensor, n_layers: int,
                   compute_dtype: str = "float32") -> torch.Tensor:
     """Float phase-1 network: conv3x3 (SAME) -> relu -> 2x2 max pool, x N
@@ -180,19 +193,12 @@ def float_forward(params: Params, images: torch.Tensor, n_layers: int,
     ``compute_dtype="bfloat16"`` is the mixed-precision mode (``--bf16``):
     the parameters stay f32 (master weights), the conv inputs and kernels
     are cast to bf16, activations travel bf16 between layers, and the GAP
-    and linear head run f32. The pool is a max over a reshape, whose
-    gradient splits evenly between equal values, as the JAX trainer's
-    does. Run it under :func:`exact_float` for f32 on a card."""
+    and linear head run f32. Run it under :func:`exact_float` for f32 on a
+    card."""
     cdt = DTYPES[compute_dtype]
     x = images[:, None].to(cdt)
     for i in range(n_layers):
-        # a float conv, as the JAX trainer's lax.conv_general_dilated: the
-        # rule that the plain versions never call conv2d (ROADMAP C.3)
-        # binds the exact integer contract, not this float trainer
-        x = F.conv2d(x, params[f"conv{i}"].to(cdt), padding=1)
-        x = F.relu(x)
-        b, c, h, w = x.shape
-        x = x.reshape(b, c, h // 2, 2, w // 2, 2).amax(dim=(3, 5))
+        x = float_layer(x, params[f"conv{i}"].to(cdt))
     feats = x.to(torch.float32).mean(dim=(2, 3))  # GAP (B, C)
     return feats @ params["fc_w"].T + params["fc_b"]
 
@@ -220,16 +226,22 @@ def fake_quant_convs(params: Params, n_layers: int,
 def loss_fn(params: Params, images: torch.Tensor, labels: torch.Tensor,
             n_layers: int, compute_dtype: str = "float32", qat: bool = False,
             qat_per_layer: bool = False, soft_bce: bool = False):
-    """(mean loss, train accuracy) of a batch. Integer labels: softmax
+    """(mean loss, train accuracy) of a batch (:func:`logits_loss`)."""
+    if qat:
+        params = fake_quant_convs(params, n_layers, qat_per_layer)
+    return logits_loss(float_forward(params, images, n_layers, compute_dtype),
+                       labels, soft_bce)
+
+
+def logits_loss(logits: torch.Tensor, labels: torch.Tensor,
+                soft_bce: bool = False):
+    """(mean loss, accuracy) of a batch's logits. Integer labels: softmax
     cross-entropy. Dense (B, K) targets (singles one-hot and the
     ``--composite-frac`` composites): softmax cross-entropy, or per-class
     sigmoid BCE under ``soft_bce``. Under ``soft_bce`` a row counts as a
     hit when the predicted class is present in it: multi-hot 1/1 rows have
     no dominant class, so the JAX trainer's ``labels.argmax`` scores noise
     there. The loss is the JAX trainer's in every case."""
-    if qat:
-        params = fake_quant_convs(params, n_layers, qat_per_layer)
-    logits = float_forward(params, images, n_layers, compute_dtype)
     pred = logits.argmax(-1)
     if labels.dim() == 2:
         if soft_bce:
@@ -328,51 +340,261 @@ class AdamCosine:
     def leaves(self, state: dict) -> list:
         """The state in the JAX optimiser state's leaf order: [MultiSteps'
         mini_step, gradient_step,] Adam's count, mu and nu (parameters by
-        name), the schedule's count[, the accumulated gradients]."""
+        name), the schedule's count[, the accumulated gradients]. A ZeRO-1
+        leaf (``RowShards``) comes out whole, which only a process holding
+        every block can give."""
         names = sorted(state["mu"])
 
         def count(n):
             return np.asarray(n, np.int32)
 
-        inner = ([count(state["count"])] + [state["mu"][k] for k in names]
-                 + [state["nu"][k] for k in names] + [count(state["sched_count"])])
+        def whole(t):
+            if not isinstance(t, RowShards):
+                return t
+            if not t.local:
+                raise ValueError(
+                    "this process holds only its blocks of a ZeRO-1 moment; "
+                    "a single-file .npz snapshot cannot hold it — use a "
+                    "sharded checkpoint DIR (each host writes its shards)")
+            return torch.cat([p.detach().cpu() for p in t.parts])
+
+        inner = ([count(state["count"])] + [whole(state["mu"][k]) for k in names]
+                 + [whole(state["nu"][k]) for k in names]
+                 + [count(state["sched_count"])])
         if self.every_k == 1:
             return inner
         return ([count(state["mini_step"]), count(state["gradient_step"])] + inner
-                + [state["acc"][k] for k in names])
+                + [whole(state["acc"][k]) for k in names])
 
     def from_leaves(self, leaves: list, like: dict) -> dict:
         """The inverse of :meth:`leaves`: a state shaped as ``like``, on
-        its tensors' devices."""
+        its tensors' devices (a ``RowShards`` leaf of ``like`` as its
+        blocks of the loaded array)."""
         names = sorted(like["mu"])
         it = iter(leaves)
         state = {}
         if self.every_k > 1:
             state["mini_step"], state["gradient_step"] = int(next(it)), int(next(it))
 
-        def tensors():
-            return {k: torch.as_tensor(np.asarray(next(it)), dtype=torch.float32,
-                                       device=like["mu"][k].device).clone()
-                    for k in names}
+        def tensors(group):
+            out = {}
+            for k in names:
+                a = torch.as_tensor(np.asarray(next(it)), dtype=torch.float32)
+                t = like[group][k]
+                if isinstance(t, RowShards):
+                    out[k] = dataclasses.replace(t, parts=[
+                        a[t.rows(i)].to(p.device).clone()
+                        for i, p in enumerate(t.parts)])
+                else:
+                    out[k] = a.to(t.device).clone()
+            return out
 
         state["count"] = int(next(it))
-        state["mu"], state["nu"] = tensors(), tensors()
+        state["mu"], state["nu"] = tensors("mu"), tensors("nu")
         state["sched_count"] = int(next(it))
         if self.every_k > 1:
-            state["acc"] = tensors()
+            state["acc"] = tensors("acc")
         return state
 
 
-def make_train_step(cfg: TrainConfig, optimizer: AdamCosine, *,
+def param_shard(name: str, p: torch.Tensor, m: int, j: int) -> torch.Tensor:
+    """Model-axis position ``j``'s block of parameter ``name`` (of ``m``):
+    a conv's output channels and ``fc_w``'s feature columns are split,
+    ``fc_b`` is whole. The counterpart of the JAX trainer's
+    ``param_shardings``."""
+    if name.startswith("conv"):
+        n = p.shape[0] // m
+        return p[j * n:(j + 1) * n]
+    if name == "fc_w":
+        n = p.shape[1] // m
+        return p[:, j * n:(j + 1) * n]
+    return p
+
+
+def zero1_constrain(opt_state: dict, mesh: Mesh) -> dict:
+    """ZeRO-1, the counterpart of the JAX trainer's ``_zero1_constrain``:
+    every Adam moment (and ``--grad-accum`` accumulator) leaf whose leading
+    dim is > 1 and divides by the data positions of every process is held
+    as ``RowShards``, this process's blocks on its data positions; scalars
+    and indivisible leaves stay whole. In place; returns ``opt_state``."""
+    from tpu_cnn_torch.parallel import multihost as mh
+
+    n_data = mesh.shape["data"]
+    n_blocks = n_data * mh.process_count()
+    first = n_data * mh.process_index()
+    positions = [(d,) + (0,) * (len(mesh.axis_names) - 1) for d in range(n_data)]
+    for group in ("mu", "nu", "acc"):
+        for k, t in opt_state.get(group, {}).items():
+            if (isinstance(t, RowShards) or t.dim() < 1 or t.shape[0] <= 1
+                    or t.shape[0] % n_blocks):
+                continue
+            rows = t.shape[0] // n_blocks
+            parts = []
+            for i, pos in enumerate(positions):
+                with mesh.on(pos):
+                    blk = t[(first + i) * rows:(first + i + 1) * rows]
+                    parts.append(blk.to(mesh.devices[pos], copy=True))
+            opt_state[group][k] = RowShards(parts, positions, first, n_blocks)
+    return opt_state
+
+
+def _zero1_update(optimizer: AdamCosine, mesh: Mesh, params: Params,
+                  grads: Params, state: dict, home: Home) -> None:
+    """The optimiser update of a ZeRO-1 state: each data position updates
+    its blocks of the sharded moments and the parameter rows they cover,
+    the whole leaves are updated once, and the updated blocks are
+    gathered into the parameters (from the other processes too)."""
+    from tpu_cnn_torch.parallel import multihost as mh
+
+    sharded = [k for k in params if isinstance(state["mu"][k], RowShards)]
+    whole = [k for k in params if k not in sharded]
+    counters = {c: state[c] for c in ("count", "sched_count", "mini_step",
+                                      "gradient_step") if c in state}
+    groups = [g for g in ("mu", "nu", "acc") if g in state]
+    after = counters
+    if sharded:
+        lead = state["mu"][sharded[0]]
+        for i, pos in enumerate(lead.positions):
+            sub = dict(counters, **{g: {k: state[g][k].parts[i] for k in sharded}
+                                    for g in groups})
+            p_blk, target = {}, {}
+            with mesh.on(pos):
+                for k in sharded:
+                    rows = state["mu"][k].rows(i)
+                    target[k] = params[k].detach()[rows]
+                    p_blk[k] = mesh.send(target[k], home, pos)
+                optimizer.update(p_blk, {k: mesh.send(grads[k][state["mu"][k].rows(i)],
+                                                      home, pos) for k in sharded},
+                                 sub)
+            for k in sharded:  # gather: a block held apart is copied back
+                if p_blk[k].data_ptr() != target[k].data_ptr():
+                    target[k].copy_(mesh.send(p_blk[k], pos, home))
+            after = sub
+    if whole:
+        sub = dict(counters, **{g: {k: state[g][k] for k in whole} for g in groups})
+        optimizer.update({k: params[k] for k in whole},
+                         {k: grads[k] for k in whole}, sub)
+        after = sub
+    mesh.join(home)
+    for c in counters:
+        state[c] = after[c]
+    if sharded and mh.process_count() > 1:
+        mh.allgather_blocks_([params[k].detach() for k in sharded],
+                             [state["mu"][k] for k in sharded])
+
+
+def _data_model_loss(mesh: Mesh, params: Params, images: torch.Tensor,
+                       labels: torch.Tensor, n_layers: int, cdt, soft_bce: bool,
+                       home: Home):
+    """(loss, accuracy) of the batch on a (data, model) mesh: the batch in
+    equal row blocks, one per data row; on each position its model block
+    of every conv's output channels, the activations gathered over the
+    row after each layer but the last, and its block of ``fc_w``'s
+    feature columns, the row's partial logits summed on its first
+    position. The loss and accuracy are the whole batch's: each block's
+    weighted by its share."""
+    n_data, m = mesh.devices.shape
+    b = images.shape[0]
+    if b % n_data:
+        raise ValueError(f"batch {b} not divisible by data axis {n_data}")
+    rows = b // n_data
+    x, w = {}, {}
+    for pos in mesh.positions():
+        d, j = pos
+        with mesh.on(pos):
+            w[pos] = {k: mesh.hop(param_shard(k, v, m, j), home, pos)
+                      for k, v in params.items()}
+            x[pos] = mesh.hop(images[d * rows:(d + 1) * rows], home, pos)[:, None].to(cdt)
+    for li in range(n_layers):
+        y = {}
+        for pos in x:
+            with mesh.on(pos):
+                y[pos] = float_layer(x[pos], w[pos][f"conv{li}"].to(cdt))
+        if m == 1 or li == n_layers - 1:
+            x = y
+            continue
+        x = {}
+        for dst in y:  # the all-gather over the model axis
+            with mesh.on(dst):
+                x[dst] = torch.cat([mesh.hop(y[(dst[0], j)], (dst[0], j), dst)
+                                    for j in range(m)], dim=1)
+    loss = acc = None
+    for d in range(n_data):
+        row = [(d, j) for j in range(m)]
+        parts = {}
+        for pos in row:
+            with mesh.on(pos):
+                feats = x[pos].to(torch.float32).mean(dim=(2, 3))
+                parts[pos] = feats @ w[pos]["fc_w"].T
+        first = row[0]
+        with mesh.on(first):
+            logits = parts[first]
+            for pos in row[1:]:
+                logits = logits + mesh.hop(parts[pos], pos, first)
+            l_d, a_d = logits_loss(logits + w[first]["fc_b"],
+                                   mesh.send(labels[d * rows:(d + 1) * rows],
+                                             home, first), soft_bce)
+        l_d, a_d = mesh.hop(l_d, first, home) / n_data, mesh.send(a_d, first, home) / n_data
+        loss, acc = (l_d, a_d) if loss is None else (loss + l_d, acc + a_d)
+    return loss, acc
+
+
+def make_train_step(cfg: TrainConfig, optimizer: AdamCosine,
+                    mesh: Mesh | None = None, *, microbatch: int = 4,
+                    remat: bool = False, zero1: bool = False,
                     compute_dtype: str = "float32", qat: bool = False,
                     qat_per_layer: bool | None = None, soft_bce: bool = False):
-    """``step(net, opt_state, images, labels) -> (loss, acc)``: one plain
+    """``step(net, opt_state, images, labels) -> (loss, acc)``: one
     training step (forward, backward, optimiser update, with TF32 off),
     updating ``net`` and ``opt_state`` in place; loss and accuracy stay
-    on the device. The JAX trainer's mesh, pipeline and spatial steps are
-    not ported (ROADMAP A.14b)."""
+    on ``net``'s device.
+
+    Without a mesh the plain step. With a ``data``/``model`` mesh the
+    batch is split over ``data`` and the conv output channels and fc
+    feature dim over ``model`` (:func:`param_shard`), the gradient being
+    the whole batch's, and under multi-host all-reduced over every
+    process. With a ``pipe`` mesh (``make_pipeline_mesh``) forward and
+    backward run as a GPipe pipeline with stage-held weights
+    (``parallel.pipeline_train``); with a ``space`` mesh
+    (``make_spatial_mesh``) image rows are sharded with a halo exchange
+    (``parallel.spatial_train``). ``zero1=True`` (pure-dp mesh only)
+    holds the optimiser state in data-position blocks
+    (:func:`zero1_constrain`). ``compute_dtype="bfloat16"`` runs the conv
+    math in bf16 with f32 master weights (``float_forward``)."""
+    axes = () if mesh is None else mesh.axis_names
+    if compute_dtype != "float32" and ("pipe" in axes or "space" in axes):
+        raise ValueError(
+            "bf16 compute is supported on the plain / data / model train "
+            "steps; the pipe/space twins run f32")
+    if qat and ("pipe" in axes or "space" in axes):
+        raise ValueError(
+            "qat=True (STE fake-quant) is supported on the plain / data / "
+            "model train steps; the pipe/space twins run plain float")
+    if "pipe" in axes:
+        from tpu_cnn_torch.parallel.pipeline_train import make_pipeline_train_step
+
+        return make_pipeline_train_step(cfg, optimizer, mesh,
+                                        microbatch=microbatch, remat=remat)
+    if "space" in axes:
+        from tpu_cnn_torch.parallel.spatial_train import make_spatial_train_step
+
+        return make_spatial_train_step(cfg, optimizer, mesh)
+    if zero1 and (mesh is None or "data" not in axes
+                  or mesh.shape.get("model", 1) != 1):
+        raise ValueError(
+            "zero1=True needs a pure data-parallel mesh (model axis 1) — "
+            "moments follow the data axis, which conflicts with "
+            "model-sharded params")
     n_layers = len(cfg.layer_configs)
     per_layer = cfg.per_layer_scale if qat_per_layer is None else qat_per_layer
+    cdt = DTYPES[compute_dtype]
+    if mesh is not None:
+        if axes != ("data", "model"):
+            raise ValueError(f"mesh must be ('data', 'model'), got {axes}")
+        m = mesh.shape["model"]
+        if any(oc % m for _, oc, _ in cfg.layer_configs):
+            raise ValueError(f"model axis {m} must divide every layer's "
+                             f"output channels {[oc for _, oc, _ in cfg.layer_configs]}")
 
     def step(net: TrainNet, opt_state: dict, images: torch.Tensor,
              labels: torch.Tensor):
@@ -380,9 +602,63 @@ def make_train_step(cfg: TrainConfig, optimizer: AdamCosine, *,
         with exact_float():
             for p in params.values():
                 p.grad = None
-            loss, acc = loss_fn(params, images, labels, n_layers, compute_dtype,
-                                qat, per_layer, soft_bce)
+            # the mesh reads the parameters through home-stream ops, so
+            # that their gradients accumulate on the home stream
+            used = (fake_quant_convs(params, n_layers, per_layer) if qat
+                    else {k: v.view_as(v) for k, v in params.items()})
+            if mesh is None:
+                loss, acc = logits_loss(float_forward(used, images, n_layers,
+                                                      compute_dtype), labels, soft_bce)
+                loss.backward()
+                optimizer.update(params, {k: p.grad for k, p in params.items()},
+                                 opt_state)
+                return loss.detach(), acc
+            from tpu_cnn_torch.parallel import multihost as mh
+
+            home = Home.of(images.device)
+            loss, acc = _data_model_loss(mesh, used, images, labels, n_layers,
+                                           cdt, soft_bce, home)
             loss.backward()
+            mesh.join(home)
+            grads = {k: p.grad for k, p in params.items()}
+            loss = loss.detach()
+            if mh.process_count() > 1:  # the gradient over every process
+                mh.allreduce_mean_([*grads.values(), loss, acc])
+            if zero1:
+                _zero1_update(optimizer, mesh, params, grads,
+                              zero1_constrain(opt_state, mesh), home)
+            else:
+                optimizer.update(params, grads, opt_state)
+        return loss, acc
+
+    return step
+
+
+def twin_step(optimizer: AdamCosine, mesh: Mesh, logits_fn):
+    """The train step of the pipe and space twins: ``logits_fn(params,
+    images, home)`` differentiated by autograd through the mesh's hops,
+    integer labels only (as the JAX twins' loss), then the plain optimiser
+    update. Returns ``step(net, opt_state, images, labels) -> (loss,
+    acc)``."""
+
+    def step(net: TrainNet, opt_state: dict, images: torch.Tensor,
+             labels: torch.Tensor):
+        if labels.dim() != 1:
+            raise ValueError(
+                "the pipe/space train steps take integer labels only, as "
+                "the JAX twins do: dense --composite-frac targets have no "
+                "pipelined or row-sharded step")
+        params = net.params()
+        home = Home.of(images.device)
+        with exact_float():
+            for p in params.values():
+                p.grad = None
+            # read through home-stream ops: the gradients accumulate there
+            logits = logits_fn({k: v.view_as(v) for k, v in params.items()},
+                               images, home)
+            loss, acc = logits_loss(logits, labels)
+            loss.backward()
+            mesh.join(home)
             optimizer.update(params, {k: p.grad for k, p in params.items()},
                              opt_state)
         return loss.detach(), acc
@@ -534,8 +810,9 @@ def _prefetch_to_device(host_batches, device: torch.device, depth: int = 2):
 
 
 def train(cfg: TrainConfig, train_data, val_data, out_dir: str,
-          class_names=None, verbose: bool = True,
+          class_names=None, mesh: Mesh | None = None, verbose: bool = True,
           checkpoint_path: str | None = None, resume: bool = False,
+          microbatch: int = 4, remat: bool = False, zero1: bool = False,
           compute_dtype: str = "float32", grad_accum: int = 1,
           augment: bool = False, qat: bool = False, aux_data=None,
           aux_bce: bool = False, device="cuda", init=None):
@@ -543,22 +820,37 @@ def train(cfg: TrainConfig, train_data, val_data, out_dir: str,
     are (images (N, S, S) f32 [0,1], labels (N,)) tuples. Returns the
     exported ArtifactBundle, or None when SIGTERM stopped phase 1.
 
+    ``mesh``, ``microbatch``, ``remat`` and ``zero1`` pick the train step
+    (:func:`make_train_step`); the parameters live on ``device``, the
+    mesh's positions hold their blocks during a step.
+
     ``aux_data`` = (images (M, S, S) f32, soft_targets (M, K) f32): extra
     phase-1-only frames with dense soft targets (``data.soft_composites``),
     mixed with one-hot singles under softmax CE; ``aux_bce=True`` switches
     every phase-1 frame to per-class sigmoid BCE and binarises the
     composite targets to multi-hot 1/1. Phase 2, best-val selection and
-    export see only the clean single-label data.
+    export see only the clean single-label data. The pipe and space steps
+    take integer labels only, so they refuse ``aux_data``.
 
     ``init``: phase 1's starting parameters as a ``params_to_numpy`` dict
     (the JAX trainer's draw, say), in place of ``init_params``' draw.
 
+    Multi-host (more than one process joined by
+    ``parallel.multihost.init_multihost``): ``mesh`` is this process's
+    data-only mesh, every process walks the same batches and feeds its
+    slice of each (``global_batches``), the step all-reduces the gradient;
+    only the primary prints, writes ``.npz`` snapshots and exports, while
+    every process computes the bundle.
+
     SIGTERM (from the main thread) finishes the current epoch, writes the
-    checkpoint and returns None for a later ``resume``; the previous
-    handler is restored on the way out. The ``.npz`` checkpoint holds the
-    parameters, the optimiser state, the best-val state and the
-    permutation/augmentation RNG, so a resumed run continues the unbroken
-    one (exactly, on the CPU)."""
+    checkpoint and returns None for a later ``resume`` (under multi-host
+    every process stops after the same epoch); the previous handler is
+    restored on the way out. A ``.npz`` checkpoint holds the parameters,
+    the optimiser state, the best-val state and the permutation and
+    augmentation RNG; any other path is the sharded checkpoint directory
+    (``checkpoint_sharded``), which holds the same. A resumed run continues
+    the unbroken one (exactly, on the CPU)."""
+    from tpu_cnn_torch.parallel import multihost as mh
     from tpu_cnn_torch.train import checkpoint as ckpt
     from tpu_cnn_torch.train.data import augment_batch, batches
 
@@ -567,6 +859,11 @@ def train(cfg: TrainConfig, train_data, val_data, out_dir: str,
     imgs_t, labels_t = train_data
     imgs_v, labels_v = val_data
     imgs_p1, labels_p1 = imgs_t, labels_t
+    axes = () if mesh is None else mesh.axis_names
+    if aux_data is not None and ("pipe" in axes or "space" in axes):
+        raise ValueError(
+            "dense composite targets (--composite-frac) have no pipelined or "
+            "row-sharded step: the pipe/space twins take integer labels only")
     if aux_data is not None:
         aux_imgs, aux_soft = aux_data
         aux_soft = np.asarray(aux_soft, np.float32)
@@ -576,6 +873,36 @@ def train(cfg: TrainConfig, train_data, val_data, out_dir: str,
             np.asarray(labels_t, int)]
         imgs_p1 = np.concatenate([imgs_t, np.asarray(aux_imgs, np.float32)])
         labels_p1 = np.concatenate([onehot, aux_soft])
+
+    # multi-host: the step and mesh are this process's; the feeding and
+    # the host-side singletons (prints, .npz snapshots, export) differ
+    multihost = mh.process_count() > 1
+    if multihost:
+        if (mesh is None or "data" not in axes or mesh.shape.get("model", 1) != 1
+                or "pipe" in axes or "space" in axes):
+            raise ValueError(
+                "multi-host training currently rides pure data parallelism "
+                "— pass a data-only mesh (model/pipe/space axes are "
+                "single-process features for now)")
+        # every rank decides on the gathered counts, so all refuse together
+        counts = mh._all_gather_ints([mesh.size])[:, 0]
+        if cfg.batch_size % int(counts.sum()):
+            raise ValueError(
+                f"batch_size {cfg.batch_size} must divide by the GLOBAL "
+                f"device count {int(counts.sum())} (the data axis spans every "
+                "chip of every host)")
+        # global_batches slices equal per-process shares: refuse an uneven
+        # topology up front instead of mis-sharding at step 1
+        if int(counts.min()) != int(counts.max()):
+            raise ValueError(
+                "multi-host training needs a homogeneous topology (equal "
+                f"local device counts per host; saw {counts.tolist()})")
+        if zero1 and checkpoint_path and checkpoint_path.endswith(".npz"):
+            raise ValueError(
+                "multi-host + --zero1 shards the optimizer state across "
+                "hosts; a single-file .npz snapshot cannot hold it — use "
+                "a sharded checkpoint DIR (each host writes its shards)")
+        verbose = verbose and mh.is_primary()
 
     net = (init_params(cfg, torch.Generator().manual_seed(cfg.seed))
            if init is None else params_from_numpy(init)).to(dev)
@@ -587,8 +914,11 @@ def train(cfg: TrainConfig, train_data, val_data, out_dir: str,
     optimizer = AdamCosine(cfg.lr, max(cfg.epochs, 1) * updates_per_epoch,
                            every_k=grad_accum)
     opt_state = optimizer.init(net.params())
-    step = make_train_step(cfg, optimizer, compute_dtype=compute_dtype,
+    step = make_train_step(cfg, optimizer, mesh, microbatch=microbatch,
+                           remat=remat, zero1=zero1, compute_dtype=compute_dtype,
                            qat=qat, soft_bce=aux_bce)
+    if zero1:  # the template a sharded restore fills in place
+        zero1_constrain(opt_state, mesh)
     n_layers = len(cfg.layer_configs)
 
     @torch.no_grad()
@@ -607,22 +937,49 @@ def train(cfg: TrainConfig, train_data, val_data, out_dir: str,
     if threading.current_thread() is threading.main_thread():
         old_sigterm = signal.signal(signal.SIGTERM,
                                     lambda signum, frame: preempted.set())
+    sharded_ckpt = None
     try:
+        # .npz -> single-file snapshot; any other path -> the sharded
+        # checkpoint directory (asynchronous, per shard, with retention)
+        if checkpoint_path and not checkpoint_path.endswith(".npz"):
+            from tpu_cnn_torch.train.checkpoint_sharded import ShardedCheckpointer
+
+            sharded_ckpt = ShardedCheckpointer(checkpoint_path)
         with exact_float():
-            if resume and checkpoint_path and os.path.exists(checkpoint_path):
-                params_np, leaves, done_epoch, best_acc, best_np = ckpt.load_checkpoint(
-                    checkpoint_path, net.params(), optimizer.leaves(opt_state),
-                    rng=rng)
-                with torch.no_grad():
-                    for k, p in net.params().items():
-                        p.copy_(torch.as_tensor(params_np[k]))
-                opt_state = optimizer.from_leaves(leaves, opt_state)
-                best_params = {k: torch.as_tensor(v, device=dev)
-                               for k, v in best_np.items()}
-                start_epoch = done_epoch + 1
-                if verbose:
-                    print(f"Resumed from {checkpoint_path} at epoch {done_epoch} "
-                          f"(best val {best_acc * 100:.1f}%)")
+            if resume and checkpoint_path:
+                restored = None
+                if sharded_ckpt is not None and sharded_ckpt.latest() is not None:
+                    restored = sharded_ckpt.restore(net.params(), opt_state, rng=rng)
+                    params_r, opt_state = restored[0], restored[1]
+                elif sharded_ckpt is None and os.path.exists(checkpoint_path):
+                    restored = ckpt.load_checkpoint(
+                        checkpoint_path, net.params(),
+                        optimizer.leaves(opt_state), rng=rng)
+                    params_r = restored[0]
+                    opt_state = optimizer.from_leaves(restored[1], opt_state)
+                if restored is not None:
+                    done_epoch, best_acc = restored[2], restored[3]
+                    with torch.no_grad():
+                        for k, p in net.params().items():
+                            p.copy_(torch.as_tensor(params_r[k]))
+                    best_params = {k: torch.as_tensor(v).to(dev)
+                                   for k, v in restored[4].items()}
+                    start_epoch = done_epoch + 1
+                    if verbose:
+                        kind = " (sharded)" if sharded_ckpt is not None else ""
+                        print(f"Resumed from {checkpoint_path}{kind} at epoch "
+                              f"{done_epoch} (best val {best_acc * 100:.1f}%)")
+            if multihost:
+                # resume consensus: only the primary writes .npz snapshots,
+                # so a per-host disk can show the file to some ranks only;
+                # divergent start epochs would hang the per-step collectives
+                seen = mh._all_gather_ints([start_epoch])[:, 0]
+                if int(seen.min()) != int(seen.max()):
+                    raise RuntimeError(
+                        "resume desync: ranks disagree on the checkpoint state "
+                        f"(start epochs {sorted(set(seen.tolist()))}) — put the "
+                        "checkpoint on storage visible to every host (or copy it "
+                        "to each) before --resume")
             if verbose:
                 aux_n = len(imgs_p1) - len(imgs_t)
                 print(f"Phase 1: float training ({cfg.epochs} epochs, "
@@ -637,9 +994,13 @@ def train(cfg: TrainConfig, train_data, val_data, out_dir: str,
                 losses, accs = [], []
                 host_stream = batches(imgs_p1, labels_p1, cfg.batch_size, rng)
                 if augment:
-                    # the permutation's rng: phase 2 and eval see clean images
+                    # the permutation's rng: phase 2 and eval see clean
+                    # images, and under multi-host every process augments
+                    # the whole global batch before slicing, in lockstep
                     host_stream = ((augment_batch(bi, rng), bl)
                                    for bi, bl in host_stream)
+                if multihost:
+                    host_stream = mh.global_batches(mesh, host_stream)
                 for bi, bl in _prefetch_to_device(host_stream, dev):
                     loss, acc = step(net, opt_state, bi, bl)
                     # metrics stay on the device: one fetch per epoch
@@ -652,7 +1013,10 @@ def train(cfg: TrainConfig, train_data, val_data, out_dir: str,
                     best_acc = vacc
                     best_params = {k: v.detach().clone()
                                    for k, v in net.params().items()}
-                if checkpoint_path:
+                if sharded_ckpt is not None:
+                    sharded_ckpt.save(epoch, net.params(), opt_state, best_acc,
+                                      best_params, rng=rng)
+                elif checkpoint_path and (not multihost or mh.is_primary()):
                     ckpt.save_checkpoint(checkpoint_path, net.params(),
                                          optimizer.leaves(opt_state), epoch,
                                          best_acc, best_params, rng=rng)
@@ -660,6 +1024,10 @@ def train(cfg: TrainConfig, train_data, val_data, out_dir: str,
                     print(f"  epoch {epoch:3d}: loss {np.mean(losses):.3f}  "
                           f"train {np.mean(accs) * 100:.1f}%  "
                           f"val {vacc * 100:.1f}%")
+                # under multi-host a rank that stopped alone would hang the
+                # others' next collective: every rank stops if any was told
+                if multihost and mh.consensus_max(int(preempted.is_set())):
+                    preempted.set()
                 if preempted.is_set():
                     break
     finally:
@@ -667,6 +1035,8 @@ def train(cfg: TrainConfig, train_data, val_data, out_dir: str,
         # the epoch loop must not leave the process swallowing the signal
         if old_sigterm is not None:
             signal.signal(signal.SIGTERM, old_sigterm)
+    if sharded_ckpt is not None:
+        sharded_ckpt.close()
     if preempted.is_set():
         if verbose:
             where = checkpoint_path or "(no --checkpoint given!)"
@@ -685,6 +1055,8 @@ def train(cfg: TrainConfig, train_data, val_data, out_dir: str,
     # only valid at the register setting they were trained at
     bundle = art.ArtifactBundle(q_kernels, fc_w, fc_b, class_names,
                                 shifts=[int(s) for s in cfg.shifts])
+    if multihost and not mh.is_primary():
+        return bundle  # every process computes it; one process writes it
     art.save_bundle(out_dir, bundle)
     n_exp = export_test_images(imgs_v, labels_v, out_dir,
                                num_per_class=10, num_classes=cfg.num_classes)
@@ -698,7 +1070,10 @@ def train(cfg: TrainConfig, train_data, val_data, out_dir: str,
 
 
 def main(argv=None):
-    """The JAX CLI's flags plus ``--device``; the mesh flags exit 2."""
+    """The JAX CLI's flags plus ``--device``, which is where both phases
+    run and where the mesh's positions are: ``cuda`` the first D x M
+    visible cards (a larger mesh is refused), ``cpu`` that many virtual
+    positions on the CPU."""
     p = argparse.ArgumentParser(
         description="Train the FPGA-contract CNN (PyTorch/CUDA port)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
@@ -729,8 +1104,10 @@ def main(argv=None):
     p.add_argument("--output-dir", default="artifacts/generated")
     p.add_argument("--checkpoint", default=None,
                    help="per-epoch checkpoints: a *.npz path for a "
-                        "single-file snapshot (a directory, the JAX "
-                        "trainer's sharded checkpoint, is not ported yet)")
+                        "single-file host snapshot, any other path for a "
+                        "sharded checkpoint DIR (asynchronous per-shard "
+                        "saves, keeps the last 2 epochs — pairs with "
+                        "--zero1/--mesh sharded state)")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--variant", default="lyr3-std",
                    help="model variant from models.registry (geometry)")
@@ -739,12 +1116,20 @@ def main(argv=None):
                         "QAT phase at (default: the variant ladder). "
                         "Exported to the bundle's shifts.json.")
     p.add_argument("--mesh", default=None, metavar="DxM",
-                   help="device mesh training (not ported yet: exits 2)")
+                   help="train over a device mesh: 'DATAxMODEL' position "
+                        "counts (e.g. '4x2': batch sharded over 4, conv "
+                        "oc + fc feature dim over 2) or a plain count for "
+                        "pure data parallelism. Uses the first DATA*MODEL "
+                        "positions of --device.")
     p.add_argument("--pipeline", default=None, metavar="[DxS|S]",
-                   help="GPipe pipeline training (not ported yet: exits 2)")
+                   help="train as a GPipe pipeline over S stage positions "
+                        "(forward and backward pipelined, stage-held "
+                        "weights; gradients equal the plain step's). 'DxS' "
+                        "composes with data parallelism: D independent "
+                        "pipelines, batch sharded across them.")
     p.add_argument("--microbatch", type=int, default=4,
-                   help="pipeline microbatch size (with --pipeline; any "
-                        "other value than 4 exits 2)")
+                   help="pipeline microbatch size (with --pipeline); "
+                        "batch-size must be a multiple of D x this")
     p.add_argument("--bf16", action="store_true",
                    help="mixed precision: bf16 conv math with f32 master "
                         "weights and an f32 head")
@@ -753,11 +1138,20 @@ def main(argv=None):
                         "(optax.MultiSteps' mean): K x the effective batch "
                         "without K x the memory")
     p.add_argument("--zero1", action="store_true",
-                   help="ZeRO-1 optimizer sharding (not ported yet: exits 2)")
+                   help="with --mesh D (pure dp): shard the optimizer "
+                        "state over the data axis (ZeRO-1) — each position "
+                        "holds and updates 1/D of the Adam moments, the "
+                        "updated parameter blocks are gathered")
     p.add_argument("--remat", action="store_true",
-                   help="pipeline rematerialisation (not ported yet: exits 2)")
+                   help="with --pipeline: rematerialise stage activations "
+                        "in the backward (torch.utils.checkpoint per "
+                        "stage), one extra stage forward for less live "
+                        "activation memory")
     p.add_argument("--spatial", default=None, metavar="[DxN|N]",
-                   help="row-sharded training (not ported yet: exits 2)")
+                   help="train with image rows sharded over N positions "
+                        "(a halo row exchange per conv layer, forward and "
+                        "backward). 'DxN' composes with data parallelism. "
+                        "Every layer's row count must divide by 2xN.")
     p.add_argument("--per-layer-scale", action="store_true",
                    help="quantize each conv layer with its OWN symmetric "
                         "scale at export (beyond-reference; the reference "
@@ -788,24 +1182,43 @@ def main(argv=None):
                         "composites) and applies to EVERY phase-1 frame, "
                         "the one-hot singles included")
     p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
-                   help="multi-host training (not ported yet: exits 2)")
+                   help="multi-host training: process 0's address for the "
+                        "gloo process group. Run the same command on "
+                        "every host with its own --process-id.")
     p.add_argument("--num-processes", type=int, default=1,
-                   help="host processes in the job (> 1 exits 2)")
+                   help="total number of host processes in the job")
     p.add_argument("--process-id", type=int,
                    default=int(os.environ.get("TPU_CNN_PROCESS_ID", "0")),
                    help="this host's rank (env TPU_CNN_PROCESS_ID)")
     args = p.parse_args(argv)
 
-    for flag, on in (("--mesh", args.mesh), ("--pipeline", args.pipeline),
-                     ("--spatial", args.spatial), ("--zero1", args.zero1),
-                     ("--remat", args.remat),
-                     ("--microbatch", args.microbatch != 4),
-                     ("--coordinator", args.coordinator),
-                     ("--num-processes", args.num_processes > 1)):
-        if on:
-            p.error(mesh_not_ported(flag))
-    if args.checkpoint and not args.checkpoint.endswith(".npz"):
-        p.error(mesh_not_ported("--checkpoint DIR (the sharded checkpoint)"))
+    from tpu_cnn_torch.parallel import multihost as mh
+    from tpu_cnn_torch.parallel.mesh import make_mesh, take_devices
+
+    dev = resolve_device(args.device)
+    if args.num_processes > 1:
+        if not args.coordinator:
+            p.error("--num-processes > 1 needs --coordinator HOST:PORT")
+        if args.pipeline or args.spatial:
+            p.error("multi-host rides pure data parallelism — "
+                    "--pipeline/--spatial are single-process features")
+        mh.init_multihost(args.coordinator, args.num_processes, args.process_id)
+    # the positions a mesh may take: the visible cards (this process's,
+    # under multi-host), or any count of virtual CPU positions
+    n_local = len(mh.owned_devices()) if dev.type == "cuda" else 1
+    if args.num_processes > 1:
+        print(f"process {args.process_id}/{args.num_processes}: {n_local} "
+              f"local / {n_local * args.num_processes} global devices")
+
+    def positions(n: int) -> list:
+        """This process's share of an n-position mesh."""
+        if n % args.num_processes:
+            raise ValueError(f"{n} mesh positions do not split equally over "
+                             f"{args.num_processes} processes")
+        n //= args.num_processes
+        if dev.type == "cpu":
+            return [dev] * n
+        return take_devices(n, mh.owned_devices())
 
     from tpu_cnn_torch.models.registry import default_shifts, get_config
 
@@ -859,6 +1272,51 @@ def main(argv=None):
         train_split = (imgs[n_val:], labels[n_val:])
         val_split = (imgs[:n_val], labels[:n_val])
 
+    mesh = None
+    if sum(bool(v) for v in (args.mesh, args.pipeline, args.spatial)) > 1:
+        p.error("--mesh, --pipeline, and --spatial are mutually exclusive")
+    if args.num_processes > 1 and not args.mesh:
+        # default: pure dp over every position of every process
+        args.mesh = str(n_local * args.num_processes)
+    if args.mesh:
+        if "x" in args.mesh:
+            d, m = (int(v) for v in args.mesh.lower().split("x"))
+        else:
+            d, m = int(args.mesh), 1
+        mesh = make_mesh(d * m // args.num_processes, model_axis=m,
+                         devices=positions(d * m))
+        if cfg.batch_size % d:
+            p.error(f"--batch-size {cfg.batch_size} must be a multiple of "
+                    f"the data axis ({d})")
+        print(f"Mesh: {d} data x {m} model over {d * m} devices")
+    elif args.pipeline:
+        from tpu_cnn_torch.parallel.pipeline import make_pipeline_mesh
+
+        if "x" in args.pipeline:
+            d, s = (int(v) for v in args.pipeline.lower().split("x"))
+        else:
+            d, s = 1, int(args.pipeline)
+        mesh = make_pipeline_mesh(d * s, data_axis=d, devices=positions(d * s))
+        if cfg.batch_size % (d * args.microbatch):
+            p.error(f"--batch-size {cfg.batch_size} must be a multiple of "
+                    f"data axis x microbatch ({d} x {args.microbatch})")
+        print(f"Pipeline: {d} data x {s} stages over {d * s} devices "
+              f"(microbatch {args.microbatch})")
+    elif args.spatial:
+        from tpu_cnn_torch.parallel.spatial import (check_spatial_split,
+                                                    make_spatial_mesh)
+
+        if "x" in args.spatial:
+            d, s = (int(v) for v in args.spatial.lower().split("x"))
+        else:
+            d, s = 1, int(args.spatial)
+        check_spatial_split(img_size, len(cfg.layer_configs), s)
+        mesh = make_spatial_mesh(d * s, data_axis=d, devices=positions(d * s))
+        if cfg.batch_size % d:
+            p.error(f"--batch-size {cfg.batch_size} must be a multiple of "
+                    f"the data axis ({d})")
+        print(f"Spatial: {d} data x {s} row shards over {d * s} devices")
+
     aux = None
     if args.composite_frac > 0:
         n_aux = int(round(args.composite_frac * len(train_split[0])))
@@ -866,13 +1324,15 @@ def main(argv=None):
                                 seed=cfg.seed, img_size=img_size)
         print(f"Composites: {n_aux} 2-object soft-label frames "
               f"(--composite-frac {args.composite_frac:g})")
-    return train(cfg, train_split, val_split, args.output_dir,
-                 class_names=names, checkpoint_path=args.checkpoint,
-                 resume=args.resume,
-                 compute_dtype="bfloat16" if args.bf16 else "float32",
-                 grad_accum=args.grad_accum, augment=args.augment, qat=args.qat,
-                 aux_data=aux, aux_bce=args.composite_loss == "bce",
-                 device=args.device)
+    bundle = train(cfg, train_split, val_split, args.output_dir,
+                   class_names=names, mesh=mesh,
+                   checkpoint_path=args.checkpoint, resume=args.resume,
+                   microbatch=args.microbatch, remat=args.remat, zero1=args.zero1,
+                   compute_dtype="bfloat16" if args.bf16 else "float32",
+                   grad_accum=args.grad_accum, augment=args.augment, qat=args.qat,
+                   aux_data=aux, aux_bce=args.composite_loss == "bce", device=dev)
+    mh.shutdown_multihost()
+    return bundle
 
 
 if __name__ == "__main__":
