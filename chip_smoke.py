@@ -46,7 +46,9 @@ one line each, in order; any failure raises:
                 all +127 and all -128 weights and 0/255 inputs on
                 +127/-128 weights at shifts 0 and 31, input channels
                 1/3/20/64 against output channels 5/13/35/128 at 7x12,
-                6x10 and 38x38, lyr4-wide's L3 (64->128 at 32^2). Every
+                6x10 and 38x38, lyr4-wide's L3 (64->128 at 32^2); past 64
+                input channels (96->13 at 6x10, 128->35 at 20x20: the
+                generic channel padding). Every
                 layer-kernel case runs with the weights packed per call
                 and packed once. Then the lyr4-wide chain against the
                 numpy oracle on 4 images. Features and twin bit-equal, bins within 1e-6; the
@@ -55,6 +57,19 @@ one line each, in order; any failure raises:
                 L+2) bit-equal at (8, 256), (5, 37), (1024, 4096) and
                 (4096, 4096) on full-range words, and widen(narrow(x)) == x;
                 narrow and widen on views misaligned for the vector path.
+                (The cases of tpu_cnn_torch.apps.kernel_cases.)
+  sanitize    — the sanitizer lane's card tools (python -m
+                tpu_cnn_torch.apps.sanitize memcheck racecheck synccheck
+                initcheck), within 180 s: a probe kernel under each tool,
+                the four kernels rebuilt with -lineinfo into a temporary
+                directory, phase 3's cases at B=37 under compute-sanitizer,
+                each tool's line with the kernels' launches, the paths
+                their launches took (as the libraries counted them), the
+                reports, the seconds and (memcheck) the out-of-bounds
+                canary caught; any report fails. A tool that
+                compute-sanitizer refuses on the card before the probe's
+                kernel runs ("Device not supported") is printed as not
+                measured
   4. engine   — CUDAEngine(device="cuda", backend=...) through the bench's
                 parity gate on 28 shipped test images + 4 noise images,
                 per path, and set_shifts against the oracle; on a multi
@@ -269,7 +284,8 @@ the sharded CLI run, the multi-process training and dryrun_train: none;
 infer on the sharded run's bundle: the megakernel). The line before the last
 is a JSON object with each
 kernel's launches (summed over the paths), error, times and bound (and
-the conv kernel's pooled time and bound on lyr3-std); the last line is
+the conv kernel's pooled time and bound on lyr3-std) and its sanitizer
+reports per tool (null where not measured); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -279,11 +295,9 @@ import argparse
 import concurrent.futures
 import contextlib
 import glob
-import hashlib
 import http.client
 import importlib.util
 import io
-import itertools
 import json
 import os
 import pickle
@@ -307,17 +321,21 @@ from tpu_cnn_torch.apps import (benchmark, calibrate_multi, doctor, dump_feature
                                 eval_detection, eval_tracking, export_model, infer,
                                 probe_bitcast, realtime, retrain_classifier, serve,
                                 serve_native, train_bbox, tune_shifts, verify)
+from tpu_cnn_torch.apps import kernel_cases as kc  # noqa: E402
 from tpu_cnn_torch.apps.common import load_model  # noqa: E402
+from tpu_cnn_torch.apps.kernel_cases import (ARTIFACTS, BINS_TOL, BITCAST_SHAPES,  # noqa: E402
+                                             KERNEL_BATCH, MODULES, bundle_of, check,
+                                             oracle_feats, shipped_images)
 from tpu_cnn_torch.apps.serve import ServiceHTTPServer, make_handler  # noqa: E402
 from tpu_cnn_torch.apps.serve_native import NativeFrontEnd  # noqa: E402
 from tpu_cnn_torch.deploy import DeployedDetector  # noqa: E402
-from tpu_cnn_torch.engine.cpu_ref import CPURefEngine, numpy_cnn_forward  # noqa: E402
+from tpu_cnn_torch.engine.cpu_ref import CPURefEngine  # noqa: E402
 from tpu_cnn_torch.engine.cuda import (DEFAULT_MULTI_THRESH, CUDAEngine,  # noqa: E402
                                        MultiDetectResult)
 from tpu_cnn_torch.head.cam import cam_bbox_fast, cam_bbox_multi, cam_instances  # noqa: E402
 from tpu_cnn_torch.head.classify import classify_np, multi_scores_np, pool_for_head  # noqa: E402
 from tpu_cnn_torch.head.tracker import Tracker  # noqa: E402
-from tpu_cnn_torch.models.registry import default_shifts, get_config  # noqa: E402
+from tpu_cnn_torch.models.registry import get_config  # noqa: E402
 from tpu_cnn_torch.native.preprocess import preprocess_frames_native  # noqa: E402
 from tpu_cnn_torch.parallel.dryrun import dryrun_mesh, dryrun_train  # noqa: E402
 from tpu_cnn_torch.parallel.mesh import MeshEngine, RowShards, make_mesh  # noqa: E402
@@ -334,8 +352,6 @@ from tpu_cnn_torch.utils.profiling import StageTimer  # noqa: E402
 from tpu_cnn_torch.utils.roofline import (bound, detect_out_bytes,  # noqa: E402
                                           layers_bound, macs_per_image)
 
-ARTIFACTS = {"lyr3-std": os.path.join(ROOT, "artifacts", "pretrained"),
-             "lyr4-wide": os.path.join(ROOT, "artifacts", "pretrained-lyr4")}
 KERNELS = {  # name -> (source, the TPU kernel(s) it replaces)
     "mega_cnn": ("tpu_cnn_torch/csrc/mega_cnn.cu",
                  "tpu_cnn/ops/pallas_poly.py:687"),  # cnn_forward_polyphase_pallas
@@ -377,53 +393,13 @@ MEGA_KERNELS = {"lyr3-std": ("mega_cnn",),
 PREPROCESS_GEOMETRIES = ((640, 480), (320, 240), (177, 131), (127, 127),
                          (300, 200), (720, 560), (656, 480), (1280, 720))
 PREPROCESS_BATCH = 256  # the timed batch
-MODULES = {"mega_cnn": mega, "conv_pool_layer": conv_pool, "conv_act": int8,
-           "bitcast": bitcast}
 SCORE_TOL = 1e-4  # probabilities and presence scores: 1024-term f32 dots
-# the probe's; ragged; 16 MiB; 64 MiB of words, past the 50 MB L2 (timed)
-BITCAST_SHAPES = ((8, 256), (5, 37), (1024, 4096), (4096, 4096))
 VERDICT = "VERDICT: DESIGN IS BIT-ACCURATE across all backends"
-BINS_TOL = 1e-6  # the kernel's bins vs the plain version's (1-ulp / order)
 BENCH_BATCH = 1536  # bench.py's batch
-KERNEL_BATCH = 37  # the kernel cases' batch: not a multiple of any tile
-COMBOS = [c for c in itertools.product((True, False), repeat=3) if any(c)]
-
-
-def check(cond: bool, msg: str) -> None:
-    if not cond:
-        raise RuntimeError(msg)
 
 
 def phase(name: str, msg: str) -> None:
     print(f"[{name}] {msg}", flush=True)
-
-
-def bundle_of(variant: str):
-    return art.load_bundle(ARTIFACTS[variant],
-                           layer_configs=get_config(variant).layer_configs)
-
-
-def shipped_images(variant: str) -> list[str]:
-    return sorted(glob.glob(os.path.join(ARTIFACTS[variant], "test_image_*.bin")))
-
-
-_ORACLE: dict[bytes, np.ndarray] = {}
-
-
-def oracle_feats(images, kernels, shifts) -> np.ndarray:
-    """numpy_cnn_forward per image, (N, oc, P*P) u8. Runs on a pool of
-    threads (numpy's tensordot leaves the GIL) and remembers each result by
-    image, kernels and shifts: the lyr4-wide oracle takes ~1.5 s an image."""
-    shifts = tuple(int(s) for s in shifts)
-    wkey = b"".join(np.ascontiguousarray(k).tobytes() for k in kernels)
-    keys = [hashlib.sha256(np.ascontiguousarray(im).tobytes() + wkey
-                           + repr(shifts).encode()).digest() for im in images]
-    todo = {k: im for k, im in zip(keys, images) if k not in _ORACLE}
-    with concurrent.futures.ThreadPoolExecutor(os.cpu_count() or 1) as pool:
-        for k, f in zip(todo, pool.map(
-                lambda im: numpy_cnn_forward(im, kernels, shifts), todo.values())):
-            _ORACLE[k] = f
-    return np.stack([_ORACLE[k] for k in keys])
 
 
 def header() -> str:
@@ -454,390 +430,97 @@ def build() -> None:
         phase("2 build", f"nvcc sm_90a {KERNELS[name][0]}: {secs:.2f} s; {ptxas}")
 
 
-def _random_kernels(rs, layer_configs):
-    return [rs.randint(-127, 128, (oc, ic, 3, 3)).astype(np.int8)
-            for ic, oc, _ in layer_configs]
-
-
-def _check_mega_outputs(tag, got, ref, flags) -> float:
-    """The wrapper's return for ``flags`` against (feats, bins, twin) of the
-    plain version. Returns the largest absolute difference."""
-    ref_feats, ref_bins, ref_twin = ref
-    got = list(got) if isinstance(got, tuple) else [got]
-    wf, wb, wt = flags
-    err = 0.0
-    if wf:
-        f = got.pop(0)
-        check(torch.equal(f, ref_feats), f"{tag}: features differ")
-        err = max(err, (f.int() - ref_feats.int()).abs().max().item())
-    if wb:
-        b = got.pop(0)
-        e = (b - ref_bins).abs().max().item()
-        check(e <= BINS_TOL, f"{tag}: bins off by {e}")
-        err = max(err, e)
-    if wt:
-        t = got.pop(0)
-        check(t.dtype == torch.bfloat16 and torch.equal(t, ref_twin)
-              and torch.equal(t.float(), ref_feats.float()),
-              f"{tag}: twin differs from the features")
-    return err
-
-
-def _mma_edge_setups(rs) -> list:
-    """Megakernel cases at the edges of its tensor-core path: saturating
-    and most negative sums (all-255 images against all +127 and all -128
-    weights, and random 0/255 images against random ±127/-128 weights) at
-    shifts 0 and 31; an input of 3 channels (padded to 16 in K), the
-    runtime-chunk path (a 128-channel middle layer), an output of 35 then
-    13 channels (padded N tiles), column groups cut by the map's edge (a
-    12-wide layer), a one-channel middle layer (one byte a pixel in
-    shared memory) and one-layer nets on both input paths (one byte a
-    pixel, staged by words or, 30 wide, by bytes; and 16 channels in
-    bands)."""
-    cfg3 = get_config("lyr3-std").layer_configs
-    b, setups = KERNEL_BATCH, []
-    sat = np.full((b, 128, 128), 255, np.uint8)
-    for fill in (127, -128):
-        ks = [np.full((oc, ic, 3, 3), fill, np.int8) for ic, oc, _ in cfg3]
-        for sh in ((0, 0, 0), (31, 31, 31)):
-            setups.append((f"all-255 x {fill}/{sh}", sat, ks, sh))
-    imgs = (rs.randint(0, 2, (b, 128, 128)) * 255).astype(np.uint8)
-    ks = [np.where(rs.randint(0, 2, (oc, ic, 3, 3)) == 1, 127, -128).astype(np.int8)
-          for ic, oc, _ in cfg3]
-    for sh in ((0, 0, 0), (31, 31, 31), (9, 11, 13)):
-        setups.append((f"0/255 x 127/-128/{sh}", imgs, ks, sh))
-    for name, ic0, s, chans, sh in (
-            ("ic0=3 3->24->8@32", 3, 32, (24, 8), (3, 5)),
-            ("wide middle 16->128->16@16", 16, 16, (128, 16), (4, 9)),
-            ("padded N 1->35->13@32", 1, 32, (35, 13), (2, 6)),
-            ("ragged 1->16->24@24", 1, 24, (16, 24), (2, 5)),
-            ("one-channel middle 1->1->16@32", 1, 32, (1, 16), (1, 3)),
-            ("one layer 1->16@64", 1, 64, (16,), (3,)),
-            ("one layer 1->16@30", 1, 30, (16,), (2,)),
-            ("one layer 16->32@32", 16, 32, (32,), (6,))):
-        shape = (b, s, s) if ic0 == 1 else (b, ic0, s, s)
-        ics = (ic0,) + chans[:-1]
-        ks = [rs.randint(-128, 128, (oc, ic, 3, 3)).astype(np.int8)
-              for ic, oc in zip(ics, chans)]
-        setups.append((name, rs.randint(0, 256, shape).astype(np.uint8), ks, sh))
-    return setups
-
-
-def mega_vs_plain(dev: torch.device) -> tuple[float, int]:
-    """The megakernel against mega_reference on the same card tensors:
-    whole nets, and lyr4-wide's L1-L3 tail on a 4-D input. Returns (largest
-    absolute difference, cases)."""
-    art3 = ARTIFACTS["lyr3-std"]
-    bundle = art.load_bundle(art3)
-    gate = bench_gate.load_gate_images(art3, n_real=28, n_noise=9)  # B = 37
-    rs = np.random.RandomState(7)
-    setups = [(f"lyr3-std/{w}/{sh}", gate, ks, sh)
-              for w, ks in (("shipped", bundle.kernels),
-                            ("seed7", _random_kernels(
-                                rs, get_config("lyr3-std").layer_configs)))
-              for sh in ((2, 4, 6), (1, 3, 5))]
-    for name in ("lyr3-tiny", "lyr2-small"):
-        s = get_config(name).img_size
-        setups.append((name, rs.randint(0, 256, (KERNEL_BATCH, s, s)).astype(np.uint8),
-                       _random_kernels(rs, get_config(name).layer_configs),
-                       tuple(default_shifts(get_config(name)))))
-    tail_cfgs = get_config("lyr4-wide").layer_configs[1:]
-    x16 = rs.randint(0, 256, (KERNEL_BATCH, 16, 128, 128)).astype(np.uint8)
-    for w, ks in (("shipped", bundle_of("lyr4-wide").kernels[1:]),
-                  ("seed7", _random_kernels(rs, tail_cfgs))):
-        setups.append((f"lyr4-wide-tail/{w}", x16, ks, (5, 5, 7)))
-    setups += _mma_edge_setups(rs)
-    max_err, n_cases = 0.0, 0
-    for name, imgs_np, ks_np, sh in setups:
-        imgs = torch.from_numpy(imgs_np).to(dev)
-        ks = [torch.from_numpy(k).to(dev) for k in ks_np]
-        shifts = torch.tensor(sh, dtype=torch.int32, device=dev)
-        ref = mega.mega_reference(imgs, ks, shifts)
-        int_feats = mega.mega_reference(imgs, ks, shifts, compute_dtype="int32")[0]
-        torch.cuda.synchronize()
-        check(torch.equal(ref[0], int_feats),
-              f"{name}: plain f32 and int32 paths disagree on the card")
-        if imgs_np.ndim == 3:
-            oracle = oracle_feats(imgs_np[:4], ks_np, sh)
-            check(np.array_equal(ref[0][:4].cpu().numpy(), oracle),
-                  f"{name}: plain version disagrees with the numpy oracle")
-        final = imgs_np.shape[-1] >> len(ks_np)
-        for flags in COMBOS:
-            if flags[1] and final % 4:
-                continue  # bins need a final map divisible by 4
-            out = mega.cnn_forward_mega(imgs, ks, shifts, with_feats=flags[0],
-                                        with_bins=flags[1], with_twin=flags[2])
-            torch.cuda.synchronize()
-            tag = f"{name} feats={flags[0]} bins={flags[1]} twin={flags[2]}"
-            max_err = max(max_err, _check_mega_outputs(tag, out, ref, flags))
-            n_cases += 1
-    return max_err, n_cases
-
-
-def layer_vs_plain(dev: torch.device) -> tuple[float, int]:
-    """The layer kernel against conv_pool_reference on the same card
-    tensors. Returns (largest absolute difference, cases)."""
-    rs = np.random.RandomState(8)
-    gate = bench_gate.load_gate_images(ARTIFACTS["lyr4-wide"], n_real=28,
-                                       n_noise=9, img_size=256)[:, None]
-    k0 = bundle_of("lyr4-wide").kernels[0]
-    setups = [(f"lyr4-wide-L0/{w}/{sh}", gate, k, sh)
-              for w, k in (("shipped", k0),
-                           ("seed8", rs.randint(-127, 128, k0.shape).astype(np.int8)))
-              for sh in (3, 0)]
-    for ic, oc, s, sh in ((16, 32, 128, 5), (20, 35, 38, 4), (3, 5, 10, 2)):
-        setups.append((f"{ic}->{oc}@{s}/{sh}",
-                       rs.randint(0, 256, (KERNEL_BATCH, ic, s, s)).astype(np.uint8),
-                       rs.randint(-127, 128, (oc, ic, 3, 3)).astype(np.int8), sh))
-    max_err, n_cases = 0.0, 0
-    for name, x_np, k_np, sh in setups:
-        x = torch.from_numpy(x_np).to(dev)
-        k = torch.from_numpy(k_np).to(dev)
-        shifts = torch.tensor([7, sh], dtype=torch.int32, device=dev)  # layer 1
-        ref = conv_pool.conv_pool_reference(x, k, shifts, 1)
-        ref_int = conv_pool.conv_pool_reference(x, k, shifts, 1,
-                                                compute_dtype="int32")
-        torch.cuda.synchronize()
-        check(torch.equal(ref, ref_int),
-              f"{name}: plain f32 and int32 paths disagree on the card")
-        for packed in (None, mega.pack_layer(k)):
-            got = conv_pool.conv_pool_layer(x, k, shifts, 1, packed=packed)
-            torch.cuda.synchronize()
-            check(got.dtype == torch.uint8 and torch.equal(got, ref),
-                  f"{name} packed={packed is not None}: layer kernel differs "
-                  f"from its plain version")
-            max_err = max(max_err, (got.int() - ref.int()).abs().max().item())
-            n_cases += 1
-    return max_err, n_cases
-
-
-def act_vs_plain(dev: torch.device) -> tuple[float, int]:
-    """The conv kernel against conv_act_reference on the same card tensors:
-    every layer of lyr3-std and lyr4-wide, with the shipped weights on the
-    plain chain's activations of the gate images at the model's shift and
-    with seeded weights on noise at shifts 0 and 31; two rectangles and
-    20->35 across the channel chunks. Then its pooled output against the
-    layer kernel on lyr4-wide's L0. Returns (largest absolute difference,
-    cases)."""
-    rs = np.random.RandomState(9)
-    setups = []  # (name, x on the card, kernel (numpy), shift)
-    for variant in ARTIFACTS:
-        model = load_model(ARTIFACTS[variant], variant)
-        x = torch.from_numpy(bench_gate.load_gate_images(
-            ARTIFACTS[variant], n_real=28, n_noise=9,
-            img_size=model.config.img_size)[:, None]).to(dev)  # B = 37
-        shifts = torch.from_numpy(model.shifts).to(dev)
-        for li, (ic, oc, s) in enumerate(model.config.layer_configs):
-            setups.append((f"{variant}-L{li}/shipped/{model.shifts[li]}", x,
-                           model.kernels[li], int(model.shifts[li])))
-            noise = torch.from_numpy(rs.randint(
-                0, 256, (KERNEL_BATCH, ic, s, s)).astype(np.uint8)).to(dev)
-            k = rs.randint(-127, 128, (oc, ic, 3, 3)).astype(np.int8)
-            setups += [(f"{variant}-L{li}/seed9/{sh}", noise, k, sh)
-                       for sh in (0, 31)]
-            x = conv_pool.conv_pool_reference(
-                x, torch.from_numpy(model.kernels[li]).to(dev), shifts, li,
-                compute_dtype="int32")
-    for ic, oc, h, w in ((3, 5, 6, 10), (4, 7, 7, 12), (20, 35, 38, 38)):
-        setups.append((f"{ic}->{oc}@{h}x{w}/3", torch.from_numpy(rs.randint(
-            0, 256, (KERNEL_BATCH, ic, h, w)).astype(np.uint8)).to(dev),
-            rs.randint(-127, 128, (oc, ic, 3, 3)).astype(np.int8), 3))
-    max_err, n_cases = 0.0, 0
-    for name, x, k_np, sh in setups:
-        k = torch.from_numpy(k_np).to(dev)
-        shifts = torch.tensor([7, sh], dtype=torch.int32, device=dev)  # layer 1
-        ref = int8.conv_act_reference(x, k, shifts, 1)
-        ref_int = int8.conv_act_reference(x, k, shifts, 1, compute_dtype="int32")
-        torch.cuda.synchronize()
-        check(torch.equal(ref, ref_int),
-              f"{name}: plain f32 and int32 paths disagree on the card")
-        err, n = _conv_entries(name, x, k, shifts, 1, ref)
-        max_err, n_cases = max(max_err, err), n_cases + n
-
-    # two hand-written kernels on one function: conv + pool, lyr4-wide L0
-    model = load_model(ARTIFACTS["lyr4-wide"], "lyr4-wide")
-    x = torch.from_numpy(bench_gate.load_gate_images(
-        ARTIFACTS["lyr4-wide"], n_real=28, n_noise=9, img_size=256)[:, None]).to(dev)
-    k = torch.from_numpy(model.kernels[0]).to(dev)
-    shifts = torch.from_numpy(model.shifts).to(dev)
-    pooled = int8.fused_conv_layer(x, k, shifts, 0)
-    layer = conv_pool.conv_pool_layer(x, k, shifts, 0)
-    torch.cuda.synchronize()
-    check(torch.equal(pooled, layer), "lyr4-wide L0: pooled conv kernel "
-                                      "differs from the layer kernel")
-    return max_err, n_cases
-
-
-def _conv_entries(name, x, k, shifts, layer, ref) -> tuple[float, int]:
-    """The conv kernel's unpooled entry and, for an even H and W, its
-    pooled entry (``fused_conv_layer``), each with the weights packed per
-    call and packed once, against ``ref`` (the plain unpooled conv) and
-    its 2x2 max. Returns (largest absolute difference, cases)."""
-    h, w = x.shape[-2:]
-    want = {"unpooled": ref}
-    if h % 2 == 0 and w % 2 == 0:
-        want["pooled"] = quant.maxpool2x2(ref)
-    max_err, n = 0.0, 0
-    for packed in (None, mega.pack_layer(k)):
-        for entry, ref_out in want.items():
-            fn = int8.conv_act if entry == "unpooled" else int8.fused_conv_layer
-            got = fn(x, k, shifts, layer, packed=packed)
-            torch.cuda.synchronize()
-            check(got.dtype == torch.uint8 and torch.equal(got, ref_out),
-                  f"{name} {entry} packed={packed is not None}: conv kernel "
-                  f"differs from its plain version")
-            max_err = max(max_err, (got.int() - ref_out.int()).abs().max().item())
-            n += 1
-    return max_err, n
-
-
-def layer_edges(dev: torch.device) -> tuple[float, int, float, int]:
-    """The layer kernel's tensor-core edges, B=37, through all three of
-    its entries (the conv kernel unpooled and pooled, and conv_pool_layer
-    for a square map), each with the weights packed per call and once:
-    all-255 inputs on all +127 and on all -128 weights and 0/255 inputs
-    on random +127/-128 weights, at shifts 0 and 31, on one-channel,
-    16-channel and 64-channel layers; then input channels 1, 3, 20 and 64
-    (K padded) against output channels 5, 13, 35 and 128 (N tiles padded)
-    on the rectangles 7x12 (unpooled) and 6x10 and on 38x38, and
-    lyr4-wide's L3 (64 -> 128 at 32^2). Returns (the conv kernel's largest
-    absolute difference, its cases, the layer kernel's, its cases)."""
-    rs = np.random.RandomState(11)
-    b, setups = KERNEL_BATCH, []
-    for ic, oc in ((1, 16), (16, 32), (64, 128)):
-        sat = np.full((b, ic, 32, 32), 255, np.uint8)
-        bits = (rs.randint(0, 2, (b, ic, 32, 32)) * 255).astype(np.uint8)
-        for fill in (127, -128):
-            setups.append((f"all-255 x {fill} {ic}->{oc}", sat,
-                           np.full((oc, ic, 3, 3), fill, np.int8), (0, 31)))
-        setups.append((f"0/255 x 127/-128 {ic}->{oc}", bits, np.where(
-            rs.randint(0, 2, (oc, ic, 3, 3)) == 1, 127, -128).astype(np.int8),
-            (0, 31)))
-    for ic, oc, h, w in ((1, 5, 7, 12), (3, 13, 7, 12), (20, 35, 7, 12),
-                         (64, 128, 7, 12), (1, 35, 6, 10), (3, 128, 6, 10),
-                         (20, 5, 6, 10), (64, 13, 6, 10), (1, 128, 38, 38),
-                         (3, 35, 38, 38), (20, 13, 38, 38), (64, 5, 38, 38),
-                         (64, 128, 32, 32)):
-        setups.append((f"{ic}->{oc}@{h}x{w}",
-                       rs.randint(0, 256, (b, ic, h, w)).astype(np.uint8),
-                       rs.randint(-128, 128, (oc, ic, 3, 3)).astype(np.int8), (3,)))
-    act_err = layer_err = 0.0
-    act_n = layer_n = 0
-    for name, x_np, k_np, shift_set in setups:
-        x = torch.from_numpy(x_np).to(dev)
-        k = torch.from_numpy(k_np).to(dev)
-        h, w = x_np.shape[-2:]
-        for sh in shift_set:
-            shifts = torch.tensor([sh], dtype=torch.int32, device=dev)
-            ref = int8.conv_act_reference(x, k, shifts, 0, compute_dtype="int32")
-            err, n = _conv_entries(f"{name}/{sh}", x, k, shifts, 0, ref)
-            act_err, act_n = max(act_err, err), act_n + n
-            if h == w and h % 2 == 0:
-                want = quant.maxpool2x2(ref)
-                for packed in (None, mega.pack_layer(k)):
-                    got = conv_pool.conv_pool_layer(x, k, shifts, 0, packed=packed)
-                    torch.cuda.synchronize()
-                    check(torch.equal(got, want), f"{name}/{sh} packed="
-                          f"{packed is not None}: layer kernel differs")
-                    layer_err = max(layer_err, (got.int() - want.int()).abs().max().item())
-                    layer_n += 1
-    return act_err, act_n, layer_err, layer_n
-
-
-def chain_vs_oracle(dev: torch.device) -> None:
-    """The lyr4-wide chain (layer kernel, then the tail) on 4 shipped test
-    images against the numpy oracle and the plain chain."""
-    bundle = bundle_of("lyr4-wide")
-    sh = load_model(ARTIFACTS["lyr4-wide"], "lyr4-wide").shifts
-    imgs_np = np.stack([np.fromfile(p, np.uint8).reshape(256, 256)
-                        for p in shipped_images("lyr4-wide")[:4]])
-    imgs = torch.from_numpy(imgs_np).to(dev)
-    ks = [torch.from_numpy(k).to(dev) for k in bundle.kernels]
-    shifts = torch.from_numpy(np.asarray(sh, np.int32)).to(dev)
-    ref = mega.mega_reference(imgs, ks, shifts)
-    out = mega.cnn_forward_mega(imgs, ks, shifts, with_feats=True,
-                                with_bins=True, with_twin=True)
-    torch.cuda.synchronize()
-    _check_mega_outputs("lyr4-wide chain", out, ref, (True, True, True))
-    check(np.array_equal(out[0].cpu().numpy(),
-                         oracle_feats(imgs_np, bundle.kernels, sh)),
-          "lyr4-wide chain disagrees with the numpy oracle")
-
-
-def bitcast_vs_plain(dev: torch.device) -> tuple[float, int]:
-    """The bitcast kernel's three functions against their plain versions
-    on the same card tensors, bit for bit. Returns (largest absolute
-    difference, cases)."""
-    rs = np.random.RandomState(10)
-    max_err, n_cases = 0, 0
-
-    def same(tag, got, want):
-        nonlocal max_err, n_cases
-        torch.cuda.synchronize()
-        check(got.dtype == want.dtype and got.shape == want.shape
-              and torch.equal(got, want), f"bitcast {tag}: differs")
-        max_err = max(max_err, (got.long() - want.long()).abs().max().item())
-        n_cases += 1
-
-    for r, l in BITCAST_SHAPES:
-        words = rs.randint(-2**31, 2**31, (r, l), dtype=np.int64).astype(np.int32)
-        words.reshape(-1)[:4] = (-2**31, 2**31 - 1, 0, -1)  # the extremes
-        x = torch.from_numpy(words).to(dev)
-        x8 = torch.from_numpy(rs.randint(0, 256, (4 * r, l)).astype(np.uint8)).to(dev)
-        narrow = bitcast.narrow_i32_to_i8(x)
-        same(f"narrow {r}x{l}", narrow, bitcast.narrow_i32_to_i8_reference(x))
-        same(f"widen {r}x{l}", bitcast.widen_u8_to_i32(x8),
-             bitcast.widen_u8_to_i32_reference(x8))
-        same(f"widen(narrow(x)) {r}x{l}", bitcast.widen_u8_to_i32(narrow), x)
-        for k in (3, 0, -1, l + 2):
-            same(f"roll {k} {r}x{l}", bitcast.packed_roll(x, k),
-                 bitcast.packed_roll_reference(x, k))
-    # views one element into their storage, at a width that is a multiple
-    # of 4: misaligned for the vector path, so the one-word path runs
-    flat = torch.from_numpy(rs.randint(-2**31, 2**31, 8 * 64 + 1, dtype=np.int64)
-                            .astype(np.int32)).to(dev)
-    x = flat[1:].view(8, 64)
-    x8 = flat.view(torch.uint8)[1:4 * 8 * 64 + 1].view(32, 64)
-    same("narrow offset view", bitcast.narrow_i32_to_i8(x),
-         bitcast.narrow_i32_to_i8_reference(x))
-    same("widen offset view", bitcast.widen_u8_to_i32(x8),
-         bitcast.widen_u8_to_i32_reference(x8))
-    return float(max_err), n_cases
-
-
 def kernel_vs_plain(dev: torch.device) -> dict[str, float]:
-    mega_err, mega_cases = mega_vs_plain(dev)
+    mega_err, mega_cases = kc.mega_vs_plain(dev)
     phase("3 kernel", f"mega_cnn: {mega_cases} cases (B={KERNEL_BATCH}) "
                       f"bit-equal feats/twin, bins within {BINS_TOL}; "
                       f"max_abs_err={mega_err!r}")
-    layer_err, layer_cases = layer_vs_plain(dev)
+    layer_err, layer_cases = kc.layer_vs_plain(dev)
     phase("3 kernel", f"conv_pool_layer: {layer_cases} cases (B={KERNEL_BATCH}; "
                       f"weights packed per call and once) bit-equal; "
                       f"max_abs_err={layer_err!r}")
-    act_err, act_cases = act_vs_plain(dev)
+    act_err, act_cases = kc.act_vs_plain(dev)
     phase("3 kernel", f"conv_act: {act_cases} cases (B={KERNEL_BATCH}; the "
                       f"unpooled and, for an even map, the pooled entry, "
                       f"weights packed per call and once) bit-equal; "
                       f"max_abs_err={act_err!r}; pooled, bit-equal to "
                       f"conv_pool_layer on lyr4-wide's L0")
-    edge_act_err, edge_act, edge_layer_err, edge_layer = layer_edges(dev)
+    edge_act_err, edge_act, edge_layer_err, edge_layer = kc.layer_edges(dev)
     phase("3 kernel", f"layer kernel edges (all-255 x +127/-128 and 0/255 x "
                       f"+127/-128 at shifts 0 and 31; ic 1/3/20/64 x oc "
                       f"5/13/35/128 at 7x12, 6x10 and 38x38; 64->128 at 32^2): "
                       f"conv_act {edge_act} and conv_pool_layer {edge_layer} "
                       f"cases bit-equal; max_abs_err={max(edge_act_err, edge_layer_err)!r}")
-    act_err = max(act_err, edge_act_err)
-    layer_err = max(layer_err, edge_layer_err)
-    chain_vs_oracle(dev)
+    gen_act_err, gen_act, gen_layer_err, gen_layer = kc.layer_generic_channels(dev)
+    phase("3 kernel", f"layer kernel past 64 input channels (96->13 at 6x10, "
+                      f"128->35 at 20x20; shifts 0 and 31): conv_act {gen_act} "
+                      f"and conv_pool_layer {gen_layer} cases bit-equal; "
+                      f"max_abs_err={max(gen_act_err, gen_layer_err)!r}")
+    act_err = max(act_err, edge_act_err, gen_act_err)
+    layer_err = max(layer_err, edge_layer_err, gen_layer_err)
+    kc.chain_vs_oracle(dev)
     phase("3 kernel", "lyr4-wide chain on 4 shipped images: bit-equal to the "
                       "numpy oracle and the plain chain")
-    bit_err, bit_cases = bitcast_vs_plain(dev)
+    bit_err, bit_cases = kc.bitcast_vs_plain(dev)
     phase("3 kernel", f"bitcast: {bit_cases} cases (narrow, widen, "
                       f"widen(narrow), roll 3/0/-1/L+2 at {BITCAST_SHAPES}; "
                       f"narrow and widen on offset views) bit-equal; "
                       f"max_abs_err={bit_err!r}")
     return {"mega_cnn": mega_err, "conv_pool_layer": layer_err,
             "conv_act": act_err, "bitcast": bit_err}
+
+
+SANITIZE_TOOLS = ("memcheck", "racecheck", "synccheck", "initcheck")
+SANITIZE_BUDGET_S = 180.0  # the phase's share of the script's time
+
+
+def sanitize_phase() -> dict[str, dict]:
+    """The sanitizer lane's four card tools (``apps.sanitize``) in one
+    child, within ``SANITIZE_BUDGET_S``: a probe kernel under each tool,
+    the kernels rebuilt with -lineinfo, phase 3's cases under each tool,
+    the memcheck canary. A tool that ran must pass (every kernel launched,
+    every required path taken, 0 reports, the canary caught); one that
+    compute-sanitizer refused on this card before anything ran (its own
+    "Device not supported", the probe's kernel not run) is printed as not
+    measured. Returns each kernel's {tool: reports}, None where not
+    measured."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "tpu_cnn_torch.apps.sanitize",
+                           *SANITIZE_TOOLS, "--json", "--timeout", str(SANITIZE_BUDGET_S)],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=SANITIZE_BUDGET_S + 120)
+    results = {}
+    for line in proc.stdout.splitlines():
+        if line.startswith('{"sanitize"'):
+            r = json.loads(line)["sanitize"]
+            results[r["tool"]] = r
+        elif line.startswith("[sanitize] built"):
+            phase("sanitize", line.split("] ", 1)[1])
+    check(set(results) == set(SANITIZE_TOOLS),
+          f"the sanitizer lane reported {sorted(results)} (exit {proc.returncode}):"
+          f"\n{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
+    out = {name: {} for name in KERNELS}
+    for tool, r in results.items():
+        if r["refused"]:
+            phase("sanitize", f"{tool}: NOT MEASURED: {r['detail']} "
+                              f"({r['seconds']:.1f} s)")
+            for name in KERNELS:
+                out[name][tool] = None
+            continue
+        check(r["ok"], f"sanitizer lane, {tool}: {r['detail']}\n{proc.stderr[-8000:]}")
+        canary = "" if r["canary"] is None else ", the canary caught"
+        phase("sanitize", f"{tool}: launches {r['launches']}; "
+                          f"{len(r['paths'])} paths taken, the "
+                          f"{len(kc.REQUIRED_PATHS)} required among them; "
+                          f"{r['reports']} reports{canary}; {r['seconds']:.1f} s")
+        for name in KERNELS:
+            out[name][tool] = r["reports"]
+    secs = time.perf_counter() - t0
+    phase("sanitize", f"{len(SANITIZE_TOOLS)} tools in {secs:.1f} s "
+                      f"(budget {SANITIZE_BUDGET_S:.0f} s)")
+    check(secs <= SANITIZE_BUDGET_S,
+          f"the sanitize phase took {secs:.1f} s, past its {SANITIZE_BUDGET_S:.0f} s")
+    return out
 
 
 def engine_gate(variant: str, backend: str,
@@ -2136,7 +1819,7 @@ def nvcc_free_deploy_path() -> None:
           f"the container lists {entries}")
     aside = os.path.join(ROOT, "build", "chip_smoke", "aside")
     os.makedirs(aside, exist_ok=True)
-    moved = [p for p in glob.glob(os.path.join(_build.BUILD_DIR, "lib*.so"))
+    moved = [p for p in glob.glob(os.path.join(_build.build_dir(), "lib*.so"))
              if not os.path.basename(p).startswith("libtcnn_host_")]
     staged = os.path.join(DEPLOY_DIR, "lyr3-std_images.npy")
     result = os.path.join(DEPLOY_DIR, "lyr3-std_nvcc_free.npz")
@@ -3366,6 +3049,7 @@ def main(argv=None) -> None:
     dev = torch.device("cuda", 0)
     build()
     max_err = kernel_vs_plain(dev)
+    sanitizer = sanitize_phase()
 
     launches = dict.fromkeys(KERNELS, 0)
 
@@ -3481,7 +3165,8 @@ def main(argv=None) -> None:
         "name": name, "route": "cuda", "source": src, "replaces": replaces,
         "launches": launches[name], "max_abs_err": max_err[name],
         "ms": ms[name][0], "plain_ms": ms[name][1], "bound_ms": ms[name][2],
-        "bound_by": ms[name][3], "library_ms": ms[name][4]}
+        "bound_by": ms[name][3], "library_ms": ms[name][4],
+        "sanitizer": sanitizer[name]}
         for name, (src, replaces) in KERNELS.items()]
     # the conv kernel's pooled entry, what the pallas and hybrid paths run
     act = next(r for r in rows if r["name"] == "conv_act")

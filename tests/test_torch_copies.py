@@ -96,6 +96,7 @@ def test_numpy_oracle_equals_the_original(variant):
     _same(cpu_ref.wrap_accum_np(x), j_cpu_ref.wrap_accum_np(x))
 
 
+@pytest.mark.native
 @pytest.mark.parametrize("variant", ["lyr3-tiny", "lyr2-small"])
 def test_native_oracle_equals_the_original(variant, tmp_path, monkeypatch):
     monkeypatch.setenv("TPU_CNN_BUILD_DIR", str(tmp_path))  # the original's
@@ -533,6 +534,7 @@ NATIVE_PRE_CASES = {  # tests/test_native_oracle.py's cases
 }
 
 
+@pytest.mark.native
 @pytest.mark.parametrize("case", sorted(NATIVE_PRE_CASES))
 def test_native_preprocess_equals_the_original(case, tmp_path, monkeypatch):
     monkeypatch.setenv("TPU_CNN_BUILD_DIR", str(tmp_path))  # the original's
@@ -550,7 +552,8 @@ def test_native_preprocess_equals_the_original(case, tmp_path, monkeypatch):
         native_pre.preprocess_frames_native(frames, out, channel_order="bgrx")
 
 
-@pytest.mark.parametrize("use_native", [True, False])
+@pytest.mark.parametrize("use_native", [pytest.param(True, marks=pytest.mark.native),
+                                        False])
 def test_cpu_ref_engine_equals_the_original(use_native, tmp_path, monkeypatch):
     monkeypatch.setenv("TPU_CNN_BUILD_DIR", str(tmp_path))  # the original's
     bundle = j_art.load_bundle(BUNDLES["lyr3-std"])

@@ -67,6 +67,7 @@ def _isolated_jax_build(tmp_path_factory):
 # ── the frame ring ───────────────────────────────────────────────────
 
 
+@pytest.mark.native
 @pytest.mark.parametrize("shape,out,order", [((5, 480, 640, 3), 128, "bgr"),
                                              ((5, 96, 72, 3), 32, "rgb"),
                                              ((3, 64, 64), 32, "bgr")])
@@ -90,6 +91,7 @@ def test_ring_push_pop_equals_the_jax_ring(shape, out, order):
         theirs.close()
 
 
+@pytest.mark.native
 def test_ring_overflow_drops_oldest_as_the_jax_ring():
     frames = np.random.RandomState(8).randint(0, 256, (6, 64, 64)).astype(np.uint8)
     ours = NativeFrameRing(capacity=4, out_size=32)
@@ -107,6 +109,7 @@ def test_ring_overflow_drops_oldest_as_the_jax_ring():
         theirs.close()
 
 
+@pytest.mark.native
 def test_ring_threaded_producers_and_wait():
     """Four producer threads push at once (the preprocess runs off the
     GIL); the consumer's wait sees the frames; popped + dropped ==
@@ -210,7 +213,10 @@ def _same_answer(got, want):
                                rtol=0, atol=TOL)
 
 
-@pytest.mark.parametrize("case", ["single", "multi", "instances", "mesh"])
+@pytest.mark.parametrize("case", [
+    pytest.param("single", marks=pytest.mark.native),  # the host oracle
+    pytest.param("multi", marks=pytest.mark.native),
+    "instances", "mesh"])  # the JAX engine jits, the mesh runs torch's plain versions
 def test_native_front_equals_the_jax_front(case, models, frames):
     ours_m, theirs_m = models
     multi = case not in ("single", "mesh")
@@ -245,6 +251,7 @@ def test_native_front_equals_the_jax_front(case, models, frames):
                        "mesh": "mesh[(1, 1)]:mega"}.get(case, "host:native-c++")
 
 
+@pytest.mark.native
 def test_native_front_health_and_malformed_bodies(models):
     model = models[0]
     detect_fn, _, _ = build_worker(model, "cpu", max_batch=4)
@@ -274,6 +281,7 @@ def test_native_front_health_and_malformed_bodies(models):
         front.stop()
 
 
+@pytest.mark.native
 def test_native_front_pushes_back_with_503(models):
     """With the worker stalled, posts beyond the queue (4 x max_batch) get
     503 at once; once the worker drains, the queued ones answer 200."""

@@ -7,10 +7,12 @@ kernels (``csrc/``, built by ``ops._build``):
 
   - ``models.cnn``        — ``CNNConfig``, the numpy ``FpgaCNN`` holder and
                             ``TorchFpgaCNN`` (the int8 kernels, shifts and
-                            head as buffers on an explicit device)
+                            head as buffers on an explicit device),
+                            ``layer_weight_sizes``
   - ``models.registry``   — the named geometries (lyr3-std, lyr4-wide, ...)
   - ``ops.quant``         — the contract in plain torch (the kernels'
-                            reference and the CPU path)
+                            reference and the CPU path), and
+                            ``cnn_forward_chunked`` over sub-batches
   - ``ops.mega``          — the megakernel (``csrc/mega_cnn.cu``), its
                             weight packing and the chained plan
   - ``ops.conv_pool``     — the layer kernel (``csrc/conv_pool_layer.cu``)
@@ -67,7 +69,8 @@ kernels (``csrc/``, built by ``ops._build``):
                             stage timers and the torch.profiler trace
                             context, the JSONL metrics sink and accuracy
                             reports (``metrics``), the export quantisers
-                            (``weights``), and the card's peaks and
+                            and ``validate_stock_blob`` (``weights``), and
+                            the card's peaks and
                             bounds (``roofline``)
   - ``parallel``          — the mesh axes: ``Mesh`` and ``MeshEngine``
                             (``mesh``: data and model axes, one CUDA
@@ -79,6 +82,11 @@ kernels (``csrc/``, built by ``ops._build``):
                             over gloo (``multihost``), and ``dryrun``
                             (serving and training checks)
   - ``bench_gate``        — the bench's parity gate
+  - ``ops._build``        — the kernels' and the host library's build
+                            cache (``TPU_CNN_TORCH_BUILD_DIR`` and the
+                            extra-flag variables isolate an instrumented
+                            build) and ``path_counts``, the code paths
+                            each kernel's launcher took
   - ``apps``              — ``infer`` (with ``make_engine``, the engine
                             swap: ``--mode auto|mega|pallas|hybrid|xla|
                             mesh|cpu``), ``serve`` (``--deployable`` too),
@@ -93,7 +101,12 @@ kernels (``csrc/``, built by ``ops._build``):
                             ``dump_features``, ``train_bbox`` and
                             ``doctor``; the head-fitting tools
                             ``retrain_classifier``, ``tune_shifts`` and
-                            ``calibrate_multi``; and their ``common``
+                            ``calibrate_multi``; ``kernel_cases`` (each
+                            kernel against its plain version: phase 3 of
+                            ``chip_smoke.py``) and the sanitizer lane
+                            ``sanitize`` (ASan/TSan over ``tcnn_host``,
+                            compute-sanitizer over the kernels); and their
+                            ``common``
 
 It imports ``torch`` and numpy, and nothing of ``tpu_cnn`` or ``jax``:
 where it needs a JAX-free piece of the JAX package it keeps its own copy

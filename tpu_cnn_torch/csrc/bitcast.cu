@@ -36,6 +36,8 @@
 
 #include <cuda_runtime.h>
 
+#include "path_counts.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -155,10 +157,34 @@ bool aligned(const void* p, size_t bytes) {
 
 bool bad_shape(long long rows, long long cols) { return rows < 1 || cols < 1; }
 
+// The launchers' code paths (path_counts.cuh), in the order of their names:
+// per function the vector path, one word a thread on a width the vector
+// path does not take, and one word a thread on a width it takes but on
+// pointers misaligned for it.
+enum BitcastPath {
+  kNarrowVec, kNarrowWord, kNarrowMisaligned, kWidenVec, kWidenWord, kWidenMisaligned,
+  kRollVec, kRollWord, kRollMisaligned, kBitcastPaths
+};
+constexpr const char* kBitcastPathNames[kBitcastPaths] = {
+    "narrow vector", "narrow one-word", "narrow one-word, misaligned view",
+    "widen vector", "widen one-word", "widen one-word, misaligned view",
+    "roll vector", "roll one-word", "roll one-word, misaligned view"};
+PathCounts<kBitcastPaths> g_bitcast_paths(kBitcastPathNames);
+
+// Counts one launch of the function whose vector path is `fn`.
+void count_variant(BitcastPath fn, long long cols, bool vec) {
+  g_bitcast_paths.add(fn + (vec ? 0 : cols % 4 == 0 ? 2 : 1));
+}
+
 }  // namespace
 
 extern "C" const char* bitcast_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// The launchers' path counts in this process (path_counts.cuh).
+extern "C" int bitcast_paths(const char** names, unsigned long long* hits, int n) {
+  return g_bitcast_paths.read(names, hits, n);
 }
 
 // Each launcher runs one kernel on `stream` of CUDA device `device`, with
@@ -183,7 +209,9 @@ extern "C" int bitcast_narrow(const void* x, void* y, long long rows, long long 
     narrow_kernel<4><<<grid, block, 0, s>>>(in, out, rows, cols);
   else
     narrow_kernel<1><<<grid, block, 0, s>>>(in, out, rows, cols);
-  return cudaGetLastError();
+  err = cudaGetLastError();
+  if (err == cudaSuccess) count_variant(kNarrowVec, cols, vec);
+  return err;
 }
 
 // x (4 * rows, cols) u8 -> y (rows, cols) int32
@@ -202,7 +230,9 @@ extern "C" int bitcast_widen(const void* x, void* y, long long rows, long long c
     widen_kernel<4><<<grid, block, 0, s>>>(in, out, rows, cols);
   else
     widen_kernel<1><<<grid, block, 0, s>>>(in, out, rows, cols);
-  return cudaGetLastError();
+  err = cudaGetLastError();
+  if (err == cudaSuccess) count_variant(kWidenVec, cols, vec);
+  return err;
 }
 
 // x (rows, cols) int32 -> y (rows, cols) int32, rolled by `shift` along the
@@ -223,5 +253,7 @@ extern "C" int bitcast_roll(const void* x, void* y, long long rows, long long co
     roll_kernel<4><<<grid, block, 0, s>>>(in, out, rows, cols, k);
   else
     roll_kernel<1><<<grid, block, 0, s>>>(in, out, rows, cols, k);
-  return cudaGetLastError();
+  err = cudaGetLastError();
+  if (err == cudaSuccess) count_variant(kRollVec, cols, vec);
+  return err;
 }

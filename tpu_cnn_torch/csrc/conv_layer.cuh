@@ -55,6 +55,7 @@
 #include <cuda_runtime.h>
 
 #include "int8_mma.cuh"
+#include "path_counts.cuh"
 
 namespace {
 
@@ -539,6 +540,45 @@ int layer_smem(LayerArgs& a) {
   return 0;
 }
 
+// The launcher's code paths (path_counts.cuh), in the order of their names.
+enum LayerPath {
+  kOnePooled, kOneUnpooled, kOneGroupPasses,
+  kCp16Pooled, kCp16Unpooled, kCp32Pooled, kCp32Unpooled, kCp64Pooled, kCp64Unpooled,
+  kCpGenericPooled, kCpGenericUnpooled,
+  kBytewiseStaging, kBytewiseStores, kOneSecondItem, kMultiSecondItem, kLayerPaths
+};
+constexpr const char* kLayerPathNames[kLayerPaths] = {
+    "one-channel pooled", "one-channel unpooled", "one-channel, output-group pass g0 > 0",
+    "multi-channel cp=16 pooled", "multi-channel cp=16 unpooled",
+    "multi-channel cp=32 pooled", "multi-channel cp=32 unpooled",
+    "multi-channel cp=64 pooled", "multi-channel cp=64 unpooled",
+    "multi-channel cp=generic pooled", "multi-channel cp=generic unpooled",
+    "byte-wise staging (vec_in false)", "byte-wise stores (vec_out false)",
+    "one-channel, persistent loop k >= 1", "multi-channel, persistent loop k >= 1"};
+PathCounts<kLayerPaths> g_layer_paths(kLayerPathNames);
+
+// Counts the paths a launch of `grid` CTAs on the plan `a` takes: the
+// one-channel path (with more than one output-group pass when a pass holds
+// fewer groups than the layer has), the multi-channel path by channel
+// padding (multi_tile's cases), the byte-wise staging and stores, and a
+// second item for some CTA of the persistent loop (one buffer swap).
+template <bool POOL>
+void count_layer_paths(const LayerArgs& a, int grid) {
+  const int unpooled = POOL ? 0 : 1;
+  if (a.ic == 1) {
+    g_layer_paths.add(kOnePooled + unpooled);
+    if (a.ogroups < (a.oc + 15) / 16) g_layer_paths.add(kOneGroupPasses);
+  } else {
+    const int cp = cpad_of(a.ic);
+    const int base = cp == 16 ? kCp16Pooled : cp == 32 ? kCp32Pooled
+                   : cp == 64 ? kCp64Pooled : kCpGenericPooled;
+    g_layer_paths.add(base + unpooled);
+  }
+  if (!a.vec_in) g_layer_paths.add(kBytewiseStaging);
+  if (!a.vec_out) g_layer_paths.add(kBytewiseStores);
+  if (a.n_items > grid) g_layer_paths.add(a.ic == 1 ? kOneSecondItem : kMultiSecondItem);
+}
+
 using LayerKernel = void (*)(LayerArgs);
 
 template <bool POOL>
@@ -608,7 +648,9 @@ cudaError_t launch_layer(const void* x, const void* w, const void* shifts, int l
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const int grid = static_cast<int>(std::min<long long>(a.n_items, 1LL * per_sm * sms));
   kernel<<<grid, kLayerThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return cudaGetLastError();
+  err = cudaGetLastError();
+  if (err == cudaSuccess) count_layer_paths<POOL>(a, grid);
+  return err;
 }
 
 }  // namespace

@@ -33,6 +33,11 @@ extern "C" const char* conv_pool_layer_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// The layer launcher's path counts in this process (path_counts.cuh).
+extern "C" int conv_pool_layer_paths(const char** names, unsigned long long* hits, int n) {
+  return g_layer_paths.read(names, hits, n);
+}
+
 // Launches one layer on `stream` of CUDA device `device`: x (B, ic, S, S)
 // u8, w the packed weights of an (oc, ic, 3, 3) s8 kernel, shifts a device
 // int32 vector read at `layer`, out (B, oc, S/2, S/2) u8, all device

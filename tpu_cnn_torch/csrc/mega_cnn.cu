@@ -71,6 +71,7 @@
 #include <cuda_runtime.h>
 
 #include "int8_mma.cuh"
+#include "path_counts.cuh"
 
 namespace {
 
@@ -482,6 +483,12 @@ int smem_bytes(int n_layers, int size0, const int* ic, const int* oc,
   return static_cast<int>(region[0] + region[1]);
 }
 
+// The launcher's code paths (path_counts.cuh), in the order of their names.
+enum MegaPath { kTwoPerSm, kOnePerSm, kBands, kMegaPaths };
+constexpr const char* kMegaPathNames[kMegaPaths] = {
+    "256 threads, two CTAs per SM", "512 threads, one CTA per SM", "layer 0 in row bands"};
+PathCounts<kMegaPaths> g_mega_paths(kMegaPathNames);
+
 template <int kThreads>
 cudaError_t launch(const MegaParams& prm, int batch, int smem, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
@@ -495,6 +502,11 @@ cudaError_t launch(const MegaParams& prm, int batch, int smem, cudaStream_t stre
 
 extern "C" const char* mega_cnn_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// The launcher's path counts in this process (path_counts.cuh).
+extern "C" int mega_cnn_paths(const char** names, unsigned long long* hits, int n) {
+  return g_mega_paths.read(names, hits, n);
 }
 
 // Launches the megakernel on `stream` of CUDA device `device` for a batch
@@ -535,7 +547,11 @@ extern "C" int mega_cnn_forward(const void* images, const void* w0,
   // two CTAs per SM where their shared memory allows (lyr3-std), else one
   // CTA of twice the warps (lyr4-wide's tail)
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return 2 * (smem + kSmemPerBlock) <= kSmemPerSm
-             ? launch<kThreadsTwoPerSm>(prm, batch, smem, s)
-             : launch<512>(prm, batch, smem, s);
+  const bool two = 2 * (smem + kSmemPerBlock) <= kSmemPerSm;
+  err = two ? launch<kThreadsTwoPerSm>(prm, batch, smem, s) : launch<512>(prm, batch, smem, s);
+  if (err == cudaSuccess) {
+    g_mega_paths.add(two ? kTwoPerSm : kOnePerSm);
+    if (prm.band_rows < size0) g_mega_paths.add(kBands);
+  }
+  return err;
 }

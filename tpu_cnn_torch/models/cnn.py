@@ -51,6 +51,11 @@ CLASS_NAMES = ["airplane", "cat", "zebra", "bus", "bicycle", "donut"]
 WEIGHT_BYTES = 23184  # weights.bin of the stock net
 
 
+def layer_weight_sizes() -> list[int]:
+    """Per-layer byte counts inside weights.bin: 144 / 4608 / 18432."""
+    return [oc * ic * 9 for ic, oc, _ in LAYER_CONFIGS]
+
+
 @dataclasses.dataclass(frozen=True)
 class CNNConfig:
     """Static configuration for one FpgaCNN instance; ``layer_configs`` may

@@ -18,6 +18,20 @@ on its first use, from the sources ``HOST_SOURCES`` lists under
 preprocess) and the HTTP front (``http_front.cpp``), as the JAX package
 links them into one shared object. Its name hashes all three, so an edit
 to any one rebuilds it.
+
+Three environment variables isolate an instrumented build, as
+``TPU_CNN_BUILD_DIR`` and ``TPU_CNN_EXTRA_CXXFLAGS`` do for the JAX
+package's host library (``apps.sanitize`` sets them for its children):
+``TPU_CNN_TORCH_BUILD_DIR`` moves the cache, ``TPU_CNN_TORCH_EXTRA_CXXFLAGS``
+adds g++ flags to every flag set of ``tcnn_host`` and
+``TPU_CNN_TORCH_EXTRA_NVCCFLAGS`` adds nvcc flags to the kernels'. Extra
+flags enter the digest, so an instrumented library never carries a clean
+library's name; with the variables unset every path and name is what it
+was without them. They are read when a library is first built or loaded
+in a process.
+
+Each kernel's library also counts the code paths its launcher chose
+(``csrc/path_counts.cuh``); ``path_counts`` reads them.
 """
 
 from __future__ import annotations
@@ -27,6 +41,7 @@ import functools
 import hashlib
 import os
 import re
+import shlex
 import shutil
 import subprocess
 import tempfile
@@ -36,7 +51,7 @@ from typing import Sequence
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 NATIVE_DIR = os.path.join(os.path.dirname(CSRC_DIR), "native")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC_DIR)), "build",
-                         "tpu_cnn_torch")
+                         "tpu_cnn_torch")  # the cache when TPU_CNN_TORCH_BUILD_DIR is unset
 ARCH = "sm_90a"  # the one architecture the kernels are built for
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=" + ARCH, "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -51,6 +66,26 @@ HOST_SOURCES = ("cnn_oracle.cpp", "frame_ring.cpp", "http_front.cpp")
 
 class KernelBuildError(RuntimeError):
     """nvcc or g++ is missing or refused a source."""
+
+
+def build_dir() -> str:
+    """The cache directory: ``$TPU_CNN_TORCH_BUILD_DIR``, else ``BUILD_DIR``."""
+    return os.environ.get("TPU_CNN_TORCH_BUILD_DIR") or BUILD_DIR
+
+
+def _extra(var: str) -> list[str]:
+    return shlex.split(os.environ.get(var, ""))
+
+
+def nvcc_flags() -> list[str]:
+    """``NVCC_FLAGS`` and then ``$TPU_CNN_TORCH_EXTRA_NVCCFLAGS``."""
+    return NVCC_FLAGS + _extra("TPU_CNN_TORCH_EXTRA_NVCCFLAGS")
+
+
+def gxx_flag_sets() -> tuple[list[str], ...]:
+    """``GXX_FLAG_SETS``, each followed by ``$TPU_CNN_TORCH_EXTRA_CXXFLAGS``."""
+    extra = _extra("TPU_CNN_TORCH_EXTRA_CXXFLAGS")
+    return tuple(flags + extra for flags in GXX_FLAG_SETS)
 
 
 def _nvcc() -> str:
@@ -68,13 +103,13 @@ def _nvcc() -> str:
 _INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 
-def source_digest(src: str | Sequence[str], extra: bytes = b"") -> str:
-    """SHA-256 (hex) of ``src`` (one path or several), of every file they
-    ``#include "..."`` relative to their own directory (recursively, each
-    once) and of ``extra``. System headers (``<...>``) are not hashed."""
-    digest = hashlib.sha256()
+def local_sources(src: str | Sequence[str]) -> list[tuple[str, bytes]]:
+    """(path, text) of ``src`` (one path or several) and of every file they
+    ``#include "..."`` relative to their own directory, recursively, each
+    once, in the order they are first reached. System headers (``<...>``)
+    are not followed."""
     srcs = [src] if isinstance(src, str) else list(src)
-    seen, todo = set(), [os.path.abspath(s) for s in srcs]
+    seen, todo, out = set(), [os.path.abspath(s) for s in srcs], []
     while todo:
         path = todo.pop(0)
         if path in seen or not os.path.exists(path):
@@ -82,23 +117,39 @@ def source_digest(src: str | Sequence[str], extra: bytes = b"") -> str:
         seen.add(path)
         with open(path, "rb") as f:
             text = f.read()
-        digest.update(text + b"\0")
+        out.append((path, text))
         todo += [os.path.join(os.path.dirname(path), inc.decode())
                  for inc in _INCLUDE.findall(text)]
+    return out
+
+
+def source_digest(src: str | Sequence[str], extra: bytes = b"") -> str:
+    """SHA-256 (hex) of ``local_sources(src)`` and of ``extra``."""
+    digest = hashlib.sha256()
+    for _path, text in local_sources(src):
+        digest.update(text + b"\0")
     digest.update(extra)
     return digest.hexdigest()
 
 
 def kernel_digest(name: str) -> str:
     """``source_digest`` of ``csrc/<name>.cu`` (and its headers) with
-    ``NVCC_FLAGS``: what names the kernel's library."""
+    ``nvcc_flags()``: what names the kernel's library."""
     return source_digest(os.path.join(CSRC_DIR, name + ".cu"),
-                         repr(NVCC_FLAGS).encode())
+                         repr(nvcc_flags()).encode())
 
 
 def kernel_library(name: str) -> str:
     """The path the kernel's library has in the cache, built or not."""
-    return os.path.join(BUILD_DIR, f"lib{name}_{kernel_digest(name)[:16]}.so")
+    return os.path.join(build_dir(), f"lib{name}_{kernel_digest(name)[:16]}.so")
+
+
+def host_library() -> str:
+    """The path ``tcnn_host`` has in the cache, built or not: its name
+    hashes the ``HOST_SOURCES`` and ``gxx_flag_sets()``."""
+    srcs = [os.path.join(NATIVE_DIR, f) for f in HOST_SOURCES]
+    digest = source_digest(srcs, repr(gxx_flag_sets()).encode())
+    return os.path.join(build_dir(), f"libtcnn_host_{digest[:16]}.so")
 
 
 def _compile(srcs: Sequence[str], lib: str,
@@ -107,9 +158,9 @@ def _compile(srcs: Sequence[str], lib: str,
     ``commands`` (each a function of the output path -> argv) that
     succeeds. Returns (library path, the compiler's output, seconds spent
     building)."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(os.path.dirname(lib), exist_ok=True)
     t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(lib))
     os.close(fd)
     errors = []
     try:
@@ -139,19 +190,18 @@ def build(name: str) -> tuple[str, str, float]:
         return lib, "", 0.0
     nvcc = _nvcc()
     src = os.path.join(CSRC_DIR, name + ".cu")
-    return _compile([src], lib,
-                    [lambda out: [nvcc, *NVCC_FLAGS, "-o", out, src]])
+    flags = nvcc_flags()
+    return _compile([src], lib, [lambda out: [nvcc, *flags, "-o", out, src]])
 
 
 @functools.lru_cache(maxsize=None)
 def build_host() -> str:
     """Compile the host library ``tcnn_host`` (the ``HOST_SOURCES``) with
     g++ into one shared library (with OpenMP where the compiler has it)
-    and return its path. Its name hashes the sources and the flag sets;
-    g++ is looked for only when the cache lacks it."""
+    and return its path (``host_library``); g++ is looked for only when
+    the cache lacks it."""
     srcs = [os.path.join(NATIVE_DIR, f) for f in HOST_SOURCES]
-    digest = source_digest(srcs, repr(GXX_FLAG_SETS).encode())
-    lib = os.path.join(BUILD_DIR, f"libtcnn_host_{digest[:16]}.so")
+    lib = host_library()
     if os.path.exists(lib):
         return lib
     gxx = shutil.which("g++")
@@ -160,10 +210,23 @@ def build_host() -> str:
     return _compile(srcs, lib, [
         lambda out, flags=flags: [gxx, "-std=c++17", "-shared", "-fPIC",
                                   *flags, "-o", out, *srcs]
-        for flags in GXX_FLAG_SETS])[0]
+        for flags in gxx_flag_sets()])[0]
 
 
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu`` as a ctypes library."""
     return ctypes.CDLL(build(name)[0])
+
+
+def path_counts(name: str) -> dict[str, int]:
+    """The code paths ``csrc/<name>.cu``'s launchers took in this process,
+    each with its count of launches, as the library counted them where it
+    launched (``<name>_paths``, ``csrc/path_counts.cuh``)."""
+    fn = load(name)[f"{name}_paths"]
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+    n = fn(None, None, 0)
+    names, hits = (ctypes.c_char_p * n)(), (ctypes.c_ulonglong * n)()
+    fn(names, hits, n)
+    return {names[i].decode(): hits[i] for i in range(n)}

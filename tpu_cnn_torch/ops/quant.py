@@ -143,6 +143,25 @@ def cnn_forward(images: torch.Tensor, kernels: Sequence[torch.Tensor],
     return x.reshape(b, c, h * w)
 
 
+def cnn_forward_chunked(images: torch.Tensor, kernels: Sequence[torch.Tensor],
+                        shifts: torch.Tensor, *, chunk: int = 512,
+                        accum_wrap: bool = False,
+                        compute_dtype: str = "float32") -> torch.Tensor:
+    """``cnn_forward`` over sub-batches of ``chunk`` images, so that the
+    f32 conv intermediates (~1 MB an image at layer 0) never exceed one
+    chunk's. A batch of at most ``chunk`` runs whole; a larger one must be
+    a multiple of ``chunk``. Output identical to ``cnn_forward``."""
+    b = images.shape[0]
+    if b <= chunk:
+        return cnn_forward(images, kernels, shifts, accum_wrap=accum_wrap,
+                           compute_dtype=compute_dtype)
+    if b % chunk:
+        raise ValueError(f"a batch of {b} is not a multiple of chunk={chunk}")
+    return torch.cat([cnn_forward(images[i:i + chunk], kernels, shifts,
+                                  accum_wrap=accum_wrap, compute_dtype=compute_dtype)
+                      for i in range(0, b, chunk)])
+
+
 def theoretical_accum_bound(kernels) -> int:
     """Max possible |accumulator| for concrete weights: 255 * sum|w| per
     output channel. Below 2^24 the f32 path is exact and the 24-bit wrap is

@@ -22,7 +22,7 @@ from typing import Sequence
 
 import numpy as np
 
-from tpu_cnn_torch.models.cnn import LAYER_CONFIGS, QUANT_MAX
+from tpu_cnn_torch.models.cnn import LAYER_CONFIGS, QUANT_MAX, WEIGHT_BYTES
 
 
 def decode_weights(
@@ -127,3 +127,11 @@ def quantize_per_layer(
         )
         scales.append(scale)
     return q, scales
+
+
+def validate_stock_blob(blob: bytes | np.ndarray) -> None:
+    """Raise ``ValueError`` unless ``blob`` holds the stock net's
+    ``WEIGHT_BYTES`` weight bytes."""
+    size = len(blob) if isinstance(blob, (bytes, bytearray)) else np.asarray(blob).size
+    if size != WEIGHT_BYTES:
+        raise ValueError(f"expected {WEIGHT_BYTES} weight bytes, got {size}")
