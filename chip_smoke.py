@@ -88,6 +88,16 @@ one line each, in order; any failure raises:
                 one POST with ?thresh=0.3
   probe       — tpu_cnn_torch.apps.probe_bitcast --device cuda: exit 0,
                 MATCH on the r*4+b layouts of Q1 and Q2 and on Q3
+  bench       — python -m tpu_cnn_torch.bench in a child (within 240 s;
+                the headline bench, bench.py's measurement: the gate, then
+                52 async-pipelined rounds of lyr3-std at batch 1536 over 4
+                staged pools, best of 3 passes, every timed round equal to
+                a synchronous call): exit 0 and exactly one stdout line,
+                bench.py's four keys, no error, value > 0, printed with the
+                card; the gate on the card's production path with one
+                feature bit flipped must fail on the features;
+                graft_entry.entry() on cuda:0, its pred and bbox equal to
+                CUDAEngine(mega).detect_batch on its 8 frames
   swap        — the engine swap, per family: make_engine(model, "cpu") is
                 the host oracle on the native C++ build, its features
                 bit-equal to the numpy oracle on the shipped images;
@@ -249,13 +259,16 @@ one line each, in order; any failure raises:
                 CUDAEngine(mega) against MeshEngine(mega) on one and two
                 positions (in turns; the wrapper's overhead on one card),
                 and a torch.profiler list of one 2-position mesh detect
-                (mega_cnn_kernel twice, no im2col). The
+                (mega_cnn_kernel twice, no im2col); one extra, untimed
+                pass of the bench's loop under torch.profiler: the
+                device's busy share of its host wall and its top three
+                device operations. The
                 conv kernel's per-layer times are device time per call with
                 50 calls queued (the one-call window, printed beside them,
                 also times the launch); the benchmark's --per-layer --modes pallas
                 rows must lie within 20% of them. Last, the wall time
 
-Phases 4-6, the probe, the swap, the host server, the preprocess, the
+Phases 4-6, the probe, the bench, the swap, the host server, the preprocess, the
 realtime runs, the eval, tracking, dump and train_bbox runs, the six
 train paths, each benchmark run, the deployment paths (serve_native,
 the deployable, the serving load, the host ingest), the doctor, the
@@ -267,7 +280,9 @@ kernel of that path must have launched there and no other kernel
 (lyr3-std/mega: the megakernel; lyr4-wide/mega: the megakernel and the
 layer kernel; lyr4-wide/pallas and lyr3-std/hybrid: the conv kernel; the
 probe: the bitcast kernel; the multi paths: the megakernel, then the conv
-kernel; the swap: what mega runs on the family; the host server, the
+kernel; the bench: the megakernel (the child's launches, counted in its
+own process, are added to the kernels line); the swap: what mega runs on
+the family; the host server, the
 preprocess and realtime --mode cpu: none; the realtime paths: mega's or
 pallas's; eval, tracking, dump and train_bbox: what their mode runs on
 the family, --mode cpu none; the trainer, the train parity, retrain_classifier
@@ -316,7 +331,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-from tpu_cnn_torch import bench_gate  # noqa: E402
+from tpu_cnn_torch import bench, bench_gate, graft_entry  # noqa: E402
 from tpu_cnn_torch.apps import (benchmark, calibrate_multi, doctor, dump_features,  # noqa: E402
                                 eval_detection, eval_tracking, export_model, infer,
                                 probe_bitcast, realtime, retrain_classifier, serve,
@@ -395,7 +410,7 @@ PREPROCESS_GEOMETRIES = ((640, 480), (320, 240), (177, 131), (127, 127),
 PREPROCESS_BATCH = 256  # the timed batch
 SCORE_TOL = 1e-4  # probabilities and presence scores: 1024-term f32 dots
 VERDICT = "VERDICT: DESIGN IS BIT-ACCURATE across all backends"
-BENCH_BATCH = 1536  # bench.py's batch
+BENCH_BATCH = bench.BATCH  # bench.py's batch
 
 
 def phase(name: str, msg: str) -> None:
@@ -405,9 +420,7 @@ def phase(name: str, msg: str) -> None:
 def header() -> str:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch finds no CUDA device")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60).stdout.strip()
+    smi = bench.card()
     print(smi, flush=True)
     check(not torch.backends.cuda.matmul.allow_tf32,
           "TF32 matmul is on; the plain version and the head need f32")
@@ -1602,6 +1615,71 @@ def doctor_path() -> None:
     phase("doctor", f"tpu_cnn_torch.apps.doctor: exit 0; {line}")
 
 
+# ── the bench: python -m tpu_cnn_torch.bench, its gate's negative check and
+# graft_entry.entry() ──────────────────────────────────────────────────
+
+BENCH_TIMEOUT_S = 240  # the bench child's limit
+BENCH_KEYS = ["metric", "value", "unit", "vs_baseline"]  # bench.py's line
+
+
+def bench_path(card: str) -> int:
+    """``python -m tpu_cnn_torch.bench`` in a child within BENCH_TIMEOUT_S:
+    exit 0 and one stdout line, a JSON object with bench.py's keys, no
+    ``error`` and a positive value, printed with the card. Then the gate's
+    negative check on the card (the bench's production path with one
+    feature bit flipped fails the gate on its features) and
+    ``graft_entry.entry()`` on the card, its pred and bbox equal to
+    ``CUDAEngine(mega).detect_batch`` on its 8 frames. Returns the child's
+    megakernel launches (counted in its own process)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "tpu_cnn_torch.bench"],
+                          cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+                          capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    check(proc.returncode == 0 and len(lines) == 1,
+          f"python -m tpu_cnn_torch.bench: exit {proc.returncode}, stdout "
+          f"{proc.stdout[-2000:]!r}, stderr {proc.stderr[-3000:]}")
+    line = json.loads(lines[0])
+    check(list(line) == BENCH_KEYS and line["value"] > 0,
+          f"the bench printed {lines[0]}")
+    detail = json.loads(proc.stderr.strip().splitlines()[-1])
+    child_launches = detail["launches"]["mega_cnn"]
+    check(child_launches > 0, f"the bench launched no megakernel: {detail}")
+    phase("bench", f"{card}: python -m tpu_cnn_torch.bench ({secs:.1f} s): "
+                   f"{lines[0]}")
+    phase("bench", f"passes {detail['passes_fps']!r} FPS; nvcc {detail['build_s']!r} "
+                   f"s; gate {detail['gate_s']!r} s; the child's launches "
+                   f"{detail['launches']}")
+
+    dev = torch.device("cuda", 0)
+    art_dir = ARTIFACTS["lyr3-std"]
+    model = load_model(art_dir)
+    engine = CUDAEngine(model, dev, backend="mega")
+    path = bench.production_path(engine)
+
+    def flipped(gate):
+        out = path(torch.from_numpy(gate).to(dev))
+        out[0][0, 0, 0] ^= 1  # one flipped bit
+        return out
+
+    err = bench_gate.run_parity_gate(flipped, model,
+                                     bench_gate.load_gate_images(art_dir))
+    check(err is not None and "features" in err,
+          f"the gate let one flipped feature bit through: {err}")
+    fn, (images,) = graft_entry.entry(dev)
+    pred, conf, probs, bbox = (t.cpu().numpy() for t in fn(images))
+    want = engine.detect_batch(images.cpu().numpy())
+    check(pred.shape == (8,) and bbox.shape == (8, 4)
+          and np.array_equal(pred, want.pred) and np.array_equal(bbox, want.bbox),
+          "graft_entry.entry() disagrees with CUDAEngine(mega).detect_batch")
+    phase("bench", f"the gate on the card's production path with one feature "
+                   f"bit flipped: {err!r}; graft_entry.entry() on {dev}: "
+                   f"pred and bbox of its 8 frames equal to "
+                   f"CUDAEngine(mega).detect_batch")
+    return child_launches
+
+
 # ── the mesh axes: MeshEngine, the CLIs, the dry run, the multi-process
 # engine, and the deployable on a host without nvcc ────────────────────
 
@@ -2633,22 +2711,21 @@ def _queued_and_plain_ms(kernel, plain, n_kernel: int = 5,
 
 
 def _staged_pools(engine, rs) -> list:
-    s = engine.model.config.img_size
-    return [engine.stage_batch(rs.randint(0, 256, (BENCH_BATCH, s, s))
-                               .astype(np.uint8)) for _ in range(4)]
+    """The bench's 4 pools of BENCH_BATCH frames (``bench.draw_pools``),
+    each staged by the engine (``stage_batch``)."""
+    return [engine.stage_batch(a) for a in
+            bench.draw_pools(rs, BENCH_BATCH, img_size=engine.model.config.img_size)]
 
 
-def _pipelined_fps(dispatch, resolve, pools, rounds: int = 52) -> float:
-    """bench.py's async pipeline: ``rounds`` batches over 4 staged pools,
-    all dispatched, then all resolved."""
-    resolve(dispatch(pools[0]))  # warm-up
-    t0 = time.perf_counter()
-    handles = [dispatch(pools[i % 4]) for i in range(rounds)]
-    results = [resolve(h) for h in handles]
-    dt = time.perf_counter() - t0
-    check(len(results) == rounds and results[0].pred.shape == (BENCH_BATCH,),
+def _pipelined_fps(dispatch, resolve, pools) -> float:
+    """One warm-up call, then one pass of the bench's async pipeline
+    (``bench.measure``: 52 rounds over the pools, all dispatched, then
+    all resolved)."""
+    resolve(dispatch(pools[0]))
+    fps, results = bench.measure(dispatch, resolve, pools, BENCH_BATCH)
+    check(len(results) == bench.ROUNDS and results[0].pred.shape == (BENCH_BATCH,),
           "pipelined detect returned the wrong shapes")
-    return rounds * BENCH_BATCH / dt
+    return fps
 
 
 def deploy_times(card: str, rs) -> None:
@@ -2689,7 +2766,8 @@ def deploy_times(card: str, rs) -> None:
 
 
 def engine_fps(variant: str, backend: str, rs) -> list[float]:
-    """bench.py's async pipeline: 52 rounds over 4 staged pools, 3 passes."""
+    """The bench's async pipeline on the engine's ``detect_batch_async``:
+    52 rounds over 4 staged pools, 3 passes."""
     engine = CUDAEngine(load_model(ARTIFACTS[variant], variant), device="cuda",
                         backend=backend)
     pools = _staged_pools(engine, rs)
@@ -2860,6 +2938,62 @@ def pallas_profile(card: str, rs) -> None:
                      f"aten::amax {amax}")
 
 
+def bench_profile(card: str) -> None:
+    """torch.profiler over one extra, untimed pass of the bench's loop
+    (``bench.pipelined`` and ``bench.measure`` on the bench's timed path,
+    lyr3-std at batch 1536, 52 rounds over the bench's 4 pools): the
+    device's busy share of the pass's host wall (the union of its device
+    events' spans) and the three device operations that take most of it,
+    to show whether the loop is host-paced."""
+    dev = torch.device("cuda", 0)
+    engine = CUDAEngine(load_model(ARTIFACTS["lyr3-std"]), dev, backend="mega")
+    detect = bench.timed_path(engine)
+    pools = [torch.from_numpy(a).to(dev)
+             for a in bench.draw_pools(np.random.RandomState(0))]
+    like = detect(pools[0])  # the warm-up
+    torch.cuda.synchronize()
+    dispatch = bench.pipelined(detect, like, bench.ROUNDS)
+    cuda = torch.autograd.DeviceType.CUDA
+    act = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=act) as prof:
+        fps, _ = bench.measure(dispatch, bench.wait_copies, pools, bench.BATCH)
+    wall_ms = bench.ROUNDS * bench.BATCH / fps * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == cuda)
+    if not spans:
+        phase("7 times", f"the bench's loop under torch.profiler on {card}: no "
+                         f"device events recorded: busy share not measured")
+        return
+    busy_us, end = 0.0, spans[0][0]
+    for a, b in spans:  # the union of the spans
+        busy_us += max(0.0, b - max(a, end))
+        end = max(end, b)
+    by_name: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type == cuda:
+            t = by_name.setdefault(e.name, [0.0, 0])
+            t[0] += e.time_range.elapsed_us() / 1e3
+            t[1] += 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:3]
+    phase("7 times", f"the bench's loop, one untimed pass under torch.profiler "
+                     f"on {card} (lyr3-std batch {bench.BATCH}, {bench.ROUNDS} "
+                     f"rounds): {fps!r} FPS under the profiler; device busy "
+                     f"{busy_us / 1e3!r} ms of a {wall_ms!r} ms host wall "
+                     f"({busy_us / 1e3 / wall_ms:.2%}); top device operations: "
+                     + "; ".join(f"{_kernel_name(name)} {ms!r} ms, "
+                                 f"{ms * 1e3 / busy_us:.1%} of busy ({n} calls)"
+                                 for name, (ms, n) in top))
+
+
+def _kernel_name(name: str) -> str:
+    """A device operation's name, a kernel's without its return type and
+    parameter list."""
+    name = name.replace("(anonymous namespace)::", "")
+    if name.startswith("void "):
+        name = name[5:].split("(", 1)[0]
+    return name[:100]
+
+
 def times(dev: torch.device, card: str,
           profile_out: str | None) -> dict[str, tuple]:
     """Returns {kernel name: (kernel ms, plain ms, bound ms, bound by,
@@ -3020,6 +3154,7 @@ def times(dev: torch.device, card: str,
     # CUPTI's launch overhead behind it
     pallas_profile(card, rs)
     mesh_profile(card, rs)
+    bench_profile(card)
     torch.cuda.empty_cache()
     r, l = BITCAST_SHAPES[-1]
     k_ms, p_ms = bitcast_times(dev, card, rs)
@@ -3081,6 +3216,11 @@ def main(argv=None) -> None:
                   lambda: multi_engine(variant, backend, instances),
                   lambda: multi_cli(variant, backend, instances),
                   lambda: multi_server(variant, backend, instances))
+    child = {}  # the bench child's launches, counted in its own process
+    main_path("bench (python -m tpu_cnn_torch.bench, the gate's negative "
+              "check, graft_entry.entry())", ("mega_cnn",),
+              lambda: child.update(mega_cnn=bench_path(card)))
+    launches["mega_cnn"] += child["mega_cnn"]
     for variant in ARTIFACTS:
         main_path(f"{variant} engine swap (cpu, auto, --dump-features)",
                   MEGA_KERNELS[variant], lambda: engine_swap(variant))

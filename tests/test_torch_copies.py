@@ -10,6 +10,7 @@ host preprocess. Integer
 results are compared exactly; float results bit for bit too, since both
 sides run the same numpy code on the same arrays."""
 
+import ast
 import json
 import time
 
@@ -870,3 +871,37 @@ def test_watchdog_behaves_as_the_original(case):
             time.sleep(0.1)  # keep kicking before the stall window closes
         assert not fired
         wd.stop()
+
+
+# ── the bench's constants ────────────────────────────────────────────
+
+
+def _bench_py_sizes() -> dict:
+    """``bench.py``'s sizes, locals of its ``main``: ``batch``,
+    ``n_pools`` and ``rounds``, and the passes ``N`` of ``max(measure()
+    for _ in range(N))``."""
+    with open(os.path.join(REPO, "bench.py")) as f:
+        tree = ast.parse(f.read())
+    main = next(n for n in tree.body
+                if isinstance(n, ast.FunctionDef) and n.name == "main")
+    sizes = {}
+    for node in ast.walk(main):
+        if (isinstance(node, ast.Assign) and isinstance(node.targets[0], ast.Name)
+                and isinstance(node.value, ast.Constant)):
+            sizes[node.targets[0].id] = node.value.value
+        elif (isinstance(node, ast.Call) and getattr(node.func, "id", None) == "max"
+              and isinstance(node.args[0], ast.GeneratorExp)):
+            sizes["passes"] = node.args[0].generators[0].iter.args[0].value
+    return sizes
+
+
+def test_bench_constants_equal_the_original():
+    """The port's bench measures at ``bench.py``'s sizes, against its
+    baseline."""
+    import bench as j_bench
+    from tpu_cnn_torch import bench
+
+    want = _bench_py_sizes()
+    assert bench.BASELINE_FPS == j_bench.BASELINE_FPS
+    assert (bench.BATCH, bench.N_POOLS, bench.ROUNDS, bench.PASSES) == (
+        want["batch"], want["n_pools"], want["rounds"], want["passes"])

@@ -290,3 +290,13 @@ def test_mesh_and_build_pretrained_with_the_jax_package_refused(refusing_run):
     code, out = runs["scripts/build_pretrained_torch.py"]
     assert code == 0 and "Bundle complete in" in out, out
     assert "pre" in refusing_run["runs"]["bundle"]
+
+
+def test_the_scan_sees_the_bench_and_the_graft_entry(refusing_run):
+    """The headline bench and the graft entry: scanned, and
+    imported with the JAX package refused."""
+    for path in ("tpu_cnn_torch/bench.py", "tpu_cnn_torch/graft_entry.py"):
+        assert path in PORT_FILES
+        assert not [n for n in _imports(path) if _refused(n)]
+    for n in ("tpu_cnn_torch.bench", "tpu_cnn_torch.graft_entry"):
+        assert n in refusing_run["modules"]

@@ -81,7 +81,13 @@ kernels (``csrc/``, built by ``ops._build``):
                             ``MultiHostEngine`` and ``global_batches``
                             over gloo (``multihost``), and ``dryrun``
                             (serving and training checks)
+  - ``bench``             — the headline bench (``bench.py``'s measurement:
+                            the gate, staged pools, the async-pipelined
+                            loop ``measure``, one JSON line)
   - ``bench_gate``        — the bench's parity gate
+  - ``graft_entry``       — ``__graft_entry__.py``: ``entry()`` (the
+                            bench's production path on 8 frames) and its
+                            ``__main__`` (with the mesh's dry runs)
   - ``ops._build``        — the kernels' and the host library's build
                             cache (``TPU_CNN_TORCH_BUILD_DIR`` and the
                             extra-flag variables isolate an instrumented

@@ -391,7 +391,7 @@ def bench_camera_pipeline(model: FpgaCNN, mode: str, batch: int, runs: int,
                           pitch: int | None = None, device: str = "cuda"):
     """Raw camera frames -> boxes, everything on the device: the device
     preprocess (``preprocess_frames``: center crop, BT.601 luma, area
-    resize) then the engine's fused detect (``CUDAEngine._detect_device``,
+    resize) then the engine's fused detect (``CUDAEngine.detect_device``,
     the kernels of its backend and the head), chained on device-resident
     tensors. Frames staged on the device, two pools in turns.
     ``channels`` 4 is the packed-BGRX ingest (one u32 word per pixel, the
@@ -403,7 +403,7 @@ def bench_camera_pipeline(model: FpgaCNN, mode: str, batch: int, runs: int,
     from tpu_cnn_torch.ops.preprocess import preprocess_frames
 
     engine = make_engine(model, mode, device)
-    if not hasattr(engine, "_detect_device"):
+    if not hasattr(engine, "detect_device"):
         raise ValueError(f"--camera-pipeline runs on a CUDAEngine backend, "
                          f"not {type(engine).__name__}")
     dev = engine.device
@@ -411,7 +411,7 @@ def bench_camera_pipeline(model: FpgaCNN, mode: str, batch: int, runs: int,
     def pipeline(frames):
         small = preprocess_frames(frames, model.config.img_size,
                                   valid_w=cam_w)
-        _, _, pred, conf, _, bbox = engine._detect_device(small)
+        _, _, pred, conf, _, bbox = engine.detect_device(small)
         return pred, conf, bbox
 
     rng = np.random.RandomState(0)

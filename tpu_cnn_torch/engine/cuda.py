@@ -215,9 +215,11 @@ class CUDAEngine:
             self.launches += self._kernels_per_pass
         return feats
 
-    def _detect_device(self, x: torch.Tensor, with_feats: bool = False):
-        """(feats or None, pooled or None, pred, conf, probs, bbox) on the
-        device.
+    def detect_device(self, x: torch.Tensor, with_feats: bool = False):
+        """The fused detect on device-resident tensors: (B, S, S) u8 images
+        on the engine's device -> (feats or None, pooled or None, pred,
+        conf, probs, bbox) on the device, nothing copied to the host (the
+        bench times this path, and the mesh runs it per position).
 
         Bins head: one kernel emits the bins (classifier, "reg" box) and,
         for the CAM box modes, the bf16 twin; the u8 features are written
@@ -381,7 +383,7 @@ class CUDAEngine:
         :meth:`detect_resolve`. Several handles may be in flight. Takes raw
         (B, S, S) u8 images or a :meth:`stage_batch` handle."""
         x, _ = self._to_device(images)
-        _, _, pred, conf, probs, bbox = self._detect_device(x)
+        _, _, pred, conf, probs, bbox = self.detect_device(x)
         return self._to_host_async((pred, conf, probs, bbox))
 
     def detect_resolve(self, handle) -> DetectResult:
@@ -417,7 +419,7 @@ class CUDAEngine:
         (feats, pooled, pred, conf, probs, bbox) — what the parity gate
         (``bench_gate.run_parity_gate``) checks."""
         x, _ = self._to_device(images)
-        return self._fetch(self._to_host_async(self._detect_device(x, with_feats=True)))
+        return self._fetch(self._to_host_async(self.detect_device(x, with_feats=True)))
 
     def features_device(self, images_dev: torch.Tensor) -> torch.Tensor:
         """Device-resident features for pipelines that keep data on the

@@ -439,7 +439,7 @@ class _MegaProgram:
                 if kind == "features":
                     out.parts[pos] = (eng._features(x),)
                 elif kind == "detect":
-                    out.parts[pos] = eng._detect_device(x)[2:]
+                    out.parts[pos] = eng.detect_device(x)[2:]
                 else:
                     out.parts[pos] = eng._detect_multi_device(x, instances)
         return out
