@@ -19,7 +19,8 @@ with ``--multi`` (the features branch, the 256-pixel box scale). Phases,
 one line each, in order; any failure raises:
 
   1. header   — the card (nvidia-smi name and power limit), torch, CUDA
-  2. build    — nvcc builds csrc/mega_cnn.cu, csrc/conv_pool_layer.cu,
+  2. build    — nvcc builds csrc/mega_cnn.cu (on csrc/hopper.cuh's
+                wgmma, mbarriers and bulk copies), csrc/conv_pool_layer.cu,
                 csrc/conv_act.cu (the last two: the layer kernel of
                 csrc/conv_layer.cuh, both on csrc/int8_mma.cuh like the
                 megakernel) and csrc/bitcast.cu for sm_90a, in parallel
@@ -27,13 +28,18 @@ one line each, in order; any failure raises:
                 B=37. The megakernel: lyr3-std (shipped and seeded random
                 weights, shifts 2/4/6 and 1/3/5, every with_feats/bins/twin
                 combination), lyr3-tiny, lyr2-small, and lyr4-wide's L1-L3
-                tail from a (B, 16, 128, 128) input; then the edges of its
+                tail from a (B, 16, 128, 128) input; its persistent grid:
+                lyr3-std and the tail at batch 1, lyr3-std at twice the
+                SM count + 5 and the tail at the SM count + 3 (a second
+                image for every CTA); then the edges of its
                 tensor-core path: all-255 images on all +127 and all -128
                 weights and 0/255 images on ±127/-128 weights at shifts 0
                 and 31, 3 input channels, a 128-channel middle layer, 35
                 then 13 output channels, a 12-wide layer (no bins there),
-                a one-channel middle layer and one-layer nets on both
-                input paths. The layer kernel (conv_pool_layer):
+                a one-channel middle layer and one-layer nets on every
+                input path (a one-channel image by the bulk copy or plain
+                loads; a multi-channel band by words or, 3 channels 30
+                wide, by bytes). The layer kernel (conv_pool_layer):
                 lyr4-wide's L0 (shipped and seeded weights, shifts 3 and
                 0), 16->32 at 128^2 and two small odd geometries. The conv
                 kernel, unpooled and (even maps) pooled: every layer of
@@ -232,7 +238,8 @@ one line each, in order; any failure raises:
                 twins; exit 0 and the verdict line
   7. times    — at batch 1536, CUDA events, median: lyr3-std's megakernel
                 and its plain version, and the megakernel on lyr3-std's
-                first layer alone; lyr4-wide's layer kernel, tail and
+                first layer alone and on its first two (K1's split by
+                layer, read by difference); lyr4-wide's layer kernel, tail and
                 chain and their plain versions, each with its bound (the
                 card's int8 tensor-core and HBM peaks) and its share of
                 it; the conv kernel on each
@@ -448,6 +455,9 @@ def kernel_vs_plain(dev: torch.device) -> dict[str, float]:
     phase("3 kernel", f"mega_cnn: {mega_cases} cases (B={KERNEL_BATCH}) "
                       f"bit-equal feats/twin, bins within {BINS_TOL}; "
                       f"max_abs_err={mega_err!r}")
+    plans = kc.smem_plans_vs_kernel()
+    phase("3 kernel", f"mega_cnn: ops/mega.py's mega_layout equal to the "
+                      f"kernel's own shared-memory plan on {plans} geometries")
     layer_err, layer_cases = kc.layer_vs_plain(dev)
     phase("3 kernel", f"conv_pool_layer: {layer_cases} cases (B={KERNEL_BATCH}; "
                       f"weights packed per call and once) bit-equal; "
@@ -3038,6 +3048,23 @@ def times(dev: torch.device, card: str,
                      f"{BENCH_BATCH} on {card}: mega_cnn median {l0_ms!r} ms "
                      f"(n={len(l0_runs)}; bound {l0_bound!r} ms by {l0_by}, "
                      f"{l0_bound / l0_ms:.2%} of it)")
+
+    # ... and on its first two layers: L1's time by difference
+    def l01() -> torch.Tensor:
+        return mega.cnn_forward_mega(imgs, ks[:2], shifts[:2], packed=pk[:2])
+
+    l01()
+    torch.cuda.synchronize()
+    l01_runs = _event_ms(l01, 20) + _event_ms(l01, 20)
+    l01_ms = statistics.median(l01_runs)
+    l01_bound, l01_by = layers_bound(cfgs3[:2], BENCH_BATCH,
+                                     cfgs3[1][1] * (cfgs3[1][2] // 2) ** 2)
+    phase("7 times", f"lyr3-std L0+L1 (1 -> 16 -> 32 at 128^2, feats out) batch "
+                     f"{BENCH_BATCH} on {card}: mega_cnn median {l01_ms!r} ms "
+                     f"(n={len(l01_runs)}; bound {l01_bound!r} ms by {l01_by}, "
+                     f"{l01_bound / l01_ms:.2%} of it); L1 by difference "
+                     f"{l01_ms - l0_ms!r} ms, L2 and the detect outputs "
+                     f"{kernel_ms - l01_ms!r} ms")
     del imgs
 
     # lyr4-wide: the layer kernel (L0), the megakernel (L1-L3), the chain

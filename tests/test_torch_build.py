@@ -56,15 +56,15 @@ def test_digest_covers_the_build_command(csrc):
 def test_repo_kernels_hash_their_shared_headers():
     """The two layer-kernel sources include conv_layer.cuh, which includes
     int8_mma.cuh and path_counts.cuh; the megakernel includes both of
-    those, and the bitcast kernel path_counts.cuh. Each library's digest
-    therefore reads those headers (a missing include would leave a stale
-    library after a header edit)."""
+    those and hopper.cuh, and the bitcast kernel path_counts.cuh. Each
+    library's digest therefore reads those headers (a missing include
+    would leave a stale library after a header edit)."""
     seen = {}
     for name in ("conv_act", "conv_pool_layer", "mega_cnn", "bitcast"):
         with open(os.path.join(_build.CSRC_DIR, name + ".cu"), "rb") as f:
             seen[name] = set(_build._INCLUDE.findall(f.read()))
     assert seen["conv_act"] == seen["conv_pool_layer"] == {b"conv_layer.cuh"}
-    assert seen["mega_cnn"] == {b"int8_mma.cuh", b"path_counts.cuh"}
+    assert seen["mega_cnn"] == {b"hopper.cuh", b"int8_mma.cuh", b"path_counts.cuh"}
     assert seen["bitcast"] == {b"path_counts.cuh"}
     with open(os.path.join(_build.CSRC_DIR, "conv_layer.cuh"), "rb") as f:
         assert _build._INCLUDE.findall(f.read()) == [b"int8_mma.cuh", b"path_counts.cuh"]
@@ -72,3 +72,4 @@ def test_repo_kernels_hash_their_shared_headers():
         read = {os.path.basename(p) for p, _t in _build.local_sources(
             os.path.join(_build.CSRC_DIR, name + ".cu"))}
         assert "path_counts.cuh" in read and (name == "bitcast") != ("int8_mma.cuh" in read)
+        assert ("hopper.cuh" in read) == (name == "mega_cnn")

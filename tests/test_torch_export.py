@@ -388,6 +388,33 @@ def test_mega_program_goes_through_the_custom_ops(variant, ops):
         np.testing.assert_array_equal(got.numpy(), w)
 
 
+def test_a_mega_program_with_the_old_packing_is_refused(monkeypatch, models):
+    """A ``mega`` program exported before the megakernel took its wgmma
+    layout holds old-layout packed constants (mma.sync fragments for every
+    layer, 4-D). Saved and loaded, it fails loudly on its first call, with
+    the ValueError of ``mega._check_packed``, and computes nothing: every
+    new packed shape differs from the old one, so the shapes alone tell
+    them apart and the manifest needs no packing number."""
+    model = models[0]
+    ks = [torch.from_numpy(k) for k in model.kernels]
+    assert all(tuple(mega.pack_fragments(k).shape) != mega.packed_shape(k) for k in ks)
+    monkeypatch.setattr(mega, "pack_plan",
+                        lambda kernels, size: [mega.pack_fragments(k) for k in kernels])
+    prog = build_detect_fn(model, "mega", "ref", "cpu")
+    ep = torch.export.export(prog, (torch.zeros((1, 128, 128), dtype=torch.uint8),
+                                    torch.zeros(len(ks), dtype=torch.int32)), strict=False)
+    monkeypatch.undo()
+    buf = io.BytesIO()
+    torch.export.save(ep, buf)
+    buf.seek(0)
+    loaded = torch.export.load(buf)
+    img = np.random.RandomState(7).randint(0, 256, (1, 128, 128)).astype(np.uint8)
+    before = mega.launches
+    with pytest.raises(ValueError, match="pack_plan"):
+        loaded.module()(torch.from_numpy(img), torch.from_numpy(model.shifts))
+    assert mega.launches == before
+
+
 def test_opcheck_the_custom_ops():
     """torch.library.opcheck: the CPU implementations and the fake ones
     agree on shapes and dtypes, and both ops survive tracing."""

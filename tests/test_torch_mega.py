@@ -31,7 +31,7 @@ from tpu_cnn.models.registry import REGISTRY, default_shifts, get_config  # noqa
 from tpu_cnn.ops import pallas_poly  # noqa: E402
 from tpu_cnn.utils import artifacts as art  # noqa: E402
 from tpu_cnn.utils.paths import default_artifacts  # noqa: E402
-from tpu_cnn_torch.ops import _build, conv_pool, int8, mega  # noqa: E402
+from tpu_cnn_torch.ops import _build, conv_pool, int8, mega, quant  # noqa: E402
 
 BINS_ATOL = 1e-6
 COMBOS = [c for c in itertools.product((True, False), repeat=3) if any(c)]
@@ -178,13 +178,16 @@ def test_mega_plan_refuses_what_no_tail_fits():
         _port(imgs, kernels, np.asarray([2], np.int32))
 
 
-# the kernel's regions (mega_layout): layer outputs channels-last with a
-# 1-pixel halo and cpad channels a pixel, the final one NCHW, layer 0's
-# input band in region 1
-LAYOUTS = {"lyr3-std": (66 * 66 * 16, 34 * 34 * 32, 128),
-           "lyr3-tiny": (18 * 18 * 16, 10 * 10 * 32, 32),
-           "lyr2-small": (34 * 34 * 16, 32 * 16 * 16, 64),
-           "lyr4-wide": (66 * 66 * 32, 34 * 34 * 64, 32)}
+# the kernel's shared memory (mega_layout): (region 0, region 1, the image
+# buffer, layer 0's band rows, which weights stay resident). Layer outputs
+# channels-last with a 1-pixel halo and cpad channels a pixel, the final
+# one NCHW; a one-channel image in its own buffer (S + 2 rows of S bytes);
+# lyr4-wide's 16-channel tail input in bands in region 1, behind which L1's
+# weights go (its L3's go behind L3's output, per image)
+LAYOUTS = {"lyr3-std": (66 * 66 * 16, 34 * 34 * 32, 130 * 128, 128, (True,) * 3),
+           "lyr3-tiny": (18 * 18 * 16, 10 * 10 * 32, 34 * 32, 32, (True,) * 3),
+           "lyr2-small": (34 * 34 * 16, 32 * 16 * 16, 66 * 64, 64, (True,) * 2),
+           "lyr4-wide": (66 * 66 * 32, 34 * 34 * 64, 0, 30, (False, True, False))}
 
 
 @pytest.mark.parametrize("variant,smem", [
@@ -193,23 +196,36 @@ LAYOUTS = {"lyr3-std": (66 * 66 * 16, 34 * 34 * 32, 128),
 def test_smem_model(variant, smem):
     """Peak shared memory of the megakernel's part of the plan. ``smem``:
     the two largest alternating layer outputs as bare u8 maps; the kernel's
-    two regions add each output's halo and channel padding and layer 0's
-    input band. Every whole net but lyr4-wide fits one CTA; lyr4-wide's
-    L1-L3 tail does, with its 16 x 128^2 input in bands of 32 rows."""
+    two regions add each output's halo and channel padding, then come the
+    image buffer and the weights. Every whole net but lyr4-wide fits one
+    CTA; lyr4-wide's L1-L3 tail does, with its 16 x 128^2 input in bands
+    of 30 rows and two layers' weights copied per image."""
     cfgs = REGISTRY[variant].layer_configs
     tail = cfgs[mega.mega_plan(cfgs):]
     bare = [0, 0]
     for li, (_ic, oc, s) in enumerate(tail):
         bare[li % 2] = max(bare[li % 2], oc * (s // 2) ** 2)
     assert sum(bare) == smem
-    r0, r1, rows = mega.mega_layout(tail)
-    assert (r0, r1, rows) == LAYOUTS[variant]
-    assert r0 >= bare[0] and r1 >= bare[1]
-    assert mega.mega_smem_bytes(tail) == r0 + r1 <= mega.MAX_SMEM_BYTES
+    lay = mega.mega_layout(tail)
+    assert (lay.region0, lay.region1, lay.input, lay.band_rows,
+            lay.resident) == LAYOUTS[variant]
+    assert lay.region0 >= bare[0] and lay.region1 >= bare[1]
+    assert lay.weights == tuple(mega.weight_bytes(ic, oc) for ic, oc, _ in tail)
+    assert lay.weights == tuple(mega.packed_shape(torch.zeros(
+        (oc, ic, 3, 3), dtype=torch.int8))[0] for ic, oc, _ in tail)
+    assert mega.mega_smem_bytes(tail) == lay.smem <= mega.MAX_SMEM_BYTES
+    # the buffers do not overlap: weights that stay sit past everything
+    # else, and the others past what their layer reads and writes
+    ends = sorted(off + w for off, w in zip(lay.w_offsets, lay.weights))
+    assert ends[-1] <= lay.smem and all(off % 128 == 0 for off in lay.w_offsets)
+    base = (128 + -(-lay.region0 // 128) * 128 + -(-lay.region1 // 128) * 128
+            + -(-lay.input // 128) * 128)
+    for off, keep in zip(lay.w_offsets, lay.resident):
+        assert (off >= base) == keep
     whole = mega.mega_smem_bytes(cfgs)
-    assert (whole <= mega.MAX_SMEM_BYTES) == (variant != "lyr4-wide")
-    if variant == "lyr4-wide":
-        assert whole == 130 * 130 * 16 + 66 * 66 * 32
+    assert (whole is not None) == (variant != "lyr4-wide")
+    if variant == "lyr4-wide":  # its L0 output alone: 130^2 x 16 bytes
+        assert mega.mega_layout(cfgs) is None
 
 
 def test_tail_input_matches_pallas_nchw_entry():
@@ -328,7 +344,7 @@ def test_tail_input_kernel_matches_plain_version_on_card(cuda_device):
         _assert_outputs(got, want, flags)
 
 
-# ── the tensor-core kernel's packed weights ──────────────────────────
+# ── the tensor-core kernels' packed weights ──────────────────────────
 
 PACK_GEOMETRIES = [(1, 16), (16, 32), (32, 64), (64, 128), (3, 5), (20, 35),
                    (16, 1), (1, 1), (128, 16)]
@@ -349,50 +365,115 @@ def _fragment_b(packed):
     return b
 
 
-def _unpack(packed, ic, oc):
-    """``mega.pack_weights``' inverse: (oc, ic, 3, 3) int8."""
-    ks, nt = int(packed.shape[0]), int(packed.shape[1])
-    b = (packed.view(ks, nt, 8, 4, 2, 4).permute(0, 4, 3, 5, 1, 2)
-         .reshape(ks * 32, nt * 8))
+def _wgmma_b(packed, ic, oc):
+    """The (K, N) int32 operand the megakernel's wgmma reads from a packed
+    multi-channel layer, by the K-major core-matrix layout of its shared
+    memory (8 N rows x 16 K bytes a core matrix, the two of a K step 128
+    bytes apart, groups of 8 channels 256 apart: byte ((s * NG + n8) * 2 +
+    h) * 128 + 16 r + j holds B[32 s + 16 h + j][8 n8 + r]), not by the
+    packing's own arithmetic."""
+    ks = -(-9 * mega.cpad(ic) // 32)
+    nw = mega.chunk_n(oc)
+    npad = -(-oc // nw) * nw
+    flat = packed.numpy().astype(np.int32)
+    assert flat.shape == (ks * npad * 32,)
+    b = np.zeros((32 * ks, npad), np.int32)
+    for s in range(ks):
+        for n8 in range(npad // 8):
+            for h in range(2):
+                for r in range(8):
+                    at = ((s * (npad // 8) + n8) * 2 + h) * 128 + 16 * r
+                    b[32 * s + 16 * h:32 * s + 16 * h + 16, 8 * n8 + r] = flat[at:at + 16]
+    return torch.from_numpy(b)
+
+
+def _unpack(b, ic, oc):
+    """A (K, N) GEMM operand back to (oc, ic, 3, 3) int8 (K = 9 taps x
+    cpad(ic), tap-major)."""
     cp = mega.cpad(ic)
-    return (b[:9 * cp].view(9, cp, nt * 8)[:, :ic, :oc]
+    return (b[:9 * cp].reshape(9, cp, -1)[:, :ic, :oc].to(torch.int8)
             .reshape(3, 3, ic, oc).permute(3, 2, 0, 1).contiguous())
+
+
+def _want_b(k, rows, cols):
+    """The (rows, cols) int32 GEMM operand of kernel k: K tap-major over
+    cpad channels, zero in the padding."""
+    oc, ic = k.shape[:2]
+    cp = mega.cpad(ic)
+    want = torch.zeros((rows, cols), dtype=torch.int32)
+    want[:9 * cp].view(9, cp, -1)[:, :ic, :oc] = (
+        k.permute(2, 3, 1, 0).reshape(9, ic, oc).to(torch.int32))
+    return want
 
 
 @pytest.mark.parametrize("ic,oc", PACK_GEOMETRIES)
 def test_packed_weights_round_trip(ic, oc):
+    """The megakernel's packing: a one-channel layer's is the recast's B
+    (``pack_one_channel``'s bytes); a multi-channel layer's is the wgmma
+    B, K-major core matrices, every byte where the core-matrix layout puts
+    it, zero in the padded K rows and N columns. Its size is
+    ``weight_bytes`` (the kernel copies that many), and its shape differs
+    from every shape the kernel read before (4-D fragments), so an old
+    packing is refused."""
     rs = np.random.RandomState(40 + ic + oc)
     k = torch.from_numpy(rs.randint(-128, 128, (oc, ic, 3, 3)).astype(np.int8))
     packed = mega.pack_weights(k)
+    assert packed.dtype == torch.int8 and packed.is_contiguous() and packed.dim() == 1
+    assert tuple(packed.shape) == mega.packed_shape(k) == (mega.weight_bytes(ic, oc),)
+    assert tuple(packed.shape) != mega.fragments_shape(k)
+    if ic == 1:
+        assert torch.equal(packed, mega.pack_one_channel(k).reshape(-1))
+        return
+    b = _wgmma_b(packed, ic, oc)
+    assert torch.equal(_unpack(b, ic, oc), k)
+    assert torch.equal(b, _want_b(k, *b.shape))
+
+
+@pytest.mark.parametrize("ic,oc", PACK_GEOMETRIES)
+def test_fragment_weights_round_trip(ic, oc):
+    """The layer kernel's packing of a multi-channel layer (mma.m16n8k32's
+    B fragments, ``pack_fragments``), read back by the fragment layout."""
+    rs = np.random.RandomState(40 + ic + oc)
+    k = torch.from_numpy(rs.randint(-128, 128, (oc, ic, 3, 3)).astype(np.int8))
+    packed = mega.pack_fragments(k)
     cp = mega.cpad(ic)
     assert packed.dtype == torch.int8 and packed.is_contiguous()
-    assert tuple(packed.shape) == (-(-9 * cp // 32), -(-oc // 8), 32, 8)
-    assert torch.equal(_unpack(packed, ic, oc), k)
-    # K is tap-major over cpad channels; padded rows and columns are zero
+    assert tuple(packed.shape) == mega.fragments_shape(k) == (
+        -(-9 * cp // 32), -(-oc // 8), 32, 8)
     b = _fragment_b(packed)
-    want = torch.zeros_like(b)
-    want[:9 * cp].view(9, cp, -1)[:, :ic, :oc] = (
-        k.permute(2, 3, 1, 0).reshape(9, ic, oc).to(torch.int32))
-    assert torch.equal(b, want)
+    assert torch.equal(_unpack(b, ic, oc), k)
+    assert torch.equal(b, _want_b(k, *b.shape))
+    if ic > 1:
+        assert torch.equal(mega.pack_layer(k), packed)
 
 
-def _implicit_gemm_layer(x, packed, ic, oc, shift):
-    """One layer as the kernel computes it, in plain int32 on the CPU:
-    channels-last with a zero halo and cpad channels, im2col in the packed
-    tap-major K order (padded to the packed K), one GEMM with the
-    fragment-decoded B, then >> shift, clip and the 2x2 max."""
+def _implicit_gemm_layer(x, b, ic, oc, shift):
+    """One multi-channel layer as the kernel computes it, in plain int32 on
+    the CPU: channels-last with a zero halo and cpad channels, im2col in the
+    tap-major K order (padded to B's K), one GEMM with the decoded B, then
+    >> shift, clip and the 2x2 max."""
     bsz, _, s, _ = x.shape
     cp = mega.cpad(ic)
     xl = torch.zeros((bsz, s + 2, s + 2, cp), dtype=torch.int32)
     xl[:, 1:-1, 1:-1, :ic] = x.permute(0, 2, 3, 1).to(torch.int32)
     cols = torch.stack([xl[:, ky:ky + s, kx:kx + s] for ky in range(3)
                         for kx in range(3)], dim=3)  # (B, S, S, 9, cp)
-    b = _fragment_b(packed)
     a = torch.zeros((bsz * s * s, b.shape[0]), dtype=torch.int32)
     a[:, :9 * cp] = cols.reshape(bsz * s * s, 9 * cp)
     acc = (a @ b)[:, :oc].reshape(bsz, s, s, oc).permute(0, 3, 1, 2)
     act = torch.clamp(acc >> shift, 0, 255)
     return act.reshape(bsz, oc, s // 2, 2, s // 2, 2).amax(dim=(3, 5)).to(torch.uint8)
+
+
+def _emulated_layer(x, packed, ic, oc, shift):
+    """One layer from the megakernel's packed bytes, the way the kernel
+    runs it: the one-channel recast (the 4x4 patch under each quad times
+    the fragment-decoded 16 x (4 x G*16) matrix, the max over the four
+    positions) or the wgmma implicit GEMM."""
+    if ic == 1:
+        acc = _one_channel_gemm(x, packed.view(-1, 8, 32, 4), oc)
+        return torch.clamp(acc.amax(dim=3) >> shift, 0, 255).permute(0, 3, 1, 2).to(torch.uint8)
+    return _implicit_gemm_layer(x, _wgmma_b(packed, ic, oc), ic, oc, shift)
 
 
 @pytest.mark.parametrize("variant", ["lyr3-tiny", "lyr2-small", "lyr4-wide-tail"])
@@ -414,8 +495,60 @@ def test_gemm_in_packed_order_equals_the_plain_version(variant):
     h = x
     for k, sh in zip(kernels, shifts):
         ic, oc = int(k.shape[1]), int(k.shape[0])
-        h = _implicit_gemm_layer(h, mega.pack_weights(k), ic, oc, sh)
+        h = _emulated_layer(h, mega.pack_weights(k), ic, oc, sh)
     assert torch.equal(h.reshape(want.shape), want)
+
+
+@pytest.mark.parametrize("weights", ["shipped", "seed7"])
+@pytest.mark.parametrize("variant", ["lyr3-tiny", "lyr2-small"])
+def test_emulated_packing_matches_quant_and_the_tpu_kernel(variant, weights):
+    """The megakernel's arithmetic on its packed bytes (``pack_plan``, the
+    recast for L0 and the wgmma B for the others, decoded by the PTX
+    layouts and multiplied in numpy int32) equals ``quant.cnn_forward``
+    after every layer and the TPU kernel in interpret mode at the end.
+    ``shipped``: lyr3-std's shipped kernels, whose shapes lyr3-tiny's
+    layers (and lyr2-small's first two) share; ``seed7``: full-range
+    kernels from seed 7."""
+    cfg = get_config(variant)
+    if weights == "shipped":
+        kernels = art.load_bundle(default_artifacts()).kernels[:len(cfg.layer_configs)]
+    else:
+        kernels = _random_kernels(np.random.RandomState(7), cfg.layer_configs)
+    shifts = np.asarray(default_shifts(cfg), np.int32)
+    imgs = np.random.RandomState(48).randint(
+        0, 256, (2, cfg.img_size, cfg.img_size)).astype(np.uint8)
+    ks = [torch.from_numpy(k) for k in kernels]
+    packed = mega.pack_plan(ks, cfg.img_size)
+    assert mega.mega_plan(cfg.layer_configs) == 0
+    h = torch.from_numpy(imgs)[:, None]
+    for li, (k, p) in enumerate(zip(ks, packed)):
+        h = _emulated_layer(h, p, int(k.shape[1]), int(k.shape[0]), int(shifts[li]))
+        want = quant.cnn_forward(torch.from_numpy(imgs), ks[:li + 1],
+                                 torch.from_numpy(shifts[:li + 1]), compute_dtype="int32")
+        assert torch.equal(h.reshape(want.shape), want), f"layer {li}"
+    jax_feats = _jax_mega(imgs, kernels, shifts)[0]
+    np.testing.assert_array_equal(h.reshape(jax_feats.shape).numpy(), jax_feats)
+
+
+def test_old_fragment_packing_is_refused():
+    """A packing in the kernel's layout before the wgmma design (mma.sync
+    fragments for every layer, the one-channel L0 padded to K 32) is
+    refused with ValueError before anything runs: every shape differs from
+    the new packing's."""
+    rs = np.random.RandomState(49)
+    cfg = get_config("lyr3-std")
+    ks = [torch.from_numpy(k) for k in _random_kernels(rs, cfg.layer_configs)]
+    old = [mega.pack_fragments(k) for k in ks]
+    assert [tuple(p.shape) for p in old] == [(1, 2, 32, 8), (5, 4, 32, 8), (9, 8, 32, 8)]
+    assert all(tuple(o.shape) != mega.packed_shape(k) for o, k in zip(old, ks))
+    imgs = torch.from_numpy(rs.randint(0, 256, (1, 128, 128)).astype(np.uint8))
+    shifts = torch.tensor([2, 4, 6], dtype=torch.int32)
+    before = mega.launches
+    with pytest.raises(ValueError, match="pack_plan"):
+        mega._check_packed(old, ks, 0)
+    with pytest.raises(ValueError, match="pack_plan"):
+        mega.cnn_forward_mega(imgs, ks, shifts, packed=old)
+    assert mega.launches == before
 
 
 def test_engine_packs_its_weights_once_under_inference_mode(monkeypatch):
@@ -459,14 +592,38 @@ def test_packed_weights_must_match_the_kernels(tiny, bad):
 
 @pytest.mark.parametrize("cfgs,rows", [
     (((1, 16, 128), (16, 32, 64), (32, 64, 32)), 128),   # lyr3-std: whole image
-    (((16, 32, 128), (32, 64, 64), (64, 128, 32)), 32),  # lyr4-wide's tail
+    (((16, 32, 128), (32, 64, 64), (64, 128, 32)), 30),  # lyr4-wide's tail
     (((1, 16, 64),), 64),                                 # one layer, whole
     (((64, 16, 64),), 2)])                                # one layer, thin bands
 def test_layer0_band_rows(cfgs, rows):
-    r0, r1, got = mega.mega_layout(cfgs)
-    assert got == rows and got % 2 == 0
-    row = (cfgs[0][2] + 2) * mega.cpad(cfgs[0][0])
-    assert r1 >= (rows + 2) * row and r0 % 16 == 0
+    """A one-channel image comes whole into its own buffer (S + 2 rows of
+    S bytes); a multi-channel one in bands into region 1, which holds
+    them (and, behind them, L1's weights when those are copied per
+    image)."""
+    lay = mega.mega_layout(cfgs)
+    assert lay.band_rows == rows and rows % 2 == 0
+    assert lay.region0 >= 0 and lay.smem <= mega.MAX_SMEM_BYTES
+    s, ic = cfgs[0][2], cfgs[0][0]
+    if ic == 1:
+        assert lay.input == (s + 2) * s and rows == s
+    else:
+        row = (s + 2) * mega.cpad(ic)
+        assert lay.input == 0 and lay.region1 >= (rows + 2) * row
+        if not lay.resident[0]:  # region 1 starts past the slack and region 0
+            off1 = 128 + -(-lay.region0 // 128) * 128
+            assert lay.w_offsets[0] >= off1 + (rows + 2) * row
+            assert lay.w_offsets[0] + lay.weights[0] <= off1 + lay.region1
+
+
+@pytest.mark.cuda
+def test_smem_model_equals_the_kernels_plan(cuda_device):
+    """mega_layout is a mirror of the kernel's smem_plan: on every registry
+    net and tail, the kernel cases' edge geometries and seeded random nets,
+    the library's exported plan refuses the same geometries and places
+    every buffer where mega_layout does."""
+    from tpu_cnn_torch.apps import kernel_cases
+
+    assert kernel_cases.smem_plans_vs_kernel() == len(kernel_cases._plan_geometries())
 
 
 @pytest.mark.cuda
@@ -474,12 +631,13 @@ def test_layer0_band_rows(cfgs, rows):
                                   "0/255 x 127/-128", "ic0=3", "wide middle",
                                   "padded N", "ragged", "one-channel middle",
                                   "one layer", "one layer 30 wide",
-                                  "misaligned input"])
+                                  "misaligned input", "3 channels 30 wide"])
 def test_mma_edges_match_plain_version_on_card(cuda_device, case):
     """The tensor-core path's edges against the plain version on the card:
     saturating and most negative sums at shifts 0 and 31, padded K and N,
     the runtime-chunk path, column groups cut by the map's edge and
-    one-layer nets."""
+    one-layer nets (a one-channel image by plain loads when 30 wide or
+    misaligned; a 3-channel band byte by byte when 30 wide)."""
     rs = np.random.RandomState(43)
     lyr3 = REGISTRY["lyr3-std"].layer_configs
     b = 37
@@ -502,7 +660,8 @@ def test_mma_edges_match_plain_version_on_card(cuda_device, case):
             "one-channel middle": (1, 32, (1, 16), (1, 3)),
             "one layer": (16, 32, (32,), (6,)),
             "one layer 30 wide": (1, 30, (16,), (2,)),
-            "misaligned input": (1, 32, (16, 32), (2, 4))}[case]
+            "misaligned input": (1, 32, (16, 32), (2, 4)),
+            "3 channels 30 wide": (3, 30, (16,), (4,))}[case]
         imgs = rs.randint(0, 256, (b, s, s) if ic0 == 1 else (b, ic0, s, s)
                           ).astype(np.uint8)
         kernels = [rs.randint(-128, 128, (oc, ic, 3, 3)).astype(np.int8)
@@ -527,6 +686,26 @@ def test_mma_edges_match_plain_version_on_card(cuda_device, case):
                                         with_bins=flags[1], with_twin=flags[2])
             torch.cuda.synchronize()
             _assert_outputs(got, want, flags)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [None, 1, 5])
+def test_persistent_grid_matches_plain_version_on_card(cuda_device, extra):
+    """The persistent grid (one CTA per SM, each walking images): one
+    image, and more images than CTAs (a second image for every CTA, the
+    bulk copy of the next image under the current one's later layers)."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    b = 1 if extra is None else sms + extra
+    imgs, kernels, shifts = _case("lyr3-std", 50, b,
+                                  kernels=art.load_bundle(default_artifacts()).kernels)
+    t = (torch.from_numpy(imgs).to(cuda_device),
+         [torch.from_numpy(k).to(cuda_device) for k in kernels],
+         torch.from_numpy(shifts).to(cuda_device))
+    want = [a.float().cpu().numpy() if a.dtype == torch.bfloat16 else a.cpu().numpy()
+            for a in mega.mega_reference(*t, compute_dtype="int32")]
+    got = mega.cnn_forward_mega(*t, with_feats=True, with_bins=True, with_twin=True)
+    torch.cuda.synchronize()
+    _assert_outputs(got, want, (True, True, True))
 
 
 # ── the layer kernel's one-channel recast ────────────────────────────

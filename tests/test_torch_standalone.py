@@ -21,7 +21,8 @@ PORT_FILES = sorted(
     for d, _, fs in os.walk(os.path.join(REPO, "tpu_cnn_torch"))
     for f in fs if f.endswith(".py")) + ["chip_smoke.py",
                                          "scripts/bench_serving_torch.py",
-                                         "scripts/build_pretrained_torch.py"]
+                                         "scripts/build_pretrained_torch.py",
+                                         "scripts/mega_phases_torch.py"]
 REFUSED = ("jax", "tpu_cnn", "optax", "orbax")
 VERDICT = "VERDICT: DESIGN IS BIT-ACCURATE across all backends"
 

@@ -13,8 +13,11 @@ kernels (``csrc/``, built by ``ops._build``):
   - ``ops.quant``         — the contract in plain torch (the kernels'
                             reference and the CPU path), and
                             ``cnn_forward_chunked`` over sub-batches
-  - ``ops.mega``          — the megakernel (``csrc/mega_cnn.cu``), its
-                            weight packing and the chained plan
+  - ``ops.mega``          — the megakernel (``csrc/mega_cnn.cu``, on
+                            ``csrc/hopper.cuh``), its weight packing
+                            (wgmma B, the recast, the layer kernel's
+                            fragments), shared-memory plan and the chained
+                            plan
   - ``ops.conv_pool``     — the layer kernel (``csrc/conv_pool_layer.cu``)
   - ``ops.int8``          — the conv kernel (``csrc/conv_act.cu``) and the
                             ``pallas``/``hybrid`` forwards

@@ -56,17 +56,30 @@ BINS_TOL = 1e-6  # the kernel's bins vs the plain version's (1-ulp / order)
 KERNEL_BATCH = 37  # the kernel cases' batch: not a multiple of any tile
 COMBOS = [c for c in itertools.product((True, False), repeat=3) if any(c)]
 
-# the code paths the cases must reach (``main`` fails without one): both
-# launch shapes of the megakernel and its banded layer 0; the layer
-# kernel's one-channel path with more than one output-group pass, its
-# multi-channel path at every channel padding, pooled and unpooled, its
-# byte-wise staging and stores, and a second item of its persistent loop
-# (one buffer swap) on both paths; the bitcast kernel's one-word variants
-# on misaligned views
+# the code paths the cases must reach (``main`` fails without one): the
+# megakernel's two ways of bringing a one-channel image and its banded
+# multi-channel layer 0, its weights resident and copied per image, a
+# second image of its persistent loop, its one-channel layers past 16
+# channels and past layer 0, and every wgmma N chunk and the generic
+# channel padding; the layer kernel's one-channel path with more than one
+# output-group pass, its multi-channel path at every channel padding,
+# pooled and unpooled, its byte-wise staging and stores, and a second item
+# of its persistent loop (one buffer swap) on both paths; the bitcast
+# kernel's one-word variants on misaligned views
 REQUIRED_PATHS = (
-    "mega_cnn: 256 threads, two CTAs per SM",
-    "mega_cnn: 512 threads, one CTA per SM",
-    "mega_cnn: layer 0 in row bands",
+    "mega_cnn: one-channel image by cp.async.bulk behind an mbarrier, prefetched",
+    "mega_cnn: one-channel image by plain loads",
+    "mega_cnn: multi-channel layer 0 in row bands",
+    "mega_cnn: row bands staged byte by byte",
+    "mega_cnn: all weights resident in shared memory",
+    "mega_cnn: weights copied per image",
+    "mega_cnn: persistent loop, a CTA's second image",
+    "mega_cnn: one-channel layer of more than 16 channels",
+    "mega_cnn: one-channel layer past layer 0",
+    "mega_cnn: wgmma m64n16k32",
+    "mega_cnn: wgmma m64n32k32",
+    "mega_cnn: wgmma m64n64k32",
+    "mega_cnn: wgmma layer past 64 input channels",
     "layer: one-channel, output-group pass g0 > 0",
     *(f"layer: multi-channel cp={cp} {p}" for cp in ("16", "32", "64", "generic")
       for p in ("pooled", "unpooled")),
@@ -156,9 +169,9 @@ def _mma_edge_setups(rs) -> list:
     runtime-chunk path (a 128-channel middle layer), an output of 35 then
     13 channels (padded N tiles), column groups cut by the map's edge (a
     12-wide layer), a one-channel middle layer (one byte a pixel in
-    shared memory) and one-layer nets on both input paths (one byte a
-    pixel, staged by words or, 30 wide, by bytes; and 16 channels in
-    bands)."""
+    shared memory) and one-layer nets on every input path (one byte a
+    pixel by bulk copies or, 30 wide, by plain loads; 16 channels in
+    bands by words, and 3 channels 30 wide by bytes)."""
     cfg3 = get_config("lyr3-std").layer_configs
     b, setups = KERNEL_BATCH, []
     sat = np.full((b, 128, 128), 255, np.uint8)
@@ -179,6 +192,7 @@ def _mma_edge_setups(rs) -> list:
             ("one-channel middle 1->1->16@32", 1, 32, (1, 16), (1, 3)),
             ("one layer 1->16@64", 1, 64, (16,), (3,)),
             ("one layer 1->16@30", 1, 30, (16,), (2,)),
+            ("one layer 3->16@30", 3, 30, (16,), (4,)),
             ("one layer 16->32@32", 16, 32, (32,), (6,))):
         shape = (b, s, s) if ic0 == 1 else (b, ic0, s, s)
         ics = (ic0,) + chans[:-1]
@@ -186,6 +200,71 @@ def _mma_edge_setups(rs) -> list:
               for ic, oc in zip(ics, chans)]
         setups.append((name, rs.randint(0, 256, shape).astype(np.uint8), ks, sh))
     return setups
+
+
+SMEM_PLAN_RANDOM = 2000  # seeded random geometries beside the fixed ones
+
+
+def _plan_geometries() -> list[tuple]:
+    """Layer configs for the shared-memory plan check: every registry net
+    and each of its tails, the megakernel cases' edge geometries, one
+    that does not fit, and seeded random nets of 1-4 layers (some of
+    sizes the kernel refuses)."""
+    geoms = []
+    for name in ("lyr3-std", "lyr3-tiny", "lyr2-small", "lyr4-wide"):
+        cfgs = get_config(name).layer_configs
+        geoms += [cfgs[n:] for n in range(len(cfgs))]
+    for ic0, s, chans in ((3, 32, (24, 8)), (16, 16, (128, 16)), (1, 32, (35, 13)),
+                          (1, 24, (16, 24)), (1, 32, (1, 16)), (1, 64, (16,)),
+                          (1, 30, (16,)), (3, 30, (16,)), (16, 32, (32,)),
+                          (64, 64, (16,)), (1, 512, (64, 64))):
+        ics = (ic0,) + chans[:-1]
+        geoms.append(tuple((ic, oc, s >> i) for i, (ic, oc) in enumerate(zip(ics, chans))))
+    rs = np.random.RandomState(11)
+    for _ in range(SMEM_PLAN_RANDOM):
+        n = rs.randint(1, 5)
+        s = int(rs.choice((8, 12, 16, 24, 30, 32, 48, 64, 96, 128, 256)))
+        chans = [int(rs.choice((1, 3, 16, 32, 64)))] + [
+            int(rs.choice((1, 8, 13, 16, 24, 32, 35, 64, 128))) for _ in range(n)]
+        geoms.append(tuple((chans[i], chans[i + 1], s >> i) for i in range(n)))
+    return geoms
+
+
+def smem_plans_vs_kernel() -> int:
+    """``mega.mega_layout`` against the kernel library's own plan
+    (``mega_cnn_smem_plan``) on every geometry of ``_plan_geometries``:
+    the same geometries refused, and for the rest the same bytes, region
+    and image-buffer offsets, band rows and weight placement. Needs the
+    built library (the card). Returns the geometries checked."""
+    import ctypes
+
+    lib = mega._lib()
+    fn = lib.mega_cnn_smem_plan
+    ci = ctypes.c_int
+    fn.argtypes = [ci, ci, ctypes.POINTER(ci), ctypes.POINTER(ci), ctypes.POINTER(ci)]
+    fn.restype = ci
+    geoms = _plan_geometries()
+    for cfgs in geoms:
+        n, size0 = len(cfgs), cfgs[0][2]
+        ic = (ci * n)(*(c[0] for c in cfgs))
+        oc = (ci * n)(*(c[1] for c in cfgs))
+        plan = (ci * (5 + 3 * mega.MAX_LAYERS))()
+        smem = fn(n, size0, ic, oc, plan)
+        lay = mega.mega_layout(cfgs)
+        check((lay is None) == (smem == 0),
+              f"smem plan {cfgs}: kernel {smem} bytes, mega_layout {lay}")
+        if lay is None:
+            continue
+        off1 = mega.ALIGN + mega._align(lay.region0)
+        mirror = [mega.ALIGN, off1, off1 + mega._align(lay.region1),
+                  mega.pitch1(size0) if cfgs[0][0] == 1 else 0, lay.band_rows]
+        pad = [0] * (mega.MAX_LAYERS - n)
+        mirror += list(lay.w_offsets) + pad + list(lay.weights) + pad
+        mirror += [int(r) for r in lay.resident] + [1] * len(pad)
+        check(smem == lay.smem and list(plan) == mirror,
+              f"smem plan {cfgs}: kernel {smem} {list(plan)}, "
+              f"mega_layout {lay.smem} {mirror}")
+    return len(geoms)
 
 
 def mega_vs_plain(dev: torch.device) -> tuple[float, int]:
@@ -211,6 +290,19 @@ def mega_vs_plain(dev: torch.device) -> tuple[float, int]:
     for w, ks in (("shipped", bundle_of("lyr4-wide").kernels[1:]),
                   ("seed7", _random_kernels(rs, tail_cfgs))):
         setups.append((f"lyr4-wide-tail/{w}", x16, ks, (5, 5, 7)))
+    # the persistent grid: one image, and more images than CTAs (each CTA
+    # of the grid takes a second one), on both input paths
+    sms = (torch.cuda.get_device_properties(dev).multi_processor_count
+           if dev.type == "cuda" else 132)
+    setups.append(("lyr3-std/shipped/batch 1", gate[:1], bundle.kernels, (2, 4, 6)))
+    setups.append((f"lyr3-std/seed7/batch {2 * sms + 5}",
+                   rs.randint(0, 256, (2 * sms + 5, 128, 128)).astype(np.uint8),
+                   _random_kernels(rs, get_config("lyr3-std").layer_configs), (2, 4, 6)))
+    setups.append(("lyr4-wide-tail/shipped/batch 1", x16[:1],
+                   bundle_of("lyr4-wide").kernels[1:], (5, 5, 7)))
+    setups.append((f"lyr4-wide-tail/seed7/batch {sms + 3}",
+                   rs.randint(0, 256, (sms + 3, 16, 128, 128)).astype(np.uint8),
+                   _random_kernels(rs, tail_cfgs), (5, 5, 7)))
     setups += _mma_edge_setups(rs)
     max_err, n_cases = 0.0, 0
     for name, imgs_np, ks_np, sh in setups:
@@ -511,12 +603,14 @@ def run_all(dev: torch.device) -> dict:
     e_act, n_act, e_layer, n_layer = layer_edges(dev)
     g_act, gn_act, g_layer, gn_layer = layer_generic_channels(dev)
     chain_vs_oracle(dev)
+    plans = smem_plans_vs_kernel() if dev.type == "cuda" else 0
     bit_err, bit_n = bitcast_vs_plain(dev)
     after = _path_counts() if dev.type == "cuda" else {}
     return {
         "launches": {name: m.launches for name, m in MODULES.items()},
         "paths": sorted({f"{PATH_PREFIX[name]}: {path}" for name, counts in after.items()
                          for path, n in counts.items() if n > before[name][path]}),
+        "smem_plans": plans,
         "cases": {"mega_cnn": mega_n, "conv_pool_layer": layer_n + n_layer + gn_layer,
                   "conv_act": act_n + n_act + gn_act, "bitcast": bit_n},
         "max_abs_err": {"mega_cnn": mega_err,

@@ -13,7 +13,7 @@
 // done in registers: (B, oc, H/2, W/2) u8, H and W even. Both are the layer
 // kernel of conv_layer.cuh (its design note), unpooled and pooled, on the
 // weights packed by ops/mega.py (pack_one_channel for one input channel,
-// else pack_weights). Geometry and the shift (read from the device shift
+// else pack_fragments). Geometry and the shift (read from the device shift
 // vector at index `layer`) are runtime arguments: one build serves every
 // layer, and a shift change rebuilds nothing.
 //

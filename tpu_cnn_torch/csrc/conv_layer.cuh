@@ -21,7 +21,7 @@
 // and the XOR chunk swizzle, so ldmatrix.x4 is the im2col; M tiles are
 // 2 rows x 8 columns, so a pooling window is one lane's C fragment plus
 // lane ^ 4; N tiles of 8 output channels; K = 9 taps x cpad(ic), B packed
-// by ops/mega.py's pack_weights and copied once per CTA into shared memory.
+// by ops/mega.py's pack_fragments and copied once per CTA into shared memory.
 // A tile is th x 32 pixels, th the tallest of 32, 16, 8, 4, 2 whose shared
 // memory lets two CTAs share an SM, else the tallest that fits one.
 //
@@ -329,20 +329,16 @@ __device__ void one_tile(const uint8_t* __restrict__ raw, const uint32_t* __rest
   const int g = lane >> 2, t4 = lane & 3;
   for (int grp = g0; grp < g1; ++grp) {
     uint32_t b[8];
-#pragma unroll
-    for (int t = 0; t < 8; ++t) b[t] = __ldg(w + (grp * 8 + t) * 32 + lane);
+    one_channel_b<true>(b, w, grp, lane);
     for (int mt = warp; mt < kQRows * kMtPerRow; mt += kLayerWarps) {
       const int qr = mt / kMtPerRow;
       const int qc0 = (mt - qr * kMtPerRow) * 16;
       // patch row t4 of quads qc0 + g and qc0 + g + 8: raw row 2 qr + t4,
       // bytes from 2 qc + kRawLead - 1 (odd: two words and a funnel shift)
-      const uint32_t* row =
-          reinterpret_cast<const uint32_t*>(raw + (2 * qr + t4) * kOnePitch);
       uint32_t a[2];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int c = 2 * (qc0 + g + 8 * h) + kRawLead - 1;
-        a[h] = __funnelshift_r(row[c >> 2], row[(c >> 2) + 1], 8 * (c & 3));
+        a[h] = one_channel_a(raw + (2 * qr + t4) * kOnePitch, 2 * (qc0 + g + 8 * h) + kRawLead - 1);
       }
       int acc[8][4];
 #pragma unroll
@@ -595,7 +591,7 @@ LayerKernel layer_kernel(int ic, int th) {
 
 // Launches the layer on `stream` of CUDA device `device`: x (B, ic, H, W)
 // u8, w the packed weights (ops/mega.py: pack_one_channel for ic = 1, else
-// pack_weights), shifts a device int32 vector read at `layer`, out
+// pack_fragments), shifts a device int32 vector read at `layer`, out
 // (B, oc, H, W) u8 or with POOL (B, oc, H/2, W/2). Returns a cudaError_t:
 // cudaSuccess, cudaErrorInvalidValue for a geometry the kernel does not
 // take, or the launch error. Neither synchronises nor allocates.

@@ -1,8 +1,9 @@
 // The int8 tensor-core primitives the Hopper kernels share (sm_90a):
 // channel padding, the shared-memory chunk swizzle, mma.sync u8 x s8 -> s32
-// at k32 and k16, and ldmatrix.x4. Included by mega_cnn.cu (the megakernel)
-// and conv_layer.cuh (the layer kernel); each includer is its own library,
-// so everything here has internal linkage.
+// at k32 and k16, ldmatrix.x4, and the one-channel recast's A and B
+// registers. Included by mega_cnn.cu (the megakernel) and conv_layer.cuh
+// (the layer kernel); each includer is its own library, so everything here
+// has internal linkage.
 
 #pragma once
 
@@ -57,6 +58,29 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
                : "r"(addr));
+}
+
+// The one-channel recast (conv_layer.cuh's note): an M row is a 2x2 output
+// quad, its K the 4x4 input patch under it, patch row r at K bytes
+// 4r..4r+3. A lane's A register is one patch row: bytes c .. c + 3 of a
+// 4-byte aligned row of one byte a pixel (c = the byte left of the quad's
+// first column), two words and a funnel shift.
+__device__ __forceinline__ uint32_t one_channel_a(const uint8_t* row, int c) {
+  const uint32_t* r = reinterpret_cast<const uint32_t*>(row);
+  return __funnelshift_r(r[c >> 2], r[(c >> 2) + 1], 8 * (c & 3));
+}
+
+// The recast's B for output channels 16 grp .. 16 grp + 15: this lane's
+// word of each of the 8 N tiles (ops/mega.py's pack_one_channel, (G, 8, 32)
+// words). GLOBAL: read through the read-only cache, else from shared memory.
+template <bool GLOBAL>
+__device__ __forceinline__ void one_channel_b(uint32_t (&b)[8], const uint32_t* w, int grp,
+                                              int lane) {
+#pragma unroll
+  for (int t = 0; t < 8; ++t) {
+    const uint32_t* p = w + (grp * 8 + t) * 32 + lane;
+    b[t] = GLOBAL ? __ldg(p) : *p;
+  }
 }
 
 }  // namespace

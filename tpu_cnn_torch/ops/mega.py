@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -25,7 +25,11 @@ from tpu_cnn_torch.ops import _build, conv_pool, quant
 from tpu_cnn_torch.ops.detect_head import bin_pool
 
 MAX_LAYERS = 4
-MAX_SMEM_BYTES = 232448  # one block's opt-in shared memory on sm_90
+# the dynamic shared memory of one block: sm_90's opt-in 232,448 bytes less
+# 128 for the kernel's two mbarriers
+MAX_SMEM_BYTES = 232448 - 128
+ALIGN = 128  # every shared-memory buffer's alignment
+READ_SLACK = 16  # bytes after the last buffer: the recast reads around a map
 
 # kernel launches made by this wrapper in this process
 launches = 0
@@ -46,49 +50,151 @@ def cpad(c: int) -> int:
     return 1 if c == 1 else max(16, 1 << (c - 1).bit_length())
 
 
-def mega_layout(layer_configs) -> tuple[int, int, int]:
-    """(region 0 bytes, region 1 bytes, layer 0's band rows) of the
-    kernel's shared memory for a geometry (its ``smem_bytes``). Layer l's
-    output goes to region l % 2: channels-last with a 1-pixel halo,
-    ``(P + 2)^2 * cpad(oc)`` bytes, or NCHW ``oc * P^2`` for the final
-    layer. Layer 0's input is staged in row bands into region 1: the whole
-    image when that fits one block, else as many rows as region 1 holds
-    (an even number, at least 2). lyr3-std: 69,696 (66^2 x 16) + 36,992
-    (34^2 x 32), the image whole; lyr4-wide's tail: 139,392 + 73,984, in
-    bands of 32 rows."""
-    region = [0, 0]
+def pitch1(s: int) -> int:
+    """Bytes of a row of an S-wide one-channel map in the kernel's shared
+    memory (the image, or a middle layer's output)."""
+    return -(-s // 4) * 4
+
+
+def chunk_n(oc: int) -> int:
+    """The megakernel's wgmma N chunk for ``oc`` output channels."""
+    return 16 if oc <= 16 else 32 if oc <= 32 else 64
+
+
+def weight_bytes(ic: int, oc: int) -> int:
+    """Bytes of ``pack_weights`` for an (oc, ic, 3, 3) kernel."""
+    if ic == 1:
+        return 1024 * -(-oc // 16)
+    nw = chunk_n(oc)
+    return -(-9 * cpad(ic) // 32) * (-(-oc // nw) * nw) * 32
+
+
+def _align(x: int) -> int:
+    return -(-x // ALIGN) * ALIGN
+
+
+class MegaLayout(NamedTuple):
+    """The megakernel's shared memory for a geometry (``smem_plan`` in
+    ``csrc/mega_cnn.cu``): region bytes, a one-channel layer 0's image
+    buffer, a multi-channel layer 0's rows per band, and each layer's
+    weights (bytes, offset, and whether they stay for the CTA's life or
+    are copied per image)."""
+    region0: int
+    region1: int
+    input: int
+    band_rows: int
+    weights: tuple[int, ...]
+    w_offsets: tuple[int, ...]
+    resident: tuple[bool, ...]
+    smem: int
+
+
+def mega_layout(layer_configs) -> MegaLayout | None:
+    """The kernel's plan of shared memory (its ``smem_plan``), None when
+    the kernel does not take the geometry; held equal to the library's
+    exported plan (``mega_cnn_smem_plan``) on the card by
+    ``apps.kernel_cases.smem_plans_vs_kernel``. Layer l's output goes to region
+    l % 2: channels-last with a 1-pixel halo, ``(P + 2)^2 * cpad(oc)``
+    bytes, a one-channel map ``(P + 2) * pitch1(P)`` (a zero row above
+    and below), or NCHW ``oc * P^2`` for the final layer. A one-channel
+    layer 0 reads its image from its own buffer after the regions, laid
+    out as a one-channel map; a multi-channel one is staged into region 1
+    in bands (the
+    whole image when it fits one block, else as many rows as region 1
+    holds, an even number, at least 2). The weights follow: all of them
+    when they fit, else the largest that fit the room left, and each
+    other layer's go, per image, into a region's bytes past what its layer
+    reads or writes (layer 0's behind the band, its rows cut to make
+    room). ``ALIGN`` bytes come before region 0 and ``READ_SLACK`` end
+    it: the recast reads 4 bytes around a one-channel map. Each buffer
+    starts 128-byte aligned. lyr3-std: 69,696 (66^2 x
+    16) + 36,992 (34^2 x 32) + 16,640 (130 x 128) + the weights' 24,576,
+    148,112 bytes in all; lyr4-wide's tail: 139,392 + 73,984, bands of
+    30 rows, L2's weights resident, L1's and L3's per image."""
+    limit = MAX_SMEM_BYTES - READ_SLACK
     n = len(layer_configs)
-    for li, (_ic, oc, size) in enumerate(layer_configs):
-        p = size // 2
-        out = oc * p * p if li == n - 1 else (p + 2) ** 2 * cpad(oc)
-        region[li % 2] = max(region[li % 2], out)
-    region[0] = -(-region[0] // 16) * 16
+    if not 1 <= n <= MAX_LAYERS:
+        return None
     ic0, size0 = layer_configs[0][0], layer_configs[0][2]
+    if size0 <= 0 or size0 % (1 << n) or ic0 <= 0:
+        return None
+    out, region = [], [0, 0]
+    for li, (ic, oc, size) in enumerate(layer_configs):
+        if ic <= 0 or oc <= 0 or (li and ic != layer_configs[li - 1][1]):
+            return None
+        p = size // 2
+        out.append(oc * p * p if li == n - 1 else (p + 2) * pitch1(p) if oc == 1
+                   else (p + 2) ** 2 * cpad(oc))
+        region[li % 2] = max(region[li % 2], out[-1])
+    one0 = ic0 == 1
     row = (size0 + 2) * cpad(ic0)
-    if region[0] + max(region[1], (size0 + 2) * row) <= MAX_SMEM_BYTES:
-        rows = size0
-    else:
+    in_bytes, rows = 0, size0
+    if one0:
+        in_bytes = (size0 + 2) * pitch1(size0)
+    elif _align(region[0]) + max(region[1], (size0 + 2) * row) > limit:
         rows = max(2, min(size0, region[1] // row - 2) & ~1)
-    region[1] = max(region[1], (rows + 2) * row)
-    return region[0], region[1], rows
+    if not one0:
+        region[1] = max(region[1], (rows + 2) * row)
+    if region[0] + region[1] + in_bytes > limit:
+        return None
+    off0 = ALIGN  # the slack before region 0
+    off1 = off0 + _align(region[0])
+    base = off1 + _align(region[1]) + _align(in_bytes)
+    if base > limit:
+        return None
+    wb = [weight_bytes(ic, oc) for ic, oc, _ in layer_configs]
+    resident, w_off, end = [False] * n, [0] * n, base
+    if base + sum(_align(w) for w in wb) <= limit:
+        for li in range(n):
+            resident[li], w_off[li] = True, end
+            end += _align(wb[li])
+    else:
+        while True:  # the largest first, while they fit the room left
+            fit = [li for li in range(n)
+                   if not resident[li] and end + wb[li] <= limit]
+            if not fit:
+                break
+            best = max(fit, key=lambda li: (wb[li], -li))
+            resident[best], w_off[best] = True, end
+            end += _align(wb[best])
+        roff = (off0, off1)
+        for li in range(n):
+            if resident[li]:
+                continue
+            if li == 0 and not one0:  # behind the band, in region 1
+                r = min(rows, ((region[1] - wb[0] - ALIGN) // row - 2) & ~1)
+                if r < 2:
+                    return None
+                rows = r
+                w_off[0] = off1 + _align((rows + 2) * row)
+                continue
+            o, i = li % 2, (li + 1) % 2
+            used_out = _align(out[li])
+            used_in = _align(out[li - 1]) if li else 0
+            if region[o] - used_out >= wb[li]:
+                w_off[li] = roff[o] + used_out
+            elif li and region[i] - used_in >= wb[li]:
+                w_off[li] = roff[i] + used_in
+            else:
+                return None
+    return MegaLayout(region[0], region[1], in_bytes, rows, tuple(wb),
+                      tuple(w_off), tuple(resident), end + READ_SLACK)
 
 
-def mega_smem_bytes(layer_configs) -> int:
-    """Dynamic shared memory one CTA needs for a geometry: the two regions
-    of ``mega_layout``. lyr3-std: 69,696 + 36,992 = 106,688."""
-    r0, r1, _ = mega_layout(layer_configs)
-    return r0 + r1
+def mega_smem_bytes(layer_configs) -> int | None:
+    """Dynamic shared memory one CTA needs for a geometry (``mega_layout``'s
+    ``smem``), None when the kernel does not take it. lyr3-std: 148,112."""
+    layout = mega_layout(layer_configs)
+    return None if layout is None else layout.smem
 
 
 def mega_plan(layer_configs) -> int | None:
     """The chained plan's number of head layers: the smallest ``n_head``
     whose tail ``layer_configs[n_head:]`` runs in one CTA (at most four
-    layers, activations within one block's shared memory). None when no
-    tail of at least one layer fits."""
+    layers, a shared-memory plan within one block). None when no tail of
+    at least one layer fits."""
     for n_head in range(len(layer_configs)):
-        tail = layer_configs[n_head:]
-        if (len(tail) <= MAX_LAYERS
-                and mega_smem_bytes(tail) <= MAX_SMEM_BYTES):
+        if mega_layout(layer_configs[n_head:]) is not None:
             return n_head
     return None
 
@@ -106,30 +212,68 @@ def mega_reference(images: torch.Tensor, kernels: Sequence[torch.Tensor],
             feats.to(torch.bfloat16))
 
 
-def pack_weights(kernel: torch.Tensor) -> torch.Tensor:
-    """(oc, ic, 3, 3) int8 -> the kernel's B fragments, (KS, NT, 32, 8)
-    int8 on the same device. The GEMM's B is (K, N): K = 9 taps x cpad(ic)
-    channels, tap-major (k = tap * cpad + c), padded to KS steps of 32; N =
-    oc padded to NT tiles of 8; padding holds zero weights. Row (s, t) holds
-    what lane l of mma.m16n8k32 takes for K step s and N tile t: bytes
-    0-3 B[32 s + 4 (l % 4) + j][8 t + l // 4], bytes 4-7 the same 16 rows
-    further down."""
+def pack_fragments(kernel: torch.Tensor) -> torch.Tensor:
+    """(oc, ic, 3, 3) int8 -> the layer kernel's B fragments for a
+    multi-channel layer (``csrc/conv_layer.cuh``, mma.sync.m16n8k32),
+    (KS, NT, 32, 8) int8 on the same device. The GEMM's B is (K, N): K = 9
+    taps x cpad(ic) channels, tap-major (k = tap * cpad + c), padded to KS
+    steps of 32; N = oc padded to NT tiles of 8; padding holds zero
+    weights. Row (s, t) holds what lane l of mma.m16n8k32 takes for K step
+    s and N tile t: bytes 0-3 B[32 s + 4 (l % 4) + j][8 t + l // 4], bytes
+    4-7 the same 16 rows further down."""
     oc, ic = int(kernel.shape[0]), int(kernel.shape[1])
     cp = cpad(ic)
     kp, npad = -(-9 * cp // 32) * 32, -(-oc // 8) * 8
-    b = torch.zeros((kp, npad), dtype=torch.int8, device=kernel.device)
-    b[:9 * cp].view(9, cp, npad)[:, :ic, :oc] = (
-        kernel.permute(2, 3, 1, 0).reshape(9, ic, oc))
+    b = _gemm_b(kernel, kp, npad)
     ks, nt = kp // 32, npad // 8
     # (s, half, t4, j, t, g) -> (s, t, lane = 4 g + t4, byte = 4 half + j)
     return (b.view(ks, 2, 4, 4, nt, 8).permute(0, 4, 5, 2, 1, 3)
             .contiguous().view(ks, nt, 32, 8))
 
 
-def packed_shape(kernel: torch.Tensor) -> tuple[int, int, int, int]:
-    """The shape ``pack_weights(kernel)`` gives: (KS, NT, 32, 8)."""
+def fragments_shape(kernel: torch.Tensor) -> tuple[int, int, int, int]:
+    """The shape ``pack_fragments(kernel)`` gives: (KS, NT, 32, 8)."""
     oc, ic = int(kernel.shape[0]), int(kernel.shape[1])
     return -(-9 * cpad(ic) // 32), -(-oc // 8), 32, 8
+
+
+def _gemm_b(kernel: torch.Tensor, kp: int, npad: int) -> torch.Tensor:
+    """The (kp, npad) int8 GEMM operand B of a multi-channel layer: K = 9
+    taps x cpad(ic), tap-major, N the output channels; zero past them."""
+    oc, ic = int(kernel.shape[0]), int(kernel.shape[1])
+    cp = cpad(ic)
+    b = torch.zeros((kp, npad), dtype=torch.int8, device=kernel.device)
+    b[:9 * cp].view(9, cp, npad)[:, :ic, :oc] = (
+        kernel.permute(2, 3, 1, 0).reshape(9, ic, oc))
+    return b
+
+
+def pack_weights(kernel: torch.Tensor) -> torch.Tensor:
+    """(oc, ic, 3, 3) int8 -> the megakernel's weights for one layer, the
+    bytes it copies into shared memory, 1-D int8 on the same device
+    (``weight_bytes(ic, oc)`` of them).
+
+    One input channel: ``pack_one_channel``'s (G, 8, 32, 4) bytes in that
+    order, the recast's B registers. Otherwise the B of wgmma (K-major
+    core matrices of 8 N rows x 16 K bytes; ``csrc/hopper.cuh``): B is
+    (K, N), K = 9 taps x cpad(ic) channels, tap-major, padded to KS steps
+    of 32; N = oc padded to a multiple of ``chunk_n(oc)``; zero past the
+    weights. Byte ((s * NG + n8) * 2 + h) * 128 + 16 r + j holds
+    B[32 s + 16 h + j][8 n8 + r], NG = the padded N / 8."""
+    oc, ic = int(kernel.shape[0]), int(kernel.shape[1])
+    if ic == 1:
+        return pack_one_channel(kernel).reshape(-1)
+    nw = chunk_n(oc)
+    kp, npad = -(-9 * cpad(ic) // 32) * 32, -(-oc // nw) * nw
+    b = _gemm_b(kernel, kp, npad)
+    # (s, h, j, n8, r) -> (s, n8, h, r, j)
+    return (b.view(kp // 32, 2, 16, npad // 8, 8).permute(0, 3, 1, 4, 2)
+            .contiguous().view(-1))
+
+
+def packed_shape(kernel: torch.Tensor) -> tuple[int]:
+    """The shape ``pack_weights(kernel)`` gives: (bytes,)."""
+    return (weight_bytes(int(kernel.shape[1]), int(kernel.shape[0])),)
 
 
 def one_channel_matrix(kernel: torch.Tensor) -> torch.Tensor:
@@ -168,17 +312,16 @@ def layer_packed_shape(kernel: torch.Tensor) -> tuple[int, ...]:
     """The shape ``pack_layer(kernel)`` gives."""
     if int(kernel.shape[1]) == 1:
         return -(-int(kernel.shape[0]) // 16), 8, 32, 4
-    return packed_shape(kernel)
+    return fragments_shape(kernel)
 
 
 def pack_layer(kernel: torch.Tensor) -> torch.Tensor:
     """The layer kernel's weights (``csrc/conv_layer.cuh``, under
     ``conv_act``, ``fused_conv_layer`` and ``conv_pool_layer``):
-    ``pack_one_channel`` for one input channel, else ``pack_weights`` (its
-    multi-channel path reads K1's B layout)."""
+    ``pack_one_channel`` for one input channel, else ``pack_fragments``."""
     if int(kernel.shape[1]) == 1:
         return pack_one_channel(kernel)
-    return pack_weights(kernel)
+    return pack_fragments(kernel)
 
 
 def check_layer_packed(packed: torch.Tensor | None, kernel: torch.Tensor) -> None:
@@ -196,7 +339,8 @@ def check_layer_packed(packed: torch.Tensor | None, kernel: torch.Tensor) -> Non
 def pack_plan(kernels: Sequence[torch.Tensor], size: int) -> list[torch.Tensor]:
     """Each kernel's packing for ``cnn_forward_mega`` at input side
     ``size``: ``pack_layer`` for the plan's head layers (the layer kernel),
-    ``pack_weights`` for the tail (the megakernel)."""
+    ``pack_weights`` for the tail (the megakernel: ``pack_one_channel``'s
+    bytes for a one-channel layer, the wgmma B for the others)."""
     n_head = mega_plan(_layer_configs(kernels, size))
     if n_head is None:
         n_head = 0  # cnn_forward_mega refuses the geometry
@@ -267,6 +411,9 @@ def _launch(images, kernels, shifts, packed, with_feats, with_bins,
         raise ValueError("images, kernels and shifts must be on one device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("images, kernels and shifts must be contiguous")
+    if any(p.data_ptr() % 16 for p in packed):
+        raise ValueError("packed weights must start 16-byte aligned: the "
+                         "kernel's bulk copies read them")
     b, s = images.shape[0], images.shape[-1]
     oc, p = kernels[-1].shape[0], s >> len(kernels)
     feats = (torch.empty((b, oc, p * p), dtype=torch.uint8, device=dev)
