@@ -1,0 +1,8 @@
+"""The offline job's whole step on lyr4-wide: its share of the card's int8 peak (`lib/readers.mfu_pct`)."""
+
+from benchmarks.lib.readers import mfu_pct as read  # noqa: F401
+
+LAYER = "whole step"
+UNIT = "%"
+SOURCE = "host_clock"
+MOVES = "detect_fps.wide"
