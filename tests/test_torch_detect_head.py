@@ -109,9 +109,9 @@ def test_boxes_match_host_twins(case, box_mode):
     pred = torch.from_numpy(np.array(
         jhead.classify(jnp.asarray(feats), jnp.asarray(b.fc_weight),
                        jnp.asarray(b.fc_bias))[0]))
-    got = head.cam_bbox(torch.from_numpy(feats), pred,
-                        torch.from_numpy(b.fc_weight), 128,
-                        box_mode=box_mode).numpy()
+    got = head.cam_bbox_f32(torch.from_numpy(feats), pred,
+                            torch.from_numpy(b.fc_weight), 128,
+                            box_mode=box_mode).numpy()
     twin = cam_bbox_fast if box_mode == "ref" else cam_bbox_centroid
     want = np.stack([twin(f, int(p), b.fc_weight) for f, p in zip(feats, pred)])
     np.testing.assert_array_equal(got, want)
@@ -134,8 +134,8 @@ def test_flat_cam_ties_at_the_threshold():
     feats = np.full((2, 64, 256), 7, np.uint8)
     w = np.ones((6, 1024), np.float32)
     cls = np.array([1, 4], np.int32)
-    got = head.cam_bbox(torch.from_numpy(feats), torch.from_numpy(cls),
-                        torch.from_numpy(w), 128).numpy()
+    got = head.cam_bbox_f32(torch.from_numpy(feats), torch.from_numpy(cls),
+                            torch.from_numpy(w), 128).numpy()
     want = np.asarray(jhead.cam_bbox(jnp.asarray(feats), jnp.asarray(cls),
                                      jnp.asarray(w), 128))
     np.testing.assert_array_equal(got, want)

@@ -46,7 +46,7 @@ from tpu_cnn_torch.head.tracker import Tracker
 from tpu_cnn_torch.models.cnn import IMG_SIZE
 from tpu_cnn_torch.ops.luma import bt601_gray_np
 from tpu_cnn_torch.utils.paths import default_artifacts
-from tpu_cnn_torch.utils.profiling import EmaFps
+from tpu_cnn_torch.utils.profiling import EmaFps, spanned
 
 COLORS = [
     (255, 80, 80), (80, 220, 80), (255, 255, 80),
@@ -546,6 +546,7 @@ class ScoreEma:
         return self.state
 
 
+@spanned("app.frame")
 def detect_frame(engine, model, small: np.ndarray, *, fused: bool = False,
                  multi: bool = False, instances: int = 1, box: str = "ref",
                  multi_thresh=DEFAULT_MULTI_THRESH,
@@ -561,7 +562,8 @@ def detect_frame(engine, model, small: np.ndarray, *, fused: bool = False,
     and with ``multi`` the per-class boxes, presence scores and watershed
     instances). ``score_ema`` smooths the multi presence scores across
     frames; ``tracker`` turns the detections into tracks labelled
-    "name #id"."""
+    "name #id". While a ``torch.profiler`` profile runs, the frame is the
+    span ``app.frame`` (``utils.profiling.spanned``)."""
     score_ema = score_ema if score_ema is not None else ScoreEma()
     names, img_size = model.class_names, model.config.img_size
     detections = None

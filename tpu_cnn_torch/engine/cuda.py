@@ -30,6 +30,13 @@ The device is explicit: ``"cuda"`` runs the kernels and raises when there
 is no card; ``"cpu"`` runs their plain versions (for tests on machines
 without a card). Nothing picks a device on its own.
 
+While a ``torch.profiler`` profile runs, the engine's stages are spans
+(``utils.profiling.span``): ``engine.detect`` around ``detect_batch`` and
+``detect_multi_batch``, and inside it ``engine.to_device`` (the H2D),
+``engine.net`` (the net's launches), the head's ``head.*``,
+``engine.to_host`` (pinned buffers, copies, event) and ``engine.wait``
+(the wait for that event).
+
 Engine protocol (``run(gray) -> (features, conv_ms, read_ms)``) and the
 serving protocol (``detect_batch_async`` / ``detect_resolve``) match
 ``TPUEngine``, so the port's copies of ``run_inference`` (``apps.infer``)
@@ -52,6 +59,7 @@ from tpu_cnn_torch.head.detections import (DEFAULT_MULTI_THRESH,  # noqa: F401
 from tpu_cnn_torch.models.cnn import FpgaCNN, TorchFpgaCNN
 from tpu_cnn_torch.ops import detect_head, int8, mega, quant
 from tpu_cnn_torch.utils.failguard import wait_event
+from tpu_cnn_torch.utils.profiling import span, spanned
 
 
 @dataclasses.dataclass
@@ -179,6 +187,7 @@ class CUDAEngine:
 
     # ── device work ───────────────────────────────────────────────────
 
+    @spanned("engine.to_device")
     def _to_device(self, images):
         """Raw (B, S, S) / flat u8 images or a stage_batch handle ->
         (device tensor, B)."""
@@ -192,8 +201,9 @@ class CUDAEngine:
         return torch.from_numpy(arr).to(self.device), arr.shape[0]
 
     def _mega(self, x: torch.Tensor, **outputs) -> list[torch.Tensor]:
-        out = mega.cnn_forward_mega(x, self.net.kernels, self.net.shifts,
-                                    packed=self._packed, **outputs)
+        with span("engine.net"):
+            out = mega.cnn_forward_mega(x, self.net.kernels, self.net.shifts,
+                                        packed=self._packed, **outputs)
         if x.is_cuda:
             self.launches += self._kernels_per_pass
         return list(out) if isinstance(out, tuple) else [out]
@@ -204,13 +214,14 @@ class CUDAEngine:
         if self._backend == "mega":
             return self._mega(x, with_feats=True)[0]
         ks, sh = self.net.kernels, self.net.shifts
-        if self._backend == "pallas":
-            feats = int8.cnn_forward_pallas(x, ks, sh, packed=self._packed)
-        elif self._backend == "hybrid":
-            feats = int8.cnn_forward_hybrid(x, ks, sh, packed=self._packed)
-        else:
-            feats = quant.cnn_forward(x, ks, sh,
-                                      compute_dtype=self.compute_dtype)
+        with span("engine.net"):
+            if self._backend == "pallas":
+                feats = int8.cnn_forward_pallas(x, ks, sh, packed=self._packed)
+            elif self._backend == "hybrid":
+                feats = int8.cnn_forward_hybrid(x, ks, sh, packed=self._packed)
+            else:
+                feats = quant.cnn_forward(x, ks, sh,
+                                          compute_dtype=self.compute_dtype)
         if x.is_cuda:
             self.launches += self._kernels_per_pass
         return feats
@@ -292,6 +303,7 @@ class CUDAEngine:
             wait_event(event, self.timeout_s,
                        diagnostics=lambda: f"backend={self.backend}")
 
+    @spanned("engine.to_host")
     def _to_host_async(self, tensors):
         """Start device->host copies into pinned buffers and record an
         event; the handle resolves with :meth:`_fetch`."""
@@ -308,9 +320,10 @@ class CUDAEngine:
     def _fetch(self, handle) -> tuple[np.ndarray, ...]:
         """Bounded wait for a :meth:`_to_host_async` handle -> numpy."""
         host, event = handle
-        if event is not None:
-            wait_event(event, self.timeout_s,
-                       diagnostics=lambda: f"backend={self.backend}")
+        with span("engine.wait"):
+            if event is not None:
+                wait_event(event, self.timeout_s,
+                           diagnostics=lambda: f"backend={self.backend}")
         return tuple(h.numpy() for h in host)
 
     # ── public API ────────────────────────────────────────────────────
@@ -367,6 +380,7 @@ class CUDAEngine:
             out = (detect_head.bin_pool(self._features(x)),)
         return self._fetch(self._to_host_async(out))[0]
 
+    @spanned("engine.detect")
     def detect_batch(self, images) -> DetectResult:
         """Fused detect: only predictions and boxes return to the host."""
         return self.detect_resolve(self.detect_batch_async(images))
@@ -389,6 +403,7 @@ class CUDAEngine:
     def detect_resolve(self, handle) -> DetectResult:
         return DetectResult(*self._fetch(handle))
 
+    @spanned("engine.detect")
     def detect_multi_batch(self, images, instances: int = 1) -> MultiDetectResult:
         """Multi-object detect: the classifier and every class's own CAM
         box; with ``instances > 1`` also up to that many watershed

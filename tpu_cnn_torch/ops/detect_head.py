@@ -14,6 +14,13 @@ regression, the presence scores) must run in true f32: TF32 drifts by
 needed ``Precision.HIGHEST`` for the same reason). PyTorch's CUDA matmuls
 are f32 by default; ``engine.cuda.CUDAEngine`` refuses to start when TF32
 matmul has been switched on.
+
+While a ``torch.profiler`` profile runs, the single-box head's stages are
+spans (``utils.profiling.span``): ``head.classify`` (the classifier and
+softmax), ``head.cam`` (the CAM, from the u8 features or the bf16 twin)
+and ``head.box`` (the box from the CAM, or the regression box); the multi
+head's are ``multi_cam_stack``, ``connected_labels``, ``grow_labels`` and
+``component_stats``.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ import torch.nn.functional as F
 from torch._higher_order_ops import while_loop
 
 from tpu_cnn_torch.head.cam import CAM_CENTROID_K, SATURATION_MEAN
+from tpu_cnn_torch.utils.profiling import span
 
 CAM_THRESHOLD_FLOOR = 0.25
 CAM_PERCENTILE = 70.0
@@ -89,26 +97,22 @@ def classify(features: torch.Tensor, fc_weight: torch.Tensor,
     return _classify_pooled(pooled, fc_weight, fc_bias)
 
 
-def cam_bbox(features: torch.Tensor, class_idx: torch.Tensor,
-             fc_weight: torch.Tensor, img_size: int = 128,
-             box_mode: str = "ref") -> torch.Tensor:
-    """CAM boxes from u8 features: (B, 4) int32."""
-    return cam_bbox_f32(features.to(torch.float32), class_idx, fc_weight,
-                        img_size, box_mode=box_mode)
-
-
 def cam_bbox_f32(features: torch.Tensor, class_idx: torch.Tensor,
                  fc_weight: torch.Tensor, img_size: int = 128,
                  box_mode: str = "ref") -> torch.Tensor:
-    """CAM boxes from integer-valued f32 features (B, C, S*S) -> (B, 4)
-    int32. ``box_mode`` "ref" is the reference threshold box, "centroid"
-    the mass-centroid profile."""
+    """CAM boxes from integer-valued features (B, C, S*S) -> (B, 4)
+    int32: f32, or u8 or the bf16 twin, cast to f32 exactly. ``box_mode``
+    "ref" is the reference threshold box, "centroid" the mass-centroid
+    profile."""
     b, _, ss = features.shape
     s = math.isqrt(ss)
-    cam = _normalized_cam_f32(features, class_idx, fc_weight).reshape(b, s, s)
-    if box_mode == "centroid":
-        return _bbox_from_cam_centroid(cam, img_size)
-    return _bbox_from_cam(cam, img_size)
+    with span("head.cam"):
+        cam = _normalized_cam_f32(features.to(torch.float32), class_idx,
+                                  fc_weight).reshape(b, s, s)
+    with span("head.box"):
+        if box_mode == "centroid":
+            return _bbox_from_cam_centroid(cam, img_size)
+        return _bbox_from_cam(cam, img_size)
 
 
 def _normalized_cam_f32(features: torch.Tensor, class_idx: torch.Tensor,
@@ -232,7 +236,7 @@ def _multi_cam_stack(features: torch.Tensor,
     b, _, ss = features.shape
     s = math.isqrt(ss)
     num_classes = fc_weight.shape[0]
-    with torch.profiler.record_function("multi_cam_stack"):
+    with span("multi_cam_stack"):
         cams = torch.stack([
             _normalized_cam_f32(features, torch.full(
                 (b,), k, dtype=torch.int32, device=features.device), fc_weight)
@@ -326,7 +330,7 @@ def _connected_labels(mask: torch.Tensor) -> torch.Tensor:
         return torch.where(mask, torch.minimum(lab, _neighbour_min(lab, sent)),
                            sent)
 
-    with torch.profiler.record_function("connected_labels"):
+    with span("connected_labels"):
         return _to_fixed_point(step, init)
 
 
@@ -341,7 +345,7 @@ def _grow_labels(labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         nmin = _neighbour_min(lab, sent)
         return torch.where(mask & (lab == sent) & (nmin != sent), nmin, lab)
 
-    with torch.profiler.record_function("grow_labels"):
+    with span("grow_labels"):
         return _to_fixed_point(step, labels)
 
 
@@ -395,7 +399,7 @@ def _instances_from_cam(cam: torch.Tensor, img_size: int, max_instances: int,
     cores = torch.where(no_core[:, None, None], mask, cores)
 
     labels = _grow_labels(_connected_labels(cores), mask).reshape(n, ss)
-    with torch.profiler.record_function("component_stats"):
+    with span("component_stats"):
         lab_i, cnt_i = _component_stats(labels, max_instances)
         sel = labels[:, None, :] == lab_i[:, :, None]  # (N, I, P)
         pix = torch.arange(ss, dtype=torch.int32, device=cam.device)
@@ -501,14 +505,17 @@ def detect_with_pooled(features: torch.Tensor | None, pooled: torch.Tensor,
     The CAM reads the kernel's bf16 feature twin (upcast to f32 exactly)
     when given, else the u8 features; "reg" reads only the pooled bins.
     Returns (pred, conf, probs, bbox)."""
-    pred, conf, probs = _classify_pooled(pooled, fc_weight, fc_bias)
+    with span("head.classify"):
+        pred, conf, probs = _classify_pooled(pooled, fc_weight, fc_bias)
     if box_mode == "reg":
-        bbox = bbox_regress(pooled, bbox_weight, img_size)
+        with span("head.box"):
+            bbox = bbox_regress(pooled, bbox_weight, img_size)
     elif features_twin is not None:
-        bbox = cam_bbox_f32(features_twin.to(torch.float32), pred, fc_weight,
-                            img_size, box_mode=box_mode)
+        bbox = cam_bbox_f32(features_twin, pred, fc_weight, img_size,
+                            box_mode=box_mode)
     elif features is not None:
-        bbox = cam_bbox(features, pred, fc_weight, img_size, box_mode=box_mode)
+        bbox = cam_bbox_f32(features, pred, fc_weight, img_size,
+                            box_mode=box_mode)
     else:
         raise ValueError("CAM box modes need features or features_twin")
     return pred, conf, probs, bbox
@@ -521,16 +528,20 @@ def detect(features: torch.Tensor, fc_weight: torch.Tensor,
            logits: torch.Tensor | None = None):
     """Classify + box from u8 features. Returns (pred, conf, probs, bbox).
     ``logits`` as in :func:`detect_multi`."""
-    pred, conf, probs = (classify(features, fc_weight, fc_bias, head_mode)
-                         if logits is None else classify_logits(logits))
+    with span("head.classify"):
+        pred, conf, probs = (classify(features, fc_weight, fc_bias, head_mode)
+                             if logits is None else classify_logits(logits))
     if box_mode == "reg":
-        bbox = bbox_regress(bin_pool(features), bbox_weight, img_size)
+        with span("head.box"):
+            bbox = bbox_regress(bin_pool(features), bbox_weight, img_size)
     elif head_mode == "bins":
-        bbox = cam_bbox(features, pred, fc_weight, img_size, box_mode=box_mode)
+        bbox = cam_bbox_f32(features, pred, fc_weight, img_size,
+                            box_mode=box_mode)
     else:
         # the 64-d GAP head has no spatial weights: the CAM falls back to
         # the unweighted activation map (valid-channel mean)
         uniform_w = torch.ones((fc_weight.shape[0], features.shape[1] * GRID * GRID),
                                dtype=torch.float32, device=features.device)
-        bbox = cam_bbox(features, pred, uniform_w, img_size, box_mode=box_mode)
+        bbox = cam_bbox_f32(features, pred, uniform_w, img_size,
+                            box_mode=box_mode)
     return pred, conf, probs, bbox

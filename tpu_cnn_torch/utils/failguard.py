@@ -17,6 +17,8 @@ from typing import Callable
 
 import torch
 
+from tpu_cnn_torch.utils.profiling import count
+
 
 class DeviceTimeout(TimeoutError):
     """Device work failed to complete within the deadline."""
@@ -26,13 +28,14 @@ def wait_event(event: torch.cuda.Event, timeout_s: float | None,
                diagnostics: Callable[[], str] | None = None) -> None:
     """Return once ``event`` has completed; raise :class:`DeviceTimeout`
     after ``timeout_s`` seconds (``None`` waits without a deadline).
-    The poll interval doubles from 50 us up to 1 ms."""
+    The poll interval doubles from 50 us up to 1 ms; each ``query()``
+    counts as one ``engine.wait.polls`` while tracing."""
     if timeout_s is None:
         event.synchronize()
         return
     deadline = time.monotonic() + timeout_s
     poll_s = 50e-6
-    while not event.query():
+    while not _done(event):
         if time.monotonic() > deadline:
             try:
                 info = f"device={torch.cuda.get_device_name()}"
@@ -43,6 +46,11 @@ def wait_event(event: torch.cuda.Event, timeout_s: float | None,
                 f"device work not done after {timeout_s}s ({info}{extra})")
         time.sleep(poll_s)
         poll_s = min(2 * poll_s, 1e-3)
+
+
+def _done(event: torch.cuda.Event) -> bool:
+    count("engine.wait.polls")
+    return event.query()
 
 
 class Watchdog:

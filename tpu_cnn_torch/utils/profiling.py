@@ -1,19 +1,41 @@
-"""Stage timers, EMA FPS and a torch.profiler trace context: the port's copy
-of ``tpu_cnn.utils.profiling``.
+"""Stage timers, EMA FPS, a torch.profiler trace context and the program's
+spans and counters: the port's copy of ``tpu_cnn.utils.profiling``, and its
+in-process tracing.
 
 ``StageTimer`` and ``EmaFps`` are the JAX package's, unchanged (the
 reference's wall-clock stage timers and EMA FPS,
 ``software/realtime_detect.py:324-363,601-602``). ``torch_trace`` takes the
 place of its ``jax_trace``: the same contract, with ``torch.profiler``
 tracing the host and, where there is one, the CUDA device.
+
+``span`` (``spanned`` as a decorator) and ``count`` mark the program's own
+stages. They record only while a ``torch.profiler`` profile runs (the flag
+``torch.autograd.profiler._is_profiler_enabled``, which
+``torch.profiler.profile`` sets while it records); off, ``span`` hands back
+one shared no-op object, and nothing opens a ``record_function``, reads a
+clock or takes a lock. On, a span is a ``record_function`` (so it lies on
+the profiler's clock beside the device's operations, as a user annotation)
+timed on ``time.perf_counter_ns`` inside it; its duration and its self time
+(less that of its direct child spans on the same thread) add to its name's
+totals. The totals are the process's, a ``StageTimer``'s per-name totals
+and counts under one lock, until ``reset_spans()``; ``spans()`` is a
+snapshot. Names are ``<layer>.<what>``: ``app.frame``; ``engine.detect``,
+``engine.to_device``, ``engine.net``, ``engine.to_host``, ``engine.wait``
+and the counter ``engine.wait.polls``; ``head.classify``, ``head.cam``,
+``head.box``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
+import threading
 import time
 from collections import defaultdict
+
+import torch
+from torch.autograd import profiler as _autograd_profiler
 
 
 class StageTimer:
@@ -82,3 +104,132 @@ def torch_trace(log_dir: str | None):
     with torch.profiler.profile(activities=activities) as prof:
         yield
     prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
+
+
+# ── the program's spans and counters ─────────────────────────────
+
+
+class _NoSpan:
+    """What ``span`` hands back when nothing is tracing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NO_SPAN = _NoSpan()
+
+
+class _Span:
+    """One span while a profile runs. Its clock runs inside its own
+    ``record_function``, so a span times its own work and the profiler's
+    cost of entering and leaving a child span falls in the parent's self
+    time."""
+
+    __slots__ = ("name", "child_ns", "_rf", "_t0")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.child_ns = 0
+
+    def __enter__(self):
+        self._rf = torch.profiler.record_function(self.name)
+        self._rf.__enter__()
+        _RECORDER.stack().append(self)
+        self._t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        dt = time.perf_counter_ns() - self._t0
+        stack = _RECORDER.stack()
+        stack.pop()
+        self._rf.__exit__(*exc)
+        if stack:
+            stack[-1].child_ns += dt
+        _RECORDER.add(self.name, dt, dt - self.child_ns)
+        return False
+
+
+class SpanRecorder(StageTimer):
+    """A ``StageTimer``'s per-name totals and counts, with each name's
+    self time and the counters, shared by the process's threads under one
+    lock; each thread keeps its own stack of open spans."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._local = threading.local()
+        self.reset()
+
+    def reset(self) -> None:
+        with self._lock:
+            super().__init__()
+            self.self_s: dict[str, float] = defaultdict(float)
+            self.counters: dict[str, int] = defaultdict(int)
+
+    def stack(self) -> list:
+        try:
+            return self._local.stack
+        except AttributeError:
+            self._local.stack = []
+            return self._local.stack
+
+    def add(self, name: str, ns: int, self_ns: int) -> None:
+        with self._lock:
+            self.totals[name] += ns / 1e9
+            self.counts[name] += 1
+            self.self_s[name] += self_ns / 1e9
+
+    def count(self, name: str, n: int) -> None:
+        with self._lock:
+            self.counters[name] += n
+
+    def snapshot(self) -> tuple[dict, dict]:
+        with self._lock:
+            return ({k: (self.counts[k], self.totals[k], self.self_s[k])
+                     for k in self.totals}, dict(self.counters))
+
+
+_RECORDER = SpanRecorder()
+
+
+def span(name: str):
+    """A context manager that records the block as the span ``name`` while
+    a profile runs, and does nothing otherwise."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return _Span(name)
+
+
+def spanned(name: str):
+    """Decorator: the whole call is the span ``name`` (``span``'s form for
+    a span that covers a function's body)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            if not _autograd_profiler._is_profiler_enabled:
+                return fn(*args, **kwargs)
+            with _Span(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` while a profile runs."""
+    if _autograd_profiler._is_profiler_enabled:
+        _RECORDER.count(name, n)
+
+
+def spans() -> tuple[dict[str, tuple[int, float, float]], dict[str, int]]:
+    """A snapshot: ``{name: (count, total_s, self_s)}`` of the spans, and
+    ``{name: n}`` of the counters, since the last ``reset_spans()``."""
+    return _RECORDER.snapshot()
+
+
+def reset_spans() -> None:
+    """Clear every span's totals and every counter."""
+    _RECORDER.reset()
