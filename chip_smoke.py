@@ -23,7 +23,9 @@ one line each, in order; any failure raises:
                 wgmma, mbarriers and bulk copies), csrc/conv_pool_layer.cu,
                 csrc/conv_act.cu (the last two: the layer kernel of
                 csrc/conv_layer.cuh, both on csrc/int8_mma.cuh like the
-                megakernel) and csrc/bitcast.cu for sm_90a, in parallel
+                megakernel), csrc/bitcast.cu and csrc/cam_head.cu (the
+                single-box CAM head, on hopper.cuh's bulk copies) for
+                sm_90a, in parallel
   3. kernel   — each kernel against its plain PyTorch version on the card,
                 B=37. The megakernel: lyr3-std (shipped and seeded random
                 weights, shifts 2/4/6 and 1/3/5, every with_feats/bins/twin
@@ -63,11 +65,19 @@ one line each, in order; any failure raises:
                 L+2) bit-equal at (8, 256), (5, 37), (1024, 4096) and
                 (4096, 4096) on full-range words, and widen(narrow(x)) == x;
                 narrow and widen on views misaligned for the vector path.
-                (The cases of tpu_cnn_torch.apps.kernel_cases.)
+                The CAM head against detect_with_pooled ("ref") on K1's
+                bins and twin of both families' shipped frames and noise
+                at batch 1, 37 and the offline rounds (16,384 and 4,096),
+                seeded twins with saturated channels at lyr2-small's,
+                lyr3-tiny's and an 8x8 CAM's geometry, an all-zero twin and
+                a flat CAM: predictions and boxes equal (a box may be the
+                float64 CAM's where the plain version's f32 order breaks a
+                tie otherwise), probabilities within 1e-6 of the float64
+                head's. (The cases of tpu_cnn_torch.apps.kernel_cases.)
   sanitize    — the sanitizer lane's card tools (python -m
                 tpu_cnn_torch.apps.sanitize memcheck racecheck synccheck
                 initcheck), within 180 s: a probe kernel under each tool,
-                the four kernels rebuilt with -lineinfo into a temporary
+                the five kernels rebuilt with -lineinfo into a temporary
                 directory, phase 3's cases at B=37 under compute-sanitizer,
                 each tool's line with the kernels' launches, the paths
                 their launches took (as the libraries counted them), the
@@ -254,7 +264,11 @@ one line each, in order; any failure raises:
                 head; the bitcast kernel and its plain version (one
                 PyTorch call each, so also its library time) at
                 (4096, 4096), past the L2, device time per call with the
-                calls queued; preprocess_frames at batch 256 on 640x480 BGR
+                calls queued; the CAM head on K1's bins and twin at each
+                family's offline round (16,384 and 4,096 frames), device
+                time per call with the calls queued, beside the plain head
+                and its HBM bound (the twin and the bins read once);
+                preprocess_frames at batch 256 on 640x480 BGR
                 and packed frames, with its byte bound; the realtime loop's
                 EMA FPS and median engine ms (lyr3-std mega, --fused and the
                 host-head protocol) and its stages timed one by one; the
@@ -284,11 +298,14 @@ path: every
 kernel launch
 counter is set to 0 before a path's phases and read after them, and each
 kernel of that path must have launched there and no other kernel
-(lyr3-std/mega: the megakernel; lyr4-wide/mega: the megakernel and the
+(a single-box detect with the "ref" box on mega adds the CAM head to
+what mega runs, wherever an engine's warm-up or detect runs one;
+lyr3-std/mega: the megakernel; lyr4-wide/mega: the megakernel and the
 layer kernel; lyr4-wide/pallas and lyr3-std/hybrid: the conv kernel; the
 probe: the bitcast kernel; the multi paths: the megakernel, then the conv
-kernel; the bench: the megakernel (the child's launches, counted in its
-own process, are added to the kernels line); the swap: what mega runs on
+kernel; the bench: the megakernel and the CAM head (the child's timed
+path must launch both; its launches, counted in its own process, are
+added to the kernels line); the swap: what mega runs on
 the family; the host server, the
 preprocess and realtime --mode cpu: none; the realtime paths: mega's or
 pallas's; eval, tracking, dump and train_bbox: what their mode runs on
@@ -363,7 +380,8 @@ from tpu_cnn_torch.parallel.dryrun import dryrun_mesh, dryrun_train  # noqa: E40
 from tpu_cnn_torch.parallel.mesh import MeshEngine, RowShards, make_mesh  # noqa: E402
 from tpu_cnn_torch.parallel.pipeline import make_pipeline_mesh  # noqa: E402
 from tpu_cnn_torch.parallel.spatial import make_spatial_mesh  # noqa: E402
-from tpu_cnn_torch.ops import _build, bitcast, conv_pool, detect_head, int8, mega, quant  # noqa: E402
+from tpu_cnn_torch.ops import (_build, bitcast, cam_head, conv_pool, detect_head, int8,  # noqa: E402
+                               mega, quant)
 from tpu_cnn_torch.ops import preprocess as dev_preprocess  # noqa: E402
 from tpu_cnn_torch.ops.luma import pack_bgrx  # noqa: E402
 from tpu_cnn_torch.train import train_cnn  # noqa: E402
@@ -384,32 +402,38 @@ KERNELS = {  # name -> (source, the TPU kernel(s) it replaces)
                  "tpu_cnn/ops/pallas_int8.py:150"),  # _conv_mxu
     "bitcast": ("tpu_cnn_torch/csrc/bitcast.cu",
                 "scripts/probe_bitcast.py:35"),  # run (narrow, widen, roll)
+    # none: the JAX head (tpu_cnn/ops/detect_head.py) is XLA ops
+    "cam_head": ("tpu_cnn_torch/csrc/cam_head.cu", None),
 }
 # the main paths: (family, engine backend, the shifts set_shifts tries, the
 # kernels the path must launch; it must launch no other)
-PATHS = [("lyr3-std", "mega", (1, 3, 5), ("mega_cnn",)),
-         ("lyr4-wide", "mega", (2, 4, 6, 8), ("mega_cnn", "conv_pool_layer")),
+PATHS = [("lyr3-std", "mega", (1, 3, 5), ("mega_cnn", "cam_head")),
+         ("lyr4-wide", "mega", (2, 4, 6, 8), ("mega_cnn", "conv_pool_layer", "cam_head")),
          ("lyr4-wide", "pallas", (2, 4, 6, 8), ("conv_act",)),
          ("lyr3-std", "hybrid", (1, 3, 5), ("conv_act",))]
-# the multi-object paths: (family, backend, instances, kernels)
-MULTI_PATHS = [("lyr3-std", "mega", 2, ("mega_cnn",)),
+# the multi-object paths: (family, backend, instances, kernels; the
+# server's warm-up runs a single-box detect too)
+MULTI_PATHS = [("lyr3-std", "mega", 2, ("mega_cnn", "cam_head")),
                ("lyr4-wide", "pallas", 1, ("conv_act",))]
 # the realtime app's paths: (family, flags, kernels); each runs
 # realtime.main --device cuda --source synthetic for REALTIME_FRAMES frames
+# (its engine's warm-up runs a single-box detect on every path)
 REALTIME_PATHS = [
-    ("lyr3-std", ("--mode", "mega"), ("mega_cnn",)),  # the host-head protocol
-    ("lyr3-std", ("--mode", "mega", "--fused"), ("mega_cnn",)),
+    ("lyr3-std", ("--mode", "mega"), ("mega_cnn", "cam_head")),  # the host-head protocol
+    ("lyr3-std", ("--mode", "mega", "--fused"), ("mega_cnn", "cam_head")),
     ("lyr3-std", ("--mode", "mega", "--fused", "--multi", "--instances", "2",
-                  "--track"), ("mega_cnn",)),
+                  "--track"), ("mega_cnn", "cam_head")),
     ("lyr4-wide", ("--mode", "pallas", "--fused"), ("conv_act",)),
     ("lyr3-std", ("--mode", "cpu"), ()),  # the host oracle: no kernel
 ]
 REALTIME_FRAMES = 40
 STREAM_FRAMES = 150  # the MJPEG run's: its client connects within a frame
 REALTIME_TIMED_FRAMES = 200
-# the kernels `--mode auto` (mega) runs per family
+# the kernels `--mode auto` (mega) runs per family, and with a single-box
+# detect (the "ref" box) the CAM head's too
 MEGA_KERNELS = {"lyr3-std": ("mega_cnn",),
                 "lyr4-wide": ("mega_cnn", "conv_pool_layer")}
+MEGA_DETECT_KERNELS = {v: (*k, "cam_head") for v, k in MEGA_KERNELS.items()}
 # the device preprocess's camera geometries (W, H), the JAX function's
 # phase-path and dense-path points among them
 PREPROCESS_GEOMETRIES = ((640, 480), (320, 240), (177, 131), (127, 127),
@@ -489,8 +513,17 @@ def kernel_vs_plain(dev: torch.device) -> dict[str, float]:
                       f"widen(narrow), roll 3/0/-1/L+2 at {BITCAST_SHAPES}; "
                       f"narrow and widen on offset views) bit-equal; "
                       f"max_abs_err={bit_err!r}")
+    cam_err, cam_cases = kc.cam_head_vs_plain(dev, offline=True)
+    phase("3 kernel", f"cam_head: {cam_cases} cases (both families' shipped "
+                      f"frames and noise through K1 at batch 1, {KERNEL_BATCH} "
+                      f"and the offline rounds {kc.CAM_BATCHES}; seeded twins "
+                      f"at (C, P) {kc.CAM_GEOMETRIES}; an all-zero twin; a "
+                      f"flat CAM): predictions and boxes equal to "
+                      f"detect_with_pooled's, probabilities within "
+                      f"{kc.CAM_PROBS_TOL} of the float64 head's; "
+                      f"max_abs_err={cam_err!r}")
     return {"mega_cnn": mega_err, "conv_pool_layer": layer_err,
-            "conv_act": act_err, "bitcast": bit_err}
+            "conv_act": act_err, "bitcast": bit_err, "cam_head": cam_err}
 
 
 SANITIZE_TOOLS = ("memcheck", "racecheck", "synccheck", "initcheck")
@@ -1116,10 +1149,10 @@ def realtime_stream() -> None:
 # flag sets run on that path); each result must equal the same flags' on
 # --mode cpu (the host oracle and the host twins)
 EVAL_PATHS = [
-    ("lyr3-std", "mega", ("mega_cnn",),
+    ("lyr3-std", "mega", ("mega_cnn", "cam_head"),
      [("--box", "ref"), ("--box", "centroid"), ("--box", "reg"), ("--multi",),
       ("--multi", "--instances", "2", "--same-class"), ("--multi", "--real")]),
-    ("lyr4-wide", "mega", ("mega_cnn", "conv_pool_layer"), [()]),
+    ("lyr4-wide", "mega", ("mega_cnn", "conv_pool_layer", "cam_head"), [()]),
     ("lyr4-wide", "pallas", ("conv_act",), [("--multi",)]),
 ]
 REG_IOU_TOL = 1e-3  # --box reg on mega: boxes floor a regression of K1's bins
@@ -1137,25 +1170,25 @@ BENCH_RUNS = [
     # every mode once (the host oracle takes seconds a batch), then the
     # device modes' FPS on a pipeline as long as phase 7's
     (("--modes", "auto,mega,pallas,hybrid,xla,cpu", "--batch", str(BENCH_BATCH),
-      "--runs", "2"), ("mega_cnn", "conv_act")),
+      "--runs", "2"), ("mega_cnn", "conv_act", "cam_head")),
     (("--modes", "mega,pallas,hybrid", "--batch", str(BENCH_BATCH), "--runs",
-      "52"), ("mega_cnn", "conv_act")),
+      "52"), ("mega_cnn", "conv_act", "cam_head")),
     (("--multi", "--instances", "2", "--runs", "5"), ("mega_cnn",)),
     (("--per-layer", "--modes", "pallas", "--batch", str(BENCH_BATCH),
       "--runs", "20"), ("conv_act",)),
     (("--per-layer", "--modes", "mega", "--batch", str(BENCH_BATCH),
       "--runs", "10"), ("mega_cnn",)),
     (("--roofline", "--batch", str(BENCH_BATCH), "--runs", "20"), ("mega_cnn",)),
-    (("--latency", "--runs", "20"), ("mega_cnn",)),
+    (("--latency", "--runs", "20"), ("mega_cnn", "cam_head")),
     (("--camera-pipeline", "--cam-channels", "4", "--batch", "256", "--runs",
-      "10"), ("mega_cnn",)),
+      "10"), ("mega_cnn", "cam_head")),
     (("--camera-pipeline", "--cam-channels", "3", "--batch", "256", "--runs",
-      "10"), ("mega_cnn",)),
+      "10"), ("mega_cnn", "cam_head")),
     (("--camera-pipeline", "--cam-pitch", "656", "--batch", "256", "--runs",
-      "10"), ("mega_cnn",)),
+      "10"), ("mega_cnn", "cam_head")),
     (("--features", "--runs", "5"), ("mega_cnn",)),
     (("--variant", "lyr4-wide", "--modes", "mega", "--runs", "5"),
-     ("mega_cnn", "conv_pool_layer")),
+     ("mega_cnn", "conv_pool_layer", "cam_head")),
     (("--variant", "lyr4-wide", "--roofline", "--runs", "10"),
      ("mega_cnn", "conv_pool_layer")),
 ]
@@ -1632,7 +1665,7 @@ BENCH_TIMEOUT_S = 240  # the bench child's limit
 BENCH_KEYS = ["metric", "value", "unit", "vs_baseline"]  # bench.py's line
 
 
-def bench_path(card: str) -> int:
+def bench_path(card: str) -> dict[str, int]:
     """``python -m tpu_cnn_torch.bench`` in a child within BENCH_TIMEOUT_S:
     exit 0 and one stdout line, a JSON object with bench.py's keys, no
     ``error`` and a positive value, printed with the card. Then the gate's
@@ -1640,7 +1673,8 @@ def bench_path(card: str) -> int:
     feature bit flipped fails the gate on its features) and
     ``graft_entry.entry()`` on the card, its pred and bbox equal to
     ``CUDAEngine(mega).detect_batch`` on its 8 frames. Returns the child's
-    megakernel launches (counted in its own process)."""
+    launches of the megakernel and the CAM head (counted in its own
+    process: the timed path launches both)."""
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "tpu_cnn_torch.bench"],
                           cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
@@ -1654,8 +1688,10 @@ def bench_path(card: str) -> int:
     check(list(line) == BENCH_KEYS and line["value"] > 0,
           f"the bench printed {lines[0]}")
     detail = json.loads(proc.stderr.strip().splitlines()[-1])
-    child_launches = detail["launches"]["mega_cnn"]
-    check(child_launches > 0, f"the bench launched no megakernel: {detail}")
+    child_launches = detail["launches"]
+    check(child_launches.get("mega_cnn", 0) > 0
+          and child_launches.get("cam_head", 0) > 0,
+          f"the bench launched no megakernel or no CAM head: {detail}")
     phase("bench", f"{card}: python -m tpu_cnn_torch.bench ({secs:.1f} s): "
                    f"{lines[0]}")
     phase("bench", f"passes {detail['passes_fps']!r} FPS; nvcc {detail['build_s']!r} "
@@ -3004,6 +3040,42 @@ def _kernel_name(name: str) -> str:
     return name[:100]
 
 
+def cam_head_times(dev: torch.device, card: str, rs) -> tuple:
+    """The CAM head kernel at each family's offline round (lyr3-std 16,384
+    frames, lyr4-wide 4,096: the benchmark's), on K1's bins and twin of
+    noise frames, against the plain head (``detect_with_pooled``, "ref")
+    and the HBM floor: the twin and the bins read once, the outputs
+    written once. Returns lyr3-std's (kernel ms, plain ms, bound ms, bound
+    by, None)."""
+    out = None
+    for variant, batch in kc.CAM_BATCHES.items():
+        model = load_model(ARTIFACTS[variant], variant)
+        engine = CUDAEngine(model, device=dev)
+        size = model.config.img_size
+        x = torch.from_numpy(rs.randint(0, 256, (batch, size, size))
+                             .astype(np.uint8)).to(dev)
+        pooled, twin = engine._mega(x, with_feats=False, with_bins=True,
+                                    with_twin=True)
+        del x
+        w, b = engine.net.fc_weight, engine.net.fc_bias
+        k_ms, p_ms, nk, np_ = _queued_and_plain_ms(
+            lambda: cam_head.detect_pooled_fused(pooled, twin, w, b, size),
+            lambda: detect_head.detect_with_pooled(
+                None, pooled, w, b, size, features_twin=twin, box_mode="ref"))
+        k = w.shape[0]
+        nbytes = twin.numel() * 2 + pooled.numel() * 4 + batch * (4 + 4 + 4 * k + 16)
+        b_ms, b_by = bound(0, nbytes)
+        phase("7 times", f"{variant} cam_head batch {batch} on {card}: kernel "
+                         f"median {k_ms!r} ms (n={nk}, queued); bound {b_ms!r} "
+                         f"ms by {b_by}, {b_ms / k_ms:.2%} of it; plain median "
+                         f"{p_ms!r} ms (n={np_})")
+        if out is None:
+            out = (k_ms, p_ms, b_ms, b_by, None)
+        del pooled, twin
+        torch.cuda.empty_cache()
+    return out
+
+
 def times(dev: torch.device, card: str,
           profile_out: str | None) -> dict[str, tuple]:
     """Returns {kernel name: (kernel ms, plain ms, bound ms, bound by,
@@ -3193,6 +3265,8 @@ def times(dev: torch.device, card: str,
     # reshape makes of a permuted byte view): its time is the library's
     out["bitcast"] = (k_ms, p_ms, b_ms, b_by, p_ms)
     torch.cuda.empty_cache()
+    # no single PyTorch call computes the head: library_ms is null
+    out["cam_head"] = cam_head_times(dev, card, rs)
     # last: run before the pallas profile, these left its torch.profiler
     # session with no events in one run on the card
     preprocess_times(dev, card, rs)
@@ -3245,9 +3319,10 @@ def main(argv=None) -> None:
                   lambda: multi_server(variant, backend, instances))
     child = {}  # the bench child's launches, counted in its own process
     main_path("bench (python -m tpu_cnn_torch.bench, the gate's negative "
-              "check, graft_entry.entry())", ("mega_cnn",),
-              lambda: child.update(mega_cnn=bench_path(card)))
-    launches["mega_cnn"] += child["mega_cnn"]
+              "check, graft_entry.entry())", ("mega_cnn", "cam_head"),
+              lambda: child.update(bench_path(card)))
+    for name, n in child.items():
+        launches[name] += n
     for variant in ARTIFACTS:
         main_path(f"{variant} engine swap (cpu, auto, --dump-features)",
                   MEGA_KERNELS[variant], lambda: engine_swap(variant))
@@ -3256,8 +3331,8 @@ def main(argv=None) -> None:
     for variant, flags, path_kernels in REALTIME_PATHS:
         main_path(f"{variant} realtime {' '.join(flags)}", path_kernels,
                   lambda: realtime_path(variant, flags))
-    main_path("lyr3-std realtime --mode mega --fused, MJPEG", ("mega_cnn",),
-              realtime_stream)
+    main_path("lyr3-std realtime --mode mega --fused, MJPEG",
+              ("mega_cnn", "cam_head"), realtime_stream)
     for variant, mode, path_kernels, flag_sets in EVAL_PATHS:
         main_path(f"{variant} eval_detection --mode {mode}", path_kernels,
                   *[lambda f=f: eval_path(variant, mode, f) for f in flag_sets])
@@ -3281,31 +3356,37 @@ def main(argv=None) -> None:
     for flags, path_kernels in BENCH_RUNS:
         main_path(f"benchmark {' '.join(flags)}", path_kernels,
                   lambda: benchmark_run(flags))
-    for variant, path_kernels in MEGA_KERNELS.items():
+    for variant, path_kernels in MEGA_DETECT_KERNELS.items():
         main_path(f"{variant} serve_native --mode mega", path_kernels,
                   lambda: native_front_path(variant),
                   *([lambda: native_front_path(variant, 2)]
                     if variant == "lyr3-std" else []))
     for variant, path_kernels in MEGA_KERNELS.items():
-        main_path(f"{variant} export_model --backend mega, the deployable, "
-                  f"serve --deployable", path_kernels,
+        main_path(f"{variant} export_model --backend mega, the deployable "
+                  f"(its kernels: {', '.join(path_kernels)}; it keeps the "
+                  f"plain head, and cam_head's launches are the engine's it "
+                  f"is held to), serve --deployable", MEGA_DETECT_KERNELS[variant],
                   lambda: deploy_path(variant, path_kernels,
                                       2 if variant == "lyr3-std" else 1))
-    main_path("serving load (scripts/bench_serving_torch.py)", ("mega_cnn",),
+    main_path("serving load (scripts/bench_serving_torch.py)",
+              ("mega_cnn", "cam_head"),
               lambda: serving_load_path(card))
     main_path("benchmark --host-ingest", (), lambda: host_ingest_path(card))
     main_path("doctor", (), doctor_path)
     main_path("lyr3-std mesh (MeshEngine mega on 1 and 2 positions, xla on "
-              "4)", ("mega_cnn",), lambda: mesh_engine_path("lyr3-std"),
+              "4)", ("mega_cnn", "cam_head"), lambda: mesh_engine_path("lyr3-std"),
               mesh_xla_path)
     main_path("lyr4-wide mesh (MeshEngine mega on 1 and 2 positions)",
-              MEGA_KERNELS["lyr4-wide"], lambda: mesh_engine_path("lyr4-wide"))
-    main_path("lyr3-std infer and serve --mode mesh", ("mega_cnn",),
+              MEGA_DETECT_KERNELS["lyr4-wide"], lambda: mesh_engine_path("lyr4-wide"))
+    main_path("lyr3-std infer and serve --mode mesh", ("mega_cnn", "cam_head"),
               lambda: cli("lyr3-std", "mesh"), lambda: server("lyr3-std", "mesh"))
-    main_path("dryrun_mesh (4 positions of cuda:0)", ("mega_cnn",), dryrun_path)
+    main_path("dryrun_mesh (4 positions of cuda:0)", ("mega_cnn", "cam_head"),
+              dryrun_path)
     main_path("MultiHostEngine (2 gloo processes)", (), multihost_path)
-    main_path("the deployable with nvcc hidden (the engine it is held to "
-              "launches K1 here)", ("mega_cnn",), nvcc_free_deploy_path)
+    main_path("the deployable with nvcc hidden (in its child: K1; in this "
+              "process, the engine it is held to: K1 and the CAM head)",
+              ("mega_cnn", "cam_head"),
+              nvcc_free_deploy_path)
     main_path("training mesh (every layout on positions of cuda:0)", (),
               lambda: train_mesh_path(dev))
     main_path("train_cnn --mesh 1 --zero1 --checkpoint DIR, --resume", (),

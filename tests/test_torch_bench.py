@@ -182,7 +182,8 @@ def test_run_at_a_small_size_on_the_cpu(capsys):
     err = capsys.readouterr().err.strip().splitlines()
     assert err[0].startswith("gate: passed on 4 images")
     detail = json.loads(err[-1])
-    assert len(detail["passes_fps"]) == 1 and detail["launches"] == {"mega_cnn": 0}
+    assert len(detail["passes_fps"]) == 1
+    assert detail["launches"] == {"mega_cnn": 0, "cam_head": 0}
 
 
 _RUN = bench.run
@@ -260,14 +261,17 @@ def test_graft_entry_main_on_cpu_positions(capsys):
 @pytest.mark.cuda
 def test_bench_on_the_card():
     """The bench at a small size on the card: the gate, the pipelined
-    passes, every timed round equal to its synchronous call, K1 launched."""
+    passes, every timed round equal to its synchronous call, K1 and the CAM
+    head launched."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc: the bench measures the "
                     "CUDA megakernel, which has no CPU or interpret mode (on "
                     "the card: python -m pytest -m cuda tests/test_torch_bench.py)")
-    from tpu_cnn_torch.ops import mega
+    from tpu_cnn_torch.ops import cam_head, mega
 
-    before = mega.launches
+    before = mega.launches, cam_head.launches
     out = bench.run("cuda", ART, batch=64, rounds=8, passes=2)
     assert "error" not in out and out["value"] > 0, out
-    assert mega.launches - before == 1 + 4 + 2 * 8  # the gate, the warm-up, the passes
+    # the gate, the warm-up, the passes: K1 and the head once each a call
+    assert mega.launches - before[0] == 1 + 4 + 2 * 8
+    assert cam_head.launches - before[1] == 1 + 4 + 2 * 8

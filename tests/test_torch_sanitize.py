@@ -220,12 +220,13 @@ def test_kernel_filter_names_every_kernel_of_the_sources(monkeypatch):
     assert names == {"mega_cnn": ["mega_cnn_kernel"],
                      "conv_pool_layer": ["conv_layer_kernel"],
                      "conv_act": ["conv_layer_kernel"],
-                     "bitcast": ["narrow_kernel", "roll_kernel", "widen_kernel"]}
+                     "bitcast": ["narrow_kernel", "roll_kernel", "widen_kernel"],
+                     "cam_head": ["cam_head_kernel"]}
     monkeypatch.setattr(sanitize, "compute_sanitizer", lambda: "compute-sanitizer")
     filters = {tool: [a for a in sanitize.sanitizer_argv(tool, "log") if a.startswith("kns=")]
                for tool in sanitize.CARD_TOOLS}
-    want = [f"kns={f}" for f in ("conv_layer_kernel", "mega_cnn_kernel", "narrow_kernel",
-                                 "roll_kernel", "widen_kernel")]
+    want = [f"kns={f}" for f in ("cam_head_kernel", "conv_layer_kernel", "mega_cnn_kernel",
+                                 "narrow_kernel", "roll_kernel", "widen_kernel")]
     assert filters == {"memcheck": want, "racecheck": want, "synccheck": want,
                        "initcheck": []}
 

@@ -26,6 +26,9 @@ kernels (``csrc/``, built by ``ops._build``):
   - ``ops.detect_head``   — the device head: classifier, CAM boxes, the
                             multi-object and instance heads (label loops
                             exportable as ``while_loop``)
+  - ``ops.cam_head``      — the single-box head with the "ref" box in one
+                            kernel (``csrc/cam_head.cu``), on the
+                            megakernel's bins and bf16 twin
   - ``ops.library``       — the megakernel and the layer kernel as the
                             ``torch.library`` ops ``tcnn::mega_cnn`` and
                             ``tcnn::conv_pool_layer`` (what an exported

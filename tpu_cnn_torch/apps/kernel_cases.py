@@ -9,8 +9,11 @@ its edges.
 ``compute-sanitizer``, so both drive the kernels through the same cases.
 A case fails (``RuntimeError``) when a kernel's output differs from its
 plain version's: features, twins and layer outputs bit for bit, the
-megakernel's bins within ``BINS_TOL``. ``main`` prints one JSON line:
-each kernel's launches (the wrappers' ``launches`` counters), the code
+megakernel's bins within ``BINS_TOL``; the CAM head's predictions and
+boxes as the plain version's (a box may instead be the float64 CAM's,
+where the plain version's f32 order breaks a tie otherwise) and its
+probabilities within ``CAM_PROBS_TOL`` of the float64 head's. ``main``
+prints one JSON line: each kernel's launches (the wrappers' ``launches`` counters), the code
 paths the launches reached (``REQUIRED_PATHS`` must all be among them),
 each kernel's cases and largest absolute difference, and the seconds.
 
@@ -29,6 +32,7 @@ import glob
 import hashlib
 import itertools
 import json
+import math
 import os
 import time
 
@@ -39,20 +43,29 @@ from tpu_cnn_torch import bench_gate
 from tpu_cnn_torch.apps.common import load_model
 from tpu_cnn_torch.engine.cpu_ref import numpy_cnn_forward
 from tpu_cnn_torch.models.registry import default_shifts, get_config
-from tpu_cnn_torch.ops import _build, bitcast, conv_pool, int8, mega, quant
+from tpu_cnn_torch.ops import (_build, bitcast, cam_head, conv_pool, detect_head,
+                               int8, mega, quant)
 from tpu_cnn_torch.utils import artifacts as art
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 ARTIFACTS = {"lyr3-std": os.path.join(_ROOT, "artifacts", "pretrained"),
              "lyr4-wide": os.path.join(_ROOT, "artifacts", "pretrained-lyr4")}
 MODULES = {"mega_cnn": mega, "conv_pool_layer": conv_pool, "conv_act": int8,
-           "bitcast": bitcast}
+           "bitcast": bitcast, "cam_head": cam_head}
 # how a path of each library is named: the layer kernel's under "layer"
 PATH_PREFIX = {"mega_cnn": "mega_cnn", "conv_pool_layer": "layer", "conv_act": "layer",
-               "bitcast": "bitcast"}
+               "bitcast": "bitcast", "cam_head": "cam_head"}
 # the probe's; ragged; 16 MiB; 64 MiB of words, past the 50 MB L2 (timed)
 BITCAST_SHAPES = ((8, 256), (5, 37), (1024, 4096), (4096, 4096))
 BINS_TOL = 1e-6  # the kernel's bins vs the plain version's (1-ulp / order)
+# the CAM head's probabilities vs the float64 head's (it sums the logits
+# and takes the softmax in f64, then rounds once)
+CAM_PROBS_TOL = 1e-6
+# the CAM head's batches: the kernel cases' and each family's offline round
+CAM_BATCHES = {"lyr3-std": 16384, "lyr4-wide": 4096}
+# (C, P) of the CAM head's seeded cases: lyr2-small's, lyr3-tiny's and an
+# 8x8 CAM (two pixels a bin column)
+CAM_GEOMETRIES = ((32, 1024), (64, 16), (16, 64))
 KERNEL_BATCH = 37  # the kernel cases' batch: not a multiple of any tile
 COMBOS = [c for c in itertools.product((True, False), repeat=3) if any(c)]
 
@@ -89,6 +102,10 @@ REQUIRED_PATHS = (
     "layer: multi-channel, persistent loop k >= 1",
     "bitcast: narrow one-word, misaligned view",
     "bitcast: widen one-word, misaligned view",
+    "cam_head: bins at least 4 pixels wide (two weights a chunk)",
+    "cam_head: bins narrower than 4 pixels (a weight a pixel)",
+    "cam_head: order statistics by a bitonic sort (at most 256 pixels)",
+    "cam_head: order statistics by counting (more than 256 pixels)",
 )
 
 def check(cond: bool, msg: str) -> None:
@@ -585,6 +602,116 @@ def bitcast_vs_plain(dev: torch.device) -> tuple[float, int]:
     return float(max_err), n_cases
 
 
+def cam_head_f64(pooled, twin, fc_weight, fc_bias, pred, img_size: int):
+    """The CAM head in float64 on the same inputs: (probs (B, K) float64,
+    the (B, 4) box of ``pred``'s float64 CAM, its threshold and comparison
+    in float64 too), in chunks of 1,024 images."""
+    b, c, p = twin.shape
+    s = math.isqrt(p)
+    npx = s // 4
+    probs = torch.softmax(pooled.double() @ fc_weight.double().T
+                          + fc_bias.double(), dim=1)
+    pix = torch.arange(p, device=twin.device)
+    binof = (pix // s // npx) * 4 + (pix % s) // npx
+    lo, hi, frac = cam_head.percentile_order(p)
+    boxes = []
+    for i in range(0, b, 1024):
+        f = twin[i:i + 1024].double()
+        valid = (f.mean(dim=2) <= 250.0).double()
+        wk = (fc_weight.double()[pred[i:i + 1024].long()].reshape(-1, c, 16)
+              * valid[:, :, None])
+        cam = (wk[:, :, binof] * f).sum(dim=1).clamp_min(0.0)
+        top = cam.amax(dim=1, keepdim=True)
+        cam = torch.where(top > 0, cam / top.clamp_min(1e-300), cam)
+        srt = cam.sort(dim=1).values
+        thr = (srt[:, lo] + (srt[:, hi] - srt[:, lo]) * frac).clamp_min(0.25)
+        boxes.append(detect_head._bbox_from_cam(cam.reshape(-1, s, s), img_size, thr))
+    return probs, torch.cat(boxes)
+
+
+def _cam_case(tag, pooled, twin, w, b, img_size, shipped):
+    """One CAM head case: predictions equal to the plain version's,
+    probabilities within ``CAM_PROBS_TOL`` of the float64 head's, boxes
+    equal to the plain version's on the first ``shipped`` images (the
+    shipped test frames) and elsewhere to the plain version's or the
+    float64 CAM's (the plain ``bmm``'s f32 order can break a ``cam > thr``
+    tie otherwise). Returns (the probabilities' largest difference, the
+    boxes)."""
+    got = cam_head.detect_pooled_fused(pooled, twin, w, b, img_size)
+    want = detect_head.detect_with_pooled(None, pooled, w, b, img_size,
+                                          features_twin=twin, box_mode="ref")
+    _sync(twin.device)
+    check(torch.equal(got[0], want[0]), f"cam_head {tag}: predictions differ")
+    probs64, boxes64 = cam_head_f64(pooled, twin, w, b, want[0], img_size)
+    err = float((got[2].double() - probs64).abs().max())
+    conf_err = float((got[1].double() - probs64.gather(1, want[0][:, None].long())[:, 0])
+                     .abs().max())
+    # (on the CPU the wrapper is the plain version, whose f32 sums are not
+    # held to the float64 head)
+    check(max(err, conf_err) <= CAM_PROBS_TOL or not twin.is_cuda,
+          f"cam_head {tag}: probabilities {err!r} from the float64 head's")
+    same = (got[3] == want[3]).all(dim=1)
+    check(bool(same[:shipped].all()),
+          f"cam_head {tag}: boxes differ on shipped frames "
+          f"{torch.nonzero(~same[:shipped])[:, 0].tolist()[:8]}")
+    ok = same | (got[3] == boxes64).all(dim=1)
+    check(bool(ok.all()), f"cam_head {tag}: boxes neither the plain version's "
+                          f"nor the float64 CAM's: {torch.nonzero(~ok)[:, 0].tolist()[:8]}")
+    return err, got[3]
+
+
+def cam_head_vs_plain(dev: torch.device, offline: bool = False) -> tuple[float, int]:
+    """The CAM head kernel against ``detect_with_pooled`` ("ref"): each
+    family's bins and twin from the megakernel (or its plain version) on
+    its shipped test frames and noise, at ``KERNEL_BATCH`` and batch 1 and,
+    with ``offline``, at its offline round (``CAM_BATCHES``); then seeded
+    twins with saturated channels at ``CAM_GEOMETRIES``, an all-zero twin
+    (the full frame) and a flat CAM (every value ties at the threshold).
+    Returns (the probabilities' largest difference from the float64
+    head's, cases)."""
+    max_err, n_cases = 0.0, 0
+    rs = np.random.RandomState(11)
+    for variant in ARTIFACTS:
+        model = load_model(ARTIFACTS[variant], variant)
+        size = model.config.img_size
+        ks = [torch.from_numpy(np.asarray(k)).to(dev) for k in model.kernels]
+        shifts = torch.tensor(model.shifts, dtype=torch.int32, device=dev)
+        w = torch.from_numpy(np.ascontiguousarray(model.fc_weight, np.float32)).to(dev)
+        b = torch.from_numpy(np.ascontiguousarray(model.fc_bias, np.float32)).to(dev)
+        shipped = bench_gate.load_gate_images(ARTIFACTS[variant], n_real=10**6,
+                                              n_noise=0, img_size=size)
+        batches = [1, KERNEL_BATCH] + ([CAM_BATCHES[variant]] if offline else [])
+        for batch in batches:
+            n_ship = min(batch, len(shipped))
+            imgs = np.concatenate([shipped[:n_ship], rs.randint(
+                0, 256, (batch - n_ship, size, size)).astype(np.uint8)])
+            pooled, twin = mega.cnn_forward_mega(
+                torch.from_numpy(imgs).to(dev), ks, shifts, with_feats=False,
+                with_bins=True, with_twin=True)
+            err, _ = _cam_case(f"{variant} batch {batch}", pooled, twin, w, b,
+                               size, n_ship)
+            max_err, n_cases = max(max_err, err), n_cases + 1
+    for c, p in CAM_GEOMETRIES:
+        twin = rs.randint(0, 256, (KERNEL_BATCH, c, p)).astype(np.float32)
+        twin[:, ::7] = 255.0  # saturated channels: masked out of the CAM
+        t = [torch.from_numpy(a).to(dev) for a in (
+            rs.rand(KERNEL_BATCH, 16 * c).astype(np.float32), twin,
+            (rs.randn(6, 16 * c) * 0.05).astype(np.float32),
+            (rs.randn(6) * 0.1).astype(np.float32))]
+        t[1] = t[1].to(torch.bfloat16)
+        err, _ = _cam_case(f"C={c} P={p}", *t, 8 * math.isqrt(p), 0)
+        max_err, n_cases = max(max_err, err), n_cases + 1
+    pooled = torch.full((KERNEL_BATCH, 1024), 7.0 / 255, device=dev)
+    w, b = torch.ones((6, 1024), device=dev), torch.zeros(6, device=dev)
+    for tag, fill in (("all-zero twin", 0.0), ("flat CAM", 7.0)):
+        twin = torch.full((KERNEL_BATCH, 64, 256), fill, device=dev).to(torch.bfloat16)
+        err, boxes = _cam_case(tag, pooled, twin, w, b, 128, KERNEL_BATCH)
+        check(bool((boxes == torch.tensor([0, 0, 127, 127], device=dev)).all()),
+              f"cam_head {tag}: not the full frame")
+        max_err, n_cases = max(max_err, err), n_cases + 1
+    return max_err, n_cases
+
+
 def _path_counts() -> dict[str, dict[str, int]]:
     return {name: _build.path_counts(name) for name in MODULES}
 
@@ -605,6 +732,7 @@ def run_all(dev: torch.device) -> dict:
     chain_vs_oracle(dev)
     plans = smem_plans_vs_kernel() if dev.type == "cuda" else 0
     bit_err, bit_n = bitcast_vs_plain(dev)
+    cam_err, cam_n = cam_head_vs_plain(dev)
     after = _path_counts() if dev.type == "cuda" else {}
     return {
         "launches": {name: m.launches for name, m in MODULES.items()},
@@ -612,11 +740,12 @@ def run_all(dev: torch.device) -> dict:
                          for path, n in counts.items() if n > before[name][path]}),
         "smem_plans": plans,
         "cases": {"mega_cnn": mega_n, "conv_pool_layer": layer_n + n_layer + gn_layer,
-                  "conv_act": act_n + n_act + gn_act, "bitcast": bit_n},
+                  "conv_act": act_n + n_act + gn_act, "bitcast": bit_n,
+                  "cam_head": cam_n},
         "max_abs_err": {"mega_cnn": mega_err,
                         "conv_pool_layer": max(layer_err, e_layer, g_layer),
                         "conv_act": max(act_err, e_act, g_act),
-                        "bitcast": bit_err}}
+                        "bitcast": bit_err, "cam_head": cam_err}}
 
 
 def main() -> None:

@@ -27,7 +27,7 @@ in PTX through the driver: seconds, no build) under NVIDIA's
 ``compute-sanitizer --tool <tool>``. A tool under which the probe's
 kernel did not run is not measured: ``refused`` when compute-sanitizer
 said the card is not supported ("Device not supported"), failed
-otherwise. Then they rebuild the four kernels of ``csrc/`` with
+otherwise. Then they rebuild the five kernels of ``csrc/`` with
 ``-lineinfo`` (``TPU_CNN_TORCH_EXTRA_NVCCFLAGS``) into a fresh temporary
 directory and run ``apps.kernel_cases`` (phase 3 of ``chip_smoke.py``, at
 full model widths) in a child under the tool, checking only the port's
@@ -35,7 +35,7 @@ kernels (their names are read from the sources, and each must be in its
 built library) except under ``initcheck``, which must see torch's writes
 of the inputs. The caching allocator is off under ``memcheck`` and
 ``initcheck`` (an overrun inside a cached block, or a read of a reused
-one, would go unseen). The child must launch all four kernels and its
+one, would go unseen). The child must launch all five kernels and its
 launches must take every path of ``kernel_cases.REQUIRED_PATHS``, as the
 libraries counted them. Any report fails the tool. Under ``memcheck`` a
 second child makes one deliberate out-of-bounds launch (``canary``: the
@@ -69,7 +69,7 @@ from tpu_cnn_torch.ops import _build
 
 HOST_TOOLS = ("asan", "tsan")
 CARD_TOOLS = ("memcheck", "racecheck", "synccheck", "initcheck")
-KERNELS = ("mega_cnn", "conv_pool_layer", "conv_act", "bitcast")
+KERNELS = ("mega_cnn", "conv_pool_layer", "conv_act", "bitcast", "cam_head")
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 # the port's tests that drive the host library, each file's ``native``
 # tests selected by the marker
@@ -310,7 +310,7 @@ def _card_env(build_dir: str) -> dict:
 
 
 def build_kernels(build_dir: str, deadline: float) -> dict[str, str]:
-    """The four kernels built with ``-lineinfo`` into ``build_dir``, one
+    """The five kernels built with ``-lineinfo`` into ``build_dir``, one
     nvcc each, all started together. Returns name -> library. Each
     library must hold the ``__global__`` functions its sources name, and
     its name must not be the clean build's."""

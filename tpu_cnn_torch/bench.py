@@ -5,9 +5,9 @@
 
 End-to-end batched fused-detect throughput on one card: the megakernel
 (``csrc/mega_cnn.cu``: the whole lyr3-std net, its fused 4x4 bins and bf16
-feature twin) and the plain-torch head (``detect_head.detect_with_pooled``:
-the classifier on the bins, the CAM box from the twin) over (1536, 128,
-128) u8 frames, on ``CUDAEngine(backend="mega")``'s own device path
+feature twin) and the CAM head's kernel (``csrc/cam_head.cu``, through
+``ops.cam_head``: the classifier on the bins, the CAM box from the twin, in
+one launch) over (1536, 128, 128) u8 frames, on ``CUDAEngine(backend="mega")``'s own device path
 (``detect_device``) with the shipped bundle (``artifacts/pretrained``,
 shifts 2/4/6): what users run, its weights packed once by the engine. As
 ``bench.py`` does it:
@@ -33,7 +33,8 @@ stdout carries one JSON line with ``bench.py``'s keys: ``metric``
 ``vs_baseline`` against ``BASELINE_FPS``, the reference FPGA system's 22
 FPS end-to-end rate (``BASELINE.md``). stderr carries the card's name and
 power limit (``nvidia-smi``), the build and gate seconds, each pass's FPS
-and, last, those details as one JSON object with the kernel's launches.
+and, last, those details as one JSON object with the two kernels'
+launches.
 
 Nothing falls back: with no CUDA device ``main`` prints the error line and
 exits 1, and a kernel that fails to build or launch raises. The work sits
@@ -57,7 +58,7 @@ import torch
 from tpu_cnn_torch import bench_gate
 from tpu_cnn_torch.apps.common import load_model
 from tpu_cnn_torch.engine.cuda import CUDAEngine
-from tpu_cnn_torch.ops import _build, mega
+from tpu_cnn_torch.ops import _build, cam_head, mega
 from tpu_cnn_torch.utils.failguard import wait_event
 from tpu_cnn_torch.utils.paths import default_artifacts
 
@@ -188,15 +189,16 @@ def run(device: torch.device | str, art_dir: str | None = None,
         details["card"] = card()
         _log(details["card"])
         t0 = time.perf_counter()
-        details["build_s"] = _build.build("mega_cnn")[2]
-        _log(f"build: mega_cnn {details['build_s']!r} s of nvcc (0 when "
-             f"cached), {time.perf_counter() - t0!r} s in all")
+        details["build_s"] = sum(_build.build(name)[2]
+                                 for name in ("mega_cnn", "cam_head"))
+        _log(f"build: mega_cnn and cam_head {details['build_s']!r} s of nvcc "
+             f"(0 when cached), {time.perf_counter() - t0!r} s in all")
     art_dir = art_dir or default_artifacts()
     rs = np.random.RandomState(0)
     engine = CUDAEngine(load_model(art_dir), device, backend="mega")
     model, size = engine.model, engine.model.config.img_size
     path = production_path(engine)
-    launches0 = mega.launches
+    launches0 = {"mega_cnn": mega.launches, "cam_head": cam_head.launches}
 
     t0 = time.perf_counter()
     gate = bench_gate.load_gate_images(art_dir, n_real, n_noise, img_size=size)
@@ -234,7 +236,9 @@ def run(device: torch.device | str, art_dir: str | None = None,
                     f"timed results differ from the synchronous call: pass "
                     f"{p + 1}, round {r} (pred, conf, bbox of pool "
                     f"{r % n_pools})")
-    details.update(passes_fps=fps, launches={"mega_cnn": mega.launches - launches0})
+    details.update(passes_fps=fps, launches={
+        "mega_cnn": mega.launches - launches0["mega_cnn"],
+        "cam_head": cam_head.launches - launches0["cam_head"]})
     _log(json.dumps(details))
     best = max(fps)
     return {"metric": "end_to_end_fps", "value": round(best, 1),

@@ -7,7 +7,9 @@ under their names, so that the apps' ``--mode`` flag carries over:
   - ``"mega"`` (the default): the net on the chained plan
     (``ops.mega.cnn_forward_mega``: the ``mega_plan`` head layers one
     kernel each, then the megakernel with its fused bin pooling and bf16
-    feature twin), then the plain-torch head (``ops.detect_head``);
+    feature twin), then the head: with the bins head and the "ref" box
+    one more kernel (``ops.cam_head``, ``csrc/cam_head.cu``), else the
+    plain-torch head (``ops.detect_head``);
   - ``"pallas"``: every layer on the conv kernel ``ops.int8.conv_act``
     (``cnn_forward_pallas``), then ``detect_head.detect`` on the features;
   - ``"hybrid"``: layer 0 on that kernel, the deeper layers plain
@@ -57,7 +59,7 @@ from tpu_cnn_torch.head.detections import (DEFAULT_MULTI_THRESH,  # noqa: F401
                                            instance_detections,
                                            presence_scores)
 from tpu_cnn_torch.models.cnn import FpgaCNN, TorchFpgaCNN
-from tpu_cnn_torch.ops import detect_head, int8, mega, quant
+from tpu_cnn_torch.ops import cam_head, detect_head, int8, mega, quant
 from tpu_cnn_torch.utils.failguard import wait_event
 from tpu_cnn_torch.utils.profiling import span, spanned
 
@@ -234,7 +236,8 @@ class CUDAEngine:
 
         Bins head: one kernel emits the bins (classifier, "reg" box) and,
         for the CAM box modes, the bf16 twin; the u8 features are written
-        only when asked for. GAP head: the classifier needs global means,
+        only when asked for. With the "ref" box, the head is one more
+        kernel (``ops.cam_head``), else the plain-torch head. GAP head: the classifier needs global means,
         so the kernel writes the u8 features and the head pools them.
         Other backends: the features, then ``detect_head.detect`` on them
         (the JAX engine's unfused branch); the bins are pooled apart only
@@ -255,10 +258,16 @@ class CUDAEngine:
             feats = outs.pop(0) if with_feats else None
             pooled = outs.pop(0)
             twin = outs.pop(0) if with_twin else None
-            pred, conf, probs, bbox = detect_head.detect_with_pooled(
-                None, pooled, net.fc_weight, net.fc_bias, img,
-                features_twin=twin, box_mode=self.box_mode,
-                bbox_weight=net.bbox_weight)
+            if self.box_mode == "ref":
+                pred, conf, probs, bbox = cam_head.detect_pooled_fused(
+                    pooled, twin, net.fc_weight, net.fc_bias, img)
+                if x.is_cuda:
+                    self.launches += 1
+            else:
+                pred, conf, probs, bbox = detect_head.detect_with_pooled(
+                    None, pooled, net.fc_weight, net.fc_bias, img,
+                    features_twin=twin, box_mode=self.box_mode,
+                    bbox_weight=net.bbox_weight)
         else:
             feats, pooled = self._mega(x, with_feats=True, with_bins=True)
             pred, conf, probs, bbox = detect_head.detect(
