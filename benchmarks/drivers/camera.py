@@ -6,7 +6,9 @@ detect. The window then runs the camera loop's per-frame detect
 (``apps.realtime.detect_frame(..., fused=True)``: ``detect_batch`` of one
 frame, the head's outputs read back) on the pool's frames in turn, each as
 soon as the last has returned. ``frame_p95_ms`` is the 95th percentile of
-the per-frame wall time over every frame of the window.
+the per-frame wall time over every frame of the window. Each frame's
+answer is the class, its probability, the probabilities and the box, in
+that order.
 """
 
 from __future__ import annotations
@@ -17,15 +19,16 @@ import numpy as np
 import torch
 
 from benchmarks.lib import device as devinfo
-from benchmarks.lib import program, stats, traffic
+from benchmarks.lib import program, spec, stats, traffic
 from benchmarks.lib.outcome import Answers, Outcome
 from benchmarks.lib.trace import Profiled
 
 
 def frames_of(cell, seed: int) -> np.ndarray:
-    """The camera's pool of preprocessed frames."""
-    size = int(cell.config["layer_configs"][0][2])
-    return traffic.frames(seed, "camera", int(cell.params["pool"]), size)
+    """The camera's pool of preprocessed frames, as ``spec.frame_shape``
+    says."""
+    channels, size, _ = spec.frame_shape(cell.config)
+    return traffic.frames(seed, "camera", int(cell.params["pool"]), size, channels)
 
 
 class Camera:
@@ -79,10 +82,10 @@ def run(cell, seed: int, seconds: float, trace: bool, dev: torch.device) -> Outc
     peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
     answers = Answers(
         np.array([g[0] for g in got], np.int64),
-        np.array([g[1] for g in got], np.int64),
-        np.array([g[2] for g in got], np.float64),
-        np.stack([g[3] for g in got]) if got else np.zeros((0, 1)),
-        np.array([list(g[4]) for g in got], np.int64).reshape(-1, 4))
+        (np.array([g[1] for g in got], np.int64),
+         np.array([g[2] for g in got], np.float64),
+         np.stack([g[3] for g in got]) if got else np.zeros((0, 1)),
+         np.array([list(g[4]) for g in got], np.int64).reshape(-1, 4)))
     return Outcome(
         measured=measured, attempted=len(times), failed=0,
         frames=loop.frames, answers=answers, lost=0,

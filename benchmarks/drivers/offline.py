@@ -9,10 +9,11 @@ stages them on the device (as frames decoded on the GPU would be), builds
 kernels where the cache has none). The window then dispatches
 ``detect_device`` on the pools in turn, up to ``inflight`` rounds ahead
 of the one it waits for, so that the card stays fed while the host
-stands still; each round's pred, conf, probs and bbox are copied into
-its slot of pinned host buffers behind an event. When the window's time
-is up it dispatches nothing more, waits for every round it dispatched,
-and reads the clock after that wait. The rate, reported under each of
+stands still; each round's outputs (every array ``detect_device(...)[2:]``
+returns, in its order) are copied into its slot of pinned host buffers
+behind an event. When the window's time is up it dispatches nothing
+more, waits for every round it dispatched, and reads the clock after
+that wait. The rate, reported under each of
 the cell's end-to-end metrics in frames/s (``detect_fps``), is every
 frame dispatched over that whole time. Results of a seeded sample of the
 rounds (one in ``keep_every``, a number prime to ``n_pools`` and to
@@ -33,18 +34,17 @@ from benchmarks.lib import device as devinfo
 from benchmarks.lib import program, spec, stats, traffic
 from benchmarks.lib.outcome import Answers, Outcome
 from benchmarks.lib.trace import Profiled
-from benchmarks.reference.cnn import bundle_dir
 
 
 def frames_of(cell, seed: int) -> np.ndarray:
-    """The pools, one after the other: (n_pools * batch, S, S) u8, noise
-    with ``shipped_per_pool`` x ``n_pools`` shipped test frames among it."""
+    """The pools, one after the other: (n_pools * batch, S, S) u8 (or
+    (n_pools * batch, C, S, S), as ``spec.frame_shape`` says), noise with
+    ``shipped_per_pool`` x ``n_pools`` shipped test frames among it."""
     p = cell.params
-    size = int(cell.config["layer_configs"][0][2])
+    channels, size, _ = spec.frame_shape(cell.config)
     n_pools = int(p["n_pools"])
-    frames = traffic.frames(seed, "pools", n_pools * int(p["batch"]), size)
-    return traffic.with_shipped(frames, seed, "pools",
-                                bundle_dir(cell.config, spec.ROOT),
+    frames = traffic.frames(seed, "pools", n_pools * int(p["batch"]), size, channels)
+    return traffic.with_shipped(frames, seed, "pools", spec.bundle_dir(cell.config),
                                 n_pools * int(p["shipped_per_pool"]))
 
 
@@ -66,13 +66,14 @@ class Offline:
         devinfo.mark("engine")
         self.cuda = dev.type == "cuda"
         outs = [self.engine.detect_device(pool)[2:] for pool in self.pools]
-        self.k = outs[0][2].shape[1]
         self.ring = [torch.empty((self.inflight, *t.shape), dtype=t.dtype,
                                  pin_memory=self.cuda) for t in outs[0]]
         self._sync()
         devinfo.mark("warm-up")
         self.round = 0  # rounds dispatched so far, over every window
         self.kept: list[Answers] = []
+        self.none_kept = Answers(np.zeros(0, np.int64), tuple(
+            np.zeros((0, *r.shape[2:]), r.numpy().dtype) for r in self.ring))
 
     def _sync(self):
         if self.cuda:
@@ -97,10 +98,9 @@ class Offline:
             event.synchronize()
         if keep and i % self.keep_every == self.keep_offset:
             pool = i % self.n_pools
-            pred, conf, probs, bbox = (h.numpy().copy() for h in buf)
             self.kept.append(Answers(
                 np.arange(pool * self.batch, (pool + 1) * self.batch),
-                pred, conf, probs, bbox))
+                tuple(h.numpy().copy() for h in buf)))
 
     def window(self, seconds: float, keep: bool = True) -> dict:
         """Rounds dispatched for ``seconds``, then waited for: the rounds
@@ -149,7 +149,7 @@ def run(cell, seed: int, seconds: float, trace: bool, dev: torch.device) -> Outc
     peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
     out = Outcome(
         measured=measured, attempted=win["frames"], failed=0,
-        frames=job.frames, answers=Answers.join(job.kept, job.k), lost=0,
+        frames=job.frames, answers=Answers.join(job.kept, job.none_kept), lost=0,
         kind=torch.cuda.get_device_name(dev) if cuda else "cpu",
         count=1, memory_peak_bytes=int(peak), ctx=ctx, trace=reduced)
     del job

@@ -10,21 +10,20 @@ import numpy as np
 @dataclasses.dataclass
 class Answers:
     """The program's answers: for each, which distinct frame it is for, and
-    the pred, conf, probs and bbox it gave."""
+    the outputs it gave, one array per output (n rows each) in the order
+    the program hands them back. Only the cell's reference module
+    (``reference/<name>.py``) reads what each output means."""
 
     frame: np.ndarray  # (n,) int64 index into Outcome.frames
-    pred: np.ndarray  # (n,)
-    conf: np.ndarray  # (n,)
-    probs: np.ndarray  # (n, K)
-    bbox: np.ndarray  # (n, 4)
+    outputs: tuple[np.ndarray, ...]
 
     @classmethod
-    def join(cls, parts: list["Answers"], k: int) -> "Answers":
+    def join(cls, parts: list["Answers"], empty: "Answers") -> "Answers":
+        """The parts one after the other; ``empty`` where there are none."""
         if not parts:
-            return cls(np.zeros(0, np.int64), np.zeros(0, np.int64),
-                       np.zeros(0), np.zeros((0, k)), np.zeros((0, 4), np.int64))
-        return cls(*(np.concatenate([getattr(p, f.name) for p in parts])
-                     for f in dataclasses.fields(cls)))
+            return empty
+        return cls(np.concatenate([p.frame for p in parts]),
+                   tuple(np.concatenate(col) for col in zip(*(p.outputs for p in parts))))
 
 
 @dataclasses.dataclass
@@ -32,7 +31,7 @@ class Outcome:
     measured: dict  # end-to-end readings by metric name
     attempted: int
     failed: int
-    frames: object  # (U, S, S) u8 distinct frames, numpy or torch
+    frames: object  # (U, S, S) or (U, C, S, S) u8 distinct frames, numpy or torch
     answers: Answers
     lost: int  # answers that never came
     kind: str  # the card's name (torch.cuda.get_device_name) or "cpu"

@@ -11,15 +11,15 @@ from __future__ import annotations
 import numpy as np
 
 from benchmarks.lib import spec
-from benchmarks.reference.cnn import bundle_dir
 
 
 def load_model(config: dict):
-    """The program's model from the configuration's bundle, at the
-    configuration's shifts (refused where the program would run others)."""
+    """The program's model from the configuration's bundle
+    (``spec.bundle_dir``), at the configuration's shifts (refused where
+    the program would run others)."""
     from tpu_cnn_torch.apps.common import load_model as program_load
 
-    model = program_load(bundle_dir(config, spec.ROOT), config["variant"])
+    model = program_load(spec.bundle_dir(config), config["variant"])
     if [int(s) for s in model.shifts] != [int(s) for s in config["shifts"]]:
         raise ValueError(f"the program loads shifts {list(model.shifts)}, the "
                          f"configuration states {config['shifts']}")

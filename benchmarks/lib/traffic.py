@@ -3,8 +3,10 @@
 Every mix is a data file under ``traffic/`` that this module reads; a cell
 file may set its own values over the mix's. What it draws:
 
-- ``frames``: uniform-noise u8 frames, (n, size, size), from the seed and
-  the name of the stream they are for (so that the pools and the camera's
+- ``frames``: uniform-noise u8 frames, (n, size, size), or (n, channels,
+  size, size) where a configuration's frames have more than one channel
+  (``spec.frame_shape``), from the seed and the name of the stream they
+  are for (so that the pools and the camera's
   pool of one seed are independent draws). A seed may be
   any whole number: it enters a ``numpy.random.SeedSequence`` whole;
   ``with_shipped`` puts a seeded choice of the bundle's shipped test
@@ -29,10 +31,11 @@ def rng(seed: int, stream: str) -> np.random.Generator:
                                 zlib.crc32(stream.encode())]))
 
 
-def frames(seed: int, stream: str, n: int, size: int) -> np.ndarray:
-    """(n, size, size) u8 uniform-noise frames."""
-    return rng(seed, stream).integers(0, 256, size=(n, size, size),
-                                      dtype=np.uint8)
+def frames(seed: int, stream: str, n: int, size: int, channels: int = 1) -> np.ndarray:
+    """(n, size, size) u8 uniform-noise frames at one channel, (n,
+    channels, size, size) at more."""
+    shape = (n, size, size) if channels == 1 else (n, channels, size, size)
+    return rng(seed, stream).integers(0, 256, size=shape, dtype=np.uint8)
 
 
 def with_shipped(frames: np.ndarray, seed: int, stream: str, bundle: str,
@@ -40,9 +43,13 @@ def with_shipped(frames: np.ndarray, seed: int, stream: str, bundle: str,
     """``frames`` with ``count`` of them, at seeded places, replaced by
     seeded picks of the bundle's shipped test frames
     (``test_image_*.bin`` of the frames' size): frames the classifier is
-    not saturated on, so that the comparison sees the head's precision."""
+    not saturated on, so that the comparison sees the head's precision.
+    The shipped frames are gray: frames of more channels take none."""
     if count <= 0:
         return frames
+    if frames.ndim != 3:
+        raise ValueError(f"{count} shipped test frames asked for among frames of "
+                         f"shape {frames.shape[1:]}: the shipped ones are gray")
     size = frames.shape[1]
     paths = sorted(glob.glob(os.path.join(bundle, "test_image_*.bin")))
     if not paths:

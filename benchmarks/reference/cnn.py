@@ -20,6 +20,35 @@ lower-precision controls that the comparison has to catch.
 It reads ``weights.bin``, ``fc_weight.npy``, ``fc_bias.npy`` and, where
 present, ``shifts.json`` from the bundle itself and imports nothing of the
 program.
+
+The comparison of the CAM head (``compare``, the reference module of a
+configuration that names none) holds the program's answers, its outputs
+read as pred, conf, probs and bbox per frame, against the reference's
+class probabilities and per-class CAM boxes of the same frames by four
+numbers (``numbers``):
+
+- ``pred_gap``: the widest gap by which the reference's probability of the
+  class the program picked lies below the reference's best, over every
+  answer (0 where the program picked the reference's best class; a near
+  tie can read a little above 0 without a wrong answer);
+- ``prob_err``: the largest absolute difference between the program's
+  probabilities (and conf) and the reference's;
+- ``box_miss``: the share of answers whose box differs from the
+  reference's box for the class the program picked;
+- ``lost``: answers that never came (a request with no response at all).
+
+A run that kept no answer to compare reads 1 in the first three.
+
+Its controls (``controls``, what ``control.py`` prints) are the reference
+put in the program's place a step below the configuration's precision:
+
+- ``int4``: the convolutions with the int8 weights rounded to int4 (on the
+  int8 scale, ``round(w / 16) * 16`` clipped to -128..112), the step below
+  int8;
+- ``bf16_head``: the head (bins, classifier, CAM) rounded to bfloat16,
+  the step below its float32.
+
+Each control's answers are the argmax class, its probability and its box.
 """
 
 from __future__ import annotations
@@ -32,6 +61,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from benchmarks.lib import spec
+
+NUMBERS = ("pred_gap", "prob_err", "box_miss", "lost")
+CONTROLS = {"int4": {"weight_bits": 4}, "bf16_head": {"head": "bfloat16"}}
 GRID = 4
 SATURATION_MEAN = 250.0
 CAM_PERCENTILE = 70.0
@@ -56,18 +89,13 @@ def decode_weights(raw: np.ndarray, layer_configs) -> list[np.ndarray]:
     return out
 
 
-def bundle_dir(config: dict, root: str) -> str:
-    d = config["bundle"]
-    return d if os.path.isabs(d) else os.path.join(root, d)
-
-
 class Reference:
     """The reference for one configuration file (``configs/<name>.json``).
 
     ``detect(frames)`` -> (probs (B, K) float64, boxes (B, K, 4) int64): the
     class probabilities and every class's CAM box of each frame."""
 
-    def __init__(self, config: dict, root: str, device: torch.device | str,
+    def __init__(self, config: dict, device: torch.device | str,
                  weight_bits: int = 8, head: str = "float64"):
         if weight_bits not in (8, 4):
             raise ValueError(f"weight_bits {weight_bits}: need 8 or 4")
@@ -78,7 +106,7 @@ class Reference:
         self.shifts = [int(s) for s in config["shifts"]]
         self.device = torch.device(device)
         self.head = head
-        d = bundle_dir(config, root)
+        d = spec.bundle_dir(config)
         kernels = decode_weights(np.fromfile(os.path.join(d, "weights.bin"),
                                              np.int8), self.layers)
         shifts_json = os.path.join(d, "shifts.json")
@@ -164,3 +192,71 @@ class Reference:
             probs.append(p.cpu())
             boxes.append(bx.cpu())
         return torch.cat(probs).numpy(), torch.cat(boxes).numpy()
+
+
+def numbers(ref_probs: np.ndarray, ref_boxes: np.ndarray, frame: np.ndarray,
+            pred: np.ndarray, conf: np.ndarray, probs: np.ndarray,
+            bbox: np.ndarray, lost: int = 0) -> dict[str, float]:
+    """The four numbers over n answers. ``ref_probs`` (U, K) and
+    ``ref_boxes`` (U, K, 4) are the reference's per distinct frame;
+    ``frame`` (n,) says which distinct frame each answer is for; ``pred``
+    (n,), ``conf`` (n,), ``probs`` (n, K) and ``bbox`` (n, 4) are the
+    program's answers. With no answer (n = 0) the first three read 1, as
+    wrong answers do: a run that compared nothing is not correct."""
+    frame = np.asarray(frame, np.int64)
+    pred = np.asarray(pred, np.int64)
+    n, k = len(frame), ref_probs.shape[1]
+    if n == 0:  # nothing compared: every number reads as wrong answers do
+        return {"pred_gap": 1.0, "prob_err": 1.0, "box_miss": 1.0,
+                "lost": float(lost)}
+    valid = (pred >= 0) & (pred < k)
+    safe = np.where(valid, pred, 0)
+    rp = ref_probs[frame]  # (n, K)
+    picked = rp[np.arange(n), safe]
+    gap = np.where(valid, rp.max(axis=1) - picked, 1.0)
+    err = np.maximum(np.abs(np.asarray(probs, np.float64) - rp).max(axis=1),
+                     np.abs(np.asarray(conf, np.float64) - picked))
+    err = np.where(valid, err, 1.0)
+    want_box = ref_boxes[frame, safe]  # (n, 4)
+    miss = ~valid | (np.asarray(bbox, np.int64) != want_box).any(axis=1)
+    return {"pred_gap": float(np.nan_to_num(gap, nan=1.0).max()),
+            "prob_err": float(np.nan_to_num(err, nan=1.0).max()),
+            "box_miss": float(miss.mean()),
+            "lost": float(lost)}
+
+
+def control_answers(ref_probs: np.ndarray, ref_boxes: np.ndarray):
+    """A control's own answers from its probabilities and boxes: the
+    argmax class, its probability and its box -> (pred, conf, probs,
+    bbox)."""
+    pred = ref_probs.argmax(axis=1)
+    rows = np.arange(len(pred))
+    return pred, ref_probs[rows, pred], ref_probs, ref_boxes[rows, pred]
+
+
+def _tensor(frames) -> torch.Tensor:
+    return torch.from_numpy(frames) if isinstance(frames, np.ndarray) else frames
+
+
+def compare(cell, outcome, device) -> dict[str, float]:
+    """The comparison's numbers: the reference on the distinct frames the
+    program answered, then ``numbers`` over every kept answer, its outputs
+    read as pred, conf, probs and bbox."""
+    block = int(cell.params["reference_block"])
+    probs, boxes = Reference(cell.config, device).detect(_tensor(outcome.frames), block)
+    pred, conf, pr, bbox = outcome.answers.outputs
+    return numbers(probs, boxes, outcome.answers.frame, pred, conf, pr, bbox,
+                   lost=outcome.lost)
+
+
+def controls(cell, frames, device) -> dict[str, dict[str, float]]:
+    """{control: numbers} of each of ``CONTROLS`` on ``frames``, each held
+    against the float64 reference as the program's answers are."""
+    frames, block = _tensor(frames), int(cell.params["reference_block"])
+    probs, boxes = Reference(cell.config, device).detect(frames, block)
+    out = {}
+    for name, kw in CONTROLS.items():
+        cp, cb = Reference(cell.config, device, **kw).detect(frames, block)
+        out[name] = numbers(probs, boxes, np.arange(len(frames)),
+                            *control_answers(cp, cb))
+    return out

@@ -13,13 +13,16 @@ profiled window), with ``--trace 1`` ``breakdown``, ``setup_built`` (the
 libraries this run built into the program's kernel cache: a checkout's
 first run, whose ``setup_s`` holds the build, names them; a warm run's
 is empty), and last ``checks``: each number of the comparison that
-decides ``correct`` beside its limit, which also end standard error. The
+decides ``correct`` (``compare`` of the reference module the cell's
+configuration names, ``reference/<name>.py``) beside its limit, which
+also end standard error. The
 card's name and power limit, and the set-up's phases, go to earlier
 lines of standard error.
 
 It exits with code 2 and prints no result when torch finds no CUDA device
 or fewer than the cell asks for, and with code 3 when a module of JAX or
-of the JAX package is loaded in its process once the window has closed.
+of the JAX package is loaded in its process once the window has closed
+and the reference module has compared.
 Nothing falls back to the CPU: ``run_cell`` takes the device as a
 parameter only for the tests, which drive it on the CPU at small sizes.
 """
@@ -31,26 +34,11 @@ import gc
 import json
 import sys
 
-import numpy as np
 import torch
 
 from benchmarks.lib import check
 from benchmarks.lib import device as devinfo
 from benchmarks.lib import spec
-from benchmarks.reference.cnn import Reference
-
-
-def reference_numbers(cell: spec.Cell, outcome, dev: torch.device) -> dict:
-    """The comparison's numbers: the reference on the distinct frames the
-    program answered, then ``check.numbers`` over every kept answer."""
-    ref = Reference(cell.config, spec.ROOT, dev)
-    frames = outcome.frames
-    if isinstance(frames, np.ndarray):
-        frames = torch.from_numpy(frames)
-    probs, boxes = ref.detect(frames, int(cell.params["reference_block"]))
-    a = outcome.answers
-    return check.numbers(probs, boxes, a.frame, a.pred, a.conf, a.probs,
-                         a.bbox, lost=outcome.lost)
 
 
 def per_layer(cell: spec.Cell, ctx: dict) -> dict:
@@ -67,16 +55,16 @@ def per_layer(cell: spec.Cell, ctx: dict) -> dict:
 def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
              dev: torch.device) -> dict:
     """One run -> the result line as a dict (``checks`` last), or a dict
-    with ``forbidden`` when a forbidden module was loaded."""
+    with ``forbidden`` when a forbidden module was loaded by the time the
+    comparison has finished. A seeded bundle is written first, in
+    set-up."""
     cached = devinfo.cached_libraries()
+    spec.make_bundle(cell.config)
     outcome = spec.driver(cell.driver).run(cell, seed, seconds, trace, dev)
     built = sorted(devinfo.cached_libraries() - cached)
     if built:
         devinfo.log(f"setup: this run built {built} into the kernel cache: its "
                     f"setup_s is a first run's, with the build")
-    forbidden = devinfo.forbidden_loaded()
-    if forbidden:
-        return {"forbidden": forbidden}
     if trace:
         metrics = per_layer(cell, outcome.ctx)
     else:
@@ -95,7 +83,10 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    found = reference_numbers(cell, outcome, dev)
+    found = spec.reference(cell.reference).compare(cell, outcome, dev)
+    forbidden = devinfo.forbidden_loaded()  # the window, then the reference
+    if forbidden:
+        return {"forbidden": forbidden}
     correct, checks = check.judge(found, cell.limits)
     return {"correct": correct, **line, "checks": checks}
 

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 
 from benchmarks.lib import check, roofline, spec, stats
+from benchmarks.reference import cnn
 
 
 @pytest.mark.parametrize("name,macs", [("lyr3-std", 40_108_032),
@@ -53,21 +54,27 @@ def _answers(k=6, n=5):
 
 def test_numbers_catch_a_wrong_answer():
     probs, boxes = _answers()
-    pred, conf, pr, bbox = check.control_answers(probs, boxes)
+    pred, conf, pr, bbox = cnn.control_answers(probs, boxes)
     frame = np.arange(len(pred))
-    ok = check.numbers(probs, boxes, frame, pred, conf, pr, bbox)
+    ok = cnn.numbers(probs, boxes, frame, pred, conf, pr, bbox)
     assert ok == {"pred_gap": 0.0, "prob_err": 0.0, "box_miss": 0.0, "lost": 0.0}
     limits = {"pred_gap": 1e-5, "prob_err": 1e-5, "box_miss": 0.0, "lost": 0}
     assert check.judge(ok, limits)[0]
     wrong = pred.copy()
     wrong[2] = (wrong[2] + 1) % 6
-    bad = check.numbers(probs, boxes, frame, wrong, conf, pr, bbox)
+    bad = cnn.numbers(probs, boxes, frame, wrong, conf, pr, bbox)
     assert bad["pred_gap"] > 0 and bad["box_miss"] == 0.2
     assert not check.judge(bad, limits)[0]
-    lost = check.numbers(probs, boxes, frame, pred, conf, pr, bbox, lost=1)
+    lost = cnn.numbers(probs, boxes, frame, pred, conf, pr, bbox, lost=1)
     assert not check.judge(lost, limits)[0]
     out_of_range = pred.copy()
     out_of_range[0] = 99
-    assert check.numbers(probs, boxes, frame, out_of_range, conf, pr,
+    assert cnn.numbers(probs, boxes, frame, out_of_range, conf, pr,
                          bbox)["prob_err"] == 1.0
     assert not check.judge(ok, {})[0], "a number with no limit fails"
+    dropped = {k: v for k, v in ok.items() if k != "box_miss"}
+    fine, checks = check.judge(dropped, limits)
+    assert not fine, "a limit with no number fails"
+    assert checks["box_miss"] == {"value": None, "limit": 0.0}
+    assert list(checks) == list(cnn.NUMBERS[:2]) + ["lost", "box_miss"]
+    assert not check.judge({}, {})[0], "nothing compared is not correct"

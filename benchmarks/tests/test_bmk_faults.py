@@ -2,16 +2,20 @@
 harness's look for a card: a sound run comes out correct, and a run whose
 timed path is broken underneath comes out not correct, for each fault the
 cells can have: an answer altered where it is produced; half of the batch
-left out; a step that hands back its last state unchanged."""
+left out; a step that hands back its last state unchanged. The offline
+job's window is sized in rounds (``tiny.offline_in_rounds``), so that
+every run compares answers of every pool, however loaded the CPU."""
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import pytest
 import torch
 
 from benchmarks import run
-from benchmarks.tests.tiny import tiny_cell
+from benchmarks.tests.tiny import offline_in_rounds, tiny_cell
 from tpu_cnn_torch.engine.cuda import CUDAEngine
 
 CPU = torch.device("cpu")
@@ -56,13 +60,19 @@ FAULTS = {"altered": lambda: altered, "half": lambda: half_left_out,
           "stale": Stale}
 
 
-def _run(tmp_path, monkeypatch, kind, fault=None, trace=False):
+def _run(tmp_path, monkeypatch, kind, fault=None, trace=False, slow_s=0.0):
+    """One run of the tiny cell; ``fault`` breaks the engine's detect,
+    and each detect takes ``slow_s`` seconds more, as on a loaded CPU."""
     name, params = CELLS[kind]
     cell = tiny_cell(tmp_path, name, **params)
-    if fault is not None:
-        inner, broken = CUDAEngine.detect_device, FAULTS[fault]()
+    if kind == "offline":
+        offline_in_rounds(monkeypatch, cell)
+    if fault is not None or slow_s:
+        inner = CUDAEngine.detect_device
+        broken = FAULTS[fault]() if fault is not None else (lambda out: out)
 
         def detect_device(self, x, with_feats=False):
+            time.sleep(slow_s)
             return broken(inner(self, x, with_feats))
 
         monkeypatch.setattr(CUDAEngine, "detect_device", detect_device)
@@ -86,6 +96,18 @@ def test_broken_path_is_not_correct(tmp_path, monkeypatch, kind, fault):
     """(A camera frame is a batch of one: it has no half to leave out.)"""
     res = _run(tmp_path, monkeypatch, kind, fault)
     assert not res["correct"], res["checks"]
+
+
+@pytest.mark.parametrize("fault", sorted(FAULTS))
+def test_broken_path_is_not_correct_on_a_slow_cpu(tmp_path, monkeypatch, fault):
+    """A detect of 0.25 s: a 0.6 s window dispatches two or three rounds,
+    before this seed's first kept round (round 3). The window sized in
+    rounds still compares a kept round of every pool."""
+    res = _run(tmp_path, monkeypatch, "offline", fault, slow_s=0.25)
+    assert not res["correct"], res["checks"]
+    cell = run.spec.cell(CELLS["offline"][0])
+    rounds = cell.params["keep_every"] * cell.params["n_pools"]
+    assert res["attempted"] >= rounds * CELLS["offline"][1]["batch"]
 
 
 @pytest.mark.parametrize("kind", sorted(CELLS))
@@ -127,3 +149,23 @@ def test_offline_refuses_a_keep_rate_that_skips_pools(tmp_path):
                      keep_every=2)
     with pytest.raises(ValueError, match="keep_every"):
         run.spec.driver("offline").Offline(cell, 1, CPU)
+
+
+@pytest.mark.parametrize("kind", sorted(CELLS))
+def test_a_run_that_keeps_no_answer_is_not_correct(tmp_path, monkeypatch, kind):
+    """A window that keeps no answer (no kept round, no camera frame's
+    answer) compares nothing, and a run that compared nothing is not
+    correct, however sound the path."""
+    name, params = CELLS[kind]
+    cell = tiny_cell(tmp_path, name, **params)
+    driver = run.spec.driver(cell.driver)
+    cls = driver.Offline if kind == "offline" else driver.Camera
+    inner = cls.window
+    if kind == "offline":
+        monkeypatch.setattr(cls, "window", lambda self, s, keep=True: inner(self, s, False))
+    else:
+        monkeypatch.setattr(cls, "window", lambda self, s, answers=None: inner(self, s))
+    res = run.run_cell(cell, 2**31 + 17, 0.3, False, CPU)
+    assert res["attempted"] > 0 and not res["correct"], res["checks"]
+    assert {k: c["value"] for k, c in res["checks"].items()} == {
+        "pred_gap": 1.0, "prob_err": 1.0, "box_miss": 1.0, "lost": 0.0}

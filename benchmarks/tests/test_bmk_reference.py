@@ -12,9 +12,9 @@ import numpy as np
 import pytest
 import torch
 
-from benchmarks.control import CONTROLS, readings
+from benchmarks.control import readings
 from benchmarks.lib import check, spec, traffic
-from benchmarks.reference.cnn import Reference
+from benchmarks.reference.cnn import CONTROLS, Reference, control_answers, numbers
 from benchmarks.tests.tiny import tiny_config
 from tpu_cnn_torch.engine.cpu_ref import numpy_cnn_forward
 from tpu_cnn_torch.ops import detect_head
@@ -41,13 +41,13 @@ def _program(config, frames):
 def test_reference_matches_the_program_on_shipped_bundles(name):
     config = spec.load_json(spec.config_path(name))
     frames = _shipped_frames(config, 4 if name == "lyr3-std" else 2)
-    probs, boxes = Reference(config, spec.ROOT, "cpu").detect(torch.from_numpy(frames), 8)
+    probs, boxes = Reference(config, "cpu").detect(torch.from_numpy(frames), 8)
     model, (pred, conf, pr, bbox) = _program(config, frames)
-    found = check.numbers(probs, boxes, np.arange(len(frames)), pred, conf, pr, bbox)
+    found = numbers(probs, boxes, np.arange(len(frames)), pred, conf, pr, bbox)
     assert found["pred_gap"] == 0.0 and found["box_miss"] == 0.0
     assert found["prob_err"] < 1e-5
     # the features, against the program's own numpy oracle, bit for bit
-    ref = Reference(config, spec.ROOT, "cpu")
+    ref = Reference(config, "cpu")
     feats = ref.features(torch.from_numpy(frames[:2])).numpy()
     for i in range(2):
         want = numpy_cnn_forward(frames[i], model.kernels, model.shifts)
@@ -57,13 +57,13 @@ def test_reference_matches_the_program_on_shipped_bundles(name):
 def test_reference_matches_the_program_on_a_tiny_net(tmp_path):
     config = tiny_config(tmp_path)
     frames = traffic.frames(2, "test", 12, config["img_size"])
-    probs, boxes = Reference(config, spec.ROOT, "cpu").detect(torch.from_numpy(frames), 5)
+    probs, boxes = Reference(config, "cpu").detect(torch.from_numpy(frames), 5)
     _, (pred, conf, pr, bbox) = _program(config, frames)
-    found = check.numbers(probs, boxes, np.arange(len(frames)), pred, conf, pr, bbox)
+    found = numbers(probs, boxes, np.arange(len(frames)), pred, conf, pr, bbox)
     assert found["pred_gap"] == 0.0 and found["box_miss"] == 0.0
     assert found["prob_err"] < 1e-5
     # every class's box, against the program's head on the same features
-    feats = Reference(config, spec.ROOT, "cpu").features(torch.from_numpy(frames))
+    feats = Reference(config, "cpu").features(torch.from_numpy(frames))
     f32 = feats.reshape(len(frames), feats.shape[1], -1).to(torch.float32)
     w = torch.from_numpy(np.load(os.path.join(config["bundle"], "fc_weight.npy")))
     for k in range(w.shape[0]):
@@ -78,14 +78,14 @@ def test_controls_fail_the_cells_limits(name):
     configuration, on shipped and noise frames."""
     config = spec.load_json(spec.config_path(name))
     frames = torch.from_numpy(_shipped_frames(config, 8 if name == "lyr3-std" else 2))
-    probs, boxes = Reference(config, spec.ROOT, "cpu").detect(frames, 8)
+    probs, boxes = Reference(config, "cpu").detect(frames, 8)
     cells = [spec.cell(w["name"]) for w in spec.benchmark()["workloads"]
              if w["config"] == name]
     assert cells
     for control, kw in CONTROLS.items():
-        cp, cb = Reference(config, spec.ROOT, "cpu", **kw).detect(frames, 8)
-        found = check.numbers(probs, boxes, np.arange(len(frames)),
-                              *check.control_answers(cp, cb))
+        cp, cb = Reference(config, "cpu", **kw).detect(frames, 8)
+        found = numbers(probs, boxes, np.arange(len(frames)),
+                        *control_answers(cp, cb))
         for cell in cells:
             assert not check.judge(found, cell.limits)[0], (control, cell.name, found)
 

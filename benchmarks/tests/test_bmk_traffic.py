@@ -34,7 +34,9 @@ def test_each_mix_draws_its_frames_from_the_seed(cell):
     c = spec.cell(cell)
     fn = spec.driver(c.driver).frames_of
     a, b = fn(c, 3), fn(c, 4)
-    assert a.shape == b.shape and a.shape[1] == c.config["img_size"]
+    channels, size, _ = spec.frame_shape(c.config)
+    frame = (size, size) if channels == 1 else (channels, size, size)
+    assert a.shape == b.shape and a.shape[1:] == frame
     assert np.array_equal(a, fn(c, 3)) and not np.array_equal(a, b)
 
 

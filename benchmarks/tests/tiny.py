@@ -1,6 +1,8 @@
 """A tiny configuration and its cells for the CPU tests: the registry's
 ``lyr3-tiny`` geometry (32x32 frames, 16-32-64 channels) with a seeded
-bundle written to a temporary directory."""
+bundle written to a temporary directory; and the offline job's window
+sized in rounds, so that what a test compares does not hang on the CPU's
+speed."""
 
 from __future__ import annotations
 
@@ -16,11 +18,12 @@ LAYERS = [[1, 16, 32], [16, 32, 16], [32, 64, 8]]
 SHIFTS = [4, 7, 8]
 
 
-def tiny_config(tmp_path) -> dict:
-    rs = np.random.default_rng(0)
+def write_bundle(d: str, seed: int = 0) -> None:
+    """The tiny net's bundle, drawn from ``seed``, into the directory
+    ``d``: weights, classifier, classes, shifts and four test frames."""
+    rs = np.random.default_rng(seed)
     kernels = [rs.integers(-40, 41, size=(oc, ic, 3, 3)).astype(np.int8)
                for ic, oc, _ in LAYERS]
-    d = os.path.join(str(tmp_path), "bundle")
     os.makedirs(d, exist_ok=True)
     with open(os.path.join(d, "weights.bin"), "wb") as f:
         f.write(encode_weights(kernels))
@@ -34,6 +37,11 @@ def tiny_config(tmp_path) -> dict:
             os.path.join(d, f"test_image_{i}_class{i}.bin"))
     with open(os.path.join(d, "shifts.json"), "w") as f:
         json.dump(SHIFTS, f)
+
+
+def tiny_config(tmp_path) -> dict:
+    d = os.path.join(str(tmp_path), "bundle")
+    write_bundle(d)
     base = spec.load_json(spec.config_path("lyr3-std"))
     return {**base, "name": "lyr3-tiny", "variant": "lyr3-tiny",
             "layer_configs": LAYERS, "shifts": SHIFTS, "img_size": 32,
@@ -47,3 +55,25 @@ def tiny_cell(tmp_path, cell: str, **params) -> spec.Cell:
     c.config = tiny_config(tmp_path)
     c.params.update(params)
     return c
+
+
+def offline_in_rounds(monkeypatch, cell: spec.Cell) -> int:
+    """Sizes every window of the offline job in rounds: a window goes on,
+    a window of its seconds at a time, until it has dispatched
+    ``keep_every`` x ``n_pools`` rounds or more, however slowly this CPU
+    runs them. Rounds 0 to that number less one hold a kept round of
+    every pool (``keep_every`` is prime to ``n_pools``), so a run always
+    compares answers of every pool. Returns that number of rounds."""
+    rounds = int(cell.params["keep_every"]) * int(cell.params["n_pools"])
+    offline = spec.driver("offline")
+    inner = offline.Offline.window
+
+    def window(self, seconds, keep=True):
+        total = inner(self, seconds, keep)
+        while total["rounds"] < rounds:
+            more = inner(self, seconds, keep)
+            total = {k: total[k] + more[k] for k in total}
+        return total
+
+    monkeypatch.setattr(offline.Offline, "window", window)
+    return rounds
