@@ -15,8 +15,13 @@ kernel) and lyr3-std on ``hybrid`` (L0 on the conv kernel, L1-L2 plain);
 then the bitcast probe's path, and two multi-object paths with the shipped
 presence heads: lyr3-std on ``mega`` with ``--multi --instances 2`` (the
 kernel's bins and twin, the instance head) and lyr4-wide on ``pallas``
-with ``--multi`` (the features branch, the 256-pixel box scale). Phases,
-one line each, in order; any failure raises:
+with ``--multi`` (the features branch, the 256-pixel box scale); and
+yolov2-tiny-voc (seeded weights) on ``pallas`` with the region head at the
+offline cell's batch of 512: every layer's output of the engine bit-equal
+to its plain version, in blocks of 64 frames, and the head's answers
+equal to its plain version's on the engine's own sums, but where a near
+tie of float32 scores lets the two orders differ. Phases, one line each,
+in order; any failure raises:
 
   1. header   — the card (nvidia-smi name and power limit), torch, CUDA
   2. build    — nvcc builds csrc/mega_cnn.cu (on csrc/hopper.cuh's
@@ -73,7 +78,12 @@ one line each, in order; any failure raises:
                 a flat CAM: predictions and boxes equal (a box may be the
                 float64 CAM's where the plain version's f32 order breaks a
                 tie otherwise), probabilities within 1e-6 of the float64
-                head's. (The cases of tpu_cnn_torch.apps.kernel_cases.)
+                head's. yolov2-tiny-voc's layers bit-equal to their plain
+                version (L0-L3 on the layer kernel with a bias; L4-L8 and
+                the edges on the streamed kernel, NCHW and channels-last
+                maps) and its region head's counts equal to the plain
+                head's, detections within 1e-5. (The cases of
+                tpu_cnn_torch.apps.kernel_cases.)
   sanitize    — the sanitizer lane's card tools (python -m
                 tpu_cnn_torch.apps.sanitize memcheck racecheck synccheck
                 initcheck), within 180 s: a probe kernel under each tool,
@@ -380,8 +390,8 @@ from tpu_cnn_torch.parallel.dryrun import dryrun_mesh, dryrun_train  # noqa: E40
 from tpu_cnn_torch.parallel.mesh import MeshEngine, RowShards, make_mesh  # noqa: E402
 from tpu_cnn_torch.parallel.pipeline import make_pipeline_mesh  # noqa: E402
 from tpu_cnn_torch.parallel.spatial import make_spatial_mesh  # noqa: E402
-from tpu_cnn_torch.ops import (_build, bitcast, cam_head, conv_pool, detect_head, int8,  # noqa: E402
-                               mega, quant)
+from tpu_cnn_torch.ops import (_build, bitcast, cam_head, conv_pool, conv_stream,  # noqa: E402
+                               detect_head, int8, mega, quant, region_head)
 from tpu_cnn_torch.ops import preprocess as dev_preprocess  # noqa: E402
 from tpu_cnn_torch.ops.luma import pack_bgrx  # noqa: E402
 from tpu_cnn_torch.train import train_cnn  # noqa: E402
@@ -404,6 +414,9 @@ KERNELS = {  # name -> (source, the TPU kernel(s) it replaces)
                 "scripts/probe_bitcast.py:35"),  # run (narrow, widen, roll)
     # none: the JAX head (tpu_cnn/ops/detect_head.py) is XLA ops
     "cam_head": ("tpu_cnn_torch/csrc/cam_head.cu", None),
+    # none: the JAX package has no region-head detector
+    "conv_stream": ("tpu_cnn_torch/csrc/conv_stream.cu", None),
+    "region_head": ("tpu_cnn_torch/csrc/region_head.cu", None),
 }
 # the main paths: (family, engine backend, the shifts set_shifts tries, the
 # kernels the path must launch; it must launch no other)
@@ -522,12 +535,143 @@ def kernel_vs_plain(dev: torch.device) -> dict[str, float]:
                       f"detect_with_pooled's, probabilities within "
                       f"{kc.CAM_PROBS_TOL} of the float64 head's; "
                       f"max_abs_err={cam_err!r}")
+    rl_err, rl_cases, rs_err, rs_cases = kc.region_layers_vs_plain(dev)
+    phase("3 kernel", f"yolov2-tiny-voc's layers: L0-L3 on conv_act with a bias "
+                      f"({rl_cases} cases, B={kc.YOLO_BATCH}), L4-L8 and the edges on "
+                      f"conv_stream ({rs_cases} cases, B={KERNEL_BATCH}, NCHW and "
+                      f"channels-last maps) bit-equal to region_layer_reference")
+    rh_err, rh_cases = kc.region_head_vs_plain(dev)
+    phase("3 kernel", f"region_head: {rh_cases} cases (seeded sums of the last "
+                      f"layer, few to thousands of candidates, and none): counts equal "
+                      f"to region_detect_reference's, dets within 1e-5; "
+                      f"max_abs_err={rh_err!r}")
     return {"mega_cnn": mega_err, "conv_pool_layer": layer_err,
-            "conv_act": act_err, "bitcast": bit_err, "cam_head": cam_err}
+            "conv_act": max(act_err, rl_err), "bitcast": bit_err, "cam_head": cam_err,
+            "conv_stream": rs_err, "region_head": rh_err}
 
 
 SANITIZE_TOOLS = ("memcheck", "racecheck", "synccheck", "initcheck")
 SANITIZE_BUDGET_S = 180.0  # the phase's share of the script's time
+
+
+YOLO_ENGINE_BATCH = 512  # the offline cell's round
+YOLO_PLAIN_BLOCK = 64  # frames a plain call: its float64 maps fit the card
+
+
+def yolo_engine_path(dev: torch.device) -> None:
+    """yolov2-tiny-voc (seeded weights, ``kernel_cases.yolo_model``) through
+    ``CUDAEngine(backend="pallas", box_mode="region")`` at the offline
+    cell's batch of 512 seeded frames: every layer's output of the
+    engine's launches (``region_maps``: L0-L3 on the layer kernel, L4-L8 on
+    the streamed kernel) bit-equal to ``region_layer_reference`` on the
+    previous one, in blocks of 64 frames of the same batch; then
+    ``detect_device``'s detections against ``region_detect_reference`` on
+    the last layer's sums at 512: counts equal, every pair matched within
+    1e-5 where no near tie lets the two orders differ
+    (``kernel_cases.region_dets_agree``)."""
+    model = kc.yolo_model(3)
+    b, block = YOLO_ENGINE_BATCH, YOLO_PLAIN_BLOCK
+    frames = torch.from_numpy(np.random.RandomState(3).randint(
+        0, 256, (b, 3, 416, 416)).astype(np.uint8)).to(dev)
+    engine = CUDAEngine(model, dev, backend="pallas", box_mode="region")
+    net, cfg = engine.net, model.config
+    maps = engine.region_maps(frames)
+    check(len(maps) == len(cfg.specs), f"{len(maps)} maps for {len(cfg.specs)} layers")
+    for i, (spec, got) in enumerate(zip(cfg.specs, maps)):
+        x = frames if i == 0 else maps[i - 1]
+        for lo in range(0, b, block):
+            want = conv_stream.region_layer_reference(
+                x[lo:lo + block], net.kernels[i], net.biases[i], net.shifts, i, spec[4],
+                i == len(cfg.specs) - 1)
+            check(torch.equal(got[lo:lo + block], want),
+                  f"yolov2-tiny-voc L{i} ({engine._routes[i][0]}) at B={b}, frames "
+                  f"{lo}-{lo + block}: {int((got[lo:lo + block] != want).sum())} of "
+                  f"{want.numel()} differ")
+        del want
+    _, _, dets, count = engine.detect_device(frames)
+    sums = maps[-1]
+    del maps
+    torch.cuda.empty_cache()
+    want_dets, want_count = region_head.region_detect_reference(
+        sums, net.shifts, len(cfg.specs) - 1, net.anchors, cfg.num_classes, cfg.thresh,
+        cfg.nms, cfg.max_det)
+    moved, tied, err = kc.region_dets_agree((dets, count), (want_dets, want_count), cfg.nms)
+    counts = count.cpu()
+    phase("main path", f"yolov2-tiny-voc/pallas: {engine.backend}, at B={b}: L0-L8 "
+                       f"(routes {[r for r, _ in engine._routes]}) bit-equal to "
+                       f"region_layer_reference in blocks of {block}; counts "
+                       f"{int(counts.min())}-{int(counts.max())} (mean "
+                       f"{float(counts.float().mean()):.1f}) equal to "
+                       f"region_detect_reference's, every pair matched within "
+                       f"{err!r} but {tied} let through by a near tie; {moved} frames "
+                       f"in another order")
+
+
+def yolo_times(dev: torch.device, card: str, rs) -> dict[str, tuple]:
+    """At the offline cell's batch (512 frames): the streamed kernel on
+    yolov2-tiny-voc's L4-L8 summed (channels-last maps but L4's NCHW, as the
+    engine hands them over), its plain version, their bound, and
+    ``torch._int_mm`` on the same im2col GEMMs (s8 x s8; no PyTorch call
+    takes u8 x s8 with the shift, clip and pool); the region head on its
+    sums, its plain version and its bound (its bytes)."""
+    batch = 512
+    model = kc.yolo_model(5)
+    net = CUDAEngine(model, dev, backend="pallas", box_mode="region").net
+    specs = model.config.specs
+    first = 4
+    xs, args = [], []
+    for i in range(first, len(specs)):
+        ic, oc, s, k, pool = specs[i]
+        x = torch.randint(0, 256, (batch, ic, s, s), dtype=torch.uint8, device=dev)
+        if i > first:
+            x = x.contiguous(memory_format=torch.channels_last)
+        xs.append(x)
+        args.append((i, pool, i == len(specs) - 1, conv_stream.pack_stream(net.kernels[i])))
+
+    def kernels():
+        for x, (i, pool, last, packed) in zip(xs, args):
+            conv_stream.conv_stream(x, net.kernels[i], net.biases[i], net.shifts, i,
+                                    pool=pool, last=last, packed=packed)
+
+    def plain():
+        for x, (i, pool, last, _) in zip(xs, args):
+            conv_stream.region_layer_reference(x[:64], net.kernels[i], net.biases[i],
+                                               net.shifts, i, pool, last)
+
+    k_ms, p_ms, nk, np_ = _kernel_and_plain_ms(kernels, plain, 5, 2)
+    p_ms *= batch / 64  # the plain version on 64 frames: its f64 maps at 512 pass 80 GB
+    macs = sum(s * s * oc * ic * k * k for ic, oc, s, k, _ in specs[first:]) * batch
+    nbytes = sum(batch * (ic * s * s + oc * (s // 2 if p == 2 else s) ** 2
+                          * (4 if i == len(specs) - 1 else 1)) + oc * ic * k * k
+                 for i, (ic, oc, s, k, p) in enumerate(specs) if i >= first)
+    b_ms, b_by = bound(macs, nbytes)
+    gemms = [(torch.randint(-128, 128, (batch * s * s, ic * k * k), dtype=torch.int8,
+                            device=dev),
+              torch.randint(-128, 128, (ic * k * k, -(-oc // 8) * 8), dtype=torch.int8,
+                            device=dev)) for ic, oc, s, k, _ in specs[first:]]
+    lib_ms = statistics.median(_event_ms(lambda: [torch._int_mm(a, b) for a, b in gemms], 5))
+    phase("7 times", f"yolov2-tiny-voc L4-L8 at batch {batch} on {card}: conv_stream "
+                     f"median {k_ms!r} ms (n={nk}); bound {b_ms!r} ms by {b_by}, "
+                     f"{b_ms / k_ms:.2%} of it; plain {p_ms!r} ms (64 frames, scaled; "
+                     f"n={np_}); torch._int_mm on the im2col GEMMs {lib_ms!r} ms")
+    out = {"conv_stream": (k_ms, p_ms, b_ms, b_by, lib_ms)}
+    del xs, gemms
+    torch.cuda.empty_cache()
+    t = torch.randint(-2**15, 2**15, (batch, 13, 13, 125), dtype=torch.int32, device=dev)
+    t[..., 4::25] -= 4 * 2**15  # objectness low: about 300 candidates a frame
+    t = t.permute(0, 3, 1, 2)
+    shifts = torch.tensor([15], dtype=torch.int32, device=dev)
+    cfg = model.config
+    head = (shifts, 0, net.anchors, cfg.num_classes, cfg.thresh, cfg.nms, cfg.max_det)
+    h_ms, hp_ms, nh, nhp = _kernel_and_plain_ms(
+        lambda: region_head.region_detect(t, *head),
+        lambda: region_head.region_detect_reference(t, *head), 10, 2)
+    hb_ms, hb_by = bound(0, batch * (13 * 13 * 125 * 4 + cfg.max_det * 6 * 4 + 4))
+    phase("7 times", f"region_head at batch {batch} on {card}: kernel median {h_ms!r} ms "
+                     f"(n={nh}); bound {hb_ms!r} ms by {hb_by}, {hb_ms / h_ms:.2%} of it; "
+                     f"plain {hp_ms!r} ms (n={nhp})")
+    out["region_head"] = (h_ms, hp_ms, hb_ms, hb_by, None)
+    return out
 
 
 def sanitize_phase() -> dict[str, dict]:
@@ -3267,6 +3411,8 @@ def times(dev: torch.device, card: str,
     torch.cuda.empty_cache()
     # no single PyTorch call computes the head: library_ms is null
     out["cam_head"] = cam_head_times(dev, card, rs)
+    out.update(yolo_times(dev, card, rs))
+    torch.cuda.empty_cache()
     # last: run before the pallas profile, these left its torch.profiler
     # session with no events in one run on the card
     preprocess_times(dev, card, rs)
@@ -3311,6 +3457,8 @@ def main(argv=None) -> None:
                   lambda: cli(variant, backend),
                   lambda: server(variant, backend))
     main_path("probe_bitcast", ("bitcast",), probe_path)
+    main_path("yolov2-tiny-voc/pallas (seeded weights)",
+              ("conv_act", "conv_stream", "region_head"), lambda: yolo_engine_path(dev))
     for variant, backend, instances, path_kernels in MULTI_PATHS:
         main_path(f"{variant}/{backend} --multi --instances {instances} "
                   f"(phases 4-6)", path_kernels,
@@ -3414,7 +3562,7 @@ def main(argv=None) -> None:
         "launches": launches[name], "max_abs_err": max_err[name],
         "ms": ms[name][0], "plain_ms": ms[name][1], "bound_ms": ms[name][2],
         "bound_by": ms[name][3], "library_ms": ms[name][4],
-        "sanitizer": sanitizer[name]}
+        "sanitizer": sanitizer.get(name)}
         for name, (src, replaces) in KERNELS.items()]
     # the conv kernel's pooled entry, what the pallas and hybrid paths run
     act = next(r for r in rows if r["name"] == "conv_act")

@@ -4,7 +4,7 @@ nothing is opened, timed, locked or recorded; on, under a
 form and per-thread stacks come out right, a span's clock leaves out its
 own profiler cost, the spans are the profiler's user annotations, and the
 camera loop's frame and the multi head record the span tree their modules
-document."""
+document, as does a region-head detector's detect."""
 
 import threading
 import time
@@ -291,3 +291,20 @@ def test_wait_event_counts_each_poll():
         failguard.wait_event(Event(2), 5.0)
         failguard.wait_event(Event(0), 5.0)
     assert P.spans()[1] == {"engine.wait.polls": 4}
+
+
+def test_a_region_detect_records_the_stream_and_head_spans():
+    """A CPU detect of the tiny region-head net (``test_torch_yolov2``):
+    ``engine.net`` holds ``net.stream`` (the streamed layers), the head is
+    ``head.region``, and ``head.region.frames`` counts the batch."""
+    from test_torch_yolov2 import _frames, tiny_model
+
+    engine = CUDAEngine(tiny_model(), "cpu", backend="pallas", box_mode="region")
+    with _profiled():
+        engine.detect_batch(_frames(3))
+    spans, counters = P.spans()
+    for name in ("engine.detect", "engine.net", "net.stream", "head.region"):
+        assert spans[name][0] == 1, name
+    assert counters["head.region.frames"] == 3
+    assert spans["net.stream"][1] <= spans["engine.net"][1]
+    assert spans["engine.net"][2] > 0  # the layer kernel's layers: its own time

@@ -10,6 +10,12 @@ kernels (``csrc/``, built by ``ops._build``):
                             head as buffers on an explicit device),
                             ``layer_weight_sizes``
   - ``models.registry``   — the named geometries (lyr3-std, lyr4-wide, ...)
+                            and the region-head detectors (``DETECTORS``:
+                            yolov2-tiny-voc)
+  - ``models.region``     — the region-head detectors' layer rows
+                            ``(ic, oc, size, k, pool)``, ``RegionConfig``,
+                            ``RegionModel`` (int8 kernels, int32 biases,
+                            shifts) and ``TorchRegionNet``
   - ``ops.quant``         — the contract in plain torch (the kernels'
                             reference and the CPU path), and
                             ``cnn_forward_chunked`` over sub-batches
@@ -29,6 +35,17 @@ kernels (``csrc/``, built by ``ops._build``):
   - ``ops.cam_head``      — the single-box head with the "ref" box in one
                             kernel (``csrc/cam_head.cu``), on the
                             megakernel's bins and bf16 twin
+  - ``ops.conv_stream``   — the weight-streaming layer kernel
+                            (``csrc/conv_stream.cu``: wgmma on a ring of
+                            bulk-copied weight slices) and the plain
+                            version of every region-head layer
+  - ``ops.region_head``   — the region head (decode, per-class NMS, the
+                            best pairs) in one kernel a batch
+                            (``csrc/region_head.cu``) and its plain version
+  - ``reference.yolov2_tiny`` — the region-head detectors' plain reference
+                            (torch alone, float64), whose layer functions
+                            the plain version of every layer runs too;
+                            the benchmark's copy adds its comparison
   - ``ops.library``       — the megakernel and the layer kernel as the
                             ``torch.library`` ops ``tcnn::mega_cnn`` and
                             ``tcnn::conv_pool_layer`` (what an exported
@@ -36,7 +53,8 @@ kernels (``csrc/``, built by ``ops._build``):
   - ``ops.preprocess``    — batched camera-frame preprocess in torch on
                             the frames' device (crop, BT.601 luma, resize)
   - ``ops.luma``          — the BT.601 constants, ``pack_bgrx``
-  - ``engine.cuda``       — ``CUDAEngine``: batched fused detect
+  - ``engine.cuda``       — ``CUDAEngine``: batched fused detect (the region
+                            detectors on ``pallas``: ``RegionResult``)
   - ``engine.cpu_ref``    — the numpy oracle (``numpy_cnn_forward``) and
                             the host-oracle engine ``CPURefEngine``
   - ``native.oracle``     — the C++ oracle (``native/cnn_oracle.cpp``)

@@ -4,6 +4,7 @@
 from __future__ import annotations
 
 from tpu_cnn_torch.models.cnn import DEFAULT_SHIFTS, FpgaCNN
+from tpu_cnn_torch.models.region import RegionConfig, RegionModel
 from tpu_cnn_torch.models.registry import default_shifts, get_config
 from tpu_cnn_torch.utils import artifacts as art
 
@@ -18,13 +19,20 @@ def load_model(
     variant: str = "lyr3-std",
     head_prefix: str = "",
     shifts: list[int] | None = None,
-) -> FpgaCNN:
+) -> FpgaCNN | RegionModel:
     """Load an ArtifactBundle for ``variant`` and build the model.
 
     ``shifts=None``: the bundle's persisted shifts (shifts.json) when they
     fit the geometry, else the stock 2/4/6 ladder for lyr3-std and the
-    registry's default ladder for other geometries."""
+    registry's default ladder for other geometries. A region-head
+    detector (``registry.DETECTORS``) loads its own bundle
+    (``artifacts.load_region_bundle``) at its shifts.json's shifts."""
     config = get_config(variant)
+    if isinstance(config, RegionConfig):
+        kernels, biases, saved, names = art.load_region_bundle(
+            artifacts_dir, len(config.layer_configs))
+        return RegionModel(kernels, biases, saved if shifts is None else shifts,
+                           config, names)
     bundle = art.load_bundle(artifacts_dir, prefix=head_prefix,
                              layer_configs=config.layer_configs)
     if shifts is None:

@@ -42,19 +42,22 @@ import torch
 from tpu_cnn_torch import bench_gate
 from tpu_cnn_torch.apps.common import load_model
 from tpu_cnn_torch.engine.cpu_ref import numpy_cnn_forward
+from tpu_cnn_torch.engine.cuda import region_routes
 from tpu_cnn_torch.models.registry import default_shifts, get_config
-from tpu_cnn_torch.ops import (_build, bitcast, cam_head, conv_pool, detect_head,
-                               int8, mega, quant)
+from tpu_cnn_torch.ops import (_build, bitcast, cam_head, conv_pool, conv_stream,
+                               detect_head, int8, mega, quant, region_head)
 from tpu_cnn_torch.utils import artifacts as art
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 ARTIFACTS = {"lyr3-std": os.path.join(_ROOT, "artifacts", "pretrained"),
              "lyr4-wide": os.path.join(_ROOT, "artifacts", "pretrained-lyr4")}
 MODULES = {"mega_cnn": mega, "conv_pool_layer": conv_pool, "conv_act": int8,
-           "bitcast": bitcast, "cam_head": cam_head}
+           "bitcast": bitcast, "cam_head": cam_head, "conv_stream": conv_stream,
+           "region_head": region_head}
 # how a path of each library is named: the layer kernel's under "layer"
 PATH_PREFIX = {"mega_cnn": "mega_cnn", "conv_pool_layer": "layer", "conv_act": "layer",
-               "bitcast": "bitcast", "cam_head": "cam_head"}
+               "bitcast": "bitcast", "cam_head": "cam_head", "conv_stream": "stream",
+               "region_head": "region_head"}
 # the probe's; ragged; 16 MiB; 64 MiB of words, past the 50 MB L2 (timed)
 BITCAST_SHAPES = ((8, 256), (5, 37), (1024, 4096), (4096, 4096))
 BINS_TOL = 1e-6  # the kernel's bins vs the plain version's (1-ulp / order)
@@ -106,7 +109,18 @@ REQUIRED_PATHS = (
     "cam_head: bins narrower than 4 pixels (a weight a pixel)",
     "cam_head: order statistics by a bitonic sort (at most 256 pixels)",
     "cam_head: order statistics by counting (more than 256 pixels)",
+    "layer: multi-channel with a bias",
+    *(f"stream: {p}" for p in (
+        "A staged byte by byte from an NCHW map", "A by cp.async from a channels-last map",
+        "no pool", "pool 2x2 stride 2 across lanes", "pool 2x2 stride 1 in shared memory",
+        "linear s32 out", "1x1 kernel", "a partial N tile (oc % 128 != 0)",
+        "a partial M tile")),
+    "region_head: launch at max_det below every box x class pair",
 )
+# yolov2-tiny-voc's layers (``registry.DETECTORS``): L0-L3 on the layer
+# kernel with a bias, L4-L8 on the streamed kernel; and its region head
+YOLO = get_config("yolov2-tiny-voc")
+YOLO_BATCH = 5  # L0-L3's cases: five 416x416x3 frames
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
@@ -712,6 +726,163 @@ def cam_head_vs_plain(dev: torch.device, offline: bool = False) -> tuple[float, 
     return max_err, n_cases
 
 
+def _region_weights(rs, ic, oc, k, x_rms=147.0):
+    """A seeded (oc, ic, k, k) int8 kernel, (oc,) int32 bias and shift
+    that put the sums of u8 noise around the middle of 0..255."""
+    kernel = rs.randint(-8, 9, (oc, ic, k, k)).astype(np.int8)
+    spread = math.sqrt(ic * k * k) * x_rms * 4.9
+    shift = max(0, min(31, round(math.log2(spread / 64))))
+    bias = rs.randint(-int(spread), int(spread) + 1, oc).astype(np.int32)
+    return kernel, bias, shift
+
+
+def _region_layer_case(tag, x, kernel, bias, shifts, layer, pool, last, route):
+    """One layer's kernel against ``conv_stream.region_layer_reference`` on
+    the same tensors, bit for bit."""
+    ref = conv_stream.region_layer_reference(x, kernel, bias, shifts, layer, pool, last)
+    if route == "layer":
+        got = int8.fused_conv_layer(x, kernel, shifts, layer, bias=bias)
+    else:
+        got = conv_stream.conv_stream(x, kernel, bias, shifts, layer, pool=pool, last=last)
+    _sync(x.device)
+    check(torch.equal(got, ref), f"{tag}: {int((got != ref).sum())} of {ref.numel()} differ")
+
+
+def yolo_model(seed: int = 0):
+    """yolov2-tiny-voc (``registry.DETECTORS``) with seeded weights,
+    biases and shifts (``_region_weights`` per layer; the last shift 15):
+    what the card's main path of the region family runs."""
+    from tpu_cnn_torch.models.region import RegionModel
+
+    rs = np.random.RandomState(seed)
+    kernels, biases, shifts = [], [], []
+    for ic, oc, _, k, _ in YOLO.specs:
+        kernel, bias, shift = _region_weights(rs, ic, oc, k, x_rms=110.0)
+        kernels.append(kernel)
+        biases.append(bias)
+        shifts.append(shift)
+    shifts[-1] = 15
+    return RegionModel(kernels, biases, shifts, YOLO)
+
+
+def region_layers_vs_plain(dev: torch.device) -> tuple[float, int, float, int]:
+    """yolov2-tiny-voc's layers, each on its kernel against the plain
+    version, each on the kernel the engine routes it to
+    (``engine.cuda.region_routes``): L0-L3 on the layer kernel with a bias
+    (``YOLO_BATCH`` frames), L4-L8 on the streamed kernel at ``KERNEL_BATCH`` (the map channels-last,
+    as the engine hands it over, and NCHW), and the streamed kernel's edges
+    (all-255 maps by +127 / -128 weights at shifts 0 and 31, biases at the
+    int32 range's eighth) -> (layer err, cases, stream err, cases)."""
+    rs = np.random.RandomState(23)
+    layer_n = stream_n = 0
+    for i, ((ic, oc, s, k, pool), route) in enumerate(zip(YOLO.specs,
+                                                          region_routes(YOLO.specs))):
+        last = i == len(YOLO.specs) - 1
+        batch = YOLO_BATCH if route == "layer" else KERNEL_BATCH
+        if route == "layer" and dev.type == "cuda":
+            check(int8.layer_smem(ic, oc) > 0, f"yolo L{i}: the layer kernel's plan "
+                                               f"refuses ({ic}, {oc})")
+        kernel, bias, shift = _region_weights(rs, ic, oc, k)
+        shifts = torch.tensor([0] * i + [shift], dtype=torch.int32, device=dev)
+        x = torch.from_numpy(rs.randint(0, 256, (batch, ic, s, s)).astype(np.uint8)).to(dev)
+        kt, bt = torch.from_numpy(kernel).to(dev), torch.from_numpy(bias).to(dev)
+        forms = [x] if route == "layer" else [
+            x, x.contiguous(memory_format=torch.channels_last)]
+        for form in forms:
+            _region_layer_case(f"yolo L{i} {route} {tuple(x.shape)}", form, kt, bt, shifts,
+                               i, pool, last, route)
+            layer_n += route == "layer"
+            stream_n += route == "stream"
+    for pool, last in ((0, False), (1, False), (2, False), (0, True)):
+        for w, shift in ((127, 0), (-128, 31), (127, 31), (-128, 0)):
+            x = torch.full((3, 128, 26 if pool == 2 else 13, 26 if pool == 2 else 13), 255,
+                           dtype=torch.uint8, device=dev)
+            kt = torch.full((130, 128, 3, 3), w, dtype=torch.int8, device=dev)
+            bt = torch.full((130,), (-1) ** shift * 2**28, dtype=torch.int32, device=dev)
+            shifts = torch.tensor([shift], dtype=torch.int32, device=dev)
+            _region_layer_case(f"stream edge pool {pool} last {last} w {w} shift {shift}",
+                               x, kt, bt, shifts, 0, pool, last, "stream")
+            stream_n += 1
+    return 0.0, layer_n, 0.0, stream_n
+
+
+def region_dets_agree(got, want, nms: float, tol: float = 1e-5) -> tuple[int, int, float]:
+    """The region head's answer ``got`` (dets (B, M, 6), count (B,))
+    against its plain version's ``want``, where float32 roundings may
+    order two near-equal scores either way: counts equal, and every pair
+    of each side matched by a pair of the other (same class; box and score
+    within ``tol``) but where a near tie lets the two differ: a pair
+    scoring within ``tol`` of the other side's last kept score (the cut),
+    or one that a pair of the same class on the other side, scoring within
+    ``tol`` of it, overlaps past ``nms - tol`` (NMS kept the other). ->
+    (frames in another order, pairs let through by a tie, largest error of
+    a matched pair); raises on anything else."""
+    (gd, gc), (wd, wc) = got, want
+    check(torch.equal(gc.long(), wc.long()),
+          f"region_head: counts differ in {int((gc.long() != wc.long()).sum())} frames")
+    b, m, _ = gd.shape
+    slots = torch.arange(m, device=gd.device)
+    valid = slots[None] < gc.long()[:, None]
+    same = gd[:, :, None, 5] == wd[:, None, :, 5]
+    diff = (gd[:, :, None, :5] - wd[:, None, :, :5]).abs().amax(dim=-1)
+    both = valid[:, :, None] & valid[:, None, :]
+    match = same & (diff <= tol) & both
+    last = (gc.long() - 1).clamp_min(0)
+    rows = torch.arange(b, device=gd.device)
+    let_through = 0
+    for d, other, hits in ((gd, wd, match.any(dim=2)), (wd, gd, match.any(dim=1))):
+        cut = other[rows, last, 4]
+        at_cut = (d[..., 4] - cut[:, None]).abs() <= tol
+        ov = region_head._iou(d[:, :, None, :4], other[:, None, :, :4])
+        swap = ((d[:, :, None, 5] == other[:, None, :, 5])
+                & ((d[:, :, None, 4] - other[:, None, :, 4]).abs() <= tol)
+                & (ov > nms - tol) & both).any(dim=2)
+        loose = valid & ~hits
+        bad = loose & ~(at_cut | swap)
+        check(not bool(bad.any()),
+              f"region_head: {int(bad.sum())} pairs in {int(bad.any(dim=1).sum())} frames "
+              f"have no counterpart and no near tie")
+        let_through += int(loose.sum())
+    in_place = (match & (slots[:, None] == slots[None, :])[None]).any(dim=2) | ~valid
+    err = float(torch.where(match, diff, torch.zeros_like(diff)).amax()) if b else 0.0
+    return int((~in_place.all(dim=1)).sum()), let_through, err
+
+
+def region_head_vs_plain(dev: torch.device) -> tuple[float, int]:
+    """The region head's kernel against ``region_detect_reference`` on
+    seeded sums of yolov2-tiny-voc's last layer (channels-last, as the
+    streamed kernel leaves them), from few candidates a frame to
+    thousands, and on sums that leave none: counts equal, and every
+    detection within 1e-5 (the kernel's expf and fused multiply-adds
+    against torch's float32)."""
+    rs = np.random.RandomState(29)
+    a, c = YOLO.num_anchors, YOLO.num_classes
+    g, e = YOLO.grid, YOLO.entries
+    shift = 15
+    anchors = torch.tensor(YOLO.anchors, dtype=torch.float32, device=dev)
+    shifts = torch.tensor([shift], dtype=torch.int32, device=dev)
+    max_err, n = 0.0, 0
+    for batch, obj_mean in ((KERNEL_BATCH, -6.0), (KERNEL_BATCH, -3.5), (4, 0.0),
+                            (3, -40.0)):
+        t = rs.standard_normal((batch, g, g, a, e))
+        t[..., 4] += obj_mean
+        t = torch.from_numpy(np.round(t * 2**shift).astype(np.int32)).to(dev)
+        t = t.reshape(batch, g, g, a * e).permute(0, 3, 1, 2)
+        got = region_head.region_detect(t, shifts, 0, anchors, c, YOLO.thresh, YOLO.nms,
+                                        YOLO.max_det)
+        want = region_head.region_detect_reference(t, shifts, 0, anchors, c, YOLO.thresh,
+                                                   YOLO.nms, YOLO.max_det)
+        _sync(dev)
+        check(torch.equal(got[1], want[1]),
+              f"region_head (B={batch}, objectness {obj_mean}): counts "
+              f"{got[1].tolist()} != {want[1].tolist()}")
+        err = float((got[0] - want[0]).abs().max())
+        check(err <= 1e-5, f"region_head (B={batch}, objectness {obj_mean}): "
+                           f"max_abs_err {err}")
+        max_err, n = max(max_err, err), n + 1
+    return max_err, n
+
+
 def _path_counts() -> dict[str, dict[str, int]]:
     return {name: _build.path_counts(name) for name in MODULES}
 
@@ -733,6 +904,8 @@ def run_all(dev: torch.device) -> dict:
     plans = smem_plans_vs_kernel() if dev.type == "cuda" else 0
     bit_err, bit_n = bitcast_vs_plain(dev)
     cam_err, cam_n = cam_head_vs_plain(dev)
+    rl_err, rl_n, rs_err, rs_n = region_layers_vs_plain(dev)
+    rh_err, rh_n = region_head_vs_plain(dev)
     after = _path_counts() if dev.type == "cuda" else {}
     return {
         "launches": {name: m.launches for name, m in MODULES.items()},
@@ -740,12 +913,13 @@ def run_all(dev: torch.device) -> dict:
                          for path, n in counts.items() if n > before[name][path]}),
         "smem_plans": plans,
         "cases": {"mega_cnn": mega_n, "conv_pool_layer": layer_n + n_layer + gn_layer,
-                  "conv_act": act_n + n_act + gn_act, "bitcast": bit_n,
-                  "cam_head": cam_n},
+                  "conv_act": act_n + n_act + gn_act + rl_n, "bitcast": bit_n,
+                  "cam_head": cam_n, "conv_stream": rs_n, "region_head": rh_n},
         "max_abs_err": {"mega_cnn": mega_err,
                         "conv_pool_layer": max(layer_err, e_layer, g_layer),
-                        "conv_act": max(act_err, e_act, g_act),
-                        "bitcast": bit_err, "cam_head": cam_err}}
+                        "conv_act": max(act_err, e_act, g_act, rl_err),
+                        "bitcast": bit_err, "cam_head": cam_err,
+                        "conv_stream": rs_err, "region_head": rh_err}}
 
 
 def main() -> None:

@@ -39,6 +39,17 @@ extern "C" int conv_act_paths(const char** names, unsigned long long* hits, int 
   return g_layer_paths.read(names, hits, n);
 }
 
+// The shared memory the layer kernel's plan gives a layer of `ic` input and
+// `oc` output channels, pooled or not (conv_layer.cuh's layer_smem); 0 when
+// no tiling fits one block and the launchers refuse the layer.
+extern "C" int conv_act_layer_smem(int ic, int oc, int pool) {
+  if (ic < 1 || oc < 1) return 0;
+  LayerArgs a{};
+  a.ic = ic;
+  a.oc = oc;
+  return pool ? layer_smem<true>(a) : layer_smem<false>(a);
+}
+
 // Launches one conv on `stream` of CUDA device `device`: x (B, ic, H, W)
 // u8, w the packed weights of an (oc, ic, 3, 3) s8 kernel, shifts a device
 // int32 vector read at `layer`, out (B, oc, H, W) u8, all device pointers.
@@ -59,4 +70,14 @@ extern "C" int conv_act_pool_forward(const void* x, const void* w, const void* s
                                      int height, int width, int device, void* stream) {
   return launch_layer<true>(x, w, shifts, layer, out, batch, ic, oc, height, width, device,
                             stream);
+}
+
+// The pooled conv with a bias added to the sums, for the region-head
+// detectors' layers: bias a device (oc,) s32 vector; ic >= 2.
+extern "C" int conv_act_pool_bias_forward(const void* x, const void* w, const void* bias,
+                                          const void* shifts, int layer, void* out, int batch,
+                                          int ic, int oc, int height, int width, int device,
+                                          void* stream) {
+  return launch_layer<true, true>(x, w, shifts, layer, out, batch, ic, oc, height, width,
+                                  device, stream, bias);
 }

@@ -4,6 +4,7 @@
 // For uint8 activations and int8 weights:
 //
 //     (B, ic, H, W) u8 -> SAME conv3x3 (zero halo), exact s32 sums
+//     [+ bias[oc]: BIAS, multi-channel layers; the region-head detectors']
 //     -> >> shift[layer] (arithmetic) -> clip 0..255
 //     -> (B, oc, H, W) u8, or with POOL the 2x2 stride-2 max
 //     -> (B, oc, H/2, W/2) u8 (H, W even)
@@ -82,6 +83,7 @@ struct LayerArgs {
   const uint8_t* x;        // (B, ic, H, W)
   const void* w;           // packed weights
   const int32_t* shifts;   // read at `layer`
+  const int32_t* bias;     // (oc,) with BIAS, else unread
   uint8_t* out;            // (B, oc, OH, OW)
   int layer, ic, oc, height, width;
   int th;                  // pre-pool rows of a tile
@@ -220,10 +222,12 @@ __device__ void raw_to_act(const uint8_t* __restrict__ raw, int ic, int cp,
 // one B fragment feeds kMTiles MMAs) times kNT N tiles. `w`: the packed
 // weights in shared memory. CPC: 16-channel chunks per pixel (1, 2, 4),
 // or 0 for cp_rt / 16 (8 or more), so that the K loop's tap and chunk
-// arithmetic folds at compile time where it can.
-template <bool POOL, int TH, int CPC>
+// arithmetic folds at compile time where it can. BIAS: bias[n] is added
+// to each sum (after the pool's max: a constant per channel keeps it).
+template <bool POOL, bool BIAS, int TH, int CPC>
 __device__ void multi_tile(const uint8_t* __restrict__ act, int cp_rt,
                            const uint2* __restrict__ w, int oc, int shift,
+                           const int32_t* __restrict__ bias,
                            uint8_t* __restrict__ ot, int opitch) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t4 = lane & 3;
@@ -289,6 +293,11 @@ __device__ void multi_tile(const uint8_t* __restrict__ act, int cp_rt,
       for (int i = 0; i < kNT; ++i) {
         if (t0 + i >= ntiles) continue;  // warp-uniform
         const int n0 = 8 * (t0 + i) + 2 * t4;
+        int b0 = 0, b1 = 0;
+        if (BIAS) {
+          if (n0 < oc) b0 = bias[n0];
+          if (n0 + 1 < oc) b1 = bias[n0 + 1];
+        }
         if (POOL) {
           int m0 = max(acc[m][i][0], acc[m][i][2]);
           int m1 = max(acc[m][i][1], acc[m][i][3]);
@@ -296,18 +305,21 @@ __device__ void multi_tile(const uint8_t* __restrict__ act, int cp_rt,
           m1 = max(m1, __shfl_xor_sync(0xffffffffu, m1, 4));
           if (g & 1) continue;
           uint8_t* o = ot + pr * (kTileW / 2) + 4 * m + (g >> 1);
-          if (n0 < oc) o[n0 * opitch] = static_cast<uint8_t>(clip_shift(m0, shift));
-          if (n0 + 1 < oc) o[(n0 + 1) * opitch] = static_cast<uint8_t>(clip_shift(m1, shift));
+          if (n0 < oc) o[n0 * opitch] = static_cast<uint8_t>(clip_shift(m0 + b0, shift));
+          if (n0 + 1 < oc) {
+            o[(n0 + 1) * opitch] = static_cast<uint8_t>(clip_shift(m1 + b1, shift));
+          }
         } else {
           uint8_t* o = ot + 2 * pr * kTileW + 8 * m + g;
           if (n0 < oc) {
-            o[n0 * opitch] = static_cast<uint8_t>(clip_shift(acc[m][i][0], shift));
-            o[n0 * opitch + kTileW] = static_cast<uint8_t>(clip_shift(acc[m][i][2], shift));
+            o[n0 * opitch] = static_cast<uint8_t>(clip_shift(acc[m][i][0] + b0, shift));
+            o[n0 * opitch + kTileW] =
+                static_cast<uint8_t>(clip_shift(acc[m][i][2] + b0, shift));
           }
           if (n0 + 1 < oc) {
-            o[(n0 + 1) * opitch] = static_cast<uint8_t>(clip_shift(acc[m][i][1], shift));
+            o[(n0 + 1) * opitch] = static_cast<uint8_t>(clip_shift(acc[m][i][1] + b1, shift));
             o[(n0 + 1) * opitch + kTileW] =
-                static_cast<uint8_t>(clip_shift(acc[m][i][3], shift));
+                static_cast<uint8_t>(clip_shift(acc[m][i][3] + b1, shift));
           }
         }
       }
@@ -412,8 +424,8 @@ __device__ void store_tile(const uint8_t* __restrict__ ot, int opitch, int nch,
 
 // TH: pre-pool rows of a tile (2 kQRows on the one-channel path). Shared
 // memory: two raw buffers, the channels-last tile and the packed weights
-// (both multi-channel only), the output tile.
-template <bool POOL, bool ONE, int TH>
+// (both multi-channel only), the output tile. BIAS: multi-channel only.
+template <bool POOL, bool ONE, int TH, bool BIAS = false>
 __global__ void __launch_bounds__(kLayerThreads, 2) conv_layer_kernel(LayerArgs a) {
   constexpr int kTW = ONE ? 2 * kQCols : kTileW;
   constexpr int kRows = TH + 2;
@@ -479,10 +491,13 @@ __global__ void __launch_bounds__(kLayerThreads, 2) conv_layer_kernel(LayerArgs 
       __syncthreads();
       const uint2* wk = reinterpret_cast<const uint2*>(wsm);
       switch (cp) {
-        case 16: multi_tile<POOL, TH, 1>(act, cp, wk, a.oc, shift, ot, a.opitch); break;
-        case 32: multi_tile<POOL, TH, 2>(act, cp, wk, a.oc, shift, ot, a.opitch); break;
-        case 64: multi_tile<POOL, TH, 4>(act, cp, wk, a.oc, shift, ot, a.opitch); break;
-        default: multi_tile<POOL, TH, 0>(act, cp, wk, a.oc, shift, ot, a.opitch);
+        case 16: multi_tile<POOL, BIAS, TH, 1>(act, cp, wk, a.oc, shift, a.bias, ot, a.opitch);
+          break;
+        case 32: multi_tile<POOL, BIAS, TH, 2>(act, cp, wk, a.oc, shift, a.bias, ot, a.opitch);
+          break;
+        case 64: multi_tile<POOL, BIAS, TH, 4>(act, cp, wk, a.oc, shift, a.bias, ot, a.opitch);
+          break;
+        default: multi_tile<POOL, BIAS, TH, 0>(act, cp, wk, a.oc, shift, a.bias, ot, a.opitch);
       }
       __syncthreads();
       store_tile<kORows, kOCols>(ot, a.opitch, a.oc, ob, OH, OW, oy0, ox0, a.vec_out);
@@ -541,7 +556,7 @@ enum LayerPath {
   kOnePooled, kOneUnpooled, kOneGroupPasses,
   kCp16Pooled, kCp16Unpooled, kCp32Pooled, kCp32Unpooled, kCp64Pooled, kCp64Unpooled,
   kCpGenericPooled, kCpGenericUnpooled,
-  kBytewiseStaging, kBytewiseStores, kOneSecondItem, kMultiSecondItem, kLayerPaths
+  kBytewiseStaging, kBytewiseStores, kOneSecondItem, kMultiSecondItem, kBiasPath, kLayerPaths
 };
 constexpr const char* kLayerPathNames[kLayerPaths] = {
     "one-channel pooled", "one-channel unpooled", "one-channel, output-group pass g0 > 0",
@@ -550,7 +565,8 @@ constexpr const char* kLayerPathNames[kLayerPaths] = {
     "multi-channel cp=64 pooled", "multi-channel cp=64 unpooled",
     "multi-channel cp=generic pooled", "multi-channel cp=generic unpooled",
     "byte-wise staging (vec_in false)", "byte-wise stores (vec_out false)",
-    "one-channel, persistent loop k >= 1", "multi-channel, persistent loop k >= 1"};
+    "one-channel, persistent loop k >= 1", "multi-channel, persistent loop k >= 1",
+    "multi-channel with a bias"};
 PathCounts<kLayerPaths> g_layer_paths(kLayerPathNames);
 
 // Counts the paths a launch of `grid` CTAs on the plan `a` takes: the
@@ -558,7 +574,7 @@ PathCounts<kLayerPaths> g_layer_paths(kLayerPathNames);
 // fewer groups than the layer has), the multi-channel path by channel
 // padding (multi_tile's cases), the byte-wise staging and stores, and a
 // second item for some CTA of the persistent loop (one buffer swap).
-template <bool POOL>
+template <bool POOL, bool BIAS>
 void count_layer_paths(const LayerArgs& a, int grid) {
   const int unpooled = POOL ? 0 : 1;
   if (a.ic == 1) {
@@ -573,34 +589,36 @@ void count_layer_paths(const LayerArgs& a, int grid) {
   if (!a.vec_in) g_layer_paths.add(kBytewiseStaging);
   if (!a.vec_out) g_layer_paths.add(kBytewiseStores);
   if (a.n_items > grid) g_layer_paths.add(a.ic == 1 ? kOneSecondItem : kMultiSecondItem);
+  if (BIAS) g_layer_paths.add(kBiasPath);
 }
 
 using LayerKernel = void (*)(LayerArgs);
 
-template <bool POOL>
+template <bool POOL, bool BIAS>
 LayerKernel layer_kernel(int ic, int th) {
   if (ic == 1) return conv_layer_kernel<POOL, true, 2 * kQRows>;
   switch (th) {
-    case 32: return conv_layer_kernel<POOL, false, 32>;
-    case 16: return conv_layer_kernel<POOL, false, 16>;
-    case 8: return conv_layer_kernel<POOL, false, 8>;
-    case 4: return conv_layer_kernel<POOL, false, 4>;
-    default: return conv_layer_kernel<POOL, false, 2>;
+    case 32: return conv_layer_kernel<POOL, false, 32, BIAS>;
+    case 16: return conv_layer_kernel<POOL, false, 16, BIAS>;
+    case 8: return conv_layer_kernel<POOL, false, 8, BIAS>;
+    case 4: return conv_layer_kernel<POOL, false, 4, BIAS>;
+    default: return conv_layer_kernel<POOL, false, 2, BIAS>;
   }
 }
 
 // Launches the layer on `stream` of CUDA device `device`: x (B, ic, H, W)
 // u8, w the packed weights (ops/mega.py: pack_one_channel for ic = 1, else
 // pack_fragments), shifts a device int32 vector read at `layer`, out
-// (B, oc, H, W) u8 or with POOL (B, oc, H/2, W/2). Returns a cudaError_t:
-// cudaSuccess, cudaErrorInvalidValue for a geometry the kernel does not
-// take, or the launch error. Neither synchronises nor allocates.
-template <bool POOL>
+// (B, oc, H, W) u8 or with POOL (B, oc, H/2, W/2); with BIAS, bias a
+// device (oc,) s32 vector added to the sums (ic >= 2 only). Returns a
+// cudaError_t: cudaSuccess, cudaErrorInvalidValue for a geometry the kernel
+// does not take, or the launch error. Neither synchronises nor allocates.
+template <bool POOL, bool BIAS = false>
 cudaError_t launch_layer(const void* x, const void* w, const void* shifts, int layer,
                          void* out, int batch, int ic, int oc, int height, int width,
-                         int device, void* stream) {
+                         int device, void* stream, const void* bias = nullptr) {
   if (batch < 0 || ic < 1 || oc < 1 || layer < 0 || height < 1 || width < 1 ||
-      height > kLayerMaxSide || width > kLayerMaxSide) {
+      height > kLayerMaxSide || width > kLayerMaxSide || (BIAS && (ic == 1 || !bias))) {
     return cudaErrorInvalidValue;
   }
   if (POOL && (height % 2 != 0 || width % 2 != 0)) return cudaErrorInvalidValue;
@@ -610,6 +628,7 @@ cudaError_t launch_layer(const void* x, const void* w, const void* shifts, int l
   a.x = static_cast<const uint8_t*>(x);
   a.w = w;
   a.shifts = static_cast<const int32_t*>(shifts);
+  a.bias = static_cast<const int32_t*>(bias);
   a.out = static_cast<uint8_t*>(out);
   a.layer = layer;
   a.ic = ic;
@@ -630,7 +649,7 @@ cudaError_t launch_layer(const void* x, const void* w, const void* shifts, int l
   // this library has its own CUDA runtime: select the tensors' device in it
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const LayerKernel kernel = layer_kernel<POOL>(ic, a.th);
+  const LayerKernel kernel = layer_kernel<POOL, BIAS>(ic, a.th);
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
@@ -645,7 +664,7 @@ cudaError_t launch_layer(const void* x, const void* w, const void* shifts, int l
   const int grid = static_cast<int>(std::min<long long>(a.n_items, 1LL * per_sm * sms));
   kernel<<<grid, kLayerThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   err = cudaGetLastError();
-  if (err == cudaSuccess) count_layer_paths<POOL>(a, grid);
+  if (err == cudaSuccess) count_layer_paths<POOL, BIAS>(a, grid);
   return err;
 }
 

@@ -17,6 +17,18 @@ under their names, so that the apps' ``--mode`` flag carries over:
   - ``"xla"``: the plain contract ``ops.quant.cnn_forward`` (f32 or int32,
     ``compute_dtype``), then ``detect``. It launches no kernel.
 
+A region-head detector (``models.region.RegionModel``, ``box_mode``
+"region") runs on ``"pallas"`` alone, every layer on the port's layer
+kernels, routed by its geometry (``region_routes``): a pooled 3x3 layer of
+fewer than 128 input channels, not the last, on the layer kernel with its
+bias (``int8.fused_conv_layer``; on a card its weights must fit a block by
+the library's own plan), the rest on the weight-streaming kernel
+(``ops.conv_stream``, inside the span ``net.stream``); then the region
+head's kernel (``ops.region_head``, span ``head.region``, counter
+``head.region.frames``). ``detect_device`` takes (B, C, S, S) u8 frames
+and returns ``(None, None, dets, count)``; ``region_maps`` every layer's
+output.
+
 The engine picks no backend on its own (``apps.infer.make_engine`` resolves
 ``--mode auto``). All of it runs on the device; only
 the head's outputs come back to the host, through pinned buffers and a
@@ -59,9 +71,11 @@ from tpu_cnn_torch.head.detections import (DEFAULT_MULTI_THRESH,  # noqa: F401
                                            instance_detections,
                                            presence_scores)
 from tpu_cnn_torch.models.cnn import FpgaCNN, TorchFpgaCNN
-from tpu_cnn_torch.ops import cam_head, detect_head, int8, mega, quant
+from tpu_cnn_torch.models.region import RegionModel, TorchRegionNet
+from tpu_cnn_torch.ops import (cam_head, conv_stream, detect_head, int8, mega, quant,
+                               region_head)
 from tpu_cnn_torch.utils.failguard import wait_event
-from tpu_cnn_torch.utils.profiling import span, spanned
+from tpu_cnn_torch.utils.profiling import count, span, spanned
 
 
 @dataclasses.dataclass
@@ -104,7 +118,39 @@ class MultiDetectResult:
                 for b in range(sc.shape[0])]
 
 
+@dataclasses.dataclass
+class RegionResult:
+    """A region-head detector's answers."""
+
+    dets: np.ndarray  # (B, max_det, 6) float32 (x, y, w, h, score, class)
+    count: np.ndarray  # (B,) int32
+
+
 BACKENDS = ("mega", "pallas", "hybrid", "xla")
+
+
+def _check_device(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("device='cuda' but torch finds no CUDA "
+                               "device")
+        if torch.backends.cuda.matmul.allow_tf32:
+            raise RuntimeError(
+                "torch.backends.cuda.matmul.allow_tf32 is on: the head's "
+                "f32 matmuls would run in TF32 and drift from the "
+                "reference; switch it off")
+    elif dev.type != "cpu":
+        raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
+    return dev
+
+
+def region_routes(specs) -> list[str]:
+    """Each layer's kernel in a region-head detector of rows ``specs``:
+    "stream" where ``conv_stream.streams`` says so, else "layer" (the
+    layer kernel with the bias)."""
+    return ["stream" if conv_stream.streams(spec, i == len(specs) - 1) else "layer"
+            for i, spec in enumerate(specs)]
 
 
 class CUDAEngine:
@@ -116,31 +162,26 @@ class CUDAEngine:
     regression on the pooled bins; needs the bundle's bbox_weight; the
     multi head falls back to "ref"). The multi head's device->host copy
     carries u8 boxes and int16 counts whenever the image size is at most
-    256 (``compact_multi``). The model's shifts must lie in 0..31."""
+    256 (``compact_multi``). The model's shifts must lie in 0..31. A
+    ``RegionModel`` takes ``backend`` "pallas" and ``box_mode`` "region"
+    (the module docstring), and nothing else does."""
 
-    def __init__(self, model: FpgaCNN, device: torch.device | str,
+    def __init__(self, model: FpgaCNN | RegionModel, device: torch.device | str,
                  backend: str = "mega", compute_dtype: str = "float32",
                  max_batch: int = 4096, timeout_s: float | None = 300.0,
                  box_mode: str = "ref"):
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}: need one of "
                              f"{BACKENDS}")
+        self._region = None
+        if isinstance(model, RegionModel):
+            self._init_region(model, device, backend, max_batch, timeout_s, box_mode)
+            return
         if compute_dtype not in ("float32", "int32"):
             raise ValueError(f"compute_dtype {compute_dtype!r}: need "
                              f"'float32' or 'int32'")
         quant.check_shifts(model.shifts)
-        self.device = torch.device(device)
-        if self.device.type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError("device='cuda' but torch finds no CUDA "
-                                   "device")
-            if torch.backends.cuda.matmul.allow_tf32:
-                raise RuntimeError(
-                    "torch.backends.cuda.matmul.allow_tf32 is on: the head's "
-                    "f32 matmuls would run in TF32 and drift from the "
-                    "reference; switch it off")
-        elif self.device.type != "cpu":
-            raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
+        self.device = _check_device(device)
         if box_mode not in ("ref", "centroid", "reg"):
             raise ValueError(f"unknown box_mode {box_mode!r}")
         if box_mode == "reg" and model.bbox_weight is None:
@@ -182,10 +223,94 @@ class CUDAEngine:
             self.backend = f"{name}-cuda"
         self.launches = 0  # kernel launches made by this engine
 
+    def _init_region(self, model, device, backend, max_batch, timeout_s, box_mode):
+        """A region-head detector's engine: each layer's route and packed
+        weights (packed once: the weights never change)."""
+        if backend != "pallas":
+            raise ValueError(f"a region-head detector runs on the 'pallas' backend "
+                             f"(every layer on the port's layer kernels), not "
+                             f"{backend!r}")
+        if box_mode != "region":
+            raise ValueError(f"a region-head detector takes box_mode 'region', not "
+                             f"{box_mode!r}")
+        self.device = _check_device(device)
+        self.model, self.max_batch, self.timeout_s = model, max_batch, timeout_s
+        self.box_mode, self._backend = box_mode, backend
+        self.net = TorchRegionNet(model, self.device)
+        specs = model.config.specs
+        cuda = self.device.type == "cuda"
+        self._routes = []
+        for i, (route, spec, kernel) in enumerate(zip(region_routes(specs), specs,
+                                                       self.net.kernels)):
+            if route == "layer" and cuda and not int8.layer_smem(spec[0], spec[1]):
+                raise ValueError(f"layer {i} {spec}: its weights fit no block of the "
+                                 f"layer kernel, and the streamed kernel takes input "
+                                 f"channels in multiples of {conv_stream.SLICE_K}")
+            packed = None
+            if cuda:
+                packed = (mega.pack_layer(kernel) if route == "layer"
+                          else conv_stream.pack_stream(kernel))
+            self._routes.append((route, packed))
+        routes = [r for r, _ in self._routes]
+        self._n_layer = routes.index("stream")
+        if "layer" in routes[self._n_layer:]:
+            raise ValueError(f"routes {routes}: the layer kernel's layers must come "
+                             f"before the streamed ones")
+        self._region = model.config
+        self.backend = "pallas-region-cuda" if cuda else "pallas-region-reference-cpu"
+        self.launches = 0
+
     @property
     def mode(self) -> str:
         """The backend this engine runs, by its ``BACKENDS`` name."""
         return self._backend
+
+    def _region_net(self, x: torch.Tensor, maps: list | None = None) -> torch.Tensor:
+        """(B, C, S, S) u8 on the device -> the last layer's int32 sums,
+        each layer's output appended to ``maps`` where one is given."""
+        net, cfg = self.net, self._region
+        n = len(cfg.layer_configs)
+        keep = maps.append if maps is not None else (lambda _: None)
+        with span("engine.net"):
+            h = x
+            for i in range(self._n_layer):
+                h = int8.fused_conv_layer(h, net.kernels[i], net.shifts, i,
+                                          packed=self._routes[i][1], bias=net.biases[i])
+                keep(h)
+            with span("net.stream"):
+                for i in range(self._n_layer, n):
+                    h = conv_stream.conv_stream(
+                        h, net.kernels[i], net.biases[i], net.shifts, i,
+                        pool=cfg.specs[i][4], last=i == n - 1,
+                        packed=self._routes[i][1])
+                    keep(h)
+        if x.is_cuda:
+            self.launches += n
+        return h
+
+    def region_maps(self, x: torch.Tensor) -> list[torch.Tensor]:
+        """A region-head detector's layers on (B, C, S, S) u8 frames on the
+        device, as ``detect_device`` launches them -> every layer's output
+        (u8 maps, the last layer's int32 sums; on a card in the kernels'
+        own memory formats)."""
+        if self._region is None:
+            raise ValueError("region_maps runs a region-head detector's layers")
+        maps = []
+        self._region_net(x, maps)
+        return maps
+
+    def _region_detect(self, x: torch.Tensor):
+        """(B, C, S, S) u8 on the device -> (dets, count) on the device."""
+        net, cfg = self.net, self._region
+        h = self._region_net(x)
+        with span("head.region"):
+            dets, cnt = region_head.region_detect(
+                h, net.shifts, len(cfg.layer_configs) - 1, net.anchors, cfg.num_classes,
+                cfg.thresh, cfg.nms, cfg.max_det)
+        count("head.region.frames", int(x.shape[0]))
+        if x.is_cuda:
+            self.launches += 1
+        return dets, cnt
 
     # ── device work ───────────────────────────────────────────────────
 
@@ -196,7 +321,8 @@ class CUDAEngine:
         if isinstance(images, tuple) and len(images) == 3 and images[0] == "staged":
             return images[1], images[2]
         s = self.model.config.img_size
-        arr = np.ascontiguousarray(images, dtype=np.uint8).reshape(-1, s, s)
+        shape = (-1, self._region.in_channels, s, s) if self._region else (-1, s, s)
+        arr = np.ascontiguousarray(images, dtype=np.uint8).reshape(shape)
         if arr.shape[0] > self.max_batch:
             raise ValueError(f"batch {arr.shape[0]} exceeds max_batch "
                              f"{self.max_batch}")
@@ -241,7 +367,14 @@ class CUDAEngine:
         so the kernel writes the u8 features and the head pools them.
         Other backends: the features, then ``detect_head.detect`` on them
         (the JAX engine's unfused branch); the bins are pooled apart only
-        when the features are asked for too (the parity gate's path)."""
+        when the features are asked for too (the parity gate's path).
+
+        A region-head detector: (B, C, S, S) u8 frames -> (None, None,
+        dets, count) (the module docstring)."""
+        if self._region is not None:
+            if with_feats:
+                raise ValueError("a region-head detector has no CAM features")
+            return (None, None, *self._region_detect(x))
         net, img = self.net, self.model.config.img_size
         if self._backend != "mega":
             feats = self._features(x)
@@ -342,7 +475,8 @@ class CUDAEngine:
         """Run the fused detect once at ``batch``, and the multi detect too
         when ``multi`` (on CUDA this also builds and loads the kernels)."""
         s = self.model.config.img_size
-        zeros = np.zeros((batch, s, s), np.uint8)
+        zeros = np.zeros((batch, self._region.in_channels, s, s) if self._region
+                         else (batch, s, s), np.uint8)
         self.detect_batch(zeros)
         if multi:
             self.detect_multi_batch(zeros, instances=instances)
@@ -406,11 +540,11 @@ class CUDAEngine:
         :meth:`detect_resolve`. Several handles may be in flight. Takes raw
         (B, S, S) u8 images or a :meth:`stage_batch` handle."""
         x, _ = self._to_device(images)
-        _, _, pred, conf, probs, bbox = self.detect_device(x)
-        return self._to_host_async((pred, conf, probs, bbox))
+        return self._to_host_async(self.detect_device(x)[2:])
 
-    def detect_resolve(self, handle) -> DetectResult:
-        return DetectResult(*self._fetch(handle))
+    def detect_resolve(self, handle) -> DetectResult | RegionResult:
+        return (RegionResult if self._region is not None else DetectResult)(
+            *self._fetch(handle))
 
     @spanned("engine.detect")
     def detect_multi_batch(self, images, instances: int = 1) -> MultiDetectResult:

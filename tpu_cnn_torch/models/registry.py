@@ -1,11 +1,16 @@
 """Named model-variant registry: the port's copy of
 ``tpu_cnn.models.registry``. Any stack of conv3x3 -> shift-relu -> pool2x2
 layers with 16-multiple output channels and power-of-two square inputs;
-the registry names the useful points."""
+the registry names the useful points.
+
+``DETECTORS`` names the port's own region-head detectors
+(``models.region``), which the JAX package does not have; ``get_config``
+finds a name in either."""
 
 from __future__ import annotations
 
 from tpu_cnn_torch.models.cnn import LAYER_CONFIGS, CNNConfig
+from tpu_cnn_torch.models.region import RegionConfig
 
 REGISTRY: dict[str, CNNConfig] = {
     # the reference hardware network (flagship)
@@ -21,11 +26,26 @@ REGISTRY: dict[str, CNNConfig] = {
 }
 
 
-def get_config(name: str) -> CNNConfig:
-    try:
+DETECTORS: dict[str, RegionConfig] = {
+    # darknet's cfg/yolov2-tiny-voc.cfg: 416x416x3, conv3x3 3-16-...-1024
+    # with 2x2 pools (the sixth at stride 1), conv3x3 1024-1024, conv1x1
+    # 1024-125, the VOC region head
+    "yolov2-tiny-voc": RegionConfig(layer_configs=(
+        (3, 16, 416, 3, 2), (16, 32, 208, 3, 2), (32, 64, 104, 3, 2),
+        (64, 128, 52, 3, 2), (128, 256, 26, 3, 2), (256, 512, 13, 3, 1),
+        (512, 1024, 13, 3, 0), (1024, 1024, 13, 3, 0),
+        (1024, 125, 13, 1, 0))),
+}
+
+
+def get_config(name: str) -> CNNConfig | RegionConfig:
+    if name in REGISTRY:
         return REGISTRY[name]
+    try:
+        return DETECTORS[name]
     except KeyError:
-        raise KeyError(f"unknown model variant {name!r}; have {sorted(REGISTRY)}")
+        raise KeyError(f"unknown model variant {name!r}; have "
+                       f"{sorted(REGISTRY) + sorted(DETECTORS)}")
 
 
 def default_shifts(config: CNNConfig) -> list[int]:

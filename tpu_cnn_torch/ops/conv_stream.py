@@ -1,0 +1,170 @@
+"""The weight-streaming layer kernel (``csrc/conv_stream.cu``) of the
+region-head detectors (``models.region``), and the plain version of every
+layer of theirs.
+
+A layer ``(ic, oc, size, k, pool)`` with an int32 bias, on u8 maps:
+
+    sums = SAME k x k conv + bias             (exact s32)
+    u8 = clip(sums >> shift[layer], 0, 255), then the pool
+    (2: 2x2 stride 2; 1: 2x2 stride 1, edges clamped; 0: none)
+    the last layer: the s32 sums themselves
+
+``conv_stream`` launches the kernel on a CUDA tensor: ic a multiple of
+128, k 1 or 3, any oc (even unless ``last``); the map in NCHW or
+channels-last memory, the output (B, oc, OH, OW) in channels-last memory
+(u8, or s32 for ``last``). On a CPU tensor it runs
+``region_layer_reference`` (the plain reference's ``unfold`` and float64
+matrix product: every sum of these networks is an integer below 2**31,
+exact in float64). Any other device, or a CUDA call the kernel cannot
+take, raises: nothing falls back. The kernel reads
+weights packed by ``pack_stream``: made once by their owner (``CUDAEngine``)
+and passed as ``packed``, or here on every call.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from tpu_cnn_torch.ops import _build
+from tpu_cnn_torch.reference import yolov2_tiny
+
+TILE_N = 128  # output channels of a CTA tile
+SLICE_K = 128  # K bytes of a streamed slice: one tap, 128 channels
+SLICE_BYTES = TILE_N * SLICE_K
+
+# kernel launches made by this wrapper in this process
+launches = 0
+
+
+def region_layer_reference(x: torch.Tensor, kernel: torch.Tensor,
+                           bias: torch.Tensor, shifts: torch.Tensor, layer: int,
+                           pool: int, last: bool) -> torch.Tensor:
+    """The plain version of one layer, on the plain reference's own
+    functions (``reference.yolov2_tiny``: ``layer_sums``, ``activate``):
+    (B, ic, H, W) u8 -> (B, oc, OH, OW) u8, or the (B, oc, H, W) int32 sums
+    where ``last``."""
+    sums = yolov2_tiny.layer_sums(x, kernel, bias, int(kernel.shape[-1]))
+    if last:
+        return sums.to(torch.int32)
+    return yolov2_tiny.activate(sums, int(shifts[layer]), pool).to(torch.uint8)
+
+
+def streams(spec, last: bool) -> bool:
+    """Whether a region-head detector's layer ``(ic, oc, size, k, pool)``
+    runs on this kernel (``CUDAEngine``'s route): ic a multiple of
+    ``SLICE_K``, or a layer the layer kernel does not compute (a 1x1, the
+    2x2 stride-1 pool or none, the linear last layer). The others run on
+    the layer kernel with their bias (``int8.fused_conv_layer``)."""
+    ic, _, _, k, pool = spec
+    return ic % SLICE_K == 0 or k != 3 or pool != 2 or last
+
+
+def stream_shape(kernel: torch.Tensor) -> tuple[int]:
+    """The shape ``pack_stream(kernel)`` gives: (bytes,)."""
+    oc, ic, k, _ = (int(v) for v in kernel.shape)
+    return (-(-oc // TILE_N) * (k * k * ic // SLICE_K) * SLICE_BYTES,)
+
+
+def pack_stream(kernel: torch.Tensor) -> torch.Tensor:
+    """(oc, ic, k, k) int8 -> the streamed B, 1-D int8 on the same device:
+    per N tile of 128 output channels and per K slice of 128 bytes (K = tap
+    * ic + c, tap-major), the slice's 16 KB in wgmma's no-swizzle K-major
+    core matrices (``csrc/hopper.cuh``): byte ((s * 16 + n8) * 2 + h) * 128
+    + 16 r + j holds B[slice K 32 s + 16 h + j][channel 8 n8 + r]; zero
+    past oc."""
+    oc, ic, k, _ = (int(v) for v in kernel.shape)
+    if ic % SLICE_K:
+        raise ValueError(f"the streamed kernel takes ic a multiple of {SLICE_K}, "
+                         f"got {ic}")
+    nt, slices = -(-oc // TILE_N), k * k * ic // SLICE_K
+    b = torch.zeros((nt * TILE_N, k * k * ic), dtype=torch.int8, device=kernel.device)
+    b[:oc] = kernel.permute(0, 2, 3, 1).reshape(oc, k * k * ic)
+    # (nt, n8, r, slice, s, h, j) -> (nt, slice, s, n8, h, r, j)
+    return (b.view(nt, 16, 8, slices, 4, 2, 16).permute(0, 3, 4, 1, 5, 2, 6)
+            .contiguous().view(-1))
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("conv_stream")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.conv_stream_forward.argtypes = [p, i, p, p, p, i, p] + [i] * 9 + [p]
+    lib.conv_stream_forward.restype = i
+    lib.conv_stream_error_string.argtypes = [i]
+    lib.conv_stream_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(x, kernel, bias, shifts, layer, pool, last, packed):
+    if x.dtype != torch.uint8 or x.dim() != 4:
+        raise ValueError(f"x must be (B, ic, H, W) uint8, got {tuple(x.shape)} "
+                         f"{x.dtype}")
+    ic = x.shape[1]
+    if (kernel.dtype != torch.int8 or kernel.dim() != 4 or kernel.shape[1] != ic
+            or kernel.shape[2] != kernel.shape[3] or kernel.shape[2] not in (1, 3)):
+        raise ValueError(f"kernel must be (oc, {ic}, k, k) int8, k 1 or 3, got "
+                         f"{tuple(kernel.shape)} {kernel.dtype}")
+    if bias.dtype != torch.int32 or tuple(bias.shape) != (kernel.shape[0],):
+        raise ValueError(f"bias must be ({kernel.shape[0]},) int32, got "
+                         f"{tuple(bias.shape)} {bias.dtype}")
+    if shifts.dtype != torch.int32 or shifts.dim() != 1 or not 0 <= layer < len(shifts):
+        raise ValueError("shifts must be a 1-D int32 vector holding `layer`")
+    if pool not in (0, 1, 2) or (last and pool):
+        raise ValueError(f"pool {pool}: need 0, 1 or 2, and none on the last layer")
+    if pool == 2 and (x.shape[2] % 2 or x.shape[3] % 2):
+        raise ValueError(f"the 2x2/2 pool needs an even map, got {tuple(x.shape[2:])}")
+    if packed is not None and (packed.dtype != torch.int8 or packed.device != kernel.device
+                               or tuple(packed.shape) != stream_shape(kernel)):
+        raise ValueError(f"packed must be pack_stream of the kernel, "
+                         f"{stream_shape(kernel)} int8 on {kernel.device}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the streamed kernel runs on CUDA tensors (the kernel) "
+                         f"or CPU tensors (its plain version), not on {x.device}")
+
+
+def _layout(x: torch.Tensor) -> int:
+    """0 for an NCHW-contiguous map, 1 for a channels-last one."""
+    if x.is_contiguous():
+        return 0
+    if x.is_contiguous(memory_format=torch.channels_last):
+        return 1
+    raise ValueError("x must be contiguous, NCHW or channels-last")
+
+
+def conv_stream(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
+                shifts: torch.Tensor, layer: int, *, pool: int = 0,
+                last: bool = False, packed: torch.Tensor | None = None) -> torch.Tensor:
+    """One layer (the module docstring): (B, ic, H, W) u8 -> (B, oc, OH, OW)
+    u8, or (B, oc, H, W) int32 where ``last``; on CUDA in channels-last
+    memory. ``shifts[layer]`` applies (read on the device)."""
+    global launches
+    _check(x, kernel, bias, shifts, layer, pool, last, packed)
+    if x.device.type == "cpu":
+        return region_layer_reference(x, kernel, bias, shifts, layer, pool, last)
+    nhwc = _layout(x)
+    dev = x.device
+    if packed is None:
+        packed = pack_stream(kernel)
+    if any(t.device != dev for t in (packed, bias, shifts)):
+        raise ValueError("x, kernel, bias and shifts must be on one device")
+    b, ic, h, w = x.shape
+    oc = kernel.shape[0]
+    oh, ow = (h // 2, w // 2) if pool == 2 else (h, w)
+    out = torch.empty((b, oh, ow, oc), dtype=torch.int32 if last else torch.uint8,
+                      device=dev)
+    lib = _lib()
+    err = lib.conv_stream_forward(
+        x.data_ptr(), nhwc, packed.data_ptr(), bias.data_ptr(), shifts.data_ptr(),
+        layer, out.data_ptr(), b, ic, oc, h, w, int(kernel.shape[2]), pool, int(last),
+        dev.index if dev.index is not None else torch.cuda.current_device(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"conv_stream_forward failed: cudaError {err} "
+                           f"({lib.conv_stream_error_string(err).decode()}) at "
+                           f"x {tuple(x.shape)}, oc {oc}, k {kernel.shape[2]}, "
+                           f"pool {pool}, last {last}")
+    launches += 1
+    return out.permute(0, 3, 1, 2)

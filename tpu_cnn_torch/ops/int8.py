@@ -39,7 +39,7 @@ from typing import Sequence
 
 import torch
 
-from tpu_cnn_torch.ops import _build, mega, quant
+from tpu_cnn_torch.ops import _build, conv_stream, mega, quant
 
 # kernel launches made by this wrapper in this process
 launches = 0
@@ -62,6 +62,10 @@ def _lib() -> ctypes.CDLL:
     for fn in (lib.conv_act_forward, lib.conv_act_pool_forward):
         fn.argtypes = [p, p, p, i, p, i, i, i, i, i, i, p]
         fn.restype = i
+    lib.conv_act_pool_bias_forward.argtypes = [p, p, p, p, i, p, i, i, i, i, i, i, p]
+    lib.conv_act_pool_bias_forward.restype = i
+    lib.conv_act_layer_smem.argtypes = [i, i, i]
+    lib.conv_act_layer_smem.restype = i
     lib.conv_act_error_string.argtypes = [i]
     lib.conv_act_error_string.restype = ctypes.c_char_p
     return lib
@@ -92,14 +96,15 @@ def _check_inputs(x, kernel, shifts, layer, packed):
                          f"{x.device}")
 
 
-def _launch(x, kernel, shifts, layer, packed, pool):
+def _launch(x, kernel, shifts, layer, packed, pool, bias=None):
     """The kernel on the tensors' CUDA device and current stream, with the
-    2x2 pool inside when ``pool``."""
+    2x2 pool inside when ``pool`` and the bias added where one is given
+    (pooled only)."""
     global launches
     dev = x.device
     if packed is None:
         packed = mega.pack_layer(kernel)
-    tensors = (x, packed, shifts)
+    tensors = (x, packed, shifts) + ((bias,) if bias is not None else ())
     if any(t.device != dev for t in tensors):
         raise ValueError("x, kernel and shifts must be on one device")
     if not all(t.is_contiguous() for t in tensors):
@@ -109,13 +114,19 @@ def _launch(x, kernel, shifts, layer, packed, pool):
     oh, ow = (h // 2, w // 2) if pool else (h, w)
     out = torch.empty((b, oc, oh, ow), dtype=torch.uint8, device=dev)
     lib = _lib()
-    fn = lib.conv_act_pool_forward if pool else lib.conv_act_forward
-    err = fn(x.data_ptr(), packed.data_ptr(), shifts.data_ptr(), layer,
-             out.data_ptr(), b, ic, oc, h, w,
-             dev.index if dev.index is not None else torch.cuda.current_device(),
-             torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if bias is not None:
+        name = "conv_act_pool_bias_forward"
+        err = lib.conv_act_pool_bias_forward(
+            x.data_ptr(), packed.data_ptr(), bias.data_ptr(), shifts.data_ptr(), layer,
+            out.data_ptr(), b, ic, oc, h, w, index, stream)
+    else:
         name = "conv_act_pool_forward" if pool else "conv_act_forward"
+        fn = lib.conv_act_pool_forward if pool else lib.conv_act_forward
+        err = fn(x.data_ptr(), packed.data_ptr(), shifts.data_ptr(), layer,
+                 out.data_ptr(), b, ic, oc, h, w, index, stream)
+    if err != 0:
         raise RuntimeError(f"{name} failed: cudaError {err} "
                            f"({lib.conv_act_error_string(err).decode()})")
     launches += 1
@@ -137,6 +148,14 @@ def conv_act(x: torch.Tensor, kernel: torch.Tensor, shifts: torch.Tensor,
     return _launch(x, kernel, shifts, layer, packed, pool=False)
 
 
+def layer_smem(ic: int, oc: int, pool: bool = True) -> int:
+    """The shared memory of the layer kernel's plan for a layer of ``ic``
+    input and ``oc`` output channels, asked of the built library
+    (``conv_act_layer_smem``): 0 when no tiling fits a block, and the
+    kernel refuses the layer. Builds the library where it is not built."""
+    return int(_lib().conv_act_layer_smem(int(ic), int(oc), int(bool(pool))))
+
+
 def pack_kernel_matrix(kernel: torch.Tensor) -> torch.Tensor:
     """(oc, ic, 3, 3) int8 -> the JAX package's (oc, 9*ic) f32 matrix,
     tap-major / ic-minor."""
@@ -154,18 +173,30 @@ def unpack_kernel_matrix(kmat: torch.Tensor, ic: int) -> torch.Tensor:
 
 def fused_conv_layer(x: torch.Tensor, kernel: torch.Tensor,
                      shifts: torch.Tensor, layer: int, *,
-                     packed: torch.Tensor | None = None) -> torch.Tensor:
+                     packed: torch.Tensor | None = None,
+                     bias: torch.Tensor | None = None) -> torch.Tensor:
     """One contract layer: the conv of ``conv_act``, then the 2x2 max pool.
     (B, ic, H, W) u8 with H and W even -> (B, oc, H/2, W/2) u8. CUDA
     tensors launch ``csrc/conv_act.cu`` with the pool inside; CPU tensors
-    run ``maxpool2x2(conv_act_reference(...))``."""
+    run ``maxpool2x2(conv_act_reference(...))``. ``bias``: an (oc,) int32
+    vector added to the sums before the shift (a region-head detector's
+    layer, ``models.region``; ic >= 2), whose plain version is
+    ``conv_stream.region_layer_reference``."""
     h, w = x.shape[-2:]
     if h % 2 or w % 2:
         raise ValueError(f"the pool needs an even H and W, got {h}x{w}")
     _check_inputs(x, kernel, shifts, layer, packed)
+    if bias is not None and (bias.dtype != torch.int32
+                             or tuple(bias.shape) != (kernel.shape[0],)
+                             or kernel.shape[1] < 2):
+        raise ValueError(f"bias must be ({kernel.shape[0]},) int32 on a layer of "
+                         f"at least two input channels")
     if x.device.type == "cpu":
+        if bias is not None:
+            return conv_stream.region_layer_reference(x, kernel, bias, shifts, layer,
+                                                      2, False)
         return quant.maxpool2x2(conv_act_reference(x, kernel, shifts, layer))
-    return _launch(x, kernel, shifts, layer, packed, pool=True)
+    return _launch(x, kernel, shifts, layer, packed, pool=True, bias=bias)
 
 
 def _nchw(images: torch.Tensor) -> torch.Tensor:

@@ -8,6 +8,13 @@ A bundle directory holds:
 and optionally bbox_weight.npy, shifts.json, multi_thresh.json and
 multi_head.npz; feature dumps are .npz files with features/labels/names/
 shifts (``save_feature_dump``). Same formats, byte-compatible.
+
+A region-head detector's bundle (``models.region``; the port's own, which
+the JAX package does not read) holds:
+  region_weights.npz  kernel<i> (oc, ic, k, k) int8 and bias<i> (oc,)
+                      int32 per layer
+  shifts.json         one shift per layer
+  classes.json        class-name list
 """
 
 from __future__ import annotations
@@ -136,6 +143,41 @@ def save_bundle(
                  b=bundle.multi_head[1].astype(np.float32))
     with open(os.path.join(d, CLASSES), "w") as f:
         json.dump(list(bundle.class_names), f)
+
+REGION_WEIGHTS = "region_weights.npz"
+
+
+def save_region_bundle(artifact_dir: str | os.PathLike, kernels, biases,
+                       shifts, class_names) -> None:
+    """A region-head detector's bundle (the module docstring's layout)."""
+    d = os.fspath(artifact_dir)
+    os.makedirs(d, exist_ok=True)
+    arrays = {f"kernel{i}": np.asarray(k, np.int8) for i, k in enumerate(kernels)}
+    arrays.update({f"bias{i}": np.asarray(b, np.int32) for i, b in enumerate(biases)})
+    np.savez(os.path.join(d, REGION_WEIGHTS), **arrays)
+    with open(os.path.join(d, SHIFTS_JSON), "w") as f:
+        json.dump([int(s) for s in shifts], f)
+    with open(os.path.join(d, CLASSES), "w") as f:
+        json.dump(list(class_names), f)
+
+
+def load_region_bundle(artifact_dir: str | os.PathLike, n_layers: int):
+    """-> (kernels, biases, shifts, class_names) of a region-head bundle
+    of ``n_layers`` layers."""
+    d = os.fspath(artifact_dir)
+    with np.load(os.path.join(d, REGION_WEIGHTS)) as z:
+        if sorted(z.files) != sorted([f"kernel{i}" for i in range(n_layers)]
+                                     + [f"bias{i}" for i in range(n_layers)]):
+            raise ValueError(f"{REGION_WEIGHTS} holds {sorted(z.files)}, not "
+                             f"{n_layers} layers' kernels and biases")
+        kernels = [z[f"kernel{i}"].astype(np.int8) for i in range(n_layers)]
+        biases = [z[f"bias{i}"].astype(np.int32) for i in range(n_layers)]
+    with open(os.path.join(d, SHIFTS_JSON)) as f:
+        shifts = [int(s) for s in json.load(f)]
+    with open(os.path.join(d, CLASSES)) as f:
+        class_names = json.load(f)
+    return kernels, biases, shifts, class_names
+
 
 def save_feature_dump(
     path: str | os.PathLike,
