@@ -612,7 +612,8 @@ def yolo_times(dev: torch.device, card: str, rs) -> dict[str, tuple]:
     yolov2-tiny-voc's L4-L8 summed (channels-last maps but L4's NCHW, as the
     engine hands them over), its plain version, their bound, and
     ``torch._int_mm`` on the same im2col GEMMs (s8 x s8; no PyTorch call
-    takes u8 x s8 with the shift, clip and pool); the region head on its
+    takes u8 x s8 with the shift, clip and pool); each layer's queued
+    device time beside its bound by MACs; the region head on its
     sums, its plain version and its bound (its bytes)."""
     batch = 512
     model = kc.yolo_model(5)
@@ -655,6 +656,18 @@ def yolo_times(dev: torch.device, card: str, rs) -> dict[str, tuple]:
                      f"{b_ms / k_ms:.2%} of it; plain {p_ms!r} ms (64 frames, scaled; "
                      f"n={np_}); torch._int_mm on the im2col GEMMs {lib_ms!r} ms")
     out = {"conv_stream": (k_ms, p_ms, b_ms, b_by, lib_ms)}
+    layers = {}
+    for x, (i, pool, last, packed) in zip(xs, args):
+        ic, oc, s, k, _ = specs[i]
+        ms = _queued_ms(lambda x=x, i=i, pool=pool, last=last, packed=packed:
+                        conv_stream.conv_stream(x, net.kernels[i], net.biases[i], net.shifts,
+                                                i, pool=pool, last=last, packed=packed), 20)
+        layers[f"L{i}"] = (ms, bound(s * s * oc * ic * k * k * batch, 0)[0])
+    phase("7 times", f"yolov2-tiny-voc per layer at batch {batch} on {card}, conv_stream "
+                     f"queued ms (bound by MACs, share): " + ", ".join(
+                         f"{name} {ms!r} ({b!r}, {b / ms:.1%})"
+                         for name, (ms, b) in layers.items()))
+    out["conv_stream_layers"] = layers
     del xs, gemms
     torch.cuda.empty_cache()
     t = torch.randint(-2**15, 2**15, (batch, 13, 13, 125), dtype=torch.int32, device=dev)

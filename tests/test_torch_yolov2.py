@@ -173,18 +173,256 @@ def test_the_layer_kernels_bias_path_on_the_cpu():
 @pytest.mark.parametrize("oc,ic,k", [(256, 128, 3), (125, 1024, 1), (130, 256, 3)])
 def test_the_streamed_packing(oc, ic, k):
     """``pack_stream``'s bytes hold B[slice K][channel] where its docstring
-    says, zero past oc."""
+    says (a 128-byte row per channel, its 16-byte chunks in the 128-byte
+    swizzle), zero past oc."""
     kernel = torch.from_numpy(np.random.RandomState(oc).randint(
         -128, 128, (oc, ic, k, k)).astype(np.int8))
     packed = conv_stream.pack_stream(kernel)
     assert tuple(packed.shape) == conv_stream.stream_shape(kernel)
-    nt, slices = -(-oc // 128), k * k * ic // 128
-    p = packed.view(nt, slices, 4, 16, 2, 8, 16)  # (nt, slice, s, n8, h, r, j)
-    b = p.permute(0, 3, 5, 1, 2, 4, 6).reshape(nt * 128, k * k * ic)
+    rows, slices = -(-oc // 256) * 256, k * k * ic // 128
+    p = packed.view(slices, rows, 8, 16)
+    b = torch.empty((rows, slices, 8, 16), dtype=torch.int8)
+    for n in range(rows):
+        for j in range(8):
+            b[n, :, j] = p[:, n, j ^ n % 8]
+    b = b.reshape(rows, k * k * ic)
     assert torch.equal(b[:oc], kernel.permute(0, 2, 3, 1).reshape(oc, -1))
     assert not b[oc:].any()
     with pytest.raises(ValueError):
         conv_stream.pack_stream(kernel[:, :64])
+
+
+# ── the streamed kernel's plan (csrc/conv_stream_plan.h, built by g++) ──
+
+_PLAN_SHIM = r"""
+#include "conv_stream_plan.h"
+using namespace stream_plan;
+#define LAYER int batch, int ic, int oc, int h, int w, int k, int pool, int linear, int nhwc
+#define GEOMETRY Geometry g; if (make_geometry(batch, ic, oc, h, w, k, pool, linear, nhwc, &g)) return 1;
+extern "C" int plan_geometry(LAYER, long long* o) {
+  GEOMETRY
+  const long long v[] = {g.tile_m, g.tile_n, g.n_tiles, g.np, g.m_rows, g.m_tiles, g.units,
+                         g.staging_rows, g.tma, g.slices, g.pad, staging_pixels(g.mode)};
+  for (int i = 0; i < 12; ++i) o[i] = v[i];
+  return 0;
+}
+extern "C" int plan_rows(LAYER, long long mt, int* o) {
+  GEOMETRY
+  for (int r = 0; r < g.tile_m; ++r) row_pixel(g, mt, r, o[3 * r], o[3 * r + 1], o[3 * r + 2]);
+  return 0;
+}
+extern "C" int plan_slabs(LAYER, long long mt, int* o) {
+  GEOMETRY
+  for (int j = 0; j < consumers(g.mode); ++j) slab_start(g, mt, j, o[3 * j], o[3 * j + 1], o[3 * j + 2]);
+  return 0;
+}
+extern "C" int plan_source_rows(LAYER, long long mt, int* o) {
+  GEOMETRY
+  tile_source_rows(g, mt, o[0], o[1]);
+  return 0;
+}
+extern "C" int plan_units(LAYER, long long* o) {
+  GEOMETRY
+  for (long long u = 0; u < g.units; ++u) {
+    int nt;
+    unit_tile(g, u, o[2 * u], nt);
+    o[2 * u + 1] = nt;
+  }
+  return 0;
+}
+extern "C" int plan_box(LAYER, unsigned long long* dims, unsigned long long* strides,
+                        int* lower, int* upper) {
+  GEOMETRY
+  im2col_box(g, dims, strides, lower, upper);
+  return 0;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def plan(tmp_path_factory):
+    """The plan header built alone by g++ behind a C shim, bound by ctypes."""
+    import ctypes
+    import os
+    import subprocess
+
+    from tpu_cnn_torch.ops import _build
+
+    d = tmp_path_factory.mktemp("plan")
+    src, lib = d / "plan.cpp", d / "libplan.so"
+    src.write_text(_PLAN_SHIM)
+    subprocess.run(["g++", "-std=c++17", "-O1", "-shared", "-fPIC", "-I", _build.CSRC_DIR,
+                    "-o", str(lib), str(src)], check=True, capture_output=True)
+    assert os.path.exists(lib)
+    return ctypes.CDLL(str(lib))
+
+
+def _plan_call(plan, fn, layer, *args):
+    import ctypes
+    return getattr(plan, fn)(*(ctypes.c_int(v) for v in layer), *args)
+
+
+def _geometry(plan, layer):
+    import ctypes
+    o = (ctypes.c_longlong * 12)()
+    if _plan_call(plan, "plan_geometry", layer, o):
+        return None
+    keys = ("tile_m", "tile_n", "n_tiles", "np", "m_rows", "m_tiles", "units",
+            "staging_rows", "tma", "slices", "pad", "staging_pixels")
+    return dict(zip(keys, o))
+
+
+# (batch, ic, oc, h, w, k, pool, linear, nhwc): yolov2-tiny-voc's L4-L8 as
+# the engine hands them over, each also in the other memory format, at the
+# cells' and the cases' batches; the kernel cases' edges
+YOLO_STREAMED = [(128, 256, 26, 3, 2, 0), (256, 512, 13, 3, 1, 0), (512, 1024, 13, 3, 0, 0),
+                 (1024, 1024, 13, 3, 0, 0), (1024, 125, 13, 1, 0, 1)]
+PLAN_LAYERS = [(b, ic, oc, s, s, k, pool, lin, nhwc)
+               for b in (1, 37, 512) for ic, oc, s, k, pool, lin in YOLO_STREAMED
+               for nhwc in (0, 1)] + [
+    (3, 128, 130, 26, 26, 3, 2, 0, 0), (3, 128, 130, 13, 13, 3, 1, 0, 1),
+    (3, 128, 130, 13, 13, 3, 0, 0, 1), (2, 128, 64, 6, 10, 3, 2, 0, 1)]
+
+
+@pytest.mark.parametrize("layer", [
+    (2, 64, 32, 13, 13, 3, 0, 0, 1),     # ic not a multiple of 128
+    (2, 128, 32, 13, 13, 5, 0, 0, 1),    # k 5
+    (2, 128, 32, 13, 13, 3, 2, 0, 1),    # the 2x2/2 pool on an odd map
+    (2, 128, 32, 14, 14, 3, 1, 0, 1),    # the 2x2/1 pool past one tile's 192 rows
+    (2, 128, 32, 13, 13, 3, 1, 1, 1),    # a pool on the linear layer
+    (2, 128, 31, 13, 13, 3, 0, 0, 1),    # an odd oc of u8 outputs
+    (2, 128, 32, 52, 52, 3, 0, 0, 0),    # an NCHW tile's source rows past the staging
+    (2, 128, 32, 52, 52, 3, 2, 0, 1),    # the same for the 2x2/2 pool's gather
+])
+def test_the_streamed_plan_refuses(plan, layer):
+    """A geometry the kernel does not take is refused by the plan (the
+    launcher then returns cudaErrorInvalidValue, and the wrapper raises)."""
+    assert _geometry(plan, layer) is None
+
+
+def test_the_streamed_plan_takes_a_wide_channels_last_map(plan):
+    """A channels-last map goes by TMA, which stages nothing: any width."""
+    g = _geometry(plan, (2, 128, 32, 52, 52, 3, 0, 0, 1))
+    assert g is not None and g["tma"] and g["staging_rows"] == 0
+
+
+@pytest.mark.parametrize("layer", PLAN_LAYERS)
+def test_the_streamed_schedule_covers_every_tile_once(plan, layer):
+    """The work units of the persistent grid give every (M tile, N tile)
+    once, N fastest."""
+    import ctypes
+    g = _geometry(plan, layer)
+    assert g is not None
+    assert g["units"] == g["m_tiles"] * g["n_tiles"]
+    o = (ctypes.c_longlong * (2 * g["units"]))()
+    assert _plan_call(plan, "plan_units", layer, o) == 0
+    tiles = np.array(o, dtype=np.int64).reshape(g["units"], 2)
+    want = np.stack(np.meshgrid(np.arange(g["m_tiles"]), np.arange(g["n_tiles"]),
+                                indexing="ij"), axis=-1).reshape(-1, 2)
+    assert (tiles == want).all()
+    assert g["tile_n"] * g["n_tiles"] >= layer[2] and g["np"] % 256 == 0
+    assert g["np"] >= g["tile_n"] * g["n_tiles"]
+
+
+def _rows(plan, layer, g, mt):
+    import ctypes
+    o = (ctypes.c_int * (3 * g["tile_m"]))()
+    assert _plan_call(plan, "plan_rows", layer, ctypes.c_longlong(mt), o) == 0
+    return np.array(o).reshape(-1, 3)
+
+
+def _tiles(g):
+    """Every M tile of a small grid, else its first, last and a few."""
+    n = g["m_tiles"]
+    return range(n + 1) if n <= 40 else sorted({0, 1, n // 2, n - 2, n - 1, n})
+
+
+def _want_rows(layer, g, mt):
+    """Which pixel each M row of tile ``mt`` is, from the kernel's
+    contract: the batch's pixels in order, pooling windows of four rows in
+    order for the 2x2/2 pool, one image a tile for the 2x2/1 pool."""
+    batch, _, _, h, w, _, pool, _, _ = layer
+    out = np.full((g["tile_m"], 3), -1)
+    for r in range(g["tile_m"]):
+        if pool == 1:
+            if mt < batch and r < h * w:
+                out[r] = (mt, r // w, r % w)
+            continue
+        row = mt * g["tile_m"] + r
+        if row >= g["m_rows"]:
+            continue
+        if pool == 2:
+            q, sub = divmod(row, 4)
+            b, p = divmod(q, (h // 2) * (w // 2))
+            out[r] = (b, 2 * (p // (w // 2)) + sub // 2, 2 * (p % (w // 2)) + sub % 2)
+        else:
+            b, p = divmod(row, h * w)
+            out[r] = (b, p // w, p % w)
+    return out
+
+
+@pytest.mark.parametrize("layer", PLAN_LAYERS)
+def test_the_rows_of_a_tile_are_its_pixels(plan, layer):
+    g = _geometry(plan, layer)
+    for mt in _tiles(g):
+        assert (_rows(plan, layer, g, mt) == _want_rows(layer, g, mt)).all(), mt
+
+
+@pytest.mark.parametrize("layer", [lay for lay in PLAN_LAYERS if lay[-1] and lay[6] != 2])
+def test_the_im2col_loads_walk_the_rows_pixels(plan, layer):
+    """Each slab's TMA im2col load, walked as the copy walks its bounding
+    box (its W positions, then H, then the next image), reads row by row
+    the pixel the epilogue stores there; the map's tensor geometry."""
+    import ctypes
+    batch, ic, _, h, w, k, _, _, _ = layer
+    g = _geometry(plan, layer)
+    assert g["tma"] == 1
+    dims, strides = (ctypes.c_ulonglong * 4)(), (ctypes.c_ulonglong * 3)()
+    lower, upper = (ctypes.c_int * 2)(), (ctypes.c_int * 2)()
+    assert _plan_call(plan, "plan_box", layer, dims, strides, lower, upper) == 0
+    assert list(dims) == [ic, w, h, batch]
+    assert list(strides) == [ic, w * ic, h * w * ic]
+    pad = k // 2
+    assert list(lower) == [-pad, -pad]
+    # the box spans W x H base positions: a tap's offsets 0 .. k-1 reach the halo
+    assert (w - 1 + upper[0]) - lower[0] + 1 == w and (h - 1 + upper[1]) - lower[1] + 1 == h
+    slabs = g["tile_m"] // 64
+    for mt in _tiles(g):
+        o = (ctypes.c_int * (3 * slabs))()
+        assert _plan_call(plan, "plan_slabs", layer, ctypes.c_longlong(mt), o) == 0
+        want = _want_rows(layer, g, mt)
+        for j, (b, y, x) in enumerate(np.array(o).reshape(-1, 3)):
+            for i in range(64):  # the copy's walk from the slab's start
+                r = 64 * j + i
+                if want[r][0] >= 0:
+                    assert (b, y, x) == tuple(want[r]), (mt, j, i)
+                x += 1
+                if x == w:
+                    x, y = 0, y + 1
+                if y == h:
+                    y, b = 0, b + 1
+
+
+@pytest.mark.parametrize("layer", [lay for lay in PLAN_LAYERS if not (lay[-1] and lay[6] != 2)])
+def test_the_staged_rows_hold_every_tap_of_a_tile(plan, layer):
+    """Where the producer warps gather A, a tile's staged source rows hold
+    every in-map pixel any tap of its rows reads, and fit the staging."""
+    import ctypes
+    _, _, _, h, w, k, _, _, _ = layer
+    g = _geometry(plan, layer)
+    assert not g["tma"] and g["staging_rows"] * w <= g["staging_pixels"]
+    pad = k // 2
+    for mt in _tiles(g):
+        o = (ctypes.c_int * 2)()
+        assert _plan_call(plan, "plan_source_rows", layer, ctypes.c_longlong(mt), o) == 0
+        lo, hi = o
+        assert hi - lo + 1 <= g["staging_rows"]
+        for b, y, x in _rows(plan, layer, g, mt):
+            if b < 0:
+                continue
+            for dy in range(-pad, pad + 1):
+                if 0 <= y + dy < h:
+                    assert lo <= b * h + y + dy <= hi, (mt, b, y, dy)
 
 
 # ── the region head ──────────────────────────────────────────────────

@@ -111,16 +111,26 @@ REQUIRED_PATHS = (
     "cam_head: order statistics by counting (more than 256 pixels)",
     "layer: multi-channel with a bias",
     *(f"stream: {p}" for p in (
-        "A staged byte by byte from an NCHW map", "A by cp.async from a channels-last map",
+        "A by TMA im2col from a channels-last map",
+        "A gathered from an NCHW map by the producer warps",
+        "A gathered from a channels-last map by the producer warps",
         "no pool", "pool 2x2 stride 2 across lanes", "pool 2x2 stride 1 in shared memory",
-        "linear s32 out", "1x1 kernel", "a partial N tile (oc % 128 != 0)",
-        "a partial M tile")),
+        "linear s32 out", "1x1 kernel", "a partial N tile", "a partial M tile",
+        "a TMA im2col load across an image boundary",
+        "tile 128x256, two consumer warpgroups of m64n256k32",
+        "tile 128x128 (the linear layer), two consumer warpgroups of m64n128k32",
+        "tile 192x128 (one image), three consumer warpgroups of m64n128k32",
+        "persistent: a CTA's second tile", "persistent: CTAs with unequal work")),
     "region_head: launch at max_det below every box x class pair",
 )
 # yolov2-tiny-voc's layers (``registry.DETECTORS``): L0-L3 on the layer
 # kernel with a bias, L4-L8 on the streamed kernel; and its region head
 YOLO = get_config("yolov2-tiny-voc")
 YOLO_BATCH = 5  # L0-L3's cases: five 416x416x3 frames
+# the streamed layers' further batches: one frame (one or two M tiles), and
+# 64 (more tiles than the card holds CTAs, shared unequally by the
+# persistent CTAs)
+STREAM_BATCHES = (1, 64)
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
@@ -769,8 +779,11 @@ def region_layers_vs_plain(dev: torch.device) -> tuple[float, int, float, int]:
     """yolov2-tiny-voc's layers, each on its kernel against the plain
     version, each on the kernel the engine routes it to
     (``engine.cuda.region_routes``): L0-L3 on the layer kernel with a bias
-    (``YOLO_BATCH`` frames), L4-L8 on the streamed kernel at ``KERNEL_BATCH`` (the map channels-last,
-    as the engine hands it over, and NCHW), and the streamed kernel's edges
+    (``YOLO_BATCH`` frames), L4-L8 on the streamed kernel at
+    ``KERNEL_BATCH`` and at ``STREAM_BATCHES`` (the map channels-last, as
+    the engine hands it over, and NCHW; rows of a TMA im2col load crossing
+    images, ragged last M tiles, L8's partial N tile, a persistent grid
+    with a second tile and unequal work), and the streamed kernel's edges
     (all-255 maps by +127 / -128 weights at shifts 0 and 31, biases at the
     int32 range's eighth) -> (layer err, cases, stream err, cases)."""
     rs = np.random.RandomState(23)
@@ -793,6 +806,19 @@ def region_layers_vs_plain(dev: torch.device) -> tuple[float, int, float, int]:
                                i, pool, last, route)
             layer_n += route == "layer"
             stream_n += route == "stream"
+    routes = region_routes(YOLO.specs)
+    for i, batch in itertools.product(range(len(YOLO.specs)), STREAM_BATCHES):
+        if routes[i] != "stream":
+            continue
+        ic, oc, s, k, pool = YOLO.specs[i]
+        kernel, bias, shift = _region_weights(rs, ic, oc, k)
+        shifts = torch.tensor([0] * i + [shift], dtype=torch.int32, device=dev)
+        x = torch.from_numpy(rs.randint(0, 256, (batch, ic, s, s)).astype(np.uint8)).to(dev)
+        kt, bt = torch.from_numpy(kernel).to(dev), torch.from_numpy(bias).to(dev)
+        for form in (x, x.contiguous(memory_format=torch.channels_last)):
+            _region_layer_case(f"yolo L{i} stream {tuple(x.shape)}", form, kt, bt, shifts, i,
+                               pool, i == len(YOLO.specs) - 1, "stream")
+            stream_n += 1
     for pool, last in ((0, False), (1, False), (2, False), (0, True)):
         for w, shift in ((127, 0), (-128, 31), (127, 31), (-128, 0)):
             x = torch.full((3, 128, 26 if pool == 2 else 13, 26 if pool == 2 else 13), 255,

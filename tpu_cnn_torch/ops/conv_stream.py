@@ -11,8 +11,11 @@ A layer ``(ic, oc, size, k, pool)`` with an int32 bias, on u8 maps:
 
 ``conv_stream`` launches the kernel on a CUDA tensor: ic a multiple of
 128, k 1 or 3, any oc (even unless ``last``); the map in NCHW or
-channels-last memory, the output (B, oc, OH, OW) in channels-last memory
-(u8, or s32 for ``last``). On a CPU tensor it runs
+channels-last memory (where the kernel gathers A itself, an NCHW map or
+the 2x2/2 pool's, a tile's source rows must fit its staging, as
+yolov2-tiny-voc's do: ``csrc/conv_stream_plan.h``), the output (B, oc,
+OH, OW) in channels-last memory (u8, or s32 for ``last``). On a CPU
+tensor it runs
 ``region_layer_reference`` (the plain reference's ``unfold`` and float64
 matrix product: every sum of these networks is an integer below 2**31,
 exact in float64). Any other device, or a CUDA call the kernel cannot
@@ -31,9 +34,8 @@ import torch
 from tpu_cnn_torch.ops import _build
 from tpu_cnn_torch.reference import yolov2_tiny
 
-TILE_N = 128  # output channels of a CTA tile
+PACK_N = 256  # a packed slice's rows: oc padded to a multiple of this
 SLICE_K = 128  # K bytes of a streamed slice: one tap, 128 channels
-SLICE_BYTES = TILE_N * SLICE_K
 
 # kernel launches made by this wrapper in this process
 launches = 0
@@ -65,26 +67,29 @@ def streams(spec, last: bool) -> bool:
 def stream_shape(kernel: torch.Tensor) -> tuple[int]:
     """The shape ``pack_stream(kernel)`` gives: (bytes,)."""
     oc, ic, k, _ = (int(v) for v in kernel.shape)
-    return (-(-oc // TILE_N) * (k * k * ic // SLICE_K) * SLICE_BYTES,)
+    return (k * k * ic // SLICE_K * -(-oc // PACK_N) * PACK_N * SLICE_K,)
 
 
 def pack_stream(kernel: torch.Tensor) -> torch.Tensor:
     """(oc, ic, k, k) int8 -> the streamed B, 1-D int8 on the same device:
-    per N tile of 128 output channels and per K slice of 128 bytes (K = tap
-    * ic + c, tap-major), the slice's 16 KB in wgmma's no-swizzle K-major
-    core matrices (``csrc/hopper.cuh``): byte ((s * 16 + n8) * 2 + h) * 128
-    + 16 r + j holds B[slice K 32 s + 16 h + j][channel 8 n8 + r]; zero
-    past oc."""
+    per K slice of 128 bytes (K = tap * ic + c, tap-major), a 128-byte row
+    per output channel (oc padded to a multiple of ``PACK_N``, zero past
+    oc) in wgmma's 128-byte swizzle, as the kernel's bulk copies land it in
+    shared memory: byte (slice * rows + n) * 128 + 16 (j ^ n % 8) + i holds
+    B[slice K 16 j + i][channel n]. Any 8-aligned run of rows of a slice is
+    one N tile's weights."""
     oc, ic, k, _ = (int(v) for v in kernel.shape)
     if ic % SLICE_K:
         raise ValueError(f"the streamed kernel takes ic a multiple of {SLICE_K}, "
                          f"got {ic}")
-    nt, slices = -(-oc // TILE_N), k * k * ic // SLICE_K
-    b = torch.zeros((nt * TILE_N, k * k * ic), dtype=torch.int8, device=kernel.device)
+    rows, slices = -(-oc // PACK_N) * PACK_N, k * k * ic // SLICE_K
+    b = torch.zeros((rows, k * k * ic), dtype=torch.int8, device=kernel.device)
     b[:oc] = kernel.permute(0, 2, 3, 1).reshape(oc, k * k * ic)
-    # (nt, n8, r, slice, s, h, j) -> (nt, slice, s, n8, h, r, j)
-    return (b.view(nt, 16, 8, slices, 4, 2, 16).permute(0, 3, 4, 1, 5, 2, 6)
-            .contiguous().view(-1))
+    n = torch.arange(rows, device=kernel.device)
+    chunk = torch.arange(8, device=kernel.device)[None, :] ^ (n[:, None] % 8)
+    # (n, slice, j, i) -> (slice, n, j ^ n % 8, i)
+    b = b.view(rows, slices, 8, 16).permute(1, 0, 2, 3)
+    return b[:, n[:, None], chunk].contiguous().view(-1)
 
 
 @functools.lru_cache(maxsize=None)
