@@ -743,6 +743,7 @@ def engine_gate(variant: str, backend: str,
     model = load_model(art_dir, variant)
     shifts, size = tuple(int(s) for s in model.shifts), model.config.img_size
     engine = CUDAEngine(model, device="cuda", backend=backend)
+    before = sum(m.launches for m in MODULES.values())
     gate = bench_gate.load_gate_images(art_dir, img_size=size)
     err = bench_gate.run_parity_gate(engine.detect_with_features, bundle, gate,
                                      shifts=shifts, img_size=size)
@@ -757,10 +758,11 @@ def engine_gate(variant: str, backend: str,
     check(np.array_equal(feats, want), f"{variant}: set_shifts{alt_shifts} "
                                        f"features differ")
     engine.set_shifts(*shifts)
-    check(engine.launches > 0, f"{variant}: the engine launched no kernel")
+    launches = sum(m.launches for m in MODULES.values()) - before
+    check(launches > 0, f"{variant}: the engine launched no kernel")
     phase("4 engine", f"{variant} ({engine.backend}, shifts {shifts}): parity "
                       f"gate passed on {len(gate)} images; set_shifts"
-                      f"{alt_shifts} checked; engine launches={engine.launches}")
+                      f"{alt_shifts} checked; kernel launches={launches}")
 
 
 def cli(variant: str, mode: str) -> None:
@@ -3119,10 +3121,10 @@ def pallas_profile(card: str, rs) -> None:
         quant.maxpool2x2(probe)
         torch.cuda.synchronize()
     pool_kernels = {e.name for e in prof.events() if e.device_type == cuda}
-    engine._features(x)  # warm-up
+    engine.features_device(x)  # warm-up
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=act) as prof:
-        engine._features(x)
+        engine.features_device(x)
         torch.cuda.synchronize()
     events = prof.events()
     names: dict[str, int] = {}

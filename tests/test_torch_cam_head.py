@@ -32,7 +32,7 @@ torch = pytest.importorskip(
     "torch", reason="torch not installed: the PyTorch port cannot be tested")
 
 from tpu_cnn_torch.apps.common import load_model  # noqa: E402
-from tpu_cnn_torch.apps.kernel_cases import cam_head_f64  # noqa: E402
+from tpu_cnn_torch.apps.kernel_cases import MODULES, cam_head_f64  # noqa: E402
 from tpu_cnn_torch.engine.cuda import CUDAEngine  # noqa: E402
 from tpu_cnn_torch.models.registry import REGISTRY  # noqa: E402
 from tpu_cnn_torch.ops import cam_head, detect_head  # noqa: E402
@@ -203,11 +203,13 @@ def test_engine_routes_the_ref_box_to_the_fused_head(std_model, box_mode,
         return real(*args)
 
     monkeypatch.setattr(cam_head, "detect_pooled_fused", spy)
+    before = {name: m.launches for name, m in MODULES.items()}
     engine = CUDAEngine(std_model, device="cpu", box_mode=box_mode)
     frames = _shipped_frames("lyr3-std", 6)
     got = engine.detect_batch(frames)
     assert calls == [6] * routed
-    assert engine.launches == 0  # the CPU runs the plain versions
+    # the CPU runs the plain versions: no wrapper counted a launch
+    assert {name: m.launches for name, m in MODULES.items()} == before
     net = engine.net
     pooled, twin = _bins_and_twin(engine, frames, "cpu")
     want = detect_head.detect_with_pooled(

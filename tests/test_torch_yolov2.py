@@ -18,6 +18,7 @@ torch = pytest.importorskip(
 
 from tpu_cnn_torch.apps.common import load_model  # noqa: E402
 from tpu_cnn_torch.engine.cuda import CUDAEngine, RegionResult, region_routes  # noqa: E402
+from tpu_cnn_torch.engine.region import RegionEngine  # noqa: E402
 from tpu_cnn_torch.models import registry  # noqa: E402
 from tpu_cnn_torch.models.cnn import CNNConfig  # noqa: E402
 from tpu_cnn_torch.models.region import (RegionConfig, RegionModel,  # noqa: E402
@@ -551,8 +552,7 @@ def test_the_region_maps_are_each_layer_on_the_last(model):
         model.config.thresh, model.config.nms, model.config.max_det)
     got = engine.detect_device(frames)[2:]
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    with pytest.raises(ValueError, match="region-head"):
-        CUDAEngine(load_model(default_artifacts()), "cpu").region_maps(frames)
+    assert not hasattr(CUDAEngine(load_model(default_artifacts()), "cpu"), "region_maps")
 
 
 @pytest.mark.parametrize("variant,routes", [
@@ -570,6 +570,10 @@ def test_the_routes_follow_the_streamed_kernels_rule(variant, routes):
 def test_the_engine_equals_the_reference(model):
     frames = _frames(12)
     engine = CUDAEngine(model, "cpu", backend="pallas", box_mode="region")
+    # the region model's own engine, without the CAM family's API
+    assert isinstance(engine, RegionEngine)
+    for name in ("run_batch", "detect_multi_batch", "features_device"):
+        assert not hasattr(engine, name), name
     got = engine.detect_batch(frames)
     assert isinstance(got, RegionResult)
     assert got.dets.shape == (12, 10, 6) and got.dets.dtype == np.float32

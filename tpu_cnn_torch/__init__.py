@@ -53,8 +53,15 @@ kernels (``csrc/``, built by ``ops._build``):
   - ``ops.preprocess``    — batched camera-frame preprocess in torch on
                             the frames' device (crop, BT.601 luma, resize)
   - ``ops.luma``          — the BT.601 constants, ``pack_bgrx``
-  - ``engine.cuda``       — ``CUDAEngine``: batched fused detect (the region
-                            detectors on ``pallas``: ``RegionResult``)
+  - ``engine.device``     — ``DeviceEngine``: the engines' device layer
+                            (frames in, results out, spans, serving
+                            protocol)
+  - ``engine.cuda``       — ``CUDAEngine``: the FpgaCNN family's batched
+                            fused detect; built on a region-head model it
+                            returns a ``RegionEngine``
+  - ``engine.region``     — ``RegionEngine``: the region-head detectors
+                            (``RegionResult``, ``region_routes``,
+                            ``region_maps``)
   - ``engine.cpu_ref``    — the numpy oracle (``numpy_cnn_forward``) and
                             the host-oracle engine ``CPURefEngine``
   - ``native.oracle``     — the C++ oracle (``native/cnn_oracle.cpp``)

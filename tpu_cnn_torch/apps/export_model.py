@@ -61,7 +61,7 @@ class DetectProgram(nn.Module):
     """The fused detect as a module for ``torch.export``: (images (B, S, S)
     u8, shifts (L,) int32) -> (pred, conf, probs, bbox), or with ``multi``
     the multi-object head's outputs (``CUDAEngine``'s
-    ``_detect_device`` and ``_detect_multi_device``, op for op, on the
+    ``detect_device`` and ``detect_multi_device``, op for op, on the
     custom ops for ``mega``). The weights, and for ``mega`` their
     ``pack_plan``, are buffers on ``device``."""
 

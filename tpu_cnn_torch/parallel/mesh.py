@@ -427,21 +427,17 @@ class _MegaProgram:
         for eng in self.engines.values():
             eng.set_shifts(*shifts)
 
-    @property
-    def launches(self) -> int:
-        return sum(e.launches for e in self.engines.values())
-
     def run(self, sb: Sharded, kind: str, instances: int = 1) -> Sharded:
         out = Sharded(self.mesh, {}, sb.rows, sb.all_axes)
         for pos, (x,) in sb.parts.items():
             eng = self.engines[self.mesh.devices[pos]]
             with self.mesh.on(pos):
                 if kind == "features":
-                    out.parts[pos] = (eng._features(x),)
+                    out.parts[pos] = (eng.features_device(x),)
                 elif kind == "detect":
                     out.parts[pos] = eng.detect_device(x)[2:]
                 else:
-                    out.parts[pos] = eng._detect_multi_device(x, instances)
+                    out.parts[pos] = eng.detect_multi_device(x, instances)
         return out
 
 
@@ -493,7 +489,6 @@ class _XlaProgram:
                                 else put(model.bbox_weight, dev, np.float32)),
                 "multi_head": (None if mh is None else
                                tuple(put(a, dev, np.float32) for a in mh))}
-        self.launches = 0  # the plain contract launches no kernel
 
     def set_shifts(self, shifts) -> None:
         src = torch.tensor(list(shifts), dtype=torch.int32)
@@ -721,11 +716,6 @@ class MeshEngine:
         self._batch_mult = self.mesh.size * shard_tile
         self._all_axes = backend == "mega"  # pure DP: shard over every axis
         self.max_batch = 4096  # the serving protocol's attribute
-
-    @property
-    def launches(self) -> int:
-        """Kernel launches made by this engine's shards."""
-        return self._prog.launches
 
     def _pad(self, images):
         s = self.model.config.img_size
