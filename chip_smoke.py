@@ -79,10 +79,11 @@ in order; any failure raises:
                 float64 CAM's where the plain version's f32 order breaks a
                 tie otherwise), probabilities within 1e-6 of the float64
                 head's. yolov2-tiny-voc's layers bit-equal to their plain
-                version (L0-L3 on the layer kernel with a bias; L4-L8 and
-                the edges on the streamed kernel, NCHW and channels-last
-                maps) and its region head's counts equal to the plain
-                head's, detections within 1e-5. (The cases of
+                version (L0-L3 and its edges on the region route's layer
+                kernel, the layer kernel's bias instantiation once; L4-L8
+                and the edges on the streamed kernel, NCHW and
+                channels-last maps) and its region head's counts equal to
+                the plain head's, detections within 1e-5. (The cases of
                 tpu_cnn_torch.apps.kernel_cases.)
   sanitize    — the sanitizer lane's card tools (python -m
                 tpu_cnn_torch.apps.sanitize memcheck racecheck synccheck
@@ -391,7 +392,7 @@ from tpu_cnn_torch.parallel.mesh import MeshEngine, RowShards, make_mesh  # noqa
 from tpu_cnn_torch.parallel.pipeline import make_pipeline_mesh  # noqa: E402
 from tpu_cnn_torch.parallel.spatial import make_spatial_mesh  # noqa: E402
 from tpu_cnn_torch.ops import (_build, bitcast, cam_head, conv_pool, conv_stream,  # noqa: E402
-                               detect_head, int8, mega, quant, region_head)
+                               detect_head, int8, mega, quant, region_head, region_layer)
 from tpu_cnn_torch.ops import preprocess as dev_preprocess  # noqa: E402
 from tpu_cnn_torch.ops.luma import pack_bgrx  # noqa: E402
 from tpu_cnn_torch.train import train_cnn  # noqa: E402
@@ -417,6 +418,7 @@ KERNELS = {  # name -> (source, the TPU kernel(s) it replaces)
     # none: the JAX package has no region-head detector
     "conv_stream": ("tpu_cnn_torch/csrc/conv_stream.cu", None),
     "region_head": ("tpu_cnn_torch/csrc/region_head.cu", None),
+    "region_layer": ("tpu_cnn_torch/csrc/region_layer.cu", None),
 }
 # the main paths: (family, engine backend, the shifts set_shifts tries, the
 # kernels the path must launch; it must launch no other)
@@ -536,8 +538,9 @@ def kernel_vs_plain(dev: torch.device) -> dict[str, float]:
                       f"{kc.CAM_PROBS_TOL} of the float64 head's; "
                       f"max_abs_err={cam_err!r}")
     rl_err, rl_cases, rs_err, rs_cases = kc.region_layers_vs_plain(dev)
-    phase("3 kernel", f"yolov2-tiny-voc's layers: L0-L3 on conv_act with a bias "
-                      f"({rl_cases} cases, B={kc.YOLO_BATCH}), L4-L8 and the edges on "
+    phase("3 kernel", f"yolov2-tiny-voc's layers: L0-L3 and the edges on region_layer "
+                      f"({rl_cases} cases, B={kc.YOLO_BATCH}, channels-last out; and "
+                      f"conv_act's bias instantiation once), L4-L8 and the edges on "
                       f"conv_stream ({rs_cases} cases, B={KERNEL_BATCH}, NCHW and "
                       f"channels-last maps) bit-equal to region_layer_reference")
     rh_err, rh_cases = kc.region_head_vs_plain(dev)
@@ -546,8 +549,8 @@ def kernel_vs_plain(dev: torch.device) -> dict[str, float]:
                       f"to region_detect_reference's, dets within 1e-5; "
                       f"max_abs_err={rh_err!r}")
     return {"mega_cnn": mega_err, "conv_pool_layer": layer_err,
-            "conv_act": max(act_err, rl_err), "bitcast": bit_err, "cam_head": cam_err,
-            "conv_stream": rs_err, "region_head": rh_err}
+            "conv_act": act_err, "bitcast": bit_err, "cam_head": cam_err,
+            "conv_stream": rs_err, "region_head": rh_err, "region_layer": rl_err}
 
 
 SANITIZE_TOOLS = ("memcheck", "racecheck", "synccheck", "initcheck")
@@ -562,8 +565,8 @@ def yolo_engine_path(dev: torch.device) -> None:
     """yolov2-tiny-voc (seeded weights, ``kernel_cases.yolo_model``) through
     ``CUDAEngine(backend="pallas", box_mode="region")`` at the offline
     cell's batch of 512 seeded frames: every layer's output of the
-    engine's launches (``region_maps``: L0-L3 on the layer kernel, L4-L8 on
-    the streamed kernel) bit-equal to ``region_layer_reference`` on the
+    engine's launches (``region_maps``: L0-L3 on the region route's layer
+    kernel, channels-last, L4-L8 on the streamed kernel) bit-equal to ``region_layer_reference`` on the
     previous one, in blocks of 64 frames of the same batch; then
     ``detect_device``'s detections against ``region_detect_reference`` on
     the last layer's sums at 512: counts equal, every pair matched within
@@ -577,6 +580,8 @@ def yolo_engine_path(dev: torch.device) -> None:
     net, cfg = engine.net, model.config
     maps = engine.region_maps(frames)
     check(len(maps) == len(cfg.specs), f"{len(maps)} maps for {len(cfg.specs)} layers")
+    check(all(m.is_contiguous(memory_format=torch.channels_last) for m in maps),
+          "yolov2-tiny-voc: a map not channels-last")
     for i, (spec, got) in enumerate(zip(cfg.specs, maps)):
         x = frames if i == 0 else maps[i - 1]
         for lo in range(0, b, block):
@@ -608,25 +613,67 @@ def yolo_engine_path(dev: torch.device) -> None:
 
 
 def yolo_times(dev: torch.device, card: str, rs) -> dict[str, tuple]:
-    """At the offline cell's batch (512 frames): the streamed kernel on
-    yolov2-tiny-voc's L4-L8 summed (channels-last maps but L4's NCHW, as the
-    engine hands them over), its plain version, their bound, and
-    ``torch._int_mm`` on the same im2col GEMMs (s8 x s8; no PyTorch call
-    takes u8 x s8 with the shift, clip and pool); each layer's queued
-    device time beside its bound by MACs; the region head on its
-    sums, its plain version and its bound (its bytes)."""
-    batch = 512
+    """At the offline cell's batch (512 frames): the region route's layer
+    kernel on yolov2-tiny-voc's L0-L3 summed and each layer's queued device
+    time, each beside its bound (bytes for L0-L1, MACs for L2-L3) and its
+    plain version's time; the streamed kernel on L4-L8 summed
+    (channels-last maps, as the engine hands them over), its plain version,
+    their bound, and ``torch._int_mm`` on the same im2col GEMMs (s8 x s8;
+    no PyTorch call takes u8 x s8 with the shift, clip and pool); each
+    streamed layer's queued device time beside its bound by MACs; the
+    region head on its sums, its plain version and its bound (its
+    bytes)."""
+    batch, plain_b = 512, 16
     model = kc.yolo_model(5)
     net = CUDAEngine(model, dev, backend="pallas", box_mode="region").net
     specs = model.config.specs
     first = 4
+    lxs, largs, lbounds = [], [], []
+    for i in range(first):
+        ic, oc, s, k, pool = specs[i]
+        x = torch.randint(0, 256, (batch, ic, s, s), dtype=torch.uint8, device=dev)
+        lxs.append(x if i == 0 else x.contiguous(memory_format=torch.channels_last))
+        largs.append((i, region_layer.pack_layer(net.kernels[i])))
+        lbounds.append(bound(s * s * oc * ic * 9 * batch,
+                             batch * (ic * s * s + oc * (s // 2) ** 2) + oc * ic * 9))
+
+    def layer_kernel(j):
+        (i, packed), x = largs[j], lxs[j]
+        return lambda: region_layer.region_layer(x, net.kernels[i], net.biases[i],
+                                                 net.shifts, i, packed=packed)
+
+    def layer_plain(j):
+        i, x = largs[j][0], lxs[j]
+        return lambda: conv_stream.region_layer_reference(
+            x[:plain_b], net.kernels[i], net.biases[i], net.shifts, i, 2, False)
+
+    lk_ms, lp_ms, nk, np_ = _kernel_and_plain_ms(
+        lambda: [layer_kernel(j)() for j in range(first)],
+        lambda: [layer_plain(j)() for j in range(first)], 5, 2)
+    lp_ms *= batch / plain_b  # the plain version on 16 frames: its f64 im2col at 512 passes 80 GB
+    lb_ms = sum(b for b, _ in lbounds)
+    phase("7 times", f"yolov2-tiny-voc L0-L3 at batch {batch} on {card}: region_layer "
+                     f"median {lk_ms!r} ms (n={nk}); bound {lb_ms!r} ms (bytes for L0-L1, "
+                     f"MACs for L2-L3), {lb_ms / lk_ms:.2%} of it; plain {lp_ms!r} ms "
+                     f"({plain_b} frames, scaled; n={np_})")
+    out = {"region_layer": (lk_ms, lp_ms, lb_ms, "bytes (L0-L1), MACs (L2-L3)", None)}
+    layers = {}
+    for j in range(first):
+        ms = _queued_ms(layer_kernel(j), 20)
+        p_ms = statistics.median(_event_ms(layer_plain(j), 3)) * batch / plain_b
+        layers[f"L{j}"] = (ms, lbounds[j][0], lbounds[j][1], p_ms)
+    phase("7 times", f"yolov2-tiny-voc per layer at batch {batch} on {card}, region_layer "
+                     f"queued ms (bound, by, share; plain ms): " + ", ".join(
+                         f"{name} {ms!r} ({b!r}, {by}, {b / ms:.1%}; {p!r})"
+                         for name, (ms, b, by, p) in layers.items()))
+    out["region_layer_layers"] = layers
+    del lxs
+    torch.cuda.empty_cache()
     xs, args = [], []
     for i in range(first, len(specs)):
         ic, oc, s, k, pool = specs[i]
         x = torch.randint(0, 256, (batch, ic, s, s), dtype=torch.uint8, device=dev)
-        if i > first:
-            x = x.contiguous(memory_format=torch.channels_last)
-        xs.append(x)
+        xs.append(x.contiguous(memory_format=torch.channels_last))
         args.append((i, pool, i == len(specs) - 1, conv_stream.pack_stream(net.kernels[i])))
 
     def kernels():
@@ -655,7 +702,7 @@ def yolo_times(dev: torch.device, card: str, rs) -> dict[str, tuple]:
                      f"median {k_ms!r} ms (n={nk}); bound {b_ms!r} ms by {b_by}, "
                      f"{b_ms / k_ms:.2%} of it; plain {p_ms!r} ms (64 frames, scaled; "
                      f"n={np_}); torch._int_mm on the im2col GEMMs {lib_ms!r} ms")
-    out = {"conv_stream": (k_ms, p_ms, b_ms, b_by, lib_ms)}
+    out["conv_stream"] = (k_ms, p_ms, b_ms, b_by, lib_ms)
     layers = {}
     for x, (i, pool, last, packed) in zip(xs, args):
         ic, oc, s, k, _ = specs[i]
@@ -3473,7 +3520,7 @@ def main(argv=None) -> None:
                   lambda: server(variant, backend))
     main_path("probe_bitcast", ("bitcast",), probe_path)
     main_path("yolov2-tiny-voc/pallas (seeded weights)",
-              ("conv_act", "conv_stream", "region_head"), lambda: yolo_engine_path(dev))
+              ("region_layer", "conv_stream", "region_head"), lambda: yolo_engine_path(dev))
     for variant, backend, instances, path_kernels in MULTI_PATHS:
         main_path(f"{variant}/{backend} --multi --instances {instances} "
                   f"(phases 4-6)", path_kernels,

@@ -221,7 +221,8 @@ def test_kernel_filter_names_every_kernel_of_the_sources(monkeypatch):
                      "conv_pool_layer": ["conv_layer_kernel"],
                      "conv_act": ["conv_layer_kernel"],
                      "bitcast": ["narrow_kernel", "roll_kernel", "widen_kernel"],
-                     "cam_head": ["cam_head_kernel"]}
+                     "cam_head": ["cam_head_kernel"],
+                     "region_layer": ["conv_layer_kernel"]}
     monkeypatch.setattr(sanitize, "compute_sanitizer", lambda: "compute-sanitizer")
     filters = {tool: [a for a in sanitize.sanitizer_argv(tool, "log") if a.startswith("kns=")]
                for tool in sanitize.CARD_TOOLS}

@@ -35,6 +35,10 @@ kernels (``csrc/``, built by ``ops._build``):
   - ``ops.cam_head``      — the single-box head with the "ref" box in one
                             kernel (``csrc/cam_head.cu``), on the
                             megakernel's bins and bf16 twin
+  - ``ops.region_layer``  — the region route's layer kernel
+                            (``csrc/region_layer.cu``: a region-head
+                            detector's pooled 3x3 layers of fewer than 128
+                            input channels, wgmma on channels-last maps)
   - ``ops.conv_stream``   — the weight-streaming layer kernel
                             (``csrc/conv_stream.cu``: wgmma on a ring of
                             bulk-copied weight slices) and the plain

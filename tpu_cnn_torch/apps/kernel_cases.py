@@ -45,7 +45,7 @@ from tpu_cnn_torch.engine.cpu_ref import numpy_cnn_forward
 from tpu_cnn_torch.engine.cuda import region_routes
 from tpu_cnn_torch.models.registry import default_shifts, get_config
 from tpu_cnn_torch.ops import (_build, bitcast, cam_head, conv_pool, conv_stream,
-                               detect_head, int8, mega, quant, region_head)
+                               detect_head, int8, mega, quant, region_head, region_layer)
 from tpu_cnn_torch.utils import artifacts as art
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -53,11 +53,11 @@ ARTIFACTS = {"lyr3-std": os.path.join(_ROOT, "artifacts", "pretrained"),
              "lyr4-wide": os.path.join(_ROOT, "artifacts", "pretrained-lyr4")}
 MODULES = {"mega_cnn": mega, "conv_pool_layer": conv_pool, "conv_act": int8,
            "bitcast": bitcast, "cam_head": cam_head, "conv_stream": conv_stream,
-           "region_head": region_head}
+           "region_head": region_head, "region_layer": region_layer}
 # how a path of each library is named: the layer kernel's under "layer"
 PATH_PREFIX = {"mega_cnn": "mega_cnn", "conv_pool_layer": "layer", "conv_act": "layer",
                "bitcast": "bitcast", "cam_head": "cam_head", "conv_stream": "stream",
-               "region_head": "region_head"}
+               "region_head": "region_head", "region_layer": "region_layer"}
 # the probe's; ragged; 16 MiB; 64 MiB of words, past the 50 MB L2 (timed)
 BITCAST_SHAPES = ((8, 256), (5, 37), (1024, 4096), (4096, 4096))
 BINS_TOL = 1e-6  # the kernel's bins vs the plain version's (1-ulp / order)
@@ -122,11 +122,34 @@ REQUIRED_PATHS = (
         "tile 192x128 (one image), three consumer warpgroups of m64n128k32",
         "persistent: a CTA's second tile", "persistent: CTAs with unequal work")),
     "region_head: launch at max_det below every box x class pair",
+    *(f"region_layer: {p}" for p in (
+        "staging: three NCHW planes by cp.async, interleaved to a word a pixel",
+        "staging: a channels-last map by 16-byte cp.async",
+        "staging: byte by byte (another layout, channel count or alignment)",
+        "A: 3 channels recast, 27 of 32 K bytes in one k32 step",
+        "A: 1-2 channels recast, one k32 step",
+        "A: ldmatrix from 16-byte staged pixels", "A: ldmatrix from 32-byte staged pixels",
+        "A: ldmatrix from 64-byte staged pixels", "A: ldmatrix from 128-byte staged pixels",
+        "wgmma m64n16k32", "wgmma m64n32k32", "wgmma m64n64k32", "wgmma m64n128k32",
+        "stores: a band's rows by bulk copy from shared memory (N 16, 32)",
+        "stores: 16 bytes a lane (N 64, 128)", "stores: 2 bytes (oc not a multiple of 16)",
+        "stores: bytes (odd oc)", "persistent: CTAs sharing an SM", "a band in column segments",
+        "persistent: a CTA's second item", "a partial band (the last pooled rows)",
+        "a partial tile (an item's last)")),
 )
-# yolov2-tiny-voc's layers (``registry.DETECTORS``): L0-L3 on the layer
-# kernel with a bias, L4-L8 on the streamed kernel; and its region head
+# yolov2-tiny-voc's layers (``registry.DETECTORS``): L0-L3 on the region
+# route's layer kernel, L4-L8 on the streamed kernel; and its region head
 YOLO = get_config("yolov2-tiny-voc")
 YOLO_BATCH = 5  # L0-L3's cases: five 416x416x3 frames
+# the region route's layer kernel past the engine's shapes: (batch, ic, oc,
+# S, layout): one and two channels, odd counts (bytes and 2-byte stores),
+# 48 channels (a padded chunk), 127 at 416 wide (column segments, 128-byte
+# pixels), 16 channels from NCHW and from a strided view (byte staging),
+# L0 at 64 frames (a CTA's second item)
+REGION_LAYER_EDGES = ((3, 1, 8, 28, "nchw"), (3, 2, 16, 30, "nchw"), (3, 5, 7, 14, "nchw"),
+                      (2, 5, 24, 22, "channels_last"), (2, 48, 48, 26, "channels_last"),
+                      (1, 127, 128, 416, "channels_last"), (2, 16, 32, 30, "nchw"),
+                      (2, 16, 32, 30, "strided"), (64, 3, 16, 416, "nchw"))
 # the streamed layers' further batches: one frame (one or two M tiles), and
 # 64 (more tiles than the card holds CTAs, shared unequally by the
 # persistent CTAs)
@@ -749,8 +772,14 @@ def _region_weights(rs, ic, oc, k, x_rms=147.0):
 def _region_layer_case(tag, x, kernel, bias, shifts, layer, pool, last, route):
     """One layer's kernel against ``conv_stream.region_layer_reference`` on
     the same tensors, bit for bit."""
-    ref = conv_stream.region_layer_reference(x, kernel, bias, shifts, layer, pool, last)
+    ref = torch.cat([conv_stream.region_layer_reference(x[lo:lo + 16], kernel, bias, shifts,
+                                                         layer, pool, last)
+                     for lo in range(0, x.shape[0], 16)])
     if route == "layer":
+        got = region_layer.region_layer(x, kernel, bias, shifts, layer)
+        check(x.device.type == "cpu" or got.is_contiguous(memory_format=torch.channels_last),
+              f"{tag}: the output is not channels-last")
+    elif route == "bias":  # the layer kernel's bias instantiation (no route reaches it)
         got = int8.fused_conv_layer(x, kernel, shifts, layer, bias=bias)
     else:
         got = conv_stream.conv_stream(x, kernel, bias, shifts, layer, pool=pool, last=last)
@@ -778,8 +807,11 @@ def yolo_model(seed: int = 0):
 def region_layers_vs_plain(dev: torch.device) -> tuple[float, int, float, int]:
     """yolov2-tiny-voc's layers, each on its kernel against the plain
     version, each on the kernel the engine routes it to
-    (``engine.cuda.region_routes``): L0-L3 on the layer kernel with a bias
-    (``YOLO_BATCH`` frames), L4-L8 on the streamed kernel at
+    (``engine.cuda.region_routes``): L0-L3 on the region route's layer
+    kernel (``YOLO_BATCH`` frames; L1-L3 channels-last, as the engine hands
+    them over, and NCHW; the ``REGION_LAYER_EDGES``; and the layer kernel's
+    bias instantiation once, which no route reaches now), L4-L8 on the
+    streamed kernel at
     ``KERNEL_BATCH`` and at ``STREAM_BATCHES`` (the map channels-last, as
     the engine hands it over, and NCHW; rows of a TMA im2col load crossing
     images, ragged last M tiles, L8's partial N tile, a persistent grid
@@ -792,14 +824,11 @@ def region_layers_vs_plain(dev: torch.device) -> tuple[float, int, float, int]:
                                                           region_routes(YOLO.specs))):
         last = i == len(YOLO.specs) - 1
         batch = YOLO_BATCH if route == "layer" else KERNEL_BATCH
-        if route == "layer" and dev.type == "cuda":
-            check(int8.layer_smem(ic, oc) > 0, f"yolo L{i}: the layer kernel's plan "
-                                               f"refuses ({ic}, {oc})")
         kernel, bias, shift = _region_weights(rs, ic, oc, k)
         shifts = torch.tensor([0] * i + [shift], dtype=torch.int32, device=dev)
         x = torch.from_numpy(rs.randint(0, 256, (batch, ic, s, s)).astype(np.uint8)).to(dev)
         kt, bt = torch.from_numpy(kernel).to(dev), torch.from_numpy(bias).to(dev)
-        forms = [x] if route == "layer" else [
+        forms = [x] if route == "layer" and i == 0 else [
             x, x.contiguous(memory_format=torch.channels_last)]
         for form in forms:
             _region_layer_case(f"yolo L{i} {route} {tuple(x.shape)}", form, kt, bt, shifts,
@@ -829,6 +858,24 @@ def region_layers_vs_plain(dev: torch.device) -> tuple[float, int, float, int]:
             _region_layer_case(f"stream edge pool {pool} last {last} w {w} shift {shift}",
                                x, kt, bt, shifts, 0, pool, last, "stream")
             stream_n += 1
+    for batch, ic, oc, s, layout in REGION_LAYER_EDGES:
+        kernel, bias, shift = _region_weights(rs, ic, oc, 3)
+        h = 6 if ic == 127 else s  # 127 channels: a band of rows across the width
+        x = torch.from_numpy(rs.randint(0, 256, (batch, ic + (layout == "strided"), h, s))
+                             .astype(np.uint8)).to(dev)
+        x = (x[:, 1:] if layout == "strided" else
+             x.contiguous(memory_format=torch.channels_last) if layout == "channels_last" else x)
+        _region_layer_case(f"region_layer edge {(batch, ic, oc, h, s, layout)}", x,
+                           torch.from_numpy(kernel).to(dev), torch.from_numpy(bias).to(dev),
+                           torch.tensor([shift], dtype=torch.int32, device=dev), 0, 2, False,
+                           "layer")
+        layer_n += 1
+    # the layer kernel's bias instantiation, kept until ROADMAP S.3 removes it
+    kernel, bias, shift = _region_weights(rs, 16, 32, 3)
+    x = torch.from_numpy(rs.randint(0, 256, (3, 16, 26, 26)).astype(np.uint8)).to(dev)
+    _region_layer_case("layer kernel with a bias", x, torch.from_numpy(kernel).to(dev),
+                       torch.from_numpy(bias).to(dev),
+                       torch.tensor([shift], dtype=torch.int32, device=dev), 0, 2, False, "bias")
     return 0.0, layer_n, 0.0, stream_n
 
 
@@ -939,13 +986,16 @@ def run_all(dev: torch.device) -> dict:
                          for path, n in counts.items() if n > before[name][path]}),
         "smem_plans": plans,
         "cases": {"mega_cnn": mega_n, "conv_pool_layer": layer_n + n_layer + gn_layer,
-                  "conv_act": act_n + n_act + gn_act + rl_n, "bitcast": bit_n,
-                  "cam_head": cam_n, "conv_stream": rs_n, "region_head": rh_n},
+                  "conv_act": act_n + n_act + gn_act + 1,  # + the bias instantiation's
+                  "bitcast": bit_n,
+                  "cam_head": cam_n, "conv_stream": rs_n, "region_head": rh_n,
+                  "region_layer": rl_n},
         "max_abs_err": {"mega_cnn": mega_err,
                         "conv_pool_layer": max(layer_err, e_layer, g_layer),
-                        "conv_act": max(act_err, e_act, g_act, rl_err),
+                        "conv_act": max(act_err, e_act, g_act),
                         "bitcast": bit_err, "cam_head": cam_err,
-                        "conv_stream": rs_err, "region_head": rh_err}}
+                        "conv_stream": rs_err, "region_head": rh_err,
+                        "region_layer": rl_err}}
 
 
 def main() -> None:

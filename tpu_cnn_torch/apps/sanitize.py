@@ -69,7 +69,7 @@ from tpu_cnn_torch.ops import _build
 
 HOST_TOOLS = ("asan", "tsan")
 CARD_TOOLS = ("memcheck", "racecheck", "synccheck", "initcheck")
-KERNELS = ("mega_cnn", "conv_pool_layer", "conv_act", "bitcast", "cam_head")
+KERNELS = ("mega_cnn", "conv_pool_layer", "conv_act", "bitcast", "cam_head", "region_layer")
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 # the port's tests that drive the host library, each file's ``native``
 # tests selected by the marker

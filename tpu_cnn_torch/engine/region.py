@@ -3,10 +3,10 @@ on one CUDA device.
 
 Every layer runs on the port's layer kernels, routed by its geometry
 (``region_routes``): a pooled 3x3 layer of fewer than 128 input channels,
-not the last, on the layer kernel with its bias (``int8.fused_conv_layer``;
-on a card its weights must fit a block by the library's own plan), the
-rest on the weight-streaming kernel (``ops.conv_stream``, inside the span
-``net.stream``); then the region head's kernel (``ops.region_head``, span
+not the last, on the region route's layer kernel (``ops.region_layer``:
+any ic from 1 to 127, oc up to 128, an even map; channels-last maps out),
+the rest on the weight-streaming kernel (``ops.conv_stream``, inside the
+span ``net.stream``); then the region head's kernel (``ops.region_head``, span
 ``head.region``, counter ``head.region.frames``). ``detect_device`` takes
 (B, C, S, S) u8 frames and returns ``(None, None, dets, count)``;
 ``detect_batch`` a ``RegionResult``; ``region_maps`` every layer's output.
@@ -23,7 +23,7 @@ import torch
 
 from tpu_cnn_torch.engine.device import DeviceEngine, _check_device
 from tpu_cnn_torch.models.region import TorchRegionNet
-from tpu_cnn_torch.ops import conv_stream, int8, mega, region_head
+from tpu_cnn_torch.ops import conv_stream, region_head, region_layer
 from tpu_cnn_torch.utils.profiling import count, span
 
 
@@ -38,7 +38,7 @@ class RegionResult:
 def region_routes(specs) -> list[str]:
     """Each layer's kernel in a region-head detector of rows ``specs``:
     "stream" where ``conv_stream.streams`` says so, else "layer" (the
-    layer kernel with the bias)."""
+    region route's layer kernel, ``ops.region_layer``)."""
     return ["stream" if conv_stream.streams(spec, i == len(specs) - 1) else "layer"
             for i, spec in enumerate(specs)]
 
@@ -59,11 +59,12 @@ class RegionEngine(DeviceEngine):
         self._routes = []
         for i, (route, spec, kernel) in enumerate(zip(region_routes(cfg.specs), cfg.specs,
                                                        self.net.kernels)):
-            if route == "layer" and cuda and not int8.layer_smem(spec[0], spec[1]):
-                raise ValueError(f"layer {i} {spec}: its weights fit no block of the "
-                                 f"layer kernel, and the streamed kernel takes input "
-                                 f"channels in multiples of {conv_stream.SLICE_K}")
-            packed = (None if not cuda else mega.pack_layer(kernel) if route == "layer"
+            if route == "layer" and cuda and not region_layer.takes(*spec[:3], spec[2]):
+                raise ValueError(f"layer {i} {spec}: the region route's layer kernel "
+                                 f"takes at most {region_layer.MAX_OC} output channels, "
+                                 f"and the streamed kernel input channels in multiples "
+                                 f"of {conv_stream.SLICE_K}")
+            packed = (None if not cuda else region_layer.pack_layer(kernel) if route == "layer"
                       else conv_stream.pack_stream(kernel))
             self._routes.append((route, packed))
         routes = [r for r, _ in self._routes]
@@ -82,8 +83,8 @@ class RegionEngine(DeviceEngine):
         with span("engine.net"):
             h = x
             for i in range(self._n_layer):
-                h = int8.fused_conv_layer(h, net.kernels[i], net.shifts, i,
-                                          packed=self._routes[i][1], bias=net.biases[i])
+                h = region_layer.region_layer(h, net.kernels[i], net.biases[i], net.shifts, i,
+                                              packed=self._routes[i][1])
                 keep(h)
             with span("net.stream"):
                 for i in range(self._n_layer, n):

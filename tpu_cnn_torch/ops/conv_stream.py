@@ -56,10 +56,10 @@ def region_layer_reference(x: torch.Tensor, kernel: torch.Tensor,
 
 def streams(spec, last: bool) -> bool:
     """Whether a region-head detector's layer ``(ic, oc, size, k, pool)``
-    runs on this kernel (``CUDAEngine``'s route): ic a multiple of
-    ``SLICE_K``, or a layer the layer kernel does not compute (a 1x1, the
-    2x2 stride-1 pool or none, the linear last layer). The others run on
-    the layer kernel with their bias (``int8.fused_conv_layer``)."""
+    runs on this kernel (``RegionEngine``'s route): ic a multiple of
+    ``SLICE_K``, or a layer the region route's layer kernel does not
+    compute (a 1x1, the 2x2 stride-1 pool or none, the linear last layer).
+    The others run on that kernel (``region_layer.region_layer``)."""
     ic, _, _, k, pool = spec
     return ic % SLICE_K == 0 or k != 3 or pool != 2 or last
 
