@@ -349,6 +349,7 @@ import http.client
 import importlib.util
 import io
 import json
+import math
 import os
 import pickle
 import shutil
@@ -392,7 +393,8 @@ from tpu_cnn_torch.parallel.mesh import MeshEngine, RowShards, make_mesh  # noqa
 from tpu_cnn_torch.parallel.pipeline import make_pipeline_mesh  # noqa: E402
 from tpu_cnn_torch.parallel.spatial import make_spatial_mesh  # noqa: E402
 from tpu_cnn_torch.ops import (_build, bitcast, cam_head, conv_pool, conv_stream,  # noqa: E402
-                               detect_head, int8, mega, quant, region_head, region_layer)
+                               detect_head, int8, mega, quant, region_head, region_layer,
+                               yolo_head)
 from tpu_cnn_torch.ops import preprocess as dev_preprocess  # noqa: E402
 from tpu_cnn_torch.ops.luma import pack_bgrx  # noqa: E402
 from tpu_cnn_torch.train import train_cnn  # noqa: E402
@@ -419,6 +421,7 @@ KERNELS = {  # name -> (source, the TPU kernel(s) it replaces)
     "conv_stream": ("tpu_cnn_torch/csrc/conv_stream.cu", None),
     "region_head": ("tpu_cnn_torch/csrc/region_head.cu", None),
     "region_layer": ("tpu_cnn_torch/csrc/region_layer.cu", None),
+    "yolo_head": ("tpu_cnn_torch/csrc/yolo_head.cu", None),
 }
 # the main paths: (family, engine backend, the shifts set_shifts tries, the
 # kernels the path must launch; it must launch no other)
@@ -548,9 +551,22 @@ def kernel_vs_plain(dev: torch.device) -> dict[str, float]:
                       f"layer, few to thousands of candidates, and none): counts equal "
                       f"to region_detect_reference's, dets within 1e-5; "
                       f"max_abs_err={rh_err!r}")
+    y3l_cases, y3s_cases = kc.yolo3_layers_vs_plain(dev)
+    phase("3 kernel", f"YOLOv3's modes: region_layer unpooled (the recast, a 1x1 as its "
+                      f"3x3, a residual) and stride 2 ({y3l_cases} cases), conv_stream "
+                      f"stride 2, residual, upsample, the input and the output inside "
+                      f"wider maps and the linear 255 channels ({y3s_cases} cases) "
+                      f"bit-equal to graph_layer_reference; nothing written outside a "
+                      f"route's channels")
+    yh_err, yh_cases = kc.yolo_head_vs_plain(dev)
+    phase("3 kernel", f"yolo_head: {yh_cases} cases (seeded sums of three heads, few to "
+                      f"thousands of candidates, pages of keys, none): counts equal to "
+                      f"yolo_detect_reference's, every pair matched within 1e-5 but near "
+                      f"ties; max_abs_err={yh_err!r}")
     return {"mega_cnn": mega_err, "conv_pool_layer": layer_err,
             "conv_act": act_err, "bitcast": bit_err, "cam_head": cam_err,
-            "conv_stream": rs_err, "region_head": rh_err, "region_layer": rl_err}
+            "conv_stream": rs_err, "region_head": rh_err, "region_layer": rl_err,
+            "yolo_head": yh_err}
 
 
 SANITIZE_TOOLS = ("memcheck", "racecheck", "synccheck", "initcheck")
@@ -612,6 +628,80 @@ def yolo_engine_path(dev: torch.device) -> None:
                        f"in another order")
 
 
+YOLO3_BLOCK = 16  # frames a reference call: its float64 maps fit the card
+
+
+def yolo3_model():
+    """YOLOv3-416 with the benchmark's seeded bundle (``benchmarks/bundles/
+    yolov3.py`` at the configuration's seed and shifts): the weights the
+    cell ``yolov3-416.offline`` runs."""
+    from benchmarks.bundles import yolov3 as maker
+    from benchmarks.lib import spec
+    from tpu_cnn_torch.models.region import RegionModel
+
+    config = spec.load_json(spec.config_path("yolov3-416"))
+    kernels, biases, shifts, _ = maker.calibrate(config, int(config["bundle"]["seed"]),
+                                                 config["shifts"])
+    return RegionModel(kernels, biases, shifts, get_config("yolov3-416"))
+
+
+def yolo3_engine_path(dev: torch.device) -> None:
+    """YOLOv3-416 through ``CUDAEngine(backend="pallas", box_mode="yolo")``
+    at the offline cell's batch of 512 seeded frames: every launch's map
+    (``region_maps``: each of the 75 convs' outputs, the 23 shortcuts'
+    sums their convs' epilogues add, the 2 upsampled maps; in route slices
+    where the engine writes them) bit-equal to the plain reference's
+    (``reference/yolov3.py``) in blocks of ``YOLO3_BLOCK`` frames of the
+    same batch; then ``detect_device``'s detections against
+    ``yolo_detect_reference`` on the engine's own sums: counts equal, every
+    pair matched within 1e-5 but near ties (``kernel_cases.region_dets_agree``)."""
+    from tpu_cnn_torch.reference import yolov3 as ref
+
+    model = yolo3_model()
+    cfg = model.config
+    b = YOLO_ENGINE_BATCH
+    frames = torch.from_numpy(np.random.RandomState(3).randint(
+        0, 256, (b, 3, 416, 416)).astype(np.uint8)).to(dev)
+    engine = CUDAEngine(model, dev, backend="pallas", box_mode="yolo")
+    maps = engine.region_maps(frames)
+    check(len(maps) == len(cfg.conv_rows), f"{len(maps)} maps for {len(cfg.conv_rows)} convs")
+    kernels = [torch.from_numpy(k).to(dev) for k in model.kernels]
+    biases = [torch.from_numpy(k).to(dev) for k in model.biases]
+    shifts = [int(s) for s in model.shifts]
+    for lo in range(0, b, YOLO3_BLOCK):
+        keep = {}
+        ref.forward(frames[lo:lo + YOLO3_BLOCK], kernels, biases, shifts, cfg.layer_configs,
+                    keep=keep)
+        for r, got in maps.items():
+            want = keep[r]
+            part = got[lo:lo + YOLO3_BLOCK].to(torch.float64)
+            check(torch.equal(part, want),
+                  f"yolov3-416 row {r} {cfg.layer_configs[r]} at B={b}, frames "
+                  f"{lo}-{lo + YOLO3_BLOCK}: {int((part != want).sum())} of {want.numel()} "
+                  f"differ")
+        del keep
+    layers = [cfg.conv_rows.index(r - 1) for r in cfg.heads]
+    sums = [maps[r - 1] for r in cfg.heads]
+    del maps
+    torch.cuda.empty_cache()
+    _, _, dets, count = engine.detect_device(frames)
+    want = yolo_head.yolo_detect_reference(
+        [t.cpu() for t in sums], model.shifts, layers, cfg.anchors, cfg.masks,
+        cfg.num_classes, cfg.img_size, cfg.thresh, cfg.nms, cfg.max_det)
+    moved, tied, err = kc.region_dets_agree((dets, count), tuple(w.to(dev) for w in want),
+                                            cfg.nms)
+    counts = count.cpu()
+    phase("main path", f"yolov3-416/pallas: {engine.backend}, at B={b}: the 75 convs "
+                       f"(routes {[s.route for s in engine._plan].count('layer')} layer, "
+                       f"{[s.route for s in engine._plan].count('stream')} stream), the "
+                       f"23 shortcuts and 2 upsamples in their epilogues, bit-equal to "
+                       f"reference/yolov3.py in blocks of {YOLO3_BLOCK}; counts "
+                       f"{int(counts.min())}-{int(counts.max())} equal to "
+                       f"yolo_detect_reference's on the engine's sums, every pair matched "
+                       f"within {err!r} but {tied} let through by a near tie; {moved} frames "
+                       f"in another order")
+
+
 def yolo_times(dev: torch.device, card: str, rs) -> dict[str, tuple]:
     """At the offline cell's batch (512 frames): the region route's layer
     kernel on yolov2-tiny-voc's L0-L3 summed and each layer's queued device
@@ -622,7 +712,7 @@ def yolo_times(dev: torch.device, card: str, rs) -> dict[str, tuple]:
     no PyTorch call takes u8 x s8 with the shift, clip and pool); each
     streamed layer's queued device time beside its bound by MACs; the
     region head on its sums, its plain version and its bound (its
-    bytes)."""
+    bytes); the [yolo] head (``yolo_head_times``)."""
     batch, plain_b = 512, 16
     model = kc.yolo_model(5)
     net = CUDAEngine(model, dev, backend="pallas", box_mode="region").net
@@ -731,7 +821,83 @@ def yolo_times(dev: torch.device, card: str, rs) -> dict[str, tuple]:
                      f"(n={nh}); bound {hb_ms!r} ms by {hb_by}, {hb_ms / h_ms:.2%} of it; "
                      f"plain {hp_ms!r} ms (n={nhp})")
     out["region_head"] = (h_ms, hp_ms, hb_ms, hb_by, None)
+    del t
+    torch.cuda.empty_cache()
+    out["yolo_head"] = yolo_head_times(dev, card, batch)
     return out
+
+
+YOLO3_HEAD_SHIFT = 12  # the sums are t x 2**12
+
+
+def yolo3_head_sums(dev: torch.device, batch: int, candidates: float = 1000.0,
+                    pairs: float = 3.0, seed: int = 416) -> list[torch.Tensor]:
+    """Three heads' int32 sums like the cell ``yolov3-416.offline``'s (13,
+    26 and 52, 80 classes; channels-last, as the streamed kernel leaves
+    them): t = sum / 2**12 standard normal, every objectness lowered so that
+    about ``candidates`` boxes a frame pass the threshold, every class logit
+    by the offset (bisected on the first 16 frames) that leaves about
+    ``pairs`` pairs above it a candidate."""
+    grids, classes, thresh = (13, 26, 52), 80, 0.005
+    boxes = sum(3 * g * g for g in grids)
+    logit = math.log(thresh / (1 - thresh))
+    obj_off = logit - statistics.NormalDist().inv_cdf(1 - candidates / boxes)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ts = [torch.randn((batch, g, g, 3, 5 + classes), generator=gen, device=dev)
+          for g in grids]
+    for t in ts:
+        t[..., 4] += obj_off
+    obj = torch.cat([torch.sigmoid(t[:16, ..., 4]).reshape(16, -1) for t in ts], 1)
+    cls = torch.cat([t[:16, ..., 5:].reshape(16, -1, classes) for t in ts], 1)
+    live = obj > thresh
+    lo, hi = -20.0, 20.0
+    for _ in range(40):
+        mid = (lo + hi) / 2
+        scores = obj[..., None] * torch.sigmoid(cls + mid)
+        got = float(((scores > thresh) & live[..., None]).sum()) / max(int(live.sum()), 1)
+        lo, hi = (lo, mid) if got > pairs else (mid, hi)
+    for t in ts:
+        t[..., 5:] += (lo + hi) / 2
+    return [torch.round(t * 2.0 ** YOLO3_HEAD_SHIFT).to(torch.int32)
+            .reshape(batch, g, g, -1).permute(0, 3, 1, 2) for t, g in zip(ts, grids)]
+
+
+def yolo_head_times(dev: torch.device, card: str, batch: int) -> tuple:
+    """The [yolo] head kernel at the offline cell's batch on
+    ``yolo3_head_sums``: its median CUDA-event time, its plain version's
+    (``yolo_detect_reference`` on the CPU, on 8 frames, scaled; its NMS is a
+    loop a pair) and its bound by the bytes it must move
+    (``benchmarks/lib/yolo3_counts.head_bound_ms``'s count: a sector of
+    each box's objectness, the rest of each candidate's row, the answers)."""
+    from tpu_cnn_torch.models.region import COCO_ANCHORS, COCO_MASKS
+
+    sums = yolo3_head_sums(dev, batch)
+    shifts = torch.tensor([YOLO3_HEAD_SHIFT] * 3, dtype=torch.int32, device=dev)
+    args = ([0, 1, 2], COCO_ANCHORS, COCO_MASKS, 80, 416, 0.005, 0.45, 100)
+    plain_b = 8
+    part = [t[:plain_b].cpu() for t in sums]
+    logit = math.log(0.005 / 0.995)
+    cands = sum(int((t[:, 4::85].double() / 2 ** YOLO3_HEAD_SHIFT > logit).sum())
+                for t in sums) / batch
+    yolo_head.yolo_detect(sums, shifts, *args)  # warm-up
+    torch.cuda.synchronize()
+    p_ms = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        yolo_head.yolo_detect_reference(part, shifts.cpu(), *args)
+        p_ms.append((time.perf_counter() - t0) * 1e3 * batch / plain_b)
+    k_ms = _event_ms(lambda: yolo_head.yolo_detect(sums, shifts, *args), 10)
+    k_ms += _event_ms(lambda: yolo_head.yolo_detect(sums, shifts, *args), 10)
+    h_ms, hp_ms = statistics.median(k_ms), statistics.median(p_ms)
+    row = 4 * 85
+    nbytes = batch * (sum(3 * t.shape[2] ** 2 for t in sums) * 32
+                      + cands * (-(-row // 32) - 1) * 32 + 4 * (6 * 100 + 1))
+    b_ms, b_by = bound(0, nbytes)
+    phase("7 times", f"yolo_head at batch {batch} on {card} (13/26/52, 80 classes, "
+                     f"{cands:.1f} candidates a frame): kernel median {h_ms!r} ms "
+                     f"(n={len(k_ms)}); bound {b_ms!r} ms by {b_by}, {b_ms / h_ms:.2%} of "
+                     f"it; plain {hp_ms!r} ms ({plain_b} frames, scaled; n={len(p_ms)})")
+    return (h_ms, hp_ms, b_ms, b_by, None)
 
 
 def sanitize_phase() -> dict[str, dict]:
@@ -3521,6 +3687,8 @@ def main(argv=None) -> None:
     main_path("probe_bitcast", ("bitcast",), probe_path)
     main_path("yolov2-tiny-voc/pallas (seeded weights)",
               ("region_layer", "conv_stream", "region_head"), lambda: yolo_engine_path(dev))
+    main_path("yolov3-416/pallas (the cell's seeded bundle)",
+              ("region_layer", "conv_stream", "yolo_head"), lambda: yolo3_engine_path(dev))
     for variant, backend, instances, path_kernels in MULTI_PATHS:
         main_path(f"{variant}/{backend} --multi --instances {instances} "
                   f"(phases 4-6)", path_kernels,

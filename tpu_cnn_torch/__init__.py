@@ -11,11 +11,13 @@ kernels (``csrc/``, built by ``ops._build``):
                             ``layer_weight_sizes``
   - ``models.registry``   — the named geometries (lyr3-std, lyr4-wide, ...)
                             and the region-head detectors (``DETECTORS``:
-                            yolov2-tiny-voc)
+                            yolov2-tiny-voc, yolov3-416)
   - ``models.region``     — the region-head detectors' layer rows
-                            ``(ic, oc, size, k, pool)``, ``RegionConfig``,
+                            ``(ic, oc, size, k, pool)``, ``RegionConfig``;
+                            darknet layer graphs with [yolo] heads
+                            (``DarknetConfig``, ``yolov3_rows``);
                             ``RegionModel`` (int8 kernels, int32 biases,
-                            shifts) and ``TorchRegionNet``
+                            shifts a conv) and ``TorchRegionNet``
   - ``ops.quant``         — the contract in plain torch (the kernels'
                             reference and the CPU path), and
                             ``cnn_forward_chunked`` over sub-batches
@@ -37,19 +39,28 @@ kernels (``csrc/``, built by ``ops._build``):
                             megakernel's bins and bf16 twin
   - ``ops.region_layer``  — the region route's layer kernel
                             (``csrc/region_layer.cu``: a region-head
-                            detector's pooled 3x3 layers of fewer than 128
-                            input channels, wgmma on channels-last maps)
+                            detector's 3x3 convs of fewer than 128 input
+                            channels, pooled, unpooled or stride 2, with a
+                            residual; wgmma on channels-last maps)
   - ``ops.conv_stream``   — the weight-streaming layer kernel
                             (``csrc/conv_stream.cu``: wgmma on a ring of
-                            bulk-copied weight slices) and the plain
+                            bulk-copied weight slices; stride 2, residual,
+                            upsample, maps inside a route's) and the plain
                             version of every region-head layer
   - ``ops.region_head``   — the region head (decode, per-class NMS, the
                             best pairs) in one kernel a batch
                             (``csrc/region_head.cu``) and its plain version
+  - ``ops.yolo_head``     — the [yolo] heads (decode, thresholds, per-class
+                            NMS over the three heads, the best pairs) in
+                            one kernel a batch (``csrc/yolo_head.cu``) and
+                            its plain version
   - ``reference.yolov2_tiny`` — the region-head detectors' plain reference
                             (torch alone, float64), whose layer functions
                             the plain version of every layer runs too;
                             the benchmark's copy adds its comparison
+  - ``reference.yolov3``  — the darknet graphs' plain reference (the same,
+                            with shortcuts, routes, upsamples, the [yolo]
+                            heads)
   - ``ops.library``       — the megakernel and the layer kernel as the
                             ``torch.library`` ops ``tcnn::mega_cnn`` and
                             ``tcnn::conv_pool_layer`` (what an exported
@@ -63,9 +74,10 @@ kernels (``csrc/``, built by ``ops._build``):
   - ``engine.cuda``       — ``CUDAEngine``: the FpgaCNN family's batched
                             fused detect; built on a region-head model it
                             returns a ``RegionEngine``
-  - ``engine.region``     — ``RegionEngine``: the region-head detectors
-                            (``RegionResult``, ``region_routes``,
-                            ``region_maps``)
+  - ``engine.region``     — ``RegionEngine``: the region-head detectors,
+                            a chain or a darknet graph as a plan of conv
+                            launches (``RegionResult``, ``region_routes``,
+                            ``graph_route``, ``region_maps``)
   - ``engine.cpu_ref``    — the numpy oracle (``numpy_cnn_forward``) and
                             the host-oracle engine ``CPURefEngine``
   - ``native.oracle``     — the C++ oracle (``native/cnn_oracle.cpp``)

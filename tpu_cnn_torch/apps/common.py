@@ -4,7 +4,7 @@
 from __future__ import annotations
 
 from tpu_cnn_torch.models.cnn import DEFAULT_SHIFTS, FpgaCNN
-from tpu_cnn_torch.models.region import RegionConfig, RegionModel
+from tpu_cnn_torch.models.region import DarknetConfig, RegionConfig, RegionModel
 from tpu_cnn_torch.models.registry import default_shifts, get_config
 from tpu_cnn_torch.utils import artifacts as art
 
@@ -28,9 +28,9 @@ def load_model(
     detector (``registry.DETECTORS``) loads its own bundle
     (``artifacts.load_region_bundle``) at its shifts.json's shifts."""
     config = get_config(variant)
-    if isinstance(config, RegionConfig):
+    if isinstance(config, (RegionConfig, DarknetConfig)):
         kernels, biases, saved, names = art.load_region_bundle(
-            artifacts_dir, len(config.layer_configs))
+            artifacts_dir, len(config.specs))
         return RegionModel(kernels, biases, saved if shifts is None else shifts,
                            config, names)
     bundle = art.load_bundle(artifacts_dir, prefix=head_prefix,

@@ -45,7 +45,8 @@ from tpu_cnn_torch.engine.cpu_ref import numpy_cnn_forward
 from tpu_cnn_torch.engine.cuda import region_routes
 from tpu_cnn_torch.models.registry import default_shifts, get_config
 from tpu_cnn_torch.ops import (_build, bitcast, cam_head, conv_pool, conv_stream,
-                               detect_head, int8, mega, quant, region_head, region_layer)
+                               detect_head, int8, mega, quant, region_head, region_layer,
+                               yolo_head)
 from tpu_cnn_torch.utils import artifacts as art
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -53,11 +54,12 @@ ARTIFACTS = {"lyr3-std": os.path.join(_ROOT, "artifacts", "pretrained"),
              "lyr4-wide": os.path.join(_ROOT, "artifacts", "pretrained-lyr4")}
 MODULES = {"mega_cnn": mega, "conv_pool_layer": conv_pool, "conv_act": int8,
            "bitcast": bitcast, "cam_head": cam_head, "conv_stream": conv_stream,
-           "region_head": region_head, "region_layer": region_layer}
+           "region_head": region_head, "region_layer": region_layer, "yolo_head": yolo_head}
 # how a path of each library is named: the layer kernel's under "layer"
 PATH_PREFIX = {"mega_cnn": "mega_cnn", "conv_pool_layer": "layer", "conv_act": "layer",
                "bitcast": "bitcast", "cam_head": "cam_head", "conv_stream": "stream",
-               "region_head": "region_head", "region_layer": "region_layer"}
+               "region_head": "region_head", "region_layer": "region_layer",
+               "yolo_head": "yolo_head"}
 # the probe's; ragged; 16 MiB; 64 MiB of words, past the 50 MB L2 (timed)
 BITCAST_SHAPES = ((8, 256), (5, 37), (1024, 4096), (4096, 4096))
 BINS_TOL = 1e-6  # the kernel's bins vs the plain version's (1-ulp / order)
@@ -136,6 +138,16 @@ REQUIRED_PATHS = (
         "stores: bytes (odd oc)", "persistent: CTAs sharing an SM", "a band in column segments",
         "persistent: a CTA's second item", "a partial band (the last pooled rows)",
         "a partial tile (an item's last)")),
+    # YOLOv3's (``yolo3_layers_vs_plain``, ``yolo_head_vs_plain``)
+    *(f"stream: {p}" for p in (
+        "stride 2: TMA im2col every 2 pixels", "a residual added after the clip",
+        "upsampled 2x in the epilogue", "the output inside a wider map (a route's slice)",
+        "the input inside a wider map (TMA strides)")),
+    *(f"region_layer: {p}" for p in (
+        "output: the unpooled map, 2 bytes a lane",
+        "output: the stride-2 conv's map, 2 bytes a lane", "a residual added after the clip")),
+    *(f"yolo_head: {p}" for p in (
+        "launch: pages possible (more boxes x classes than a page holds)",)),
 )
 # yolov2-tiny-voc's layers (``registry.DETECTORS``): L0-L3 on the region
 # route's layer kernel, L4-L8 on the streamed kernel; and its region head
@@ -879,6 +891,125 @@ def region_layers_vs_plain(dev: torch.device) -> tuple[float, int, float, int]:
     return 0.0, layer_n, 0.0, stream_n
 
 
+# YOLOv3's new modes, one case each (batch, ic, oc, side, k, mode): the
+# layer kernel's unpooled map (L0's recast, L2's 1x1 as its 3x3, L3 and L7
+# with their residual) and stride-2 conv (L1, L5); the streamed kernel's
+# stride 2 (L12; L62 reading layer 61's map inside L86's), residual (L14;
+# L60 writing layer 61's map into L86's channels 256..767), upsample (L84
+# into L86's channels 0..255, L96 into L98's) and linear 255 channels (L81,
+# L105: two N tiles)
+YOLO3_LAYER_CASES = ((2, 3, 32, 416, 3, "plain", False), (3, 32, 64, 416, 3, "stride2", False),
+                     (3, 64, 32, 208, 1, "plain", False), (3, 32, 64, 208, 3, "plain", True),
+                     (3, 64, 128, 208, 3, "stride2", False), (5, 64, 128, 104, 3, "plain", True))
+YOLO3_STREAM_CASES = (  # (batch, ic, oc, side, k, stride, residual, upsample, in, out pitch)
+    (KERNEL_BATCH, 128, 256, 104, 3, 2, False, False, 0, 0),
+    (5, 512, 1024, 26, 3, 2, False, False, 768, 0),
+    (KERNEL_BATCH, 128, 256, 52, 3, 1, True, False, 0, 0),
+    (7, 256, 512, 26, 3, 1, True, False, 0, 768),
+    (KERNEL_BATCH, 512, 256, 13, 1, 1, False, True, 0, 768),
+    (9, 256, 128, 26, 1, 1, False, True, 0, 384),
+    (KERNEL_BATCH, 1024, 255, 13, 1, 1, False, False, 0, 0),
+    (5, 256, 255, 52, 1, 1, False, False, 0, 0))
+
+
+def yolo3_layers_vs_plain(dev: torch.device) -> tuple[int, int]:
+    """YOLOv3's new modes of both kernels (``YOLO3_LAYER_CASES``,
+    ``YOLO3_STREAM_CASES``), each against ``conv_stream.graph_layer_reference``
+    bit for bit: the residual a seeded map, a pitched input written inside a
+    wider channels-last map, a pitched output written into one whose other
+    channels must stay as they were -> (layer cases, stream cases)."""
+    rs = np.random.RandomState(31)
+    layer_n = stream_n = 0
+    for b, ic, oc, s, k, mode, res in YOLO3_LAYER_CASES:
+        kernel, bias, shift = _region_weights(rs, ic, oc, k)
+        shifts = torch.tensor([shift], dtype=torch.int32, device=dev)
+        x = torch.from_numpy(rs.randint(0, 256, (b, ic, s, s)).astype(np.uint8)).to(dev)
+        if ic % 16 == 0:
+            x = x.contiguous(memory_format=torch.channels_last)
+        o = s if mode == "plain" else s // 2
+        r = (torch.from_numpy(rs.randint(0, 256, (b, oc, o, o)).astype(np.uint8)).to(dev)
+             .contiguous(memory_format=torch.channels_last) if res else None)
+        kt, bt = torch.from_numpy(kernel).to(dev), torch.from_numpy(bias).to(dev)
+        got = region_layer.region_layer(x, kt, bt, shifts, 0, out_mode=mode, residual=r)
+        want = conv_stream.graph_layer_reference(x, kt, bt, shifts, 0,
+                                                 stride=2 if mode == "stride2" else 1,
+                                                 residual=r)
+        _sync(dev)
+        check(torch.equal(got, want), f"yolov3 layer kernel {(b, ic, oc, s, k, mode, res)}: "
+                                      f"{int((got != want).sum())} of {want.numel()} differ")
+        layer_n += 1
+    for b, ic, oc, s, k, stride, res, up, pin, pout in YOLO3_STREAM_CASES:
+        kernel, bias, shift = _region_weights(rs, ic, oc, k)
+        shifts = torch.tensor([shift], dtype=torch.int32, device=dev)
+        last = oc == 255
+        x = torch.from_numpy(rs.randint(0, 256, (b, ic, s, s)).astype(np.uint8)).to(dev)
+        if pin:
+            wide = torch.zeros((b, s, s, pin), dtype=torch.uint8, device=dev)
+            wide[..., pin - ic:] = x.permute(0, 2, 3, 1)
+            xin = wide.permute(0, 3, 1, 2)[:, pin - ic:]
+        else:
+            xin = x.contiguous(memory_format=torch.channels_last)
+        o = s // stride
+        r = (torch.from_numpy(rs.randint(0, 256, (b, oc, o, o)).astype(np.uint8)).to(dev)
+             .contiguous(memory_format=torch.channels_last) if res else None)
+        out, wide_out, at = None, None, 0
+        if pout:
+            side = 2 * o if up else o
+            wide_out = torch.full((b, side, side, pout), 77, dtype=torch.uint8, device=dev)
+            at = 0 if up else pout - oc
+            out = wide_out.permute(0, 3, 1, 2)[:, at:at + oc]
+        kt, bt = torch.from_numpy(kernel).to(dev), torch.from_numpy(bias).to(dev)
+        got = conv_stream.conv_stream(xin, kt, bt, shifts, 0, stride=stride, residual=r,
+                                      out=out, upsample=up, last=last)
+        want = conv_stream.graph_layer_reference(x, kt, bt, shifts, 0, stride=stride,
+                                                 last=last, residual=r, upsample=up)
+        _sync(dev)
+        tag = f"yolov3 streamed kernel {(b, ic, oc, s, k, stride, res, up, pin, pout)}"
+        check(torch.equal(got, want), f"{tag}: {int((got != want).sum())} of "
+                                      f"{want.numel()} differ")
+        if wide_out is not None:
+            rest = torch.cat([wide_out[..., :at], wide_out[..., at + oc:]], dim=-1)
+            check(bool((rest == 77).all()), f"{tag}: wrote outside its channels")
+        stream_n += 1
+    return layer_n, stream_n
+
+
+# the [yolo] head's seeded sums: (batch, grids, classes, objectness mean):
+# YOLOv3-416's three heads at few and at many candidates (past a page of
+# keys: the pages' search), a small three-head net, and sums leaving none
+YOLO3_HEAD_CASES = ((KERNEL_BATCH, (13, 26, 52), 80, -8.0), (5, (13, 26, 52), 80, -2.0),
+                    (4, (2, 4, 8), 4, -3.0), (3, (13, 26, 52), 80, -40.0))
+
+
+def yolo_head_vs_plain(dev: torch.device) -> tuple[float, int]:
+    """The [yolo] head's kernel against ``yolo_detect_reference`` on seeded
+    sums of three heads (channels-last, as the streamed kernel leaves them;
+    ``YOLO3_HEAD_CASES``): counts equal, and every pair matched within 1e-5
+    where no near tie lets the two orders differ (``region_dets_agree``)."""
+    from tpu_cnn_torch.models.region import COCO_ANCHORS, COCO_MASKS
+
+    rs = np.random.RandomState(37)
+    shift = 12
+    shifts = torch.tensor([shift] * 3, dtype=torch.int32, device=dev)
+    max_err, n = 0.0, 0
+    for batch, grids, classes, obj_mean in YOLO3_HEAD_CASES:
+        sums = []
+        for g in grids:
+            t = rs.standard_normal((batch, 3, 5 + classes, g, g)) * 2.0
+            t[:, :, 4] += obj_mean
+            t[:, :, 5:] += obj_mean / 3
+            t = torch.from_numpy(np.round(t * 2**shift).astype(np.int32)).to(dev)
+            sums.append(t.reshape(batch, -1, g, g).contiguous(memory_format=torch.channels_last))
+        args = ([0, 1, 2], COCO_ANCHORS, COCO_MASKS, classes, 416, 0.005, 0.45, 100)
+        got = yolo_head.yolo_detect(sums, shifts, *args)
+        want = yolo_head.yolo_detect_reference([t.cpu() for t in sums], shifts.cpu(), *args)
+        _sync(dev)
+        want = tuple(w.to(dev) for w in want)
+        _, _, err = region_dets_agree(got, want, 0.45)
+        max_err, n = max(max_err, err), n + 1
+    return max_err, n
+
+
 def region_dets_agree(got, want, nms: float, tol: float = 1e-5) -> tuple[int, int, float]:
     """The region head's answer ``got`` (dets (B, M, 6), count (B,))
     against its plain version's ``want``, where float32 roundings may
@@ -979,6 +1110,8 @@ def run_all(dev: torch.device) -> dict:
     cam_err, cam_n = cam_head_vs_plain(dev)
     rl_err, rl_n, rs_err, rs_n = region_layers_vs_plain(dev)
     rh_err, rh_n = region_head_vs_plain(dev)
+    y3l_n, y3s_n = yolo3_layers_vs_plain(dev)
+    yh_err, yh_n = yolo_head_vs_plain(dev)
     after = _path_counts() if dev.type == "cuda" else {}
     return {
         "launches": {name: m.launches for name, m in MODULES.items()},
@@ -988,14 +1121,14 @@ def run_all(dev: torch.device) -> dict:
         "cases": {"mega_cnn": mega_n, "conv_pool_layer": layer_n + n_layer + gn_layer,
                   "conv_act": act_n + n_act + gn_act + 1,  # + the bias instantiation's
                   "bitcast": bit_n,
-                  "cam_head": cam_n, "conv_stream": rs_n, "region_head": rh_n,
-                  "region_layer": rl_n},
+                  "cam_head": cam_n, "conv_stream": rs_n + y3s_n, "region_head": rh_n,
+                  "region_layer": rl_n + y3l_n, "yolo_head": yh_n},
         "max_abs_err": {"mega_cnn": mega_err,
                         "conv_pool_layer": max(layer_err, e_layer, g_layer),
                         "conv_act": max(act_err, e_act, g_act),
                         "bitcast": bit_err, "cam_head": cam_err,
                         "conv_stream": rs_err, "region_head": rh_err,
-                        "region_layer": rl_err}}
+                        "region_layer": rl_err, "yolo_head": yh_err}}
 
 
 def main() -> None:

@@ -11,6 +11,13 @@
 //        the map)                                -> (B, OH, OW, oc) u8
 //     or, the linear last layer, the s32 sums    -> (B, H, W, oc) s32
 //
+// A darknet graph's convs (YOLOv3's of 128 input channels and more) add, as
+// compile-time instantiations of the no-pool mode (Feature): stride 2 (the
+// TMA im2col walks the map every 2 pixels), a residual map added after the
+// clip (the shortcut), the 2x upsample (each pixel to its 2x2 block), and
+// maps inside wider ones (a route's channels: the im2col map's pixel
+// stride, the output's pitch). A chain's layers take none of them.
+//
 // An implicit GEMM: M = output pixels (pre-pool), N = output channels, K =
 // k*k taps x ic channels in slices of 128 bytes (one tap, 128 channels: ic
 // a multiple of 128). The tile shapes, the schedule and which pixel each M
@@ -109,7 +116,13 @@ struct alignas(64) StreamArgs {
   void* out;
   int layer;
   Geometry g;
+  const uint8_t* res;  // the residual map (kFeatResidual), res_pitch bytes a pixel
 };
+
+// A layer graph's epilogue and producer additions (conv_stream_forward_ex),
+// compile-time bits of the no-pool mode's instantiations; 0 is a chain's
+// layer, as yolov2-tiny-voc's: a stride of 1, its outputs at its own pitch.
+enum Feature { kFeatStride2 = 1, kFeatResidual = 2, kFeatUpsample = 4 };
 
 // ── Hopper primitives this kernel alone uses ─────────────────────────
 
@@ -379,7 +392,7 @@ __device__ __forceinline__ void stage_rows(const StreamArgs& a, uint32_t stg, in
   }
 }
 
-template <int MODE, int SRC>
+template <int MODE, int SRC, int FEAT>
 __device__ __forceinline__ void produce(const StreamArgs& a, uint8_t* smem, uint64_t* full,
                                         uint64_t* empty) {
   using T = Tile<MODE>;
@@ -398,7 +411,15 @@ __device__ __forceinline__ void produce(const StreamArgs& a, uint8_t* smem, uint
       unit_tile(g, u, mt, nt);
       int sb[T::kConsumers], sy[T::kConsumers], sx[T::kConsumers];
 #pragma unroll
-      for (int j = 0; j < T::kConsumers; ++j) slab_start(g, mt, j, sb[j], sy[j], sx[j]);
+      for (int j = 0; j < T::kConsumers; ++j) {
+        if constexpr ((FEAT & kFeatStride2) != 0) {
+          slab_start_out(g, mt, j, sb[j], sy[j], sx[j]);
+          sy[j] *= 2;
+          sx[j] *= 2;
+        } else {
+          slab_start(g, mt, j, sb[j], sy[j], sx[j]);
+        }
+      }
       for (int ks = 0; ks < g.slices; ++ks, ++cnt) {
         const int s = cnt % T::kStages;
         acquire(cnt);
@@ -469,7 +490,7 @@ __device__ __forceinline__ void produce(const StreamArgs& a, uint8_t* smem, uint
 
 // ── the consumers ────────────────────────────────────────────────────
 
-template <int MODE>
+template <int MODE, int FEAT>
 __device__ __forceinline__ void epilogue(const StreamArgs& a, int (&acc)[Tile<MODE>::kN / 2],
                                          long long mt, int nt, int cw, uint8_t* smem) {
   using T = Tile<MODE>;
@@ -499,6 +520,45 @@ __device__ __forceinline__ void epilogue(const StreamArgs& a, int (&acc)[Tile<MO
         for (int e = 0; e < 2; ++e) {
           const int n = n0 + 8 * j + 2 * t4 + e;
           if (n < g.oc) out[row * g.oc + n] = acc[4 * j + 2 * h + e] + bias(j, e);
+        }
+      }
+    }
+  } else if (MODE == kPlain && FEAT != 0) {
+    // a layer graph's: out_pitch bytes a pixel, the residual added after
+    // the clip (saturating), or each pixel to its 2x2 block of a map of
+    // twice the side
+    uint8_t* out = static_cast<uint8_t*>(a.out);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long row = row0 + rbase + 8 * h;
+      if (row >= g.m_rows) continue;
+      long long at = row;  // the output pixel (the upsampled block's top left)
+      if constexpr ((FEAT & kFeatUpsample) != 0) {
+        const int hw = g.out_h * g.out_w;
+        const long long b = row / hw;
+        const int p = static_cast<int>(row - b * hw), y = p / g.out_w, x = p - y * g.out_w;
+        at = (b * 2 * g.out_h + 2 * y) * 2 * g.out_w + 2 * x;
+      }
+      uint8_t* o = out + at * g.out_pitch + n0 + 2 * t4;
+      const uint8_t* r = nullptr;
+      if constexpr ((FEAT & kFeatResidual) != 0) r = a.res + row * g.res_pitch + n0 + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < kJ; ++j) {
+        if (n0 + 8 * j + 2 * t4 + 1 >= g.oc) continue;
+        int p0 = clip_shift(acc[4 * j + 2 * h] + bias(j, 0), shift);
+        int p1 = clip_shift(acc[4 * j + 2 * h + 1] + bias(j, 1), shift);
+        if constexpr ((FEAT & kFeatResidual) != 0) {
+          const uint32_t rv = *reinterpret_cast<const uint16_t*>(r + 8 * j);
+          p0 = min(p0 + static_cast<int>(rv & 0xFFu), 255);
+          p1 = min(p1 + static_cast<int>(rv >> 8), 255);
+        }
+        const uint16_t v = static_cast<uint16_t>(p0 | (p1 << 8));
+        *reinterpret_cast<uint16_t*>(o + 8 * j) = v;
+        if constexpr ((FEAT & kFeatUpsample) != 0) {
+          const long long right = g.out_pitch, down = 2LL * g.out_w * g.out_pitch;
+          *reinterpret_cast<uint16_t*>(o + 8 * j + right) = v;
+          *reinterpret_cast<uint16_t*>(o + 8 * j + down) = v;
+          *reinterpret_cast<uint16_t*>(o + 8 * j + down + right) = v;
         }
       }
     }
@@ -570,7 +630,7 @@ __device__ __forceinline__ void epilogue(const StreamArgs& a, int (&acc)[Tile<MO
   }
 }
 
-template <int MODE>
+template <int MODE, int FEAT>
 __device__ __forceinline__ void consume(const StreamArgs& a, uint8_t* smem, uint64_t* full,
                                         uint64_t* empty, int cw) {
   using T = Tile<MODE>;
@@ -607,11 +667,11 @@ __device__ __forceinline__ void consume(const StreamArgs& a, uint8_t* smem, uint
     wgmma_wait<0>();
     release(cnt - 1);
     fence_regs(acc);
-    epilogue<MODE>(a, acc, mt, nt, cw, smem);
+    epilogue<MODE, FEAT>(a, acc, mt, nt, cw, smem);
   }
 }
 
-template <int MODE, int SRC>
+template <int MODE, int SRC, int FEAT>
 __global__ void __launch_bounds__(Tile<MODE>::kThreads, 1)
     conv_stream_kernel(const __grid_constant__ StreamArgs a) {
   using T = Tile<MODE>;
@@ -636,10 +696,10 @@ __global__ void __launch_bounds__(Tile<MODE>::kThreads, 1)
       (kLaunchRegs + (kLaunchRegs - kProducerRegs) / T::kConsumers) & ~7;
   if (threadIdx.x < kGroup) {
     setmaxnreg_dec<kProducerRegs>();
-    produce<MODE, SRC>(a, smem, full, empty);
+    produce<MODE, SRC, FEAT>(a, smem, full, empty);
   } else {
     setmaxnreg_inc<kConsumerRegs>();
-    consume<MODE>(a, smem, full, empty,
+    consume<MODE, FEAT>(a, smem, full, empty,
                   static_cast<int>(threadIdx.x / kGroup) - 1);
   }
 }
@@ -648,7 +708,8 @@ __global__ void __launch_bounds__(Tile<MODE>::kThreads, 1)
 enum StreamPath {
   kPathTma, kPathNchw, kPathNhwcGather, kPathPlain, kPathPool2, kPathPool1, kPathLinear,
   kPathK1, kPathPartialN, kPathPartialM, kPathAcrossImages, kPathWide, kPathNarrow, kPathImage,
-  kPathSecondTile, kPathUnequal, kStreamPaths
+  kPathSecondTile, kPathUnequal, kPathStride2, kPathResidual, kPathUpsample, kPathOutPitch,
+  kPathInPitch, kStreamPaths
 };
 constexpr const char* kStreamPathNames[kStreamPaths] = {
     "A by TMA im2col from a channels-last map",
@@ -660,7 +721,10 @@ constexpr const char* kStreamPathNames[kStreamPaths] = {
     "tile 128x256, two consumer warpgroups of m64n256k32",
     "tile 128x128 (the linear layer), two consumer warpgroups of m64n128k32",
     "tile 192x128 (one image), three consumer warpgroups of m64n128k32",
-    "persistent: a CTA's second tile", "persistent: CTAs with unequal work"};
+    "persistent: a CTA's second tile", "persistent: CTAs with unequal work",
+    "stride 2: TMA im2col every 2 pixels", "a residual added after the clip",
+    "upsampled 2x in the epilogue", "the output inside a wider map (a route's slice)",
+    "the input inside a wider map (TMA strides)"};
 PathCounts<kStreamPaths> g_stream_paths(kStreamPathNames);
 
 using StreamKernel = void (*)(StreamArgs);
@@ -670,13 +734,20 @@ struct Variant {
   int threads, smem, index;
 };
 
-template <int MODE, int SRC>
+template <int MODE, int SRC, int FEAT = 0>
 Variant variant() {
-  return {conv_stream_kernel<MODE, SRC>, Tile<MODE>::kThreads, Tile<MODE>::smem(SRC != kATma),
-          MODE * 3 + SRC};
+  return {conv_stream_kernel<MODE, SRC, FEAT>, Tile<MODE>::kThreads,
+          Tile<MODE>::smem(SRC != kATma), FEAT == 0 ? MODE * 3 + SRC : 11 + FEAT};
 }
 
-Variant pick(int mode, int src) {
+Variant pick(int mode, int src, int feat) {
+  if (feat != 0) {  // a layer graph's no-pool layers, A by TMA (make_geometry_ex)
+    switch (feat) {
+      case kFeatStride2: return variant<kPlain, kATma, kFeatStride2>();
+      case kFeatResidual: return variant<kPlain, kATma, kFeatResidual>();
+      default: return variant<kPlain, kATma, kFeatUpsample>();
+    }
+  }
   switch (mode * 3 + src) {
     case kPlain * 3 + kATma: return variant<kPlain, kATma>();
     case kPlain * 3 + kANchw: return variant<kPlain, kANchw>();
@@ -691,7 +762,7 @@ Variant pick(int mode, int src) {
 
 constexpr int kMaxDevices = 64;
 std::mutex g_resident_mutex;
-int g_resident[kMaxDevices][12] = {};  // CTAs the card holds at once, per variant
+int g_resident[kMaxDevices][16] = {};  // CTAs the card holds at once, per variant
 
 // How many CTAs of `v` the card holds at once (its persistent grid).
 cudaError_t resident_ctas(const Variant& v, int device, int* n) {
@@ -755,33 +826,52 @@ extern "C" int conv_stream_paths(const char** names, unsigned long long* hits, i
 // stride 2; H, W even). Takes ic a multiple of 128, k 1 or 3; where the
 // producer warps gather A (an NCHW map, or the 2x2/2 pool) a tile's source
 // rows must fit their staging (conv_stream_plan.h; yolov2-tiny-voc's maps
-// do). Returns a cudaError_t: cudaSuccess, cudaErrorInvalidValue for a
-// geometry the kernel does not take, or the launch error. Neither
-// synchronises nor allocates.
+// do). A layer graph's convs (no pool; make_geometry_ex) also take
+// `stride` 2, x's pixels `in_pitch` bytes apart (channels-last), out
+// (channels-last) `out_pitch` bytes a pixel, `res` the residual map (null:
+// none) `res_pitch` bytes a pixel, `upsample` 1; x, out and res may lie
+// inside wider maps (a route's channels). A chain's layer passes stride 1,
+// the pitches ic and oc, no residual, no upsample. Returns a cudaError_t:
+// cudaSuccess, cudaErrorInvalidValue for a geometry the kernel does not
+// take, or the launch error. Neither synchronises nor allocates.
 extern "C" int conv_stream_forward(const void* x, int nhwc, const void* w, const void* bias,
                                    const void* shifts, int layer, void* out, int batch, int ic,
                                    int oc, int height, int width, int k, int pool, int linear,
-                                   int device, void* stream) {
+                                   int stride, int in_pitch, int out_pitch, const void* res,
+                                   int res_pitch, int upsample, int device, void* stream) {
   StreamArgs a;
   Geometry& g = a.g;
+  if (res == nullptr) res_pitch = 0;
   if (layer < 0 || device < 0 || device >= kMaxDevices ||
-      make_geometry(batch, ic, oc, height, width, k, pool, linear, nhwc, &g) != 0) {
+      make_geometry_ex(batch, ic, oc, height, width, k, pool, linear, nhwc, stride, in_pitch,
+                       out_pitch, res_pitch, upsample, &g) != 0 ||
+      (res != nullptr && res_pitch == 0)) {
     return cudaErrorInvalidValue;
   }
-  if ((reinterpret_cast<uintptr_t>(w) & 15) != 0 || (reinterpret_cast<uintptr_t>(x) & 15) != 0) {
+  if ((reinterpret_cast<uintptr_t>(w) & 15) != 0 || (reinterpret_cast<uintptr_t>(x) & 15) != 0 ||
+      (reinterpret_cast<uintptr_t>(out) & 1) != 0 || (reinterpret_cast<uintptr_t>(res) & 1) != 0) {
     return cudaErrorInvalidValue;
   }
   if (batch == 0) return cudaSuccess;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const int src = g.tma ? kATma : nhwc ? kANhwc : kANchw;
-  const Variant v = pick(g.mode, src);
+  const int feat = (g.stride == 2 ? kFeatStride2 : 0) | (res_pitch ? kFeatResidual : 0) |
+                   (g.upsample ? kFeatUpsample : 0);
+  // the plain instantiation stores at oc bytes a pixel: another pitch
+  // comes with a residual or an upsample
+  if ((feat != 0 && feat != kFeatStride2 && feat != kFeatResidual && feat != kFeatUpsample) ||
+      (feat != 0 && !g.tma) || (feat == 0 && out_pitch != oc)) {
+    return cudaErrorInvalidValue;
+  }
+  const Variant v = pick(g.mode, src, feat);
   a.x = static_cast<const uint8_t*>(x);
   a.w = static_cast<const int8_t*>(w);
   a.bias = static_cast<const int32_t*>(bias);
   a.shifts = static_cast<const int32_t*>(shifts);
   a.out = out;
   a.layer = layer;
+  a.res = static_cast<const uint8_t*>(res);
   std::fill(reinterpret_cast<char*>(&a.tmap), reinterpret_cast<char*>(&a.tmap + 1), 0);
   if (g.tma) {
     const EncodeIm2col encode = encode_im2col();
@@ -791,7 +881,8 @@ extern "C" int conv_stream_forward(const void* x, int nhwc, const void* w, const
     im2col_box(g, dims, strides, lower, upper);
     const cuuint64_t cdims[4] = {dims[0], dims[1], dims[2], dims[3]};
     const cuuint64_t cstrides[3] = {strides[0], strides[1], strides[2]};
-    const cuuint32_t elem[4] = {1, 1, 1, 1};
+    const cuuint32_t s = static_cast<cuuint32_t>(g.stride);
+    const cuuint32_t elem[4] = {1, s, s, 1};
     if (encode(&a.tmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<void*>(x), cdims, cstrides,
                lower, upper, kSliceK, kSlab, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
@@ -819,6 +910,11 @@ extern "C" int conv_stream_forward(const void* x, int nhwc, const void* w, const
     }
     if (g.units > launched) g_stream_paths.add(kPathSecondTile);
     if (g.units > launched && g.units % launched != 0) g_stream_paths.add(kPathUnequal);
+    if (g.stride == 2) g_stream_paths.add(kPathStride2);
+    if (res_pitch) g_stream_paths.add(kPathResidual);
+    if (g.upsample) g_stream_paths.add(kPathUpsample);
+    if (out_pitch != oc) g_stream_paths.add(kPathOutPitch);
+    if (in_pitch != ic) g_stream_paths.add(kPathInPitch);
   }
   return err;
 }

@@ -40,6 +40,13 @@ struct Geometry {
   long long m_rows, m_tiles, units;
   int staging_rows;  // the most source rows a tile stages (0: A by TMA)
   int tma;           // A by TMA im2col (a channels-last map, no 2x2/2 pool)
+  // A layer graph's additions (make_geometry_ex); a chain's layers keep
+  // make_geometry's values: stride 1, the pitches their channels, no
+  // residual, no upsample.
+  int stride;                          // 1, or 2: a 3x3 conv read by TMA im2col every 2 pixels
+  int out_h, out_w;                    // the conv's output map (before an upsample)
+  int in_pitch, out_pitch, res_pitch;  // bytes from one pixel to the next of x, out, the residual
+  int upsample;                        // each output pixel stored to its 2x2 block
 };
 
 // The most source rows (b * H + y) a tile of `g` reads, halo included.
@@ -85,6 +92,54 @@ PLAN_FN int make_geometry(int batch, int ic, int oc, int height, int width, int 
   g->tma = nhwc && mode != kPool2;
   g->staging_rows = g->tma ? 0 : max_source_rows(*g);
   if (!g->tma && g->staging_rows * width > staging_pixels(mode)) return 1;
+  g->stride = 1;
+  g->out_h = mode == kPool2 ? height / 2 : height;
+  g->out_w = mode == kPool2 ? width / 2 : width;
+  g->in_pitch = ic;
+  g->out_pitch = oc;
+  g->res_pitch = 0;
+  g->upsample = 0;
+  return 0;
+}
+
+// make_geometry for a layer of a layer graph: `stride` 2 (a 3x3 conv,
+// darknet's out(y, x) = sum in(2 y - 1 + dy, 2 x - 1 + dx), on an even
+// map), x's pixels `in_pitch` bytes apart (a map inside a wider
+// concatenated one; A by TMA), the output's `out_pitch` apart, a residual
+// map (res_pitch > 0: u8 = min(u8 + residual, 255) after the clip) and
+// `upsample` (each output pixel stored to its 2x2 block of a map of twice
+// the side). Every addition but the pitch of x is the unpooled mode's.
+PLAN_FN int make_geometry_ex(int batch, int ic, int oc, int height, int width, int k, int pool,
+                             int linear, int nhwc, int stride, int in_pitch, int out_pitch,
+                             int res_pitch, int upsample, Geometry* g) {
+  if (make_geometry(batch, ic, oc, height, width, k, pool, linear, nhwc, g) != 0) return 1;
+  const bool plain = g->mode == kPlain;
+  if ((stride != 1 && stride != 2) || (upsample != 0 && upsample != 1) || in_pitch < ic ||
+      out_pitch < oc || res_pitch < 0) {
+    return 1;
+  }
+  if (stride == 2 && (!plain || !g->tma || k != 3 || height % 2 != 0 || width % 2 != 0 ||
+                      upsample)) {
+    return 1;
+  }
+  if (in_pitch != ic && (!g->tma || in_pitch % 16 != 0)) return 1;
+  if ((out_pitch != oc || res_pitch != 0 || upsample) && (!plain || out_pitch % 2 != 0)) return 1;
+  if (res_pitch != 0 && (res_pitch < oc || res_pitch % 2 != 0 || upsample)) return 1;
+  g->stride = stride;
+  if (stride == 2) {
+    g->out_h = height / 2;
+    g->out_w = width / 2;
+  }
+  g->in_pitch = in_pitch;
+  g->out_pitch = out_pitch;
+  g->res_pitch = res_pitch;
+  g->upsample = upsample;
+  if (stride == 2) {  // M rows: the output's pixels
+    g->rows_per_image = g->out_h * g->out_w;
+    g->m_rows = static_cast<long long>(batch) * g->rows_per_image;
+    g->m_tiles = (g->m_rows + g->tile_m - 1) / g->tile_m;
+    g->units = g->m_tiles * g->n_tiles;
+  }
   return 0;
 }
 
@@ -144,6 +199,18 @@ PLAN_FN void slab_start(const Geometry& g, long long mt, int j, int& b, int& y, 
   x = p % g.width;
 }
 
+// slab_start on the output map (out_h x out_w) of a strided layer: the
+// output pixel where slab `j` of tile `mt` starts; its taps read from
+// (stride y - pad, stride x - pad) on.
+PLAN_FN void slab_start_out(const Geometry& g, long long mt, int j, int& b, int& y, int& x) {
+  const int hw = g.out_h * g.out_w;
+  const long long q = mt * g.tile_m + static_cast<long long>(kSlab) * j;
+  b = static_cast<int>(q / hw);
+  const int p = static_cast<int>(q - static_cast<long long>(b) * hw);
+  y = p / g.out_w;
+  x = p % g.out_w;
+}
+
 // The source rows (b * H + y over the batch) that tile `mt` reads, halo
 // included, clipped to the batch: [lo, hi], empty (lo > hi) for a tile
 // past the batch.
@@ -177,16 +244,17 @@ PLAN_FN void tile_source_rows(const Geometry& g, long long mt, int& lo, int& hi)
 }
 
 // A's im2col tensor map over a channels-last (B, H, W, ic) u8 map,
-// innermost first: dims (ic, W, H, B), byte strides of W, H and B, and the
-// bounding box's corners for a SAME k x k conv (the offsets of a tap run
-// 0 .. k - 1 from the corner).
+// innermost first: dims (ic, W, H, B), byte strides of W, H and B (a
+// pixel `in_pitch` bytes on), and the bounding box's corners for a SAME k
+// x k conv (the offsets of a tap run 0 .. k - 1 from the corner); the
+// load walks the box every `stride` pixels (its traversal stride).
 PLAN_FN void im2col_box(const Geometry& g, unsigned long long dims[4],
                         unsigned long long strides[3], int lower[2], int upper[2]) {
   dims[0] = static_cast<unsigned long long>(g.ic);
   dims[1] = static_cast<unsigned long long>(g.width);
   dims[2] = static_cast<unsigned long long>(g.height);
   dims[3] = static_cast<unsigned long long>(g.batch);
-  strides[0] = dims[0];
+  strides[0] = static_cast<unsigned long long>(g.in_pitch);
   strides[1] = strides[0] * dims[1];
   strides[2] = strides[1] * dims[2];
   lower[0] = lower[1] = -g.pad;

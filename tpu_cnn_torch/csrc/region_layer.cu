@@ -8,6 +8,14 @@
 //     -> u8 = clip(>> shift[layer], 0, 255) -> 2x2 stride-2 max
 //     -> (B, H/2, W/2, oc) u8, channels-last
 //
+// A darknet graph's convs (YOLOv3's of fewer than 128 input channels) take
+// the same tiles with another output (region_layer_plan.h's out_mode, a
+// compile-time instantiation each): the unpooled map, M rows g and g + 8 a
+// row pair's pixels, or the stride-2 conv, M rows two output rows of one
+// column reading every other staged pixel; each stores 2 bytes a lane
+// from registers, the residual map (the shortcut's other input) added
+// after the clip, saturating at 255.
+//
 // An implicit GEMM on wgmma: M = pre-pool pixels, N = oc (16, 32, 64 or
 // 128: m64nNk32, oc padded with zero weights), K = the pixel's 3x3
 // neighbourhood. The geometry (paths, shared-memory plan, the persistent
@@ -93,6 +101,7 @@ struct LayerArgs {
   long long sb, sc, sy, sx;  // x's strides in bytes (the byte-wise staging)
   int layer;
   Geometry g;
+  const uint8_t* res;  // the unpooled modes' residual map, out's shape (null: none)
 };
 
 // d (+)= A (registers) x B (64 x 128 of 32 K bytes; hopper.cuh's Wgmma).
@@ -475,17 +484,67 @@ __device__ __forceinline__ void store_tile(const LayerArgs& a, const Lane<N>& ln
   }
 }
 
+// The unpooled and stride-2 modes' epilogue: the bias, shift and clip of
+// a tile's accumulators, the residual added (saturating) where there is
+// one, stored channels-last: M row g (acc[4 j + e]) is output pixel (y, x)
+// of position (prow, pcol) of the item, row g + 8 (acc[4 j + 2 + e]) the
+// pixel a row down (valid: inside the item).
+template <int N, int OUT>
+__device__ __forceinline__ void store_plain(const LayerArgs& a, const Lane<N>& ln,
+                                            const uint8_t* smem, int (&acc)[N / 2], bool valid,
+                                            int prow, int pcol, int b, int band, int x0,
+                                            int prows, int shift) {
+  if (!valid) return;
+  const Geometry& g = a.g;
+  const int32_t* bias_s = reinterpret_cast<const int32_t*>(smem + g.off_bias);
+  const int oh = OUT == kOutPlain ? g.height : g.oh, ow = OUT == kOutPlain ? g.width : g.ow;
+  const int y = OUT == kOutPlain ? 2 * (band * g.band + prow) : band * g.band + 2 * prow;
+  const int x = OUT == kOutPlain ? x0 + pcol : x0 / 2 + pcol;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (OUT == kOutStride2 && 2 * prow + h >= prows) continue;
+    const long long pix = (static_cast<long long>(b) * oh + y + h) * ow + x;
+    uint8_t* o = a.out + pix * g.oc;
+    const uint8_t* r = a.res != nullptr ? a.res + pix * g.oc : nullptr;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      const int c = 8 * j + 2 * ln.t;
+      if (c >= g.oc) continue;  // oc is even (make_geometry_ex)
+      int b0, b1;
+      if constexpr (N <= 32) {
+        b0 = ln.bias[2 * j];
+        b1 = ln.bias[2 * j + 1];
+      } else {
+        const int2 bb = *reinterpret_cast<const int2*>(bias_s + c);
+        b0 = bb.x;
+        b1 = bb.y;
+      }
+      int v0 = clip_shift(acc[4 * j + 2 * h] + b0, shift);
+      int v1 = clip_shift(acc[4 * j + 2 * h + 1] + b1, shift);
+      if (r != nullptr) {
+        const uint32_t rv = *reinterpret_cast<const uint16_t*>(r + c);
+        v0 = min(v0 + static_cast<int>(rv & 0xFFu), 255);
+        v1 = min(v1 + static_cast<int>(rv >> 8), 255);
+      }
+      *reinterpret_cast<uint16_t*>(o + c) = static_cast<uint16_t>(v0 | (v1 << 8));
+    }
+  }
+}
+
 // The warpgroup's tiles wg, wg + groups, .. of one item: each tile's MMAs,
 // then its epilogue (the other warpgroups of the SM run theirs meanwhile;
 // ptxas serialises a warpgroup's MMAs whose accumulators another tile's
 // epilogue reads while they run).
-template <int CPC, int N>
+template <int CPC, int N, int OUT>
 __device__ __forceinline__ void run_item(const LayerArgs& a, const uint8_t* smem,
                                          const uint8_t* st, const Lane<N>& ln, int wg, int b,
-                                         int band, int x0, int sw, int q, int shift) {
+                                         int band, int x0, int sw, int q, int shift,
+                                         int prows) {
   const Geometry& g = a.g;
   constexpr int kGroups = Cfg<N>::kGroups, kStride = kTileQ * kGroups;
   const int tiles = (q + kTileQ - 1) / kTileQ;
+  // positions a row: the stride-2 mode's output columns, else the segment's
+  const int per_row = OUT == kOutStride2 ? sw / 2 : sw;
   if (wg >= tiles) return;
   // this lane's A row: its recast row g (the upper pixel; the lower one a
   // staged row down), or the row it addresses for ldmatrix (lane & 7, the
@@ -494,8 +553,8 @@ __device__ __forceinline__ void run_item(const LayerArgs& a, const uint8_t* smem
   const int lower = CPC == 0 ? 0 : (ln.lane >> 3) & 1;
   // a lane's positions, as (pooled row, column) of the item: its A row's,
   // and its window's left column
-  Walk pa(wg * kTileQ + 8 * ln.w + arow, sw, kStride);
-  Walk pe(wg * kTileQ + 8 * ln.w + (ln.gq & ~1), sw, kStride);
+  Walk pa(wg * kTileQ + 8 * ln.w + arow, per_row, kStride);
+  Walk pe(wg * kTileQ + 8 * ln.w + (OUT == kOutPool ? (ln.gq & ~1) : ln.gq), per_row, kStride);
   const long long pix0 = (static_cast<long long>(b) * g.oh + band * g.band) * g.ow + x0 / 2;
 
   // N 16: two tiles' MMAs a wait, their epilogues side by side
@@ -503,6 +562,11 @@ __device__ __forceinline__ void run_item(const LayerArgs& a, const uint8_t* smem
   int acc0[N / 2], acc1[N / 2];
   uint32_t af0[Steps<CPC>::kKg][4], af1[Steps<CPC>::kKg][4];
   auto a_pix = [&]() {
+    if constexpr (OUT == kOutStride2) {  // output row 2 row + lower reads source rows from twice it
+      return pa.i < q && 2 * pa.row + lower < prows
+                 ? 2 * (2 * pa.row + lower) * g.cols + g.lead + 2 * pa.col - 1
+                 : g.lead;  // past the item: read, never stored
+    }
     return pa.i < q ? (2 * pa.row + lower) * g.cols + g.lead + pa.col - 1
                     : g.lead;  // past the item: read, never stored
   };
@@ -519,10 +583,19 @@ __device__ __forceinline__ void run_item(const LayerArgs& a, const uint8_t* smem
     wgmma_wait_all();
     fence_regs(acc0);
     fence_regs(acc1);
-    store_tile<N>(a, ln, smem, acc0, pe.i < q, soff(), pooled(), shift);
+    if constexpr (OUT == kOutPool) {
+      store_tile<N>(a, ln, smem, acc0, pe.i < q, soff(), pooled(), shift);
+    } else {
+      store_plain<N, OUT>(a, ln, smem, acc0, pe.i < q, pe.row, pe.col, b, band, x0, prows, shift);
+    }
     pe.step();
     if (two) {
-      store_tile<N>(a, ln, smem, acc1, pe.i < q, soff(), pooled(), shift);
+      if constexpr (OUT == kOutPool) {
+        store_tile<N>(a, ln, smem, acc1, pe.i < q, soff(), pooled(), shift);
+      } else {
+        store_plain<N, OUT>(a, ln, smem, acc1, pe.i < q, pe.row, pe.col, b, band, x0, prows,
+                            shift);
+      }
       pe.step();
     }
   }
@@ -531,7 +604,7 @@ __device__ __forceinline__ void run_item(const LayerArgs& a, const uint8_t* smem
 // ── the kernel ───────────────────────────────────────────────────────
 
 // The region route's layer kernel.
-template <int CPC, int N>
+template <int CPC, int N, int OUT>
 __global__ void __launch_bounds__(Cfg<N>::kThreads, Cfg<N>::kMinBlocks)
     conv_layer_kernel(const __grid_constant__ LayerArgs a) {
   extern __shared__ __align__(128) uint8_t smem[];
@@ -593,7 +666,11 @@ __global__ void __launch_bounds__(Cfg<N>::kThreads, Cfg<N>::kMinBlocks)
       planes_to_stage(g, smem, buf, 2 * prows + 2, tid, kThreads);
       __syncthreads();
     }
-    run_item<CPC, N>(a, smem, st, ln, wg, b, band, x0, sw, q, shift);
+    if constexpr (OUT != kOutPool) {
+      int per_row;
+      item_positions(g, prows, sw, per_row, q);
+    }
+    run_item<CPC, N, OUT>(a, smem, st, ln, wg, b, band, x0, sw, q, shift, prows);
     fence_proxy_async();  // this thread's output stores, before the bulk copy reads them
     __syncthreads();      // every warpgroup is done with this buffer and its output
     if (tid == 0 && g.out_bytes) {
@@ -617,7 +694,7 @@ enum LayerPath {
   kPathPlanes, kPathNhwc16, kPathBytes, kPathRecast3, kPathRecastSmall, kPathTaps16,
   kPathTaps32, kPathTaps64, kPathTaps128, kPathN16, kPathN32, kPathN64, kPathN128,
   kPathStoreBulk, kPathStore16, kPathStore2, kPathStore1, kPathTwoCtas, kPathSegments, kPathSecondItem,
-  kPathPartialBand, kPathPartialTile, kLayerPaths
+  kPathPartialBand, kPathPartialTile, kPathOutPlain, kPathOutStride2, kPathResidual, kLayerPaths
 };
 constexpr const char* kLayerPathNames[kLayerPaths] = {
     "staging: three NCHW planes by cp.async, interleaved to a word a pixel",
@@ -632,7 +709,8 @@ constexpr const char* kLayerPathNames[kLayerPaths] = {
     "stores: 16 bytes a lane (N 64, 128)", "stores: 2 bytes (oc not a multiple of 16)",
     "stores: bytes (odd oc)", "persistent: CTAs sharing an SM", "a band in column segments",
     "persistent: a CTA's second item", "a partial band (the last pooled rows)",
-    "a partial tile (an item's last)"};
+    "a partial tile (an item's last)", "output: the unpooled map, 2 bytes a lane",
+    "output: the stride-2 conv's map, 2 bytes a lane", "a residual added after the clip"};
 PathCounts<kLayerPaths> g_layer_paths(kLayerPathNames);
 
 using LayerKernel = void (*)(LayerArgs);
@@ -642,9 +720,9 @@ struct Variant {
   int threads, index;
 };
 
-template <int CPC, int N>
+template <int CPC, int N, int OUT = kOutPool>
 Variant variant(int index) {
-  return {conv_layer_kernel<CPC, N>, Cfg<N>::kThreads, index};
+  return {conv_layer_kernel<CPC, N, OUT>, Cfg<N>::kThreads, index};
 }
 
 template <int CPC>
@@ -657,7 +735,35 @@ Variant pick_n(int n, int c) {
   }
 }
 
+// The unpooled and stride-2 modes' variants: N 32, 64 and 128 (oc > 16).
+template <int CPC, int OUT>
+Variant pick_out(int n, int c) {
+  const int index = 20 + 15 * (OUT - 1) + 3 * c;
+  switch (n) {
+    case 32: return variant<CPC, 32, OUT>(index);
+    case 64: return variant<CPC, 64, OUT>(index + 1);
+    default: return variant<CPC, 128, OUT>(index + 2);
+  }
+}
+
 Variant pick(const Geometry& g) {
+  if (g.out_mode == kOutPlain) {
+    if (g.mode == kRecast) return pick_out<0, kOutPlain>(g.n, 0);
+    switch (g.cp) {
+      case 16: return pick_out<1, kOutPlain>(g.n, 1);
+      case 32: return pick_out<2, kOutPlain>(g.n, 2);
+      case 64: return pick_out<4, kOutPlain>(g.n, 3);
+      default: return pick_out<8, kOutPlain>(g.n, 4);
+    }
+  }
+  if (g.out_mode == kOutStride2) {  // never the recast (make_geometry_ex)
+    switch (g.cp) {
+      case 16: return pick_out<1, kOutStride2>(g.n, 1);
+      case 32: return pick_out<2, kOutStride2>(g.n, 2);
+      case 64: return pick_out<4, kOutStride2>(g.n, 3);
+      default: return pick_out<8, kOutStride2>(g.n, 4);
+    }
+  }
   if (g.mode == kRecast) return pick_n<0>(g.n, 0);
   switch (g.cp) {
     case 16: return pick_n<1>(g.n, 1);
@@ -704,22 +810,29 @@ extern "C" int region_layer_paths(const char** names, unsigned long long* hits, 
 
 // Launches one layer on `stream` of CUDA device `device`: x (B, ic, H, W)
 // u8 with byte strides (sb, sc, sy, sx), `layout` 0 NCHW contiguous, 1
-// channels-last contiguous, 2 neither; w pack_layer's bytes (16-byte aligned), bias (oc,) s32, shifts a
-// device s32 vector read at `layer`; out (B, H/2, W/2, oc) u8. Takes ic
-// 1-127, oc 1-128, H and W even (region_layer_plan.h). Returns a
+// channels-last contiguous, 2 neither; w pack_layer's bytes (16-byte
+// aligned), bias (oc,) s32, shifts a device s32 vector read at `layer`.
+// `out_mode` 0 (a chain's: the 2x2/2 pool, out (B, H/2, W/2, oc)), 1 (the
+// unpooled map: out (B, H, W, oc)) or 2 (the stride-2 conv: out (B, H/2,
+// W/2, oc)); `res` (the unpooled modes, null for none) a channels-last map
+// of out's shape, added to the clipped bytes (saturating at 255). Takes ic
+// 1-127, oc 1-128, H and W even (region_layer_plan.h); the unpooled modes
+// oc 18-128, even, and the stride-2 one ic 4 or more. Returns a
 // cudaError_t: cudaSuccess, cudaErrorInvalidValue for a geometry or a
 // pointer the kernel does not take, or the launch error. Neither
 // synchronises nor allocates.
 extern "C" int region_layer_forward(const void* x, int layout, const void* w, const void* bias,
                                     const void* shifts, int layer, void* out, int batch, int ic,
                                     int oc, int height, int width, long long sb, long long sc,
-                                    long long sy, long long sx, int device, void* stream) {
+                                    long long sy, long long sx, int out_mode, const void* res,
+                                    int device, void* stream) {
   LayerArgs a;
   Geometry& g = a.g;
   const int aligned = (reinterpret_cast<uintptr_t>(x) & 15) == 0;
   if (layer < 0 || device < 0 || device >= kMaxDevices ||
-      make_geometry(batch, ic, oc, height, width, layout, aligned, &g) != 0 ||
-      (reinterpret_cast<uintptr_t>(w) & 15) != 0 || (reinterpret_cast<uintptr_t>(out) & 15) != 0) {
+      make_geometry_ex(batch, ic, oc, height, width, layout, aligned, out_mode, &g) != 0 ||
+      (reinterpret_cast<uintptr_t>(w) & 15) != 0 || (reinterpret_cast<uintptr_t>(out) & 15) != 0 ||
+      (res != nullptr && (out_mode == kOutPool || (reinterpret_cast<uintptr_t>(res) & 1) != 0))) {
     return cudaErrorInvalidValue;
   }
   if (batch == 0) return cudaSuccess;
@@ -736,6 +849,7 @@ extern "C" int region_layer_forward(const void* x, int layout, const void* w, co
   a.sy = sy;
   a.sx = sx;
   a.layer = layer;
+  a.res = static_cast<const uint8_t*>(res);
   int per_sm, sms;
   err = resident_ctas(v, g.smem, device, &per_sm, &sms);
   if (err != cudaSuccess) return err;
@@ -749,11 +863,16 @@ extern "C" int region_layer_forward(const void* x, int layout, const void* w, co
                       : g.cp == 16 ? kPathTaps16 : g.cp == 32 ? kPathTaps32
                       : g.cp == 64 ? kPathTaps64 : kPathTaps128);
     g_layer_paths.add(g.n == 16 ? kPathN16 : g.n == 32 ? kPathN32 : g.n == 64 ? kPathN64 : kPathN128);
-    g_layer_paths.add(g.out_bytes ? kPathStoreBulk : oc % 16 == 0 ? kPathStore16
-                      : oc % 2 == 0 ? kPathStore2 : kPathStore1);
+    if (out_mode == kOutPool) {
+      g_layer_paths.add(g.out_bytes ? kPathStoreBulk : oc % 16 == 0 ? kPathStore16
+                        : oc % 2 == 0 ? kPathStore2 : kPathStore1);
+    }
     if (per_sm >= 2) g_layer_paths.add(kPathTwoCtas);
     if (g.segs > 1) g_layer_paths.add(kPathSegments);
     if (g.units > launched) g_layer_paths.add(kPathSecondItem);
+    if (out_mode == kOutPlain) g_layer_paths.add(kPathOutPlain);
+    if (out_mode == kOutStride2) g_layer_paths.add(kPathOutStride2);
+    if (res != nullptr) g_layer_paths.add(kPathResidual);
     const int last_band = g.oh - (g.bands - 1) * g.band, last_seg = width - (g.segs - 1) * g.seg_w;
     if (last_band != g.band) g_layer_paths.add(kPathPartialBand);
     if ((g.band * g.seg_w) % kTileQ != 0 || (last_band * g.seg_w) % kTileQ != 0 ||

@@ -95,7 +95,16 @@ struct Geometry {
   int stages;               // staging buffers: 2, or 1 behind raw planes
   int smem;                 // dynamic shared memory
   long long units;          // work items
+  // A layer graph's output modes (make_geometry_ex; a chain's pooled
+  // layers take kOutPool): the 2x2/2 pool; the unpooled map (an item's
+  // `band` row pairs, M rows g and g + 8 a pair's two pixels); or the
+  // stride-2 conv (darknet's out(y, x) = sum in(2 y - 1 + dy, 2 x - 1 +
+  // dx)), its `band` output rows over the same staged source rows, M rows
+  // g and g + 8 two output rows of one column.
+  int out_mode;
 };
+
+enum OutMode { kOutPool = 0, kOutPlain = 1, kOutStride2 = 2 };
 
 // Shared memory of a plan of `band` pooled rows over `seg_w` columns.
 RPLAN_FN void fill_plan(Geometry* g, int band, int seg_w) {
@@ -115,7 +124,8 @@ RPLAN_FN void fill_plan(Geometry* g, int band, int seg_w) {
   g->off_bias = align_up(g->w_bytes, kAlign);
   g->off_raw = g->off_bias + align_up(4 * g->n, kAlign);
   g->off_stage = g->off_raw + 2 * g->raw_bytes;
-  g->out_bytes = bulk_out(g->n, g->oc) ? align_up(band * (seg_w / 2) * g->oc, kAlign) : 0;
+  g->out_bytes = g->out_mode == kOutPool && bulk_out(g->n, g->oc)
+                     ? align_up(band * (seg_w / 2) * g->oc, kAlign) : 0;
   g->off_out = g->off_stage + g->stages * g->stage_bytes;
   g->smem = g->off_out + g->out_bytes;
   g->units = static_cast<long long>(g->batch) * g->bands * g->segs;
@@ -126,13 +136,16 @@ RPLAN_FN void fill_plan(Geometry* g, int band, int seg_w) {
 // contiguous channels-last one, 2 for other strides; `aligned` when its
 // pointer is 16-byte aligned. Returns 0, or 1 for a geometry the kernel
 // does not take.
-RPLAN_FN int make_geometry(int batch, int ic, int oc, int height, int width, int layout,
-                           int aligned, Geometry* g) {
+RPLAN_FN int make_geometry_ex(int batch, int ic, int oc, int height, int width, int layout,
+                              int aligned, int out_mode, Geometry* g) {
   if (batch < 0 || ic < 1 || ic > kMaxIc || oc < 1 || oc > kMaxOc || height < 2 ||
       width < 2 || height % 2 != 0 || width % 2 != 0 || height > 32768 || width > 32768 ||
-      static_cast<long long>(height) * width > (1LL << 28)) {
+      static_cast<long long>(height) * width > (1LL << 28) || out_mode < kOutPool ||
+      out_mode > kOutStride2 || (out_mode != kOutPool && (oc <= 16 || oc % 2 != 0)) ||
+      (out_mode == kOutStride2 && ic <= 3)) {
     return 1;
   }
+  g->out_mode = out_mode;
   g->batch = batch;
   g->ic = ic;
   g->oc = oc;
@@ -173,6 +186,25 @@ RPLAN_FN int make_geometry(int batch, int ic, int oc, int height, int width, int
     if (seg_w <= 2) return 1;
     seg_w = (seg_w / 2 + 1) & ~1;  // halve, kept even
   }
+}
+
+// Fills `g` for one pooled 3x3 layer (make_geometry_ex's pool mode).
+RPLAN_FN int make_geometry(int batch, int ic, int oc, int height, int width, int layout,
+                           int aligned, Geometry* g) {
+  return make_geometry_ex(batch, ic, oc, height, width, layout, aligned, kOutPool, g);
+}
+
+// The output map of `g`: (H / 2, W / 2) pooled or stride 2, else (H, W).
+RPLAN_FN void out_map(const Geometry& g, int& oh, int& ow) {
+  oh = g.out_mode == kOutPlain ? g.height : g.oh;
+  ow = g.out_mode == kOutPlain ? g.width : g.ow;
+}
+
+// An item's positions: per row (the stride-2 mode's output columns, else
+// the segment's columns) and in all (its row pairs x per_row).
+RPLAN_FN void item_positions(const Geometry& g, int prows, int sw, int& per_row, int& q) {
+  per_row = g.out_mode == kOutStride2 ? sw / 2 : sw;
+  q = (g.out_mode == kOutStride2 ? (prows + 1) / 2 : prows) * per_row;
 }
 
 // The image, band and segment of work item `u` (items of one image
@@ -228,9 +260,31 @@ RPLAN_FN void staged_source(const Geometry& g, int band, int seg, int srow, int 
 
 // Tiles of an item.
 RPLAN_FN int item_tiles(const Geometry& g, int band, int seg) {
-  int prows, sw, x0, q;
+  int prows, sw, x0, q, per_row;
   item_shape(g, band, seg, prows, sw, x0, q);
+  item_positions(g, prows, sw, per_row, q);
   return (q + kTileQ - 1) / kTileQ;
+}
+
+// The output pixel (y, x) of M row `r` (0..63) of tile `tile` of an item
+// in the unpooled and stride-2 modes (y = x = -1 past the item's pixels).
+RPLAN_FN void tile_out_pixel(const Geometry& g, int band, int seg, int tile, int r, int& y,
+                             int& x) {
+  int prows, sw, x0, q, per_row;
+  item_shape(g, band, seg, prows, sw, x0, q);
+  item_positions(g, prows, sw, per_row, q);
+  const int p = tile * kTileQ + 8 * (r / 16) + (r % 8), lower = (r % 16) / 8;
+  y = x = -1;
+  if (p >= q) return;
+  const int pr = p / per_row, pc = p - pr * per_row;
+  if (g.out_mode == kOutStride2) {
+    if (2 * pr + lower >= prows) return;
+    y = band * g.band + 2 * pr + lower;
+    x = x0 / 2 + pc;
+  } else {
+    y = 2 * (band * g.band + pr) + lower;
+    x = x0 + pc;
+  }
 }
 
 }  // namespace region_plan

@@ -123,8 +123,9 @@ class CUDAEngine(DeviceEngine):
             raise ValueError(f"a region-head detector runs on the 'pallas' backend "
                              f"(every layer on the port's layer kernels), not "
                              f"{backend!r}")
-        if box_mode != "region":
-            raise ValueError(f"a region-head detector takes box_mode 'region', not "
+        want = model.head_mode  # "region" (a chain) or "yolo" (a darknet graph)
+        if box_mode != want:
+            raise ValueError(f"this region-head detector takes box_mode {want!r}, not "
                              f"{box_mode!r}")
         return RegionEngine(model, device, max_batch, timeout_s)
 

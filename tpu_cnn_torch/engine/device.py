@@ -106,7 +106,7 @@ class DeviceEngine:
         into the device shift vector the kernel reads. Work already
         dispatched keeps the old shifts; nothing is rebuilt and the host
         does not wait. Each shift must lie in 0..31."""
-        if len(shifts) != len(self.model.config.layer_configs):
+        if len(shifts) != len(self.model.shifts):
             raise ValueError("one shift per layer required")
         quant.check_shifts(shifts)
         self.model.shifts = np.asarray(shifts, np.int32)

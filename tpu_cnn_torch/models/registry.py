@@ -10,7 +10,7 @@ finds a name in either."""
 from __future__ import annotations
 
 from tpu_cnn_torch.models.cnn import LAYER_CONFIGS, CNNConfig
-from tpu_cnn_torch.models.region import RegionConfig
+from tpu_cnn_torch.models.region import DarknetConfig, RegionConfig, yolov3_rows
 
 REGISTRY: dict[str, CNNConfig] = {
     # the reference hardware network (flagship)
@@ -26,7 +26,7 @@ REGISTRY: dict[str, CNNConfig] = {
 }
 
 
-DETECTORS: dict[str, RegionConfig] = {
+DETECTORS: dict[str, RegionConfig | DarknetConfig] = {
     # darknet's cfg/yolov2-tiny-voc.cfg: 416x416x3, conv3x3 3-16-...-1024
     # with 2x2 pools (the sixth at stride 1), conv3x3 1024-1024, conv1x1
     # 1024-125, the VOC region head
@@ -35,10 +35,14 @@ DETECTORS: dict[str, RegionConfig] = {
         (64, 128, 52, 3, 2), (128, 256, 26, 3, 2), (256, 512, 13, 3, 1),
         (512, 1024, 13, 3, 0), (1024, 1024, 13, 3, 0),
         (1024, 125, 13, 1, 0))),
+    # darknet's cfg/yolov3.cfg at 416x416x3: Darknet-53 (75 convs in all,
+    # 23 shortcuts, stride-2 downsampling), 4 routes, 2 upsamples and three
+    # [yolo] heads over 80 COCO classes
+    "yolov3-416": DarknetConfig(layer_configs=yolov3_rows(416, 80)),
 }
 
 
-def get_config(name: str) -> CNNConfig | RegionConfig:
+def get_config(name: str) -> CNNConfig | RegionConfig | DarknetConfig:
     if name in REGISTRY:
         return REGISTRY[name]
     try:
