@@ -554,10 +554,12 @@ def kernel_vs_plain(dev: torch.device) -> dict[str, float]:
     y3l_cases, y3s_cases = kc.yolo3_layers_vs_plain(dev)
     phase("3 kernel", f"YOLOv3's modes: region_layer unpooled (the recast, a 1x1 as its "
                       f"3x3, a residual) and stride 2 ({y3l_cases} cases), conv_stream "
-                      f"stride 2, residual, upsample, the input and the output inside "
-                      f"wider maps and the linear 255 channels ({y3s_cases} cases) "
-                      f"bit-equal to graph_layer_reference; nothing written outside a "
-                      f"route's channels")
+                      f"stride 2, residual (staged by TMA: a partial M tile, a residual "
+                      f"inside a wider map, oc 128), upsample, the input and the output "
+                      f"inside wider maps and the linear 255 channels ({y3s_cases} cases, "
+                      f"{len(kc.YOLO3_RESIDUAL_REFUSED)} of them residuals TMA cannot "
+                      f"read, refused) bit-equal to graph_layer_reference; nothing "
+                      f"written outside a route's channels")
     yh_err, yh_cases = kc.yolo_head_vs_plain(dev)
     phase("3 kernel", f"yolo_head: {yh_cases} cases (seeded sums of three heads, few to "
                       f"thousands of candidates, pages of keys, none): counts equal to "

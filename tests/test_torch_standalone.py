@@ -22,7 +22,8 @@ PORT_FILES = sorted(
     for f in fs if f.endswith(".py")) + ["chip_smoke.py",
                                          "scripts/bench_serving_torch.py",
                                          "scripts/build_pretrained_torch.py",
-                                         "scripts/mega_phases_torch.py"]
+                                         "scripts/mega_phases_torch.py",
+                                         "scripts/yolo3_conv_times.py"]
 REFUSED = ("jax", "tpu_cnn", "optax", "orbax")
 VERDICT = "VERDICT: DESIGN IS BIT-ACCURATE across all backends"
 

@@ -338,6 +338,36 @@ extern "C" int stream_slabs(int batch, int ic, int oc, int h, int w, int* o) {
   }
   return 0;
 }
+// The residual's tensor map of a layer graph's conv (dims, pitch) and each
+// residual byte (row, channel) counted once per tile box that brings it; 1
+// where a box strays from its tile or lies wholly past oc, 2 where the conv
+// or the map at `base` is refused.
+extern "C" int stream_residual(int batch, int ic, int oc, int h, int w, int k, int res_pitch,
+                               unsigned long long base, long long* map, int* hits) {
+  stream_plan::Geometry g;
+  if (stream_plan::make_geometry_ex(batch, ic, oc, h, w, k, 0, 0, 1, 1, ic, oc, res_pitch, 0,
+                                    &g)) return 2;
+  unsigned long long dims[2], strides[1];
+  if (stream_plan::residual_map(g, base, dims, strides)) return 2;
+  map[0] = (long long)dims[0]; map[1] = (long long)dims[1]; map[2] = (long long)strides[0];
+  for (long long u = 0; u < g.units; ++u) {
+    long long mt;
+    int nt;
+    stream_plan::unit_tile(g, u, mt, nt);
+    for (int i = 0; i < stream_plan::residual_boxes(g, nt); ++i) {
+      int c, row;
+      stream_plan::residual_box(g, mt, nt, i, c, row);
+      if (c < nt * g.tile_n || c + stream_plan::kResBoxC > (nt + 1) * g.tile_n || c >= oc ||
+          row != mt * g.tile_m) return 1;
+      for (long long r = row; r < row + g.tile_m && r < (long long)dims[1]; ++r) {
+        for (int ch = c; ch < c + stream_plan::kResBoxC && ch < (int)dims[0]; ++ch) {
+          ++hits[r * oc + ch];
+        }
+      }
+    }
+  }
+  return 0;
+}
 """
 
 
@@ -353,6 +383,7 @@ def plans(tmp_path_factory):
     so.layer_cover.argtypes = [i] * 6 + [p]
     so.stream_geometry.argtypes = [i] * 12 + [p]
     so.stream_slabs.argtypes = [i] * 5 + [p]
+    so.stream_residual.argtypes = [i] * 7 + [ctypes.c_ulonglong, p, p]
     return so
 
 
@@ -414,9 +445,51 @@ def test_the_stream_plan_of_a_graphs_convs(plans, case, want):
     (2, 128, 256, 26, 26, 3, 0, 1, 128, 255, 0, 0),  # an odd output pitch
     (2, 128, 256, 26, 26, 3, 0, 1, 128, 256, 256, 1),  # residual and upsample
     (2, 128, 255, 26, 26, 1, 1, 1, 128, 512, 0, 0),  # the linear layer at a pitch
+    (2, 128, 256, 26, 26, 3, 0, 1, 128, 256, 264, 0),  # a residual pitch not of 16 bytes
+    (2, 128, 256, 26, 26, 3, 0, 1, 128, 256, 258, 0),  # nor of 16 bytes, though even
+    # a residual whose last rows pass a 32-bit coordinate
+    (2 ** 21, 128, 256, 32, 32, 3, 0, 1, 128, 256, 256, 0),
 ])
 def test_the_stream_plan_refuses(plans, case):
     assert plans.stream_geometry(*case, np.zeros(13, np.int64).ctypes.data) == 1
+
+
+def test_the_stream_plan_takes_a_huge_map_without_a_residual(plans):
+    o = np.zeros(13, np.int64)
+    assert plans.stream_geometry(2 ** 21, 128, 256, 32, 32, 3, 0, 1, 128, 256, 0, 0,
+                                 o.ctypes.data) == 0
+    assert o[4] == 2 ** 31
+
+
+# (batch, ic, oc, H, W, k, residual pitch): L74's shape at batch 3 (507
+# rows: the last M tile partial), oc 128 (one box of a tile's two), a
+# pitch past oc, a last N tile of one box, one of two boxes the second
+# partial
+RESIDUAL_CASES = [(3, 512, 1024, 13, 13, 3, 1024), (2, 128, 128, 10, 10, 3, 128),
+                  (2, 256, 256, 26, 26, 3, 288), (1, 128, 384, 12, 12, 1, 384),
+                  (1, 128, 200, 8, 8, 3, 208)]
+
+
+@pytest.mark.parametrize("case", RESIDUAL_CASES)
+def test_the_residual_boxes_bring_every_byte_once(plans, case):
+    b, ic, oc, h, w, k, rp = case
+    hits = np.zeros(b * h * w * oc, np.int32)
+    m = np.zeros(3, np.int64)
+    assert plans.stream_residual(b, ic, oc, h, w, k, rp, 4096, m.ctypes.data,
+                                 hits.ctypes.data) == 0
+    assert tuple(m) == (oc, b * h * w, rp)
+    assert (hits == 1).all()
+
+
+@pytest.mark.parametrize("base, pitch, ok", [
+    (4096, 256, True), (4096 + 16, 272, True), (4096 + 8, 272, False), (4096 + 2, 256, False),
+    (4096, 264, False)])
+def test_the_residual_map_refuses_what_tma_cannot_read(plans, base, pitch, ok):
+    hits = np.zeros(2 * 26 * 26 * 256, np.int32)
+    m = np.zeros(3, np.int64)
+    got = plans.stream_residual(2, 128, 256, 26, 26, 3, pitch, base, m.ctypes.data,
+                                hits.ctypes.data)
+    assert got == (0 if ok else 2)
 
 
 def test_the_stream_plans_stride2_slabs_walk_the_output(plans):

@@ -140,7 +140,8 @@ REQUIRED_PATHS = (
         "a partial tile (an item's last)")),
     # YOLOv3's (``yolo3_layers_vs_plain``, ``yolo_head_vs_plain``)
     *(f"stream: {p}" for p in (
-        "stride 2: TMA im2col every 2 pixels", "a residual added after the clip",
+        "stride 2: TMA im2col every 2 pixels",
+        "a residual staged in shared memory by TMA, added after the clip",
         "upsampled 2x in the epilogue", "the output inside a wider map (a route's slice)",
         "the input inside a wider map (TMA strides)")),
     *(f"region_layer: {p}" for p in (
@@ -894,30 +895,44 @@ def region_layers_vs_plain(dev: torch.device) -> tuple[float, int, float, int]:
 # YOLOv3's new modes, one case each (batch, ic, oc, side, k, mode): the
 # layer kernel's unpooled map (L0's recast, L2's 1x1 as its 3x3, L3 and L7
 # with their residual) and stride-2 conv (L1, L5); the streamed kernel's
-# stride 2 (L12; L62 reading layer 61's map inside L86's), residual (L14;
-# L60 writing layer 61's map into L86's channels 256..767), upsample (L84
-# into L86's channels 0..255, L96 into L98's) and linear 255 channels (L81,
-# L105: two N tiles)
+# stride 2 (L12; L62 reading layer 61's map inside L86's), residual (L14,
+# at KERNEL_BATCH 782 tiles, so every persistent CTA takes several and
+# hands the one residual buffer on; L60 writing layer 61's map into L86's
+# channels 256..767), upsample (L84 into L86's channels 0..255, L96 into
+# L98's) and linear 255 channels (L81, L105: two N tiles); and the staged
+# residual's edges: L74's shape at batch 3 (507 rows, the last M tile
+# partial: TMA's zero fill past the map), a residual read from channels
+# 32..287 of a wider map (its pitch 288), and oc 128 (one box of a tile's
+# two)
 YOLO3_LAYER_CASES = ((2, 3, 32, 416, 3, "plain", False), (3, 32, 64, 416, 3, "stride2", False),
                      (3, 64, 32, 208, 1, "plain", False), (3, 32, 64, 208, 3, "plain", True),
                      (3, 64, 128, 208, 3, "stride2", False), (5, 64, 128, 104, 3, "plain", True))
-YOLO3_STREAM_CASES = (  # (batch, ic, oc, side, k, stride, residual, upsample, in, out pitch)
-    (KERNEL_BATCH, 128, 256, 104, 3, 2, False, False, 0, 0),
-    (5, 512, 1024, 26, 3, 2, False, False, 768, 0),
-    (KERNEL_BATCH, 128, 256, 52, 3, 1, True, False, 0, 0),
-    (7, 256, 512, 26, 3, 1, True, False, 0, 768),
-    (KERNEL_BATCH, 512, 256, 13, 1, 1, False, True, 0, 768),
-    (9, 256, 128, 26, 1, 1, False, True, 0, 384),
-    (KERNEL_BATCH, 1024, 255, 13, 1, 1, False, False, 0, 0),
-    (5, 256, 255, 52, 1, 1, False, False, 0, 0))
+YOLO3_STREAM_CASES = (  # (batch, ic, oc, side, k, stride, residual pitch, upsample, in, out pitch)
+    (KERNEL_BATCH, 128, 256, 104, 3, 2, 0, False, 0, 0),
+    (5, 512, 1024, 26, 3, 2, 0, False, 768, 0),
+    (KERNEL_BATCH, 128, 256, 52, 3, 1, 256, False, 0, 0),
+    (7, 256, 512, 26, 3, 1, 512, False, 0, 768),
+    (KERNEL_BATCH, 512, 256, 13, 1, 1, 0, True, 0, 768),
+    (9, 256, 128, 26, 1, 1, 0, True, 0, 384),
+    (KERNEL_BATCH, 1024, 255, 13, 1, 1, 0, False, 0, 0),
+    (5, 256, 255, 52, 1, 1, 0, False, 0, 0),
+    (3, 512, 1024, 13, 3, 1, 1024, False, 0, 0),
+    (5, 256, 256, 26, 3, 1, 288, False, 0, 0),
+    (4, 128, 128, 26, 3, 1, 128, False, 0, 0))
+# residuals TMA cannot read, each refused: (channel offset, pitch) of the
+# residual's map, a base not 16-byte aligned and a pitch not a multiple of 16
+YOLO3_RESIDUAL_REFUSED = ((8, 272), (0, 264))
 
 
 def yolo3_layers_vs_plain(dev: torch.device) -> tuple[int, int]:
     """YOLOv3's new modes of both kernels (``YOLO3_LAYER_CASES``,
     ``YOLO3_STREAM_CASES``), each against ``conv_stream.graph_layer_reference``
-    bit for bit: the residual a seeded map, a pitched input written inside a
-    wider channels-last map, a pitched output written into one whose other
-    channels must stay as they were -> (layer cases, stream cases)."""
+    bit for bit: the residual a seeded map (on the streamed kernel also
+    inside a wider one), a pitched input written inside a wider
+    channels-last map, a pitched output written into one whose other
+    channels must stay as they were; then the residuals the streamed
+    kernel's TMA cannot read (``YOLO3_RESIDUAL_REFUSED``) refused ->
+    (layer cases, stream cases)."""
     rs = np.random.RandomState(31)
     layer_n = stream_n = 0
     for b, ic, oc, s, k, mode, res in YOLO3_LAYER_CASES:
@@ -950,8 +965,12 @@ def yolo3_layers_vs_plain(dev: torch.device) -> tuple[int, int]:
         else:
             xin = x.contiguous(memory_format=torch.channels_last)
         o = s // stride
-        r = (torch.from_numpy(rs.randint(0, 256, (b, oc, o, o)).astype(np.uint8)).to(dev)
-             .contiguous(memory_format=torch.channels_last) if res else None)
+        r = rin = None
+        if res:
+            r = torch.from_numpy(rs.randint(0, 256, (b, oc, o, o)).astype(np.uint8)).to(dev)
+            wide_res = torch.zeros((b, o, o, res), dtype=torch.uint8, device=dev)
+            wide_res[..., res - oc:] = r.permute(0, 2, 3, 1)
+            rin = wide_res.permute(0, 3, 1, 2)[:, res - oc:]
         out, wide_out, at = None, None, 0
         if pout:
             side = 2 * o if up else o
@@ -959,7 +978,7 @@ def yolo3_layers_vs_plain(dev: torch.device) -> tuple[int, int]:
             at = 0 if up else pout - oc
             out = wide_out.permute(0, 3, 1, 2)[:, at:at + oc]
         kt, bt = torch.from_numpy(kernel).to(dev), torch.from_numpy(bias).to(dev)
-        got = conv_stream.conv_stream(xin, kt, bt, shifts, 0, stride=stride, residual=r,
+        got = conv_stream.conv_stream(xin, kt, bt, shifts, 0, stride=stride, residual=rin,
                                       out=out, upsample=up, last=last)
         want = conv_stream.graph_layer_reference(x, kt, bt, shifts, 0, stride=stride,
                                                  last=last, residual=r, upsample=up)
@@ -971,6 +990,21 @@ def yolo3_layers_vs_plain(dev: torch.device) -> tuple[int, int]:
             rest = torch.cat([wide_out[..., :at], wide_out[..., at + oc:]], dim=-1)
             check(bool((rest == 77).all()), f"{tag}: wrote outside its channels")
         stream_n += 1
+    kernel, bias, shift = _region_weights(rs, 128, 256, 3)
+    shifts = torch.tensor([shift], dtype=torch.int32, device=dev)
+    x = torch.zeros((2, 128, 8, 8), dtype=torch.uint8, device=dev).contiguous(
+        memory_format=torch.channels_last)
+    for off, rp in YOLO3_RESIDUAL_REFUSED if dev.type == "cuda" else ():
+        wide_res = torch.zeros((2, 8, 8, rp), dtype=torch.uint8, device=dev)
+        rin = wide_res.permute(0, 3, 1, 2)[:, off:off + 256]
+        try:
+            conv_stream.conv_stream(x, torch.from_numpy(kernel).to(dev),
+                                    torch.from_numpy(bias).to(dev), shifts, 0, residual=rin)
+        except RuntimeError:
+            stream_n += 1
+        else:
+            raise RuntimeError(f"yolov3 streamed kernel: a residual at channel {off} of a "
+                               f"map of {rp} launched; TMA cannot read it")
     return layer_n, stream_n
 
 

@@ -22,6 +22,7 @@ enum Mode { kPlain = 0, kPool2 = 1, kPool1 = 2, kLinear = 3 };
 constexpr int kSliceK = 128;  // K bytes of a slice: one tap, 128 channels
 constexpr int kSlab = 64;     // M rows of one consumer warpgroup (a wgmma's rows)
 constexpr int kPackN = 256;   // pack_stream pads oc to a multiple of this
+constexpr int kResBoxC = 128;  // channels of a residual box: one 128-byte swizzled row a pixel
 
 // Consumer warpgroups of a tile: two of 64 x 256 (m64n256k32); two of 64 x
 // 128 on the linear layer (yolov2-tiny-voc's oc of 125 in one tile); three
@@ -124,7 +125,8 @@ PLAN_FN int make_geometry_ex(int batch, int ic, int oc, int height, int width, i
   }
   if (in_pitch != ic && (!g->tma || in_pitch % 16 != 0)) return 1;
   if ((out_pitch != oc || res_pitch != 0 || upsample) && (!plain || out_pitch % 2 != 0)) return 1;
-  if (res_pitch != 0 && (res_pitch < oc || res_pitch % 2 != 0 || upsample)) return 1;
+  // the residual comes by TMA (residual_map): its pitch a multiple of 16
+  if (res_pitch != 0 && (res_pitch < oc || res_pitch % 16 != 0 || upsample)) return 1;
   g->stride = stride;
   if (stride == 2) {
     g->out_h = height / 2;
@@ -140,6 +142,8 @@ PLAN_FN int make_geometry_ex(int batch, int ic, int oc, int height, int width, i
     g->m_tiles = (g->m_rows + g->tile_m - 1) / g->tile_m;
     g->units = g->m_tiles * g->n_tiles;
   }
+  // a residual box's first row is a 32-bit coordinate
+  if (res_pitch != 0 && g->m_rows > (1LL << 31) - g->tile_m) return 1;
   return 0;
 }
 
@@ -259,6 +263,34 @@ PLAN_FN void im2col_box(const Geometry& g, unsigned long long dims[4],
   strides[2] = strides[1] * dims[2];
   lower[0] = lower[1] = -g.pad;
   upper[0] = upper[1] = g.pad - (g.k - 1);
+}
+
+// The residual's tiled tensor map (a layer graph's shortcut): 2-D over
+// u8, innermost first dims (oc, m_rows), a pixel res_pitch bytes on; the
+// residual's row p is the output's M row p. Returns 1 where TMA cannot
+// take the map at `base`: an address not 16-byte aligned (the pitch is
+// make_geometry_ex's).
+PLAN_FN int residual_map(const Geometry& g, unsigned long long base, unsigned long long dims[2],
+                         unsigned long long strides[1]) {
+  if (g.res_pitch == 0 || base % 16 != 0) return 1;
+  dims[0] = static_cast<unsigned long long>(g.oc);
+  dims[1] = static_cast<unsigned long long>(g.m_rows);
+  strides[0] = static_cast<unsigned long long>(g.res_pitch);
+  return 0;
+}
+
+// The residual boxes of N tile `nt`: kResBoxC channels x tile_m rows each,
+// side by side across the tile's channels, none wholly past oc.
+PLAN_FN int residual_boxes(const Geometry& g, int nt) {
+  const int c = g.oc - nt * g.tile_n;
+  return ((c < g.tile_n ? c : g.tile_n) + kResBoxC - 1) / kResBoxC;
+}
+
+// The first channel and row of box `i` of tile (mt, nt)'s residual; the
+// copy fills zeros past oc and m_rows (rows the epilogue does not store).
+PLAN_FN void residual_box(const Geometry& g, long long mt, int nt, int i, int& c, int& row) {
+  c = nt * g.tile_n + kResBoxC * i;
+  row = static_cast<int>(mt * g.tile_m);
 }
 
 }  // namespace stream_plan
