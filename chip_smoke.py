@@ -393,8 +393,8 @@ from tpu_cnn_torch.parallel.mesh import MeshEngine, RowShards, make_mesh  # noqa
 from tpu_cnn_torch.parallel.pipeline import make_pipeline_mesh  # noqa: E402
 from tpu_cnn_torch.parallel.spatial import make_spatial_mesh  # noqa: E402
 from tpu_cnn_torch.ops import (_build, bitcast, cam_head, conv_pool, conv_stream,  # noqa: E402
-                               detect_head, int8, mega, quant, region_head, region_layer,
-                               yolo_head)
+                               detect_head, int8, maxpool, mega, quant, region_head,
+                               region_layer, yolo_head)
 from tpu_cnn_torch.ops import preprocess as dev_preprocess  # noqa: E402
 from tpu_cnn_torch.ops.luma import pack_bgrx  # noqa: E402
 from tpu_cnn_torch.train import train_cnn  # noqa: E402
@@ -422,6 +422,7 @@ KERNELS = {  # name -> (source, the TPU kernel(s) it replaces)
     "region_head": ("tpu_cnn_torch/csrc/region_head.cu", None),
     "region_layer": ("tpu_cnn_torch/csrc/region_layer.cu", None),
     "yolo_head": ("tpu_cnn_torch/csrc/yolo_head.cu", None),
+    "maxpool": ("tpu_cnn_torch/csrc/maxpool.cu", None),
 }
 # the main paths: (family, engine backend, the shifts set_shifts tries, the
 # kernels the path must launch; it must launch no other)
@@ -565,10 +566,20 @@ def kernel_vs_plain(dev: torch.device) -> dict[str, float]:
                       f"thousands of candidates, pages of keys, none): counts equal to "
                       f"yolo_detect_reference's, every pair matched within 1e-5 but near "
                       f"ties; max_abs_err={yh_err!r}")
+    y7p, y7p_err, y7l, y7s, y7h_err, y7h = kc.yolo7_kernels_vs_plain(dev)
+    phase("3 kernel", f"YOLOv7's modes: maxpool_kernel ({y7p} cases: 2x2/2 and the 5/9/13 "
+                      f"cascade, slices in and out) bit-equal to maxpool_reference and "
+                      f"F.max_pool2d; region_layer reading and writing slices at 160 and "
+                      f"80 ({y7l} cases), conv_stream's YOLOv7 shapes ({y7s} cases: a "
+                      f"slice written alone, K 2,048, the linear 255 at 80) bit-equal to "
+                      f"graph_layer_reference, nothing written outside a slice; yolo_head's "
+                      f"scaled decode ({y7h} cases at 25,200 boxes and 300 pairs, both head "
+                      f"orders) matched within 1e-5 but near ties; max_abs_err: pools "
+                      f"{y7p_err!r}, head {y7h_err!r}")
     return {"mega_cnn": mega_err, "conv_pool_layer": layer_err,
             "conv_act": act_err, "bitcast": bit_err, "cam_head": cam_err,
             "conv_stream": rs_err, "region_head": rh_err, "region_layer": rl_err,
-            "yolo_head": yh_err}
+            "yolo_head": max(yh_err, y7h_err), "maxpool": float(y7p_err)}
 
 
 SANITIZE_TOOLS = ("memcheck", "racecheck", "synccheck", "initcheck")
@@ -704,6 +715,93 @@ def yolo3_engine_path(dev: torch.device) -> None:
                        f"in another order")
 
 
+YOLO7_BATCH = 256  # the offline cell's round
+YOLO7_BLOCK = 8  # frames a reference call at 640: its float64 maps fit the card
+
+
+def yolo7_model():
+    """YOLOv7-640 with the benchmark's seeded bundle (``benchmarks/bundles/
+    yolov7.py`` at the configuration's seed and shifts): the weights the
+    cell ``yolov7-640.offline`` runs."""
+    from benchmarks.bundles import yolov7 as maker
+    from benchmarks.lib import spec
+    from tpu_cnn_torch.models.region import RegionModel
+
+    config = spec.load_json(spec.config_path("yolov7-640"))
+    kernels, biases, shifts, _ = maker.calibrate(config, int(config["bundle"]["seed"]),
+                                                 config["shifts"])
+    return RegionModel(kernels, biases, shifts, get_config("yolov7-640"))
+
+
+def yolo7_engine_path(dev: torch.device, batch: int = YOLO7_BATCH) -> None:
+    """YOLOv7-640 through ``CUDAEngine(backend="pallas", box_mode="yolo")``
+    at the offline cell's batch of 256 seeded frames: every launch's map
+    (``region_maps``: each of the 92 convs' outputs, the 2 upsampled maps,
+    the 8 pools'; in a concatenation's slice where the engine writes them)
+    bit-equal to the plain reference's (``reference/yolov7.py``) in blocks
+    of ``YOLO7_BLOCK`` frames of the same batch, every concatenation's
+    every channel written; then ``detect_device``'s detections (the scaled
+    decode) against ``yolo_detect_reference`` on the engine's own sums:
+    counts equal, every pair matched within 1e-5 but near ties
+    (``kernel_cases.region_dets_agree``); and the counters: 8 pools and
+    27 graph rows a frame."""
+    from tpu_cnn_torch.reference import yolov7 as ref
+    from tpu_cnn_torch.utils import profiling
+
+    model = yolo7_model()
+    cfg = model.config
+    b = batch
+    frames = torch.from_numpy(np.random.RandomState(3).randint(
+        0, 256, (b, 3, 640, 640)).astype(np.uint8)).to(dev)
+    engine = CUDAEngine(model, dev, backend="pallas", box_mode="yolo")
+    routes = [s.route for s in engine._plan]
+    check(routes.count("layer") + routes.count("stream") == 92 and routes.count("pool") == 6,
+          f"routes {routes}")
+    maps = engine.region_maps(frames)
+    check(len(maps) == len(cfg.conv_rows) + len(cfg.pools),
+          f"{len(maps)} maps for {len(cfg.conv_rows)} convs and {len(cfg.pools)} pools")
+    kernels = [torch.from_numpy(k).to(dev) for k in model.kernels]
+    biases = [torch.from_numpy(k).to(dev) for k in model.biases]
+    shifts = [int(s) for s in model.shifts]
+    for lo in range(0, b, YOLO7_BLOCK):
+        keep = {}
+        ref.forward(frames[lo:lo + YOLO7_BLOCK], kernels, biases, shifts, cfg.layer_configs,
+                    keep=keep)
+        for r, got in maps.items():
+            want = keep[r]
+            part = got[lo:lo + YOLO7_BLOCK].to(torch.float64)
+            check(torch.equal(part, want),
+                  f"yolov7-640 row {r} {cfg.layer_configs[r]} at B={b}, frames "
+                  f"{lo}-{lo + YOLO7_BLOCK}: {int((part != want).sum())} of {want.numel()} "
+                  f"differ")
+        del keep
+    layers = [cfg.conv_rows.index(r - 1) for r in cfg.heads]
+    sums = [maps[r - 1] for r in cfg.heads]
+    del maps
+    torch.cuda.empty_cache()
+    profiling.reset_spans()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        _, _, dets, count = engine.detect_device(frames)
+    _, counters = profiling.spans()
+    check(counters.get("net.pool.maps") == 8 * b and counters.get("net.graph.ops") == 27 * b,
+          f"counters {counters}")
+    want = yolo_head.yolo_detect_reference(
+        [t.cpu() for t in sums], model.shifts, layers, cfg.anchors, cfg.masks,
+        cfg.num_classes, cfg.img_size, cfg.thresh, cfg.nms, cfg.max_det, cfg.decode)
+    moved, tied, err = kc.region_dets_agree((dets, count), tuple(w.to(dev) for w in want),
+                                            cfg.nms)
+    counts = count.cpu()
+    phase("main path", f"yolov7-640/pallas: {engine.backend}, at B={b}: the 92 convs "
+                       f"(routes {routes.count('layer')} layer, {routes.count('stream')} "
+                       f"stream), the 8 pools in {routes.count('pool')} maxpool_kernel "
+                       f"launches, 17 concatenations written in place and 2 upsamples in "
+                       f"their epilogues, bit-equal to reference/yolov7.py in blocks of "
+                       f"{YOLO7_BLOCK}; counts {int(counts.min())}-{int(counts.max())} "
+                       f"equal to yolo_detect_reference's (scaled) on the engine's sums, "
+                       f"every pair matched within {err!r} but {tied} let through by a near "
+                       f"tie; {moved} frames in another order; net.pool.maps 8 a frame")
+
+
 def yolo_times(dev: torch.device, card: str, rs) -> dict[str, tuple]:
     """At the offline cell's batch (512 frames): the region route's layer
     kernel on yolov2-tiny-voc's L0-L3 summed and each layer's queued device
@@ -826,7 +924,52 @@ def yolo_times(dev: torch.device, card: str, rs) -> dict[str, tuple]:
     del t
     torch.cuda.empty_cache()
     out["yolo_head"] = yolo_head_times(dev, card, batch)
+    out["maxpool"] = maxpool_times(dev, card)
     return out
+
+
+# YOLOv7-640's pools: (channels, side, sizes, stride) of the five MP
+# branches' 2x2/2 and SPPCSPC's cascade
+YOLO7_POOLS = ((256, 160, (2,), 2), (512, 80, (2,), 2), (1024, 40, (2,), 2),
+               (128, 80, (2,), 2), (256, 40, (2,), 2), (512, 20, (5, 9, 13), 1))
+
+
+def maxpool_times(dev: torch.device, card: str) -> tuple:
+    """The pooling kernel on YOLOv7-640's pools at the offline cell's batch
+    (256, seeded channels-last maps): the six launches' summed median
+    CUDA-event times, their plain version's (``maxpool_reference`` on the
+    CPU, 8 frames, scaled), their bound by the bytes they must move (each
+    map read once, every pool's map written) and the library's
+    (``F.max_pool2d``, a call a pool size, on the same channels-last maps
+    held in float16, which holds every u8 exactly: torch's CUDA max-pool
+    takes no u8 map; the cast is not timed)."""
+    import torch.nn.functional as F
+
+    batch, plain_b = YOLO7_BATCH, 8
+    maps = [torch.randint(0, 256, (batch, s, s, c), dtype=torch.uint8, device=dev)
+            .permute(0, 3, 1, 2) for c, s, _, _ in YOLO7_POOLS]
+    k_ms = p_ms = lib_ms = nbytes = 0.0
+    for x, (c, s, sizes, stride) in zip(maps, YOLO7_POOLS):
+        maxpool.maxpool(x, sizes, stride)  # warm-up
+        k_ms += statistics.median(_event_ms(lambda: maxpool.maxpool(x, sizes, stride), 10))
+
+        def library(x=x.half(), sizes=sizes, stride=stride):
+            return [F.max_pool2d(x, k, stride, (k - 1) // 2) for k in sizes]
+
+        library()  # warm-up
+        lib_ms += statistics.median(_event_ms(library, 10))
+        part = x[:plain_b].cpu().contiguous()
+        t0 = time.perf_counter()
+        maxpool.maxpool_reference(part, sizes, stride)
+        p_ms += (time.perf_counter() - t0) * 1e3 * batch / plain_b
+        nbytes += batch * c * s * s * (1 + len(sizes) / stride ** 2)
+    b_ms, b_by = bound(0, nbytes)
+    phase("7 times", f"maxpool_kernel at batch {batch} on {card} (YOLOv7-640's five 2x2/2 "
+                     f"pools and SPPCSPC's cascade): kernels {k_ms!r} ms; bound {b_ms!r} ms "
+                     f"by {b_by}, {b_ms / k_ms:.2%} of it; plain {p_ms!r} ms ({plain_b} "
+                     f"frames, scaled); F.max_pool2d on the maps in float16 {lib_ms!r} "
+                     f"ms")
+    return (k_ms, p_ms, b_ms, b_by, lib_ms)
 
 
 YOLO3_HEAD_SHIFT = 12  # the sums are t x 2**12
@@ -3358,6 +3501,15 @@ def pallas_profile(card: str, rs) -> None:
                      f"aten::amax {amax}")
 
 
+_PROFILE_CHILD = r"""
+import sys
+import numpy as np
+import chip_smoke as cs
+cs.pallas_profile(sys.argv[1], np.random.RandomState(7))
+cs.mesh_profile(sys.argv[1], np.random.RandomState(7))
+"""
+
+
 def bench_profile(card: str) -> None:
     """torch.profiler over one extra, untimed pass of the bench's loop
     (``bench.pipelined`` and ``bench.measure`` on the bench's timed path,
@@ -3624,9 +3776,14 @@ def times(dev: torch.device, card: str,
     multi_times(card, rs, profile_out)  # lyr3-std on mega: single-box and multi
     torch.cuda.empty_cache()
     # after every host-bound FPS: a finished torch.profiler run leaves
-    # CUPTI's launch overhead behind it
-    pallas_profile(card, rs)
-    mesh_profile(card, rs)
+    # CUPTI's launch overhead behind it; in a child process: late in this
+    # one, profiles on an H100 have come back without device operations
+    proc = subprocess.run([sys.executable, "-c", _PROFILE_CHILD, card], cwd=ROOT,
+                          env={**os.environ, "PYTHONPATH": ROOT}, capture_output=True,
+                          text=True, timeout=600)
+    sys.stdout.write(proc.stdout)
+    check(proc.returncode == 0, f"the profiles' child: exit {proc.returncode}: "
+                                f"{proc.stderr[-3000:]}")
     bench_profile(card)
     torch.cuda.empty_cache()
     r, l = BITCAST_SHAPES[-1]
@@ -3691,6 +3848,9 @@ def main(argv=None) -> None:
               ("region_layer", "conv_stream", "region_head"), lambda: yolo_engine_path(dev))
     main_path("yolov3-416/pallas (the cell's seeded bundle)",
               ("region_layer", "conv_stream", "yolo_head"), lambda: yolo3_engine_path(dev))
+    main_path("yolov7-640/pallas (the cell's seeded bundle)",
+              ("region_layer", "conv_stream", "yolo_head", "maxpool"),
+              lambda: yolo7_engine_path(dev))
     for variant, backend, instances, path_kernels in MULTI_PATHS:
         main_path(f"{variant}/{backend} --multi --instances {instances} "
                   f"(phases 4-6)", path_kernels,

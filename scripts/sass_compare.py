@@ -11,8 +11,10 @@ of the old library, looks for a function of the new one with the same
 body: every instruction and its encoding, the addresses dropped, so a
 function whose template gained an argument still matches under its new
 name. Prints a line per kernel (functions on each side, old functions
-matched) and each unmatched old function, and writes the whole table as
-JSON to ``--out``. Exits 1 where an old function has no match. Needs nvcc
+matched) and each unmatched old function with the new function nearest
+it (the fewest lines of a line diff, instructions and their control
+words, added, taken away or replaced), and writes the whole table as JSON
+to ``--out``. Exits 1 where an old function has no match. Needs nvcc
 and cuobjdump (``/usr/local/cuda/bin``); no device.
 """
 
@@ -20,6 +22,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import difflib
 import json
 import os
 import re
@@ -65,6 +68,21 @@ def demangle(names: list[str]) -> dict[str, str]:
     return dict(zip(names, out)) if len(out) == len(names) else {n: n for n in names}
 
 
+def nearest(body: str, new: dict[str, str]) -> tuple[str, int]:
+    """(the name of the function of ``new`` nearest ``body``, the lines of
+    a line diff between the two added, taken away or replaced)."""
+    old_lines = body.splitlines()
+    best = None
+    for name, other in new.items():
+        ops = difflib.SequenceMatcher(None, old_lines, other.splitlines(),
+                                      autojunk=False).get_opcodes()
+        n = sum(max(i2 - i1, j2 - j1) if tag == "replace" else (i2 - i1) + (j2 - j1)
+                for tag, i1, i2, j1, j2 in ops if tag != "equal")
+        if best is None or n < best[1]:
+            best = (name, n)
+    return best
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("old")
@@ -92,9 +110,12 @@ def main(argv=None) -> int:
                     "matched": matched, "rows": rows}
         print(f"{k}: {len(old)} old functions, {len(new)} new, {matched} of the old "
               f"with the same code in the new", flush=True)
-        for r in rows:
+        for n, r in zip(old, rows):
             if not r["same_code_in_new"]:
-                print(f"  no match: {r['old']} ({r['instructions']} instructions)")
+                near, lines = nearest(old[n], new)
+                r["nearest_in_new"], r["lines_differ"] = names[near], lines
+                print(f"  no match: {r['old']} ({r['instructions']} instructions); nearest: "
+                      f"{names[near]}, {lines} lines differ")
     if args.out:
         with open(args.out, "w") as f:
             json.dump(table, f, indent=1)

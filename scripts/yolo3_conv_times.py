@@ -59,7 +59,7 @@ def round_ms(engine, frames) -> list[float]:
         events[0].record()
         for i, step in enumerate(plan):
             h = frames if step.src is None else engine._map(step.src, maps, bufs)
-            maps[step.writes] = engine._launch(i, step, h, maps, bufs)
+            maps.update(engine._launch(i, step, h, maps, bufs))
             events[i + 1].record()
         held = not events[0].query()
         torch.cuda.synchronize()

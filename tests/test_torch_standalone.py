@@ -23,7 +23,8 @@ PORT_FILES = sorted(
                                          "scripts/bench_serving_torch.py",
                                          "scripts/build_pretrained_torch.py",
                                          "scripts/mega_phases_torch.py",
-                                         "scripts/yolo3_conv_times.py"]
+                                         "scripts/yolo3_conv_times.py",
+                                         "scripts/yolo7_conv_times.py"]
 REFUSED = ("jax", "tpu_cnn", "optax", "orbax")
 VERDICT = "VERDICT: DESIGN IS BIT-ACCURATE across all backends"
 

@@ -108,7 +108,7 @@ def test_counts_at_the_configurations_rows():
     ((("conv", 3, 8, 8, 3, 1), ("conv", 8, 8, 8, 3, 2), ("route", -1, 0)), "different sides"),
     ((("conv", 3, 27, 8, 3, 1), ("yolo", 0, 1, 2)), "1x1 conv"),
     ((("conv", 3, 8, 8, 3, 1), ("shortcut", -5)), "not an earlier one"),
-    ((("conv", 3, 8, 8, 3, 1), ("maxpool", 2)), "kind"),
+    ((("conv", 3, 8, 8, 3, 1), ("avgpool", 2)), "kind"),
     ((("conv", 3, 8, 7, 3, 2),), "even map"),
     ((("conv", 3, 27, 8, 1, 1), ("yolo", 0, 1, 2)), "three heads"),
 ])
@@ -169,7 +169,7 @@ def test_the_full_plan_routes_every_conv_and_fuses_every_row():
     biases = [np.zeros(oc, np.int32) for _, oc, _, _, _ in FULL.specs]
     model = RegionModel(kernels, biases, rng.integers(5, 15, 75), FULL)
     eng = RegionEngine(model, "cpu")
-    plan = eng._graph_plan(True)  # the card's refusals, on the card's routes
+    plan = eng._plan  # the card's plan: the CPU's is the same
     assert len(plan) == 75 and eng._graph_ops == 27
     layer = [s.conv for s in plan if s.route == "layer"]
     assert layer == [0, 1, 2, 3, 4, 6, 8]  # rows 0, 1, 2, 3, 5, 7 and 10

@@ -11,11 +11,13 @@ kernels (``csrc/``, built by ``ops._build``):
                             ``layer_weight_sizes``
   - ``models.registry``   — the named geometries (lyr3-std, lyr4-wide, ...)
                             and the region-head detectors (``DETECTORS``:
-                            yolov2-tiny-voc, yolov3-416)
+                            yolov2-tiny-voc, yolov3-416, yolov7-640)
   - ``models.region``     — the region-head detectors' layer rows
                             ``(ic, oc, size, k, pool)``, ``RegionConfig``;
                             darknet layer graphs with [yolo] heads
-                            (``DarknetConfig``, ``yolov3_rows``);
+                            (``DarknetConfig``: max-pools, routes of up to
+                            six maps, two decodes; ``yolov3_rows``,
+                            ``yolov7_rows``);
                             ``RegionModel`` (int8 kernels, int32 biases,
                             shifts a conv) and ``TorchRegionNet``
   - ``ops.quant``         — the contract in plain torch (the kernels'
@@ -41,19 +43,24 @@ kernels (``csrc/``, built by ``ops._build``):
                             (``csrc/region_layer.cu``: a region-head
                             detector's 3x3 convs of fewer than 128 input
                             channels, pooled, unpooled or stride 2, with a
-                            residual; wgmma on channels-last maps)
+                            residual or on a route's slices; wgmma on
+                            channels-last maps)
   - ``ops.conv_stream``   — the weight-streaming layer kernel
                             (``csrc/conv_stream.cu``: wgmma on a ring of
                             bulk-copied weight slices; stride 2, residual,
                             upsample, maps inside a route's) and the plain
                             version of every region-head layer
+  - ``ops.maxpool``       — the max-pool rows (``csrc/maxpool.cu``: 2x2/2,
+                            and SPPCSPC's 5/9/13 as one cascade of 5x5s;
+                            slices in and out) and their plain version
   - ``ops.region_head``   — the region head (decode, per-class NMS, the
                             best pairs) in one kernel a batch
                             (``csrc/region_head.cu``) and its plain version
   - ``ops.yolo_head``     — the [yolo] heads (decode, thresholds, per-class
                             NMS over the three heads, the best pairs) in
-                            one kernel a batch (``csrc/yolo_head.cu``) and
-                            its plain version
+                            one kernel a batch (``csrc/yolo_head.cu``: the
+                            darknet or the scaled decode) and its plain
+                            version
   - ``reference.yolov2_tiny`` — the region-head detectors' plain reference
                             (torch alone, float64), whose layer functions
                             the plain version of every layer runs too;
@@ -61,6 +68,8 @@ kernels (``csrc/``, built by ``ops._build``):
   - ``reference.yolov3``  — the darknet graphs' plain reference (the same,
                             with shortcuts, routes, upsamples, the [yolo]
                             heads)
+  - ``reference.yolov7``  — YOLOv7's (the darknet graphs' with max-pools,
+                            routes of up to six maps, the scaled decode)
   - ``ops.library``       — the megakernel and the layer kernel as the
                             ``torch.library`` ops ``tcnn::mega_cnn`` and
                             ``tcnn::conv_pool_layer`` (what an exported

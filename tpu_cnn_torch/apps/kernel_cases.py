@@ -45,8 +45,8 @@ from tpu_cnn_torch.engine.cpu_ref import numpy_cnn_forward
 from tpu_cnn_torch.engine.cuda import region_routes
 from tpu_cnn_torch.models.registry import default_shifts, get_config
 from tpu_cnn_torch.ops import (_build, bitcast, cam_head, conv_pool, conv_stream,
-                               detect_head, int8, mega, quant, region_head, region_layer,
-                               yolo_head)
+                               detect_head, int8, maxpool, mega, quant, region_head,
+                               region_layer, yolo_head)
 from tpu_cnn_torch.utils import artifacts as art
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -54,12 +54,13 @@ ARTIFACTS = {"lyr3-std": os.path.join(_ROOT, "artifacts", "pretrained"),
              "lyr4-wide": os.path.join(_ROOT, "artifacts", "pretrained-lyr4")}
 MODULES = {"mega_cnn": mega, "conv_pool_layer": conv_pool, "conv_act": int8,
            "bitcast": bitcast, "cam_head": cam_head, "conv_stream": conv_stream,
-           "region_head": region_head, "region_layer": region_layer, "yolo_head": yolo_head}
+           "region_head": region_head, "region_layer": region_layer, "yolo_head": yolo_head,
+           "maxpool": maxpool}
 # how a path of each library is named: the layer kernel's under "layer"
 PATH_PREFIX = {"mega_cnn": "mega_cnn", "conv_pool_layer": "layer", "conv_act": "layer",
                "bitcast": "bitcast", "cam_head": "cam_head", "conv_stream": "stream",
                "region_head": "region_head", "region_layer": "region_layer",
-               "yolo_head": "yolo_head"}
+               "yolo_head": "yolo_head", "maxpool": "maxpool"}
 # the probe's; ragged; 16 MiB; 64 MiB of words, past the 50 MB L2 (timed)
 BITCAST_SHAPES = ((8, 256), (5, 37), (1024, 4096), (4096, 4096))
 BINS_TOL = 1e-6  # the kernel's bins vs the plain version's (1-ulp / order)
@@ -149,6 +150,15 @@ REQUIRED_PATHS = (
         "output: the stride-2 conv's map, 2 bytes a lane", "a residual added after the clip")),
     *(f"yolo_head: {p}" for p in (
         "launch: pages possible (more boxes x classes than a page holds)",)),
+    # YOLOv7's (``yolo7_kernels_vs_plain``)
+    *(f"maxpool: {p}" for p in (
+        "2x2 stride 2, 16 bytes a thread", "stride 1: the 5x5 cascaded in shared memory",
+        "the cascade writes three outputs (SPPCSPC's)", "the input inside a wider map",
+        "an output inside a wider map (a route's slice)")),
+    *(f"region_layer: {p}" for p in (
+        "the input inside a wider map (a route's slice)",
+        "the output inside a wider map (a route's slice)")),
+    "yolo_head: decode: the scaled one (YOLOv7's)",
 )
 # yolov2-tiny-voc's layers (``registry.DETECTORS``): L0-L3 on the region
 # route's layer kernel, L4-L8 on the streamed kernel; and its region head
@@ -1044,6 +1054,160 @@ def yolo_head_vs_plain(dev: torch.device) -> tuple[float, int]:
     return max_err, n
 
 
+# YOLOv7's pools: (batch, channels, side, sizes, stride, input pitch and
+# offset, output pitch and offsets (None: a map of its own)): an MP branch's
+# 2x2/2 at 160 and 40 (the second written into a slice), SPPCSPC's cascade
+# of 5, 9 and 13 from its slice into the three of a 2,048-channel map, a
+# lone 9 (two steps, one output) and 48 channels (one vector a CTA)
+YOLO7_POOL_CASES = ((3, 256, 160, (2,), 2, None, None),
+                    (5, 128, 40, (2,), 2, (384, 128), (256, (128,))),
+                    (5, 512, 20, (5, 9, 13), 1, (2048, 0), (2048, (512, 1024, 1536))),
+                    (4, 256, 20, (9,), 1, None, None),
+                    (3, 48, 14, (5, 13), 1, None, None))
+# the layer kernel on slices: (batch, ic, oc, side, mode, input pitch and
+# offset, output pitch and offset): YOLOv7's E-ELAN 3x3s at 160 (rows 6-9)
+# and ELAN-H's at 80 (rows 71-73), and a stride-2 one
+YOLO7_LAYER_CASES = ((3, 64, 64, 160, "plain", (256, 128), (256, 64)),
+                     (3, 64, 64, 160, "plain", (64, 0), (256, 0)),
+                     (4, 64, 64, 80, "plain", (512, 128), (512, 64)),
+                     (4, 64, 128, 80, "stride2", (256, 192), (384, 128)),
+                     (2, 48, 32, 30, "plain", (80, 16), (96, 32)))
+# the streamed kernel's YOLOv7 shapes: (batch, ic, oc, side, k, stride,
+# input pitch and offset, output pitch and offset): a 1x1 into an ELAN
+# concatenation (the pitched instantiation), a 3x3 from one slice into
+# another, SPPCSPC's 2,048-channel 1x1, an MP block's stride-2 3x3 into
+# its concatenation, the linear 255-channel 1x1 at 80
+YOLO7_STREAM_CASES = ((3, 128, 128, 80, 1, 1, (512, 0), (512, 256)),
+                      (3, 256, 128, 40, 3, 1, (1024, 256), (1024, 0)),
+                      (4, 2048, 512, 20, 1, 1, None, None),
+                      (3, 128, 128, 80, 3, 2, None, (256, 0)),
+                      (2, 256, 255, 80, 1, 1, None, None))
+
+
+def _wide(x: torch.Tensor, pitch_off, fill: int = 0):
+    """x (B, C, H, W) as channels off.. of a channels-last map of ``pitch``
+    channels (the rest ``fill``) -> (the view, the wide map); None: x in
+    channels-last memory."""
+    if pitch_off is None:
+        return x.contiguous(memory_format=torch.channels_last), None
+    pitch, off = pitch_off
+    b, c, h, w = x.shape
+    wide = torch.full((b, h, w, pitch), fill, dtype=torch.uint8, device=x.device)
+    wide[..., off:off + c] = x.permute(0, 2, 3, 1)
+    return wide.permute(0, 3, 1, 2)[:, off:off + c], wide
+
+
+def _untouched(tag: str, wide: torch.Tensor, spans) -> None:
+    """Every channel of ``wide`` outside ``spans`` (offset, count) still 77."""
+    keep = torch.ones(wide.shape[-1], dtype=torch.bool, device=wide.device)
+    for off, c in spans:
+        keep[off:off + c] = False
+    check(bool((wide[..., keep] == 77).all()), f"{tag}: wrote outside its channels")
+
+
+def yolo7_kernels_vs_plain(dev: torch.device) -> tuple[int, int, int, int, float, int]:
+    """YOLOv7's new modes, each bit for bit against its plain version: the
+    pooling kernel (``YOLO7_POOL_CASES``) against ``maxpool_reference`` and
+    ``F.max_pool2d``; the layer kernel on slices (``YOLO7_LAYER_CASES``) and
+    the streamed kernel's YOLOv7 shapes (``YOLO7_STREAM_CASES``) against
+    ``conv_stream.graph_layer_reference``, every output channel outside
+    the slice left as it was; the [yolo] head's scaled decode at
+    YOLOv7-640's three heads, 80 classes and 300 pairs, fine to coarse and
+    coarse to fine, against ``yolo_detect_reference`` (``region_dets_agree``)
+    -> (pool cases, the pools' largest difference, layer, stream cases,
+    the head's largest error, head cases)."""
+    import torch.nn.functional as F
+
+    from tpu_cnn_torch.models.region import YOLOV7_ANCHORS, YOLOV7_MASKS
+
+    rs = np.random.RandomState(41)
+    pool_n = layer_n = stream_n = pool_err = 0
+    for b, c, s, sizes, stride, pin, pout in YOLO7_POOL_CASES:
+        x = torch.from_numpy(rs.randint(0, 256, (b, c, s, s)).astype(np.uint8)).to(dev)
+        xin, _ = _wide(x, pin)
+        o = s // stride
+        wide_out, outs = None, None
+        if pout is not None:
+            wide_out = torch.full((b, o, o, pout[0]), 77, dtype=torch.uint8, device=dev)
+            outs = [wide_out.permute(0, 3, 1, 2)[:, off:off + c] for off in pout[1]]
+        got = maxpool.maxpool(xin, sizes, stride, outs=outs)
+        want = maxpool.maxpool_reference(x.cpu(), sizes, stride)
+        _sync(dev)
+        tag = f"yolov7 pool {(b, c, s, sizes, stride, pin, pout)}"
+        for k, g, w in zip(sizes, got, want):
+            f = F.max_pool2d(x.cpu().double(), k, stride, (k - 1) // 2).to(torch.uint8)
+            check(torch.equal(w, f), f"{tag}: the plain pool at {k} is not F.max_pool2d's")
+            check(torch.equal(g.cpu(), w), f"{tag}: at {k}, {int((g.cpu() != w).sum())} of "
+                                           f"{w.numel()} differ")
+            pool_err = max(pool_err, int((g.cpu().int() - w.int()).abs().max()))
+        if wide_out is not None:
+            _untouched(tag, wide_out, [(off, c) for off in pout[1]])
+        pool_n += 1
+    for b, ic, oc, s, mode, pin, pout in YOLO7_LAYER_CASES:
+        kernel, bias, shift = _region_weights(rs, ic, oc, 3)
+        shifts = torch.tensor([shift], dtype=torch.int32, device=dev)
+        x = torch.from_numpy(rs.randint(0, 256, (b, ic, s, s)).astype(np.uint8)).to(dev)
+        xin, _ = _wide(x, pin)
+        o = s if mode == "plain" else s // 2
+        wide_out = torch.full((b, o, o, pout[0]), 77, dtype=torch.uint8, device=dev)
+        out = wide_out.permute(0, 3, 1, 2)[:, pout[1]:pout[1] + oc]
+        kt, bt = torch.from_numpy(kernel).to(dev), torch.from_numpy(bias).to(dev)
+        got = region_layer.region_layer(xin, kt, bt, shifts, 0, out_mode=mode, out=out)
+        want = conv_stream.graph_layer_reference(x, kt, bt, shifts, 0,
+                                                 stride=2 if mode == "stride2" else 1)
+        _sync(dev)
+        tag = f"yolov7 layer kernel {(b, ic, oc, s, mode, pin, pout)}"
+        check(got.data_ptr() == out.data_ptr(), f"{tag}: did not write its slice")
+        check(torch.equal(got, want), f"{tag}: {int((got != want).sum())} of "
+                                      f"{want.numel()} differ")
+        _untouched(tag, wide_out, [(pout[1], oc)])
+        layer_n += 1
+    for b, ic, oc, s, k, stride, pin, pout in YOLO7_STREAM_CASES:
+        kernel, bias, shift = _region_weights(rs, ic, oc, k)
+        shifts = torch.tensor([shift], dtype=torch.int32, device=dev)
+        last = oc == 255
+        x = torch.from_numpy(rs.randint(0, 256, (b, ic, s, s)).astype(np.uint8)).to(dev)
+        xin, _ = _wide(x, pin)
+        o = s // stride
+        out = wide_out = None
+        if pout is not None:
+            wide_out = torch.full((b, o, o, pout[0]), 77, dtype=torch.uint8, device=dev)
+            out = wide_out.permute(0, 3, 1, 2)[:, pout[1]:pout[1] + oc]
+        kt, bt = torch.from_numpy(kernel).to(dev), torch.from_numpy(bias).to(dev)
+        got = conv_stream.conv_stream(xin, kt, bt, shifts, 0, stride=stride, out=out,
+                                      last=last)
+        want = conv_stream.graph_layer_reference(x, kt, bt, shifts, 0, stride=stride,
+                                                 last=last)
+        _sync(dev)
+        tag = f"yolov7 streamed kernel {(b, ic, oc, s, k, stride, pin, pout)}"
+        check(torch.equal(got, want), f"{tag}: {int((got != want).sum())} of "
+                                      f"{want.numel()} differ")
+        if wide_out is not None:
+            _untouched(tag, wide_out, [(pout[1], oc)])
+        stream_n += 1
+    shift = 12
+    shifts = torch.tensor([shift] * 3, dtype=torch.int32, device=dev)
+    max_err, head_n = 0.0, 0
+    for batch, grids, obj_mean in ((5, (80, 40, 20), -8.5), (3, (20, 40, 80), -8.5),
+                                   (3, (80, 40, 20), -5.0)):
+        sums = []
+        for g in grids:
+            t = rs.standard_normal((batch, 3, 85, g, g)) * 2.0
+            t[:, :, 4] += obj_mean
+            t[:, :, 5:] += obj_mean / 3
+            t = torch.from_numpy(np.round(t * 2**shift).astype(np.int32)).to(dev)
+            sums.append(t.reshape(batch, -1, g, g).contiguous(memory_format=torch.channels_last))
+        masks = YOLOV7_MASKS if grids[0] == 80 else YOLOV7_MASKS[::-1]
+        args = ([0, 1, 2], YOLOV7_ANCHORS, masks, 80, 640, 0.001, 0.65, 300, "scaled")
+        got = yolo_head.yolo_detect(sums, shifts, *args)
+        want = yolo_head.yolo_detect_reference([t.cpu() for t in sums], shifts.cpu(), *args)
+        _sync(dev)
+        want = tuple(w.to(dev) for w in want)
+        _, _, err = region_dets_agree(got, want, 0.65)
+        max_err, head_n = max(max_err, err), head_n + 1
+    return pool_n, pool_err, layer_n, stream_n, max_err, head_n
+
+
 def region_dets_agree(got, want, nms: float, tol: float = 1e-5) -> tuple[int, int, float]:
     """The region head's answer ``got`` (dets (B, M, 6), count (B,))
     against its plain version's ``want``, where float32 roundings may
@@ -1146,6 +1310,7 @@ def run_all(dev: torch.device) -> dict:
     rh_err, rh_n = region_head_vs_plain(dev)
     y3l_n, y3s_n = yolo3_layers_vs_plain(dev)
     yh_err, yh_n = yolo_head_vs_plain(dev)
+    y7p_n, y7p_err, y7l_n, y7s_n, y7h_err, y7h_n = yolo7_kernels_vs_plain(dev)
     after = _path_counts() if dev.type == "cuda" else {}
     return {
         "launches": {name: m.launches for name, m in MODULES.items()},
@@ -1155,14 +1320,16 @@ def run_all(dev: torch.device) -> dict:
         "cases": {"mega_cnn": mega_n, "conv_pool_layer": layer_n + n_layer + gn_layer,
                   "conv_act": act_n + n_act + gn_act + 1,  # + the bias instantiation's
                   "bitcast": bit_n,
-                  "cam_head": cam_n, "conv_stream": rs_n + y3s_n, "region_head": rh_n,
-                  "region_layer": rl_n + y3l_n, "yolo_head": yh_n},
+                  "cam_head": cam_n, "conv_stream": rs_n + y3s_n + y7s_n,
+                  "region_head": rh_n, "region_layer": rl_n + y3l_n + y7l_n,
+                  "yolo_head": yh_n + y7h_n, "maxpool": y7p_n},
         "max_abs_err": {"mega_cnn": mega_err,
                         "conv_pool_layer": max(layer_err, e_layer, g_layer),
                         "conv_act": max(act_err, e_act, g_act),
                         "bitcast": bit_err, "cam_head": cam_err,
                         "conv_stream": rs_err, "region_head": rh_err,
-                        "region_layer": rl_err, "yolo_head": yh_err}}
+                        "region_layer": rl_err, "yolo_head": max(yh_err, y7h_err),
+                        "maxpool": float(y7p_err)}}
 
 
 def main() -> None:

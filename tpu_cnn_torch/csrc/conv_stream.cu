@@ -141,7 +141,9 @@ struct alignas(64) StreamArgs {
 // A layer graph's epilogue and producer additions (conv_stream_forward_ex),
 // compile-time bits of the no-pool mode's instantiations; 0 is a chain's
 // layer, as yolov2-tiny-voc's: a stride of 1, its outputs at its own pitch.
-enum Feature { kFeatStride2 = 1, kFeatResidual = 2, kFeatUpsample = 4 };
+// kFeatPitch: the stride-1 conv's output inside a wider map, alone (YOLOv7's
+// convs writing a concatenation in place); the others store at out_pitch too
+enum Feature { kFeatStride2 = 1, kFeatResidual = 2, kFeatUpsample = 4, kFeatPitch = 8 };
 
 // ── Hopper primitives this kernel alone uses ─────────────────────────
 
@@ -844,6 +846,7 @@ Variant pick(int mode, int src, int feat) {
     switch (feat) {
       case kFeatStride2: return variant<kPlain, kATma, kFeatStride2>();
       case kFeatResidual: return variant<kPlain, kATma, kFeatResidual>();
+      case kFeatPitch: return variant<kPlain, kATma, kFeatPitch>();
       default: return variant<kPlain, kATma, kFeatUpsample>();
     }
   }
@@ -861,7 +864,7 @@ Variant pick(int mode, int src, int feat) {
 
 constexpr int kMaxDevices = 64;
 std::mutex g_resident_mutex;
-int g_resident[kMaxDevices][16] = {};  // CTAs the card holds at once, per variant
+int g_resident[kMaxDevices][20] = {};  // CTAs the card holds at once, per variant
 
 // How many CTAs of `v` the card holds at once (its persistent grid).
 cudaError_t resident_ctas(const Variant& v, int device, int* n) {
@@ -967,12 +970,14 @@ extern "C" int conv_stream_forward(const void* x, int nhwc, const void* w, const
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const int src = g.tma ? kATma : nhwc ? kANhwc : kANchw;
-  const int feat = (g.stride == 2 ? kFeatStride2 : 0) | (res_pitch ? kFeatResidual : 0) |
-                   (g.upsample ? kFeatUpsample : 0);
+  int feat = (g.stride == 2 ? kFeatStride2 : 0) | (res_pitch ? kFeatResidual : 0) |
+             (g.upsample ? kFeatUpsample : 0);
   // the plain instantiation stores at oc bytes a pixel: another pitch
-  // comes with a residual or an upsample
-  if ((feat != 0 && feat != kFeatStride2 && feat != kFeatResidual && feat != kFeatUpsample) ||
-      (feat != 0 && !g.tma) || (feat == 0 && out_pitch != oc)) {
+  // alone takes the pitched one
+  if (feat == 0 && out_pitch != oc) feat = kFeatPitch;
+  if ((feat != 0 && feat != kFeatStride2 && feat != kFeatResidual && feat != kFeatUpsample &&
+       feat != kFeatPitch) ||
+      (feat != 0 && !g.tma)) {
     return cudaErrorInvalidValue;
   }
   const Variant v = pick(g.mode, src, feat);

@@ -14,7 +14,11 @@
 // row pair's pixels, or the stride-2 conv, M rows two output rows of one
 // column reading every other staged pixel; each stores 2 bytes a lane
 // from registers, the residual map (the shortcut's other input) added
-// after the clip, saturating at 255.
+// after the clip, saturating at 255. Those two modes also take maps inside
+// wider ones (a route's channels: YOLOv7's ELAN convs reading and writing
+// their concatenation in place), another instantiation each (SLICE): the
+// channels-last staging reads pixels `in_pitch` bytes apart, the stores
+// write them `out_pitch` apart; every other instantiation keeps its code.
 //
 // An implicit GEMM on wgmma: M = pre-pool pixels, N = oc (16, 32, 64 or
 // 128: m64nNk32, oc padded with zero weights), K = the pixel's 3x3
@@ -102,7 +106,22 @@ struct LayerArgs {
   int layer;
   Geometry g;
   const uint8_t* res;  // the unpooled modes' residual map, out's shape (null: none)
+  int in_pitch, out_pitch;  // SLICE: bytes from a pixel of x (out) to the next
 };
+
+// Bytes from one pixel to the next of the channels-last input and of the
+// output: the channels, or a route's pitch (SLICE).
+template <bool SLICE>
+__device__ __forceinline__ int in_pitch(const LayerArgs& a) {
+  if constexpr (SLICE) return a.in_pitch;
+  return a.g.ic;
+}
+
+template <bool SLICE>
+__device__ __forceinline__ int out_pitch(const LayerArgs& a) {
+  if constexpr (SLICE) return a.out_pitch;
+  return a.g.oc;
+}
 
 // d (+)= A (registers) x B (64 x 128 of 32 K bytes; hopper.cuh's Wgmma).
 template <>
@@ -210,7 +229,7 @@ struct Walk {
 // Issues the copies of work item `u`'s source rows into buffer `buf` (the
 // raw planes, or the staging): cp.async, or plain loads byte by byte. CPC:
 // the staged pixel's 16-byte chunks (taps), 0 for the recast's 4 bytes.
-template <int CPC>
+template <int CPC, bool SLICE>
 __device__ __forceinline__ void load_item(const LayerArgs& a, uint8_t* smem, long long u,
                                           int buf, int tid, int nthreads) {
   const Geometry& g = a.g;
@@ -238,7 +257,7 @@ __device__ __forceinline__ void load_item(const LayerArgs& a, uint8_t* smem, lon
   if constexpr (CPC > 0) {
     if (g.load == kLoadNhwc16) {  // channels-last, ic % 16 == 0: 16-byte chunks
       const int cin = g.ic / 16, per_row = scols * CPC;
-      const uint8_t* xb = a.x + static_cast<size_t>(b) * H * W * g.ic;
+      const uint8_t* xb = a.x + static_cast<size_t>(b) * H * W * in_pitch<SLICE>(a);
       for (Walk k(tid, per_row, nthreads); k.i < rows * per_row; k.step()) {
         const int sc = k.col / CPC, c = k.col % CPC;
         if (c >= cin) continue;  // a padding chunk: the zeros written first
@@ -246,7 +265,8 @@ __device__ __forceinline__ void load_item(const LayerArgs& a, uint8_t* smem, lon
         const bool ok = y >= 0 && y < H && x >= 0 && x < W;
         const int p = k.row * g.cols + sc;
         cp_async16(st + p * g.cp + 16 * (c ^ swz(p, CPC)),
-                   ok ? xb + (static_cast<size_t>(y) * W + x) * g.ic + 16 * c : a.x, ok);
+                   ok ? xb + (static_cast<size_t>(y) * W + x) * in_pitch<SLICE>(a) + 16 * c : a.x,
+                   ok);
       }
       return;
     }
@@ -489,7 +509,7 @@ __device__ __forceinline__ void store_tile(const LayerArgs& a, const Lane<N>& ln
 // one, stored channels-last: M row g (acc[4 j + e]) is output pixel (y, x)
 // of position (prow, pcol) of the item, row g + 8 (acc[4 j + 2 + e]) the
 // pixel a row down (valid: inside the item).
-template <int N, int OUT>
+template <int N, int OUT, bool SLICE>
 __device__ __forceinline__ void store_plain(const LayerArgs& a, const Lane<N>& ln,
                                             const uint8_t* smem, int (&acc)[N / 2], bool valid,
                                             int prow, int pcol, int b, int band, int x0,
@@ -504,7 +524,7 @@ __device__ __forceinline__ void store_plain(const LayerArgs& a, const Lane<N>& l
   for (int h = 0; h < 2; ++h) {
     if (OUT == kOutStride2 && 2 * prow + h >= prows) continue;
     const long long pix = (static_cast<long long>(b) * oh + y + h) * ow + x;
-    uint8_t* o = a.out + pix * g.oc;
+    uint8_t* o = a.out + pix * out_pitch<SLICE>(a);
     const uint8_t* r = a.res != nullptr ? a.res + pix * g.oc : nullptr;
 #pragma unroll
     for (int j = 0; j < N / 8; ++j) {
@@ -535,7 +555,7 @@ __device__ __forceinline__ void store_plain(const LayerArgs& a, const Lane<N>& l
 // then its epilogue (the other warpgroups of the SM run theirs meanwhile;
 // ptxas serialises a warpgroup's MMAs whose accumulators another tile's
 // epilogue reads while they run).
-template <int CPC, int N, int OUT>
+template <int CPC, int N, int OUT, bool SLICE>
 __device__ __forceinline__ void run_item(const LayerArgs& a, const uint8_t* smem,
                                          const uint8_t* st, const Lane<N>& ln, int wg, int b,
                                          int band, int x0, int sw, int q, int shift,
@@ -586,15 +606,16 @@ __device__ __forceinline__ void run_item(const LayerArgs& a, const uint8_t* smem
     if constexpr (OUT == kOutPool) {
       store_tile<N>(a, ln, smem, acc0, pe.i < q, soff(), pooled(), shift);
     } else {
-      store_plain<N, OUT>(a, ln, smem, acc0, pe.i < q, pe.row, pe.col, b, band, x0, prows, shift);
+      store_plain<N, OUT, SLICE>(a, ln, smem, acc0, pe.i < q, pe.row, pe.col, b, band, x0, prows,
+                                 shift);
     }
     pe.step();
     if (two) {
       if constexpr (OUT == kOutPool) {
         store_tile<N>(a, ln, smem, acc1, pe.i < q, soff(), pooled(), shift);
       } else {
-        store_plain<N, OUT>(a, ln, smem, acc1, pe.i < q, pe.row, pe.col, b, band, x0, prows,
-                            shift);
+        store_plain<N, OUT, SLICE>(a, ln, smem, acc1, pe.i < q, pe.row, pe.col, b, band, x0,
+                                   prows, shift);
       }
       pe.step();
     }
@@ -604,7 +625,7 @@ __device__ __forceinline__ void run_item(const LayerArgs& a, const uint8_t* smem
 // ── the kernel ───────────────────────────────────────────────────────
 
 // The region route's layer kernel.
-template <int CPC, int N, int OUT>
+template <int CPC, int N, int OUT, bool SLICE>
 __global__ void __launch_bounds__(Cfg<N>::kThreads, Cfg<N>::kMinBlocks)
     conv_layer_kernel(const __grid_constant__ LayerArgs a) {
   extern __shared__ __align__(128) uint8_t smem[];
@@ -647,13 +668,15 @@ __global__ void __launch_bounds__(Cfg<N>::kThreads, Cfg<N>::kMinBlocks)
   }
   __syncthreads();  // the zeros land before any copy into the staging
   long long u = blockIdx.x;
-  if (u < g.units) load_item<CPC>(a, smem, u, 0, tid, kThreads);
+  if (u < g.units) load_item<CPC, SLICE>(a, smem, u, 0, tid, kThreads);
   cp_async_commit();
   // the warpgroup, uniform to the compiler too (a wgmma in a path it takes
   // for divergent is serialised)
   const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
   for (int buf = 0; u < g.units; u += gridDim.x, buf ^= 1) {
-    if (u + gridDim.x < g.units) load_item<CPC>(a, smem, u + gridDim.x, buf ^ 1, tid, kThreads);
+    if (u + gridDim.x < g.units) {
+      load_item<CPC, SLICE>(a, smem, u + gridDim.x, buf ^ 1, tid, kThreads);
+    }
     cp_async_commit();
     cp_async_wait_prior();  // this item's copies (and the weights) have landed
     if (tid == 0 && g.out_bytes) bulk_wait_read();  // the last item's output has left
@@ -670,7 +693,7 @@ __global__ void __launch_bounds__(Cfg<N>::kThreads, Cfg<N>::kMinBlocks)
       int per_row;
       item_positions(g, prows, sw, per_row, q);
     }
-    run_item<CPC, N, OUT>(a, smem, st, ln, wg, b, band, x0, sw, q, shift, prows);
+    run_item<CPC, N, OUT, SLICE>(a, smem, st, ln, wg, b, band, x0, sw, q, shift, prows);
     fence_proxy_async();  // this thread's output stores, before the bulk copy reads them
     __syncthreads();      // every warpgroup is done with this buffer and its output
     if (tid == 0 && g.out_bytes) {
@@ -694,7 +717,8 @@ enum LayerPath {
   kPathPlanes, kPathNhwc16, kPathBytes, kPathRecast3, kPathRecastSmall, kPathTaps16,
   kPathTaps32, kPathTaps64, kPathTaps128, kPathN16, kPathN32, kPathN64, kPathN128,
   kPathStoreBulk, kPathStore16, kPathStore2, kPathStore1, kPathTwoCtas, kPathSegments, kPathSecondItem,
-  kPathPartialBand, kPathPartialTile, kPathOutPlain, kPathOutStride2, kPathResidual, kLayerPaths
+  kPathPartialBand, kPathPartialTile, kPathOutPlain, kPathOutStride2, kPathResidual,
+  kPathInPitch, kPathOutPitch, kLayerPaths
 };
 constexpr const char* kLayerPathNames[kLayerPaths] = {
     "staging: three NCHW planes by cp.async, interleaved to a word a pixel",
@@ -710,7 +734,9 @@ constexpr const char* kLayerPathNames[kLayerPaths] = {
     "stores: bytes (odd oc)", "persistent: CTAs sharing an SM", "a band in column segments",
     "persistent: a CTA's second item", "a partial band (the last pooled rows)",
     "a partial tile (an item's last)", "output: the unpooled map, 2 bytes a lane",
-    "output: the stride-2 conv's map, 2 bytes a lane", "a residual added after the clip"};
+    "output: the stride-2 conv's map, 2 bytes a lane", "a residual added after the clip",
+    "the input inside a wider map (a route's slice)",
+    "the output inside a wider map (a route's slice)"};
 PathCounts<kLayerPaths> g_layer_paths(kLayerPathNames);
 
 using LayerKernel = void (*)(LayerArgs);
@@ -720,9 +746,9 @@ struct Variant {
   int threads, index;
 };
 
-template <int CPC, int N, int OUT = kOutPool>
+template <int CPC, int N, int OUT = kOutPool, bool SLICE = false>
 Variant variant(int index) {
-  return {conv_layer_kernel<CPC, N, OUT>, Cfg<N>::kThreads, index};
+  return {conv_layer_kernel<CPC, N, OUT, SLICE>, Cfg<N>::kThreads, index};
 }
 
 template <int CPC>
@@ -746,7 +772,32 @@ Variant pick_out(int n, int c) {
   }
 }
 
-Variant pick(const Geometry& g) {
+// The unpooled and stride-2 modes on maps inside wider ones (SLICE): the
+// taps modes (ic 4 or more), N 32, 64 and 128.
+template <int CPC, int OUT>
+Variant pick_slice(int n, int c) {
+  const int index = 50 + 12 * (OUT - 1) + 3 * (c - 1);
+  switch (n) {
+    case 32: return variant<CPC, 32, OUT, true>(index);
+    case 64: return variant<CPC, 64, OUT, true>(index + 1);
+    default: return variant<CPC, 128, OUT, true>(index + 2);
+  }
+}
+
+template <int OUT>
+Variant pick_slice_cp(const Geometry& g) {
+  switch (g.cp) {
+    case 16: return pick_slice<1, OUT>(g.n, 1);
+    case 32: return pick_slice<2, OUT>(g.n, 2);
+    case 64: return pick_slice<4, OUT>(g.n, 3);
+    default: return pick_slice<8, OUT>(g.n, 4);
+  }
+}
+
+Variant pick(const Geometry& g, bool slice) {
+  if (slice) {  // an unpooled mode of the taps (region_layer_forward)
+    return g.out_mode == kOutPlain ? pick_slice_cp<kOutPlain>(g) : pick_slice_cp<kOutStride2>(g);
+  }
   if (g.out_mode == kOutPlain) {
     if (g.mode == kRecast) return pick_out<0, kOutPlain>(g.n, 0);
     switch (g.cp) {
@@ -817,7 +868,11 @@ extern "C" int region_layer_paths(const char** names, unsigned long long* hits, 
 // W/2, oc)); `res` (the unpooled modes, null for none) a channels-last map
 // of out's shape, added to the clipped bytes (saturating at 255). Takes ic
 // 1-127, oc 1-128, H and W even (region_layer_plan.h); the unpooled modes
-// oc 18-128, even, and the stride-2 one ic 4 or more. Returns a
+// oc 18-128, even, and the stride-2 one ic 4 or more. In the unpooled
+// modes of ic 4 or more, x and out may be channels of wider channels-last
+// maps (a route's slices): a channels-last x (layout 1) has its pixels
+// `in_pitch` bytes apart, out (16-byte aligned) `out_pitch` (even) apart,
+// and no residual; a chain's layer passes ic and oc. Returns a
 // cudaError_t: cudaSuccess, cudaErrorInvalidValue for a geometry or a
 // pointer the kernel does not take, or the launch error. Neither
 // synchronises nor allocates.
@@ -825,20 +880,26 @@ extern "C" int region_layer_forward(const void* x, int layout, const void* w, co
                                     const void* shifts, int layer, void* out, int batch, int ic,
                                     int oc, int height, int width, long long sb, long long sc,
                                     long long sy, long long sx, int out_mode, const void* res,
-                                    int device, void* stream) {
+                                    int in_pitch, int out_pitch, int device, void* stream) {
   LayerArgs a;
   Geometry& g = a.g;
+  const bool slice = in_pitch != ic || out_pitch != oc;
+  // the staging's 16-byte chunks need 16-byte pixels; else byte by byte
+  if (layout == 1 && in_pitch % 16 != 0) layout = 2;
   const int aligned = (reinterpret_cast<uintptr_t>(x) & 15) == 0;
   if (layer < 0 || device < 0 || device >= kMaxDevices ||
       make_geometry_ex(batch, ic, oc, height, width, layout, aligned, out_mode, &g) != 0 ||
       (reinterpret_cast<uintptr_t>(w) & 15) != 0 || (reinterpret_cast<uintptr_t>(out) & 15) != 0 ||
-      (res != nullptr && (out_mode == kOutPool || (reinterpret_cast<uintptr_t>(res) & 1) != 0))) {
+      (res != nullptr && (out_mode == kOutPool || (reinterpret_cast<uintptr_t>(res) & 1) != 0)) ||
+      in_pitch < ic || out_pitch < oc ||
+      (slice && (out_mode == kOutPool || g.mode == kRecast || res != nullptr ||
+                 out_pitch % 2 != 0))) {
     return cudaErrorInvalidValue;
   }
   if (batch == 0) return cudaSuccess;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const Variant v = pick(g);
+  const Variant v = pick(g, slice);
   a.x = static_cast<const uint8_t*>(x);
   a.w = static_cast<const int8_t*>(w);
   a.bias = static_cast<const int32_t*>(bias);
@@ -850,6 +911,8 @@ extern "C" int region_layer_forward(const void* x, int layout, const void* w, co
   a.sx = sx;
   a.layer = layer;
   a.res = static_cast<const uint8_t*>(res);
+  a.in_pitch = in_pitch;
+  a.out_pitch = out_pitch;
   int per_sm, sms;
   err = resident_ctas(v, g.smem, device, &per_sm, &sms);
   if (err != cudaSuccess) return err;
@@ -873,6 +936,8 @@ extern "C" int region_layer_forward(const void* x, int layout, const void* w, co
     if (out_mode == kOutPlain) g_layer_paths.add(kPathOutPlain);
     if (out_mode == kOutStride2) g_layer_paths.add(kPathOutStride2);
     if (res != nullptr) g_layer_paths.add(kPathResidual);
+    if (in_pitch != ic) g_layer_paths.add(kPathInPitch);
+    if (out_pitch != oc) g_layer_paths.add(kPathOutPitch);
     const int last_band = g.oh - (g.bands - 1) * g.band, last_seg = width - (g.segs - 1) * g.seg_w;
     if (last_band != g.band) g_layer_paths.add(kPathPartialBand);
     if ((g.band * g.seg_w) % kTileQ != 0 || (last_band * g.seg_w) % kTileQ != 0 ||

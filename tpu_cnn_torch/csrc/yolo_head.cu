@@ -19,6 +19,13 @@
 //        score (ties: the lower index, then the lower class), zero past
 //        count (B,) s32 = min(pairs left, max_det)
 //
+// The scaled decode (YOLOv7's Detect, darknet's new_coords=1 with
+// scale_x_y=2) is the kernel's other instantiation: x = (j + 2 sigmoid(v_x)
+// - 0.5) / g_h, y likewise, w = (2 sigmoid(v_w))^2 a_w / net, h likewise;
+// it takes up to 32,768 boxes (a key's candidate in 15 bits: YOLOv7-640's
+// 25,200) and 320 kept pairs (test.py's 300), the darknet one 16,384 boxes
+// and 256 pairs.
+//
 // Float32 throughout; the plain version is ops/yolo_head.py's.
 //
 // A frame's scores alone (10,647 boxes x 80 classes x 4 B = 3.4 MB for
@@ -58,11 +65,11 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kHeads = 3;
 constexpr int kAnchorsHead = 3;        // anchors a head (its mask)
 constexpr int kPage = 16384;           // keys a page (128 KB of dynamic shared memory)
-constexpr int kMaxDet = 256;           // the kept pairs shared memory holds
-constexpr int kCandBits = 14;          // a candidate's number in a key
 constexpr int kClassBits = 7;          // a class in a key
-constexpr int kMaxBoxes = 1 << kCandBits;
 constexpr int kMaxClasses = 1 << kClassBits;
+// each decode's candidate number in a key, and the kept pairs shared memory holds
+constexpr int kDarknetCandBits = 14, kDarknetMaxDet = 256;
+constexpr int kScaledCandBits = 15, kScaledMaxDet = 320;  // YOLOv7-640's 25,200 boxes, 300 pairs
 
 struct YoloArgs {
   const int32_t* t[kHeads];
@@ -95,11 +102,13 @@ __device__ __forceinline__ float box_iou(float4 a, float4 b) {
 
 // A pair's key: smaller keys come first in the answer (score descending,
 // then candidate, then class); the score is positive, so its bits order it.
+template <int kCandBits>
 __device__ __forceinline__ uint64_t pair_key(float s, int c, int k) {
   return (static_cast<uint64_t>(0xFFFFFFFFu - __float_as_uint(s)) << (kCandBits + kClassBits)) |
          (static_cast<uint64_t>(c) << kClassBits) | static_cast<uint64_t>(k);
 }
 
+template <int kCandBits>
 __device__ __forceinline__ float key_score(uint64_t key) {
   return __uint_as_float(0xFFFFFFFFu - static_cast<uint32_t>(key >> (kCandBits + kClassBits)));
 }
@@ -127,6 +136,7 @@ __device__ __forceinline__ float head_scale(const YoloArgs& a, int h) {
 // Each pair of this image above thresh whose key lies in (lo, hi]: into
 // `keys` (its first kPage) when `keys` is given; returns how many there
 // are (every thread).
+template <int kCandBits>
 __device__ int collect(const YoloArgs& a, int b, int ncand, uint64_t lo, uint64_t hi,
                        uint64_t* keys, int* counter) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -151,7 +161,7 @@ __device__ int collect(const YoloArgs& a, int b, int ncand, uint64_t lo, uint64_
       if (k >= a.classes) continue;
       const float s = o * sigmoid(__int2float_rn(sums[i]) * scale);
       if (!(s > a.thresh)) continue;
-      const uint64_t key = pair_key(s, c, k);
+      const uint64_t key = pair_key<kCandBits>(s, c, k);
       if (key <= lo || key > hi) continue;
       const int at = atomicAdd(counter, 1);
       if (keys != nullptr && at < kPage) keys[at] = key;
@@ -163,7 +173,11 @@ __device__ int collect(const YoloArgs& a, int b, int ncand, uint64_t lo, uint64_
   return total;
 }
 
+// The head, its decode the scaled one or darknet's, candidates numbered in
+// kCandBits of a key, up to kMaxDet kept pairs.
+template <bool kScaled, int kCandBits, int kMaxDet>
 __global__ void __launch_bounds__(kThreads, 1) yolo_head_kernel(YoloArgs a) {
+  constexpr int kMaxBoxes = 1 << kCandBits;
   extern __shared__ __align__(16) uint64_t keys[];  // kPage
   __shared__ float4 kept_box[kMaxDet];
   __shared__ int kept_class[kMaxDet];
@@ -207,10 +221,19 @@ __global__ void __launch_bounds__(kThreads, 1) yolo_head_kernel(YoloArgs a) {
       const int at = ncand + warp_sum[warp] + __popc(mask & ((1u << lane) - 1));
       const int g = a.grids[h], i = cell / g, j = cell - i * g;
       float4 box;
-      box.x = (static_cast<float>(j) + sigmoid(__int2float_rn(v[0]) * scale)) / g;
-      box.y = (static_cast<float>(i) + sigmoid(__int2float_rn(v[1]) * scale)) / g;
-      box.z = expf(__int2float_rn(v[2]) * scale) * a.anchor_w[h][n] / a.net;
-      box.w = expf(__int2float_rn(v[3]) * scale) * a.anchor_h[h][n] / a.net;
+      if constexpr (kScaled) {
+        const float sw = 2.0f * sigmoid(__int2float_rn(v[2]) * scale);
+        const float sh = 2.0f * sigmoid(__int2float_rn(v[3]) * scale);
+        box.x = (static_cast<float>(j) + (2.0f * sigmoid(__int2float_rn(v[0]) * scale) - 0.5f)) / g;
+        box.y = (static_cast<float>(i) + (2.0f * sigmoid(__int2float_rn(v[1]) * scale) - 0.5f)) / g;
+        box.z = sw * sw * a.anchor_w[h][n] / a.net;
+        box.w = sh * sh * a.anchor_h[h][n] / a.net;
+      } else {
+        box.x = (static_cast<float>(j) + sigmoid(__int2float_rn(v[0]) * scale)) / g;
+        box.y = (static_cast<float>(i) + sigmoid(__int2float_rn(v[1]) * scale)) / g;
+        box.z = expf(__int2float_rn(v[2]) * scale) * a.anchor_w[h][n] / a.net;
+        box.w = expf(__int2float_rn(v[3]) * scale) * a.anchor_h[h][n] / a.net;
+      }
       boxes[at] = box;
       obj[at] = o;
       cand[at] = id;
@@ -226,17 +249,17 @@ __global__ void __launch_bounds__(kThreads, 1) yolo_head_kernel(YoloArgs a) {
   uint64_t last = 0;
   const uint64_t kNone = ~0ull;
   for (;;) {
-    int n = collect(a, b, ncand, last, kNone, keys, &counter);
+    int n = collect<kCandBits>(a, b, ncand, last, kNone, keys, &counter);
     if (n == 0) break;
     const bool more = n > kPage;
     if (more) {  // the kPage smallest keys left: the largest bound holding at most kPage
       uint64_t lo = last, hi = (1ull << (32 + kCandBits + kClassBits)) - 1;
       while (hi - lo > 1) {
         const uint64_t mid = lo + (hi - lo) / 2;
-        if (collect(a, b, ncand, last, mid, nullptr, &counter) <= kPage) lo = mid;
+        if (collect<kCandBits>(a, b, ncand, last, mid, nullptr, &counter) <= kPage) lo = mid;
         else hi = mid;
       }
-      n = collect(a, b, ncand, last, lo, keys, &counter);
+      n = collect<kCandBits>(a, b, ncand, last, lo, keys, &counter);
     }
     int width = 1;
     while (width < n) width <<= 1;
@@ -306,7 +329,7 @@ __global__ void __launch_bounds__(kThreads, 1) yolo_head_kernel(YoloArgs a) {
       d[1] = bx.y;
       d[2] = bx.z;
       d[3] = bx.w;
-      d[4] = key_score(kept_key[r]);
+      d[4] = key_score<kCandBits>(kept_key[r]);
       d[5] = static_cast<float>(kept_class[r]);
     } else {
       for (int e = 0; e < 6; ++e) d[e] = 0.0f;
@@ -315,10 +338,11 @@ __global__ void __launch_bounds__(kThreads, 1) yolo_head_kernel(YoloArgs a) {
   if (tid == 0) a.count[b] = nk;
 }
 
-enum YoloPath { kPathOnePage, kPathPages, kYoloPaths };
+enum YoloPath { kPathOnePage, kPathPages, kPathScaled, kYoloPaths };
 constexpr const char* kYoloPathNames[kYoloPaths] = {
     "launch: every image's pairs in one page of keys (host view: the workspace's size)",
-    "launch: pages possible (more boxes x classes than a page holds)"};
+    "launch: pages possible (more boxes x classes than a page holds)",
+    "decode: the scaled one (YOLOv7's)"};
 PathCounts<kYoloPaths> g_yolo_paths(kYoloPathNames);
 
 }  // namespace
@@ -342,15 +366,16 @@ extern "C" long long yolo_head_workspace_bytes(int boxes_n) {
 // vector read at layers[h], anchors (3, 3, 2) f32 host values (each head's
 // mask's anchors, in pixels), `net` the input side, workspace
 // yolo_head_workspace_bytes(boxes) x B bytes (16-byte aligned), dets (B,
-// max_det, 6) f32, count (B,) s32. Takes at most 16,384 boxes a frame,
-// 128 classes and max_det 256. Returns a cudaError_t: cudaSuccess,
+// max_det, 6) f32, count (B,) s32; `scaled` 0 the darknet decode, 1 the
+// scaled one. Takes at most 16,384 boxes a frame and max_det 256 (scaled:
+// 32,768 and 320), and 128 classes. Returns a cudaError_t: cudaSuccess,
 // cudaErrorInvalidValue for a geometry the kernel does not take, or the
 // launch error. Neither synchronises nor allocates.
 extern "C" int yolo_head_forward(const void* t0, const void* t1, const void* t2,
                                  const void* shifts, const int* layers, const int* grids,
                                  const float* anchors, float net, void* workspace, void* dets,
                                  void* count, int batch, int classes, float thresh, float nms,
-                                 int max_det, int device, void* stream) {
+                                 int max_det, int scaled, int device, void* stream) {
   YoloArgs a;
   const void* t[kHeads] = {t0, t1, t2};
   long long boxes_n = 0;
@@ -365,8 +390,10 @@ extern "C" int yolo_head_forward(const void* t0, const void* t1, const void* t2,
       a.anchor_h[h][n] = anchors[(h * kAnchorsHead + n) * 2 + 1];
     }
   }
-  if (batch < 0 || classes < 1 || classes > kMaxClasses || boxes_n > kMaxBoxes ||
-      max_det < 1 || max_det > kMaxDet || !(net > 0.0f) ||
+  const int max_boxes = 1 << (scaled ? kScaledCandBits : kDarknetCandBits);
+  const int most_det = scaled ? kScaledMaxDet : kDarknetMaxDet;
+  if (batch < 0 || classes < 1 || classes > kMaxClasses || boxes_n > max_boxes ||
+      (scaled != 0 && scaled != 1) || max_det < 1 || max_det > most_det || !(net > 0.0f) ||
       (reinterpret_cast<uintptr_t>(workspace) & 15) != 0) {
     return cudaErrorInvalidValue;
   }
@@ -388,12 +415,16 @@ extern "C" int yolo_head_forward(const void* t0, const void* t1, const void* t2,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   constexpr int kSmem = kPage * sizeof(uint64_t);
-  err = cudaFuncSetAttribute(yolo_head_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  using Kernel = void (*)(YoloArgs);
+  const Kernel kernel = scaled ? Kernel(yolo_head_kernel<true, kScaledCandBits, kScaledMaxDet>)
+                               : Kernel(yolo_head_kernel<false, kDarknetCandBits, kDarknetMaxDet>);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return err;
-  yolo_head_kernel<<<batch, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(a);
+  kernel<<<batch, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(a);
   err = cudaGetLastError();
   if (err == cudaSuccess) {
     g_yolo_paths.add(boxes_n * classes <= kPage ? kPathOnePage : kPathPages);
+    if (scaled) g_yolo_paths.add(kPathScaled);
   }
   return err;
 }

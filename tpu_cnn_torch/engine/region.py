@@ -1,7 +1,7 @@
 """RegionEngine — a region-head detector (``models.region.RegionModel``)
 on one CUDA device: a chain of layers with YOLOv2's region head
 (``RegionConfig``), or a darknet layer graph with [yolo] heads
-(``DarknetConfig``: YOLOv3).
+(``DarknetConfig``: YOLOv3, YOLOv7).
 
 The engine runs a plan of conv launches, set once (``_plan``). Each conv
 runs on the port's layer kernels, routed by its geometry
@@ -15,13 +15,18 @@ A chain is a graph without shortcuts or routes, its layers' launches as
 they always were.
 
 A graph's other rows run inside the convs' launches (``net.graph.ops``
-counts the shortcuts, upsamples and concatenating routes of a batch): a
-shortcut in the epilogue of the conv before it (its residual, where
-nothing else reads that conv's own map), an upsample in the epilogue of
-the 1x1 conv before it, a route by its maps' convs writing their channels
-of the concatenated map in place, and a one-map route is the map itself. A
-graph that needs any of them as a pass of its own raises: nothing falls
-back.
+counts the shortcuts, upsamples, max-pools and concatenating routes of a
+batch): a shortcut in the epilogue of the conv before it (its residual,
+where nothing else reads that conv's own map), an upsample in the
+epilogue of the 1x1 conv before it, a route of 2 to 6 maps by its maps'
+launches writing their channels of the concatenated map in place (a conv
+on either kernel, a pool), and a one-map route is the map itself; a conv
+whose input lies in a concatenation reads its channels there. A
+``maxpool`` row is a launch of the pooling kernel (``ops.maxpool``) inside
+the span ``net.pool`` (counter ``net.pool.maps``: the rows pooled, a frame
+each), the stride-1 pools of one map (SPPCSPC's 5, 9 and 13) one launch
+that cascades the 5x5. A graph that needs any other row as a pass of its
+own raises: nothing falls back.
 
 Then the head's kernel: the region head (``ops.region_head``, span
 ``head.region``, counter ``head.region.frames``) or the [yolo] heads'
@@ -42,7 +47,7 @@ import torch
 
 from tpu_cnn_torch.engine.device import DeviceEngine, _check_device
 from tpu_cnn_torch.models.region import DarknetConfig, TorchRegionNet
-from tpu_cnn_torch.ops import conv_stream, region_head, region_layer, yolo_head
+from tpu_cnn_torch.ops import conv_stream, maxpool, region_head, region_layer, yolo_head
 from tpu_cnn_torch.utils.profiling import count, span
 
 
@@ -56,15 +61,22 @@ class RegionResult:
 
 @dataclasses.dataclass
 class Launch:
-    """One conv's launch in the engine's plan."""
+    """One launch in the engine's plan: a conv's, or a pool's."""
 
-    conv: int  # the conv's index: its kernel, bias and shift
-    route: str  # "layer" or "stream"
+    conv: int | None  # the conv's index: its kernel, bias and shift (None: a pool)
+    route: str  # "layer", "stream" or "pool"
     src: int | None  # the row whose map it reads (None: the frames)
     writes: int  # the row whose map it makes: its own, or the shortcut's or upsample's it takes in
     kwargs: dict  # the kernel wrapper's options
     residual: int | None = None  # the row whose map it adds (a shortcut taken in)
     into: tuple[int, int] | None = None  # (route row, first channel): writes its slice
+    # a pool's maps, in the order of its sizes: (row, its ``into``) each
+    outs: tuple[tuple[int, tuple[int, int] | None], ...] = ()
+
+    @property
+    def made(self) -> tuple[tuple[int, tuple[int, int] | None], ...]:
+        """(row, ``into``) of each map the launch makes."""
+        return self.outs or ((self.writes, self.into),)
 
 
 def graph_route(spec, last: bool) -> str:
@@ -98,7 +110,7 @@ class RegionEngine(DeviceEngine):
         self._graph = isinstance(cfg, DarknetConfig)
         self._nodes = cfg.graph() if self._graph else None
         cuda = self.device.type == "cuda"
-        self._plan = self._graph_plan(cuda) if self._graph else self._chain_plan(cuda)
+        self._plan = self._graph_plan() if self._graph else self._chain_plan(cuda)
         # A chain lets each map go once the next layer has read it (a round
         # holds two maps, as it always has). A graph keeps a round's maps
         # to its end: on an H100 yolov3-416's offline rate was 0.4-1.3%
@@ -110,8 +122,9 @@ class RegionEngine(DeviceEngine):
                 self._drops[k].append(k - 1)
         self._packed = []
         for step in self._plan:
-            kernel = self.net.kernels[step.conv]
-            self._packed.append(None if not cuda else region_layer.pack_layer(kernel)
+            kernel = self.net.kernels[step.conv] if step.conv is not None else None
+            self._packed.append(None if not cuda or kernel is None
+                                else region_layer.pack_layer(kernel)
                                 if step.route == "layer" else conv_stream.pack_stream(kernel))
         self.backend = "pallas-region-cuda" if cuda else "pallas-region-reference-cpu"
 
@@ -135,20 +148,42 @@ class RegionEngine(DeviceEngine):
                              f"before the streamed ones")
         return plan
 
-    def _graph_plan(self, cuda: bool) -> list[Launch]:
+    def _graph_plan(self) -> list[Launch]:
         """A darknet graph's launches (the module docstring): each conv's
         route, the shortcut or upsample it takes in, and the concatenated
-        map it writes into; raises where a row would need a pass of its
-        own."""
+        map it writes into; each pool's; raises where a row would need a
+        pass of its own."""
         cfg = self._cfg
         rows, nodes = cfg.layer_configs, self._nodes
         readers: dict[int, list[int]] = {}
         for r, node in enumerate(nodes):
             for i in node.inputs:
                 readers.setdefault(i, []).append(r)
+        concat_of: dict[int, tuple[int, int]] = {}  # a map's row -> (route row, offset)
+        for q, node in enumerate(nodes):
+            if node.kind != "route" or len(node.inputs) < 2:
+                continue
+            off = 0
+            for i in node.inputs:
+                a = self._alias(i, nodes)
+                if a in concat_of or nodes[a].kind == "route":
+                    raise ValueError(f"row {q} {tuple(rows[q])}: map {i} lies in another "
+                                     f"concatenation, or is one")
+                concat_of[a] = (q, off)
+                off += nodes[a].channels
         done: set[int] = set()  # rows whose maps a launch makes
-        plan = []
-        for conv, r in enumerate(cfg.conv_rows):
+        plan: list[Launch] = []
+        conv = -1
+        for r, row in enumerate(rows):
+            if row[0] == "maxpool":
+                plan_pool = self._pool_launch(r, plan, concat_of)
+                if plan_pool is not None:
+                    plan.append(plan_pool)
+                done.add(r)
+                continue
+            if row[0] != "conv":
+                continue
+            conv += 1
             spec = cfg.specs[conv]
             last = r in cfg.linear
             nxt = r + 1 if r + 1 < len(rows) else None
@@ -158,22 +193,18 @@ class RegionEngine(DeviceEngine):
             writes = nxt if fuse else r
             residual = nodes[nxt].inputs[1] if fuse and rows[nxt][0] == "shortcut" else None
             upsample = fuse and rows[nxt][0] == "upsample"
-            into = None
-            for q in readers.get(writes, []):
-                if rows[q][0] == "route" and len(nodes[q].inputs) == 2:
-                    off = 0
-                    for i in nodes[q].inputs:
-                        if i == writes:
-                            break
-                        off += nodes[i].channels
-                    into = (q, off)
+            into = concat_of.get(writes)
+            src = nodes[r].inputs[0] if nodes[r].inputs else None
+            reads_slice = src is not None and self._alias(src, nodes) in concat_of
             route = graph_route(spec, last)
+            mode = "stride2" if spec[4] == 2 else "plain"
+            slice_ = into is not None or reads_slice
             if route == "layer":
-                mode = "stride2" if spec[4] == 2 else "plain"
-                if cuda and (upsample or into is not None
-                             or not region_layer.takes(spec[0], spec[1], spec[2], spec[2], mode)):
+                if upsample or not region_layer.takes(spec[0], spec[1], spec[2], spec[2], mode,
+                                                      slice_):
                     raise ValueError(f"conv {conv} (row {r}) {spec}: the layer kernel takes "
-                                     f"no upsample, no route's slice, oc 18-128 even")
+                                     f"no upsample, oc 18-128 even, a route's slice at ic 4 "
+                                     f"or more")
                 kwargs = {"out_mode": mode}
             else:
                 kwargs = {"last": last}
@@ -181,7 +212,6 @@ class RegionEngine(DeviceEngine):
                     kwargs["stride"] = 2
                 if upsample:
                     kwargs["upsample"] = True
-            src = nodes[r].inputs[0] if nodes[r].inputs else None
             plan.append(Launch(conv, route, src, writes, kwargs, residual, into))
             done.add(writes)
         for r, (row, node) in enumerate(zip(rows, nodes)):
@@ -189,16 +219,38 @@ class RegionEngine(DeviceEngine):
             if kind in ("shortcut", "upsample") and r not in done:
                 raise ValueError(f"row {r} {tuple(row)}: a {kind} that no conv's launch "
                                  f"takes in (the conv before it has other readers)")
-            if kind == "route" and len(node.inputs) == 2:
+            if kind == "route" and len(node.inputs) >= 2:
                 for i in node.inputs:
-                    writer = next((s for s in plan if s.writes == self._alias(i, nodes)), None)
-                    if writer is None or writer.into is None or writer.into[0] != r:
+                    a = self._alias(i, nodes)
+                    into = next((into for s in plan for w, into in s.made if w == a), None)
+                    if into is None or into[0] != r:
                         raise ValueError(f"row {r} {tuple(row)}: map {i} is not written "
-                                         f"into the concatenation by its conv")
+                                         f"into the concatenation by its launch")
         self._graph_ops = sum(1 for row, node in zip(rows, nodes)
-                              if row[0] in ("shortcut", "upsample")
-                              or row[0] == "route" and len(node.inputs) == 2)
+                              if row[0] in ("shortcut", "upsample", "maxpool")
+                              or row[0] == "route" and len(node.inputs) >= 2)
         return plan
+
+    def _pool_launch(self, r: int, plan: list[Launch], concat_of: dict) -> Launch | None:
+        """Row ``r``'s pool: a launch of its own, or (None) one more output
+        of the stride-1 launch that pools the same map already."""
+        nodes = self._nodes
+        size, stride = (int(v) for v in self._cfg.layer_configs[r][1:3])
+        src = self._alias(nodes[r].inputs[0], nodes)
+        node = nodes[src]
+        if not maxpool.takes(node.channels, node.size, node.size, stride):
+            raise ValueError(f"row {r}: the pooling kernel takes 16-channel multiples (and, "
+                             f"at stride 1, maps of 3,072 pixels at most), got "
+                             f"{node.channels} x {node.size}x{node.size}")
+        out = (r, concat_of.get(r))
+        if stride == 1:
+            for step in plan:
+                if (step.route == "pool" and step.kwargs["stride"] == 1 and step.src == src
+                        and len(step.outs) < 3):
+                    step.outs += (out,)
+                    step.kwargs["sizes"] += (size,)
+                    return None
+        return Launch(None, "pool", src, r, {"sizes": (size,), "stride": stride}, outs=(out,))
 
     @staticmethod
     def _alias(r: int, nodes) -> int:
@@ -207,40 +259,45 @@ class RegionEngine(DeviceEngine):
             r = nodes[r].inputs[0]
         return r
 
+    def _target(self, row: int, into, b: int, bufs: dict) -> torch.Tensor | None:
+        """Where row ``row``'s map goes: its slice of the concatenated map
+        ``into`` names (the map made on first use), or None (a map of its
+        own, which the kernel makes)."""
+        if into is None:
+            return None
+        q, off = into
+        if q not in bufs:
+            node = self._nodes[q]
+            if self.device.type == "cuda":
+                bufs[q] = torch.empty((b, node.size, node.size, node.channels),
+                                      dtype=torch.uint8, device=self.device).permute(0, 3, 1, 2)
+            else:
+                bufs[q] = torch.empty((b, node.channels, node.size, node.size),
+                                      dtype=torch.uint8)
+        return bufs[q][:, off:off + self._nodes[row].channels]
+
     def _launch(self, i: int, step: Launch, h: torch.Tensor, maps: dict,
-                bufs: dict) -> torch.Tensor:
-        """Launch ``step`` on ``h`` -> the map it makes."""
+                bufs: dict) -> list[tuple[int, torch.Tensor]]:
+        """Launch ``step`` on ``h`` -> (row, map) of each map it makes."""
+        b = int(h.shape[0])
+        if step.route == "pool":
+            made = maxpool.maxpool(h, step.kwargs["sizes"], step.kwargs["stride"],
+                                   outs=[self._target(r, into, b, bufs) for r, into in step.outs])
+            count("net.pool.maps", len(step.outs) * b)
+            return [(r, m) for (r, _), m in zip(step.outs, made)]
         net = self.net
         kernel, bias = net.kernels[step.conv], net.biases[step.conv]
         kwargs = dict(step.kwargs)
         if step.residual is not None:
             kwargs["residual"] = self._map(step.residual, maps, bufs)
-        out = None
-        if step.into is not None:
-            q, off = step.into
-            if q not in bufs:
-                node = self._nodes[q]
-                b = h.shape[0]
-                if self.device.type == "cuda":
-                    buf = torch.empty((b, node.size, node.size, node.channels),
-                                      dtype=torch.uint8, device=self.device).permute(0, 3, 1, 2)
-                else:
-                    buf = torch.empty((b, node.channels, node.size, node.size),
-                                      dtype=torch.uint8)
-                bufs[q] = buf
-            c = self._nodes[step.writes].channels
-            out = bufs[q][:, off:off + c]
-        if step.route == "layer":
-            made = region_layer.region_layer(h, kernel, bias, net.shifts, step.conv,
-                                             packed=self._packed[i], **kwargs)
-            if out is not None:  # the CPU's plain version only (_graph_plan)
-                out.copy_(made)
-                made = out
-            return made
+        out = self._target(step.writes, step.into, b, bufs)
         if out is not None:
             kwargs["out"] = out
-        return conv_stream.conv_stream(h, kernel, bias, net.shifts, step.conv,
-                                       packed=self._packed[i], **kwargs)
+        if step.route == "layer":
+            return [(step.writes, region_layer.region_layer(
+                h, kernel, bias, net.shifts, step.conv, packed=self._packed[i], **kwargs))]
+        return [(step.writes, conv_stream.conv_stream(
+            h, kernel, bias, net.shifts, step.conv, packed=self._packed[i], **kwargs))]
 
     @property
     def _routes(self) -> list[tuple[str, torch.Tensor | None]]:
@@ -257,7 +314,7 @@ class RegionEngine(DeviceEngine):
 
     def _net(self, x: torch.Tensor, keep: dict | None = None):
         """(B, C, S, S) u8 on the device -> the last layer's int32 sums (a
-        chain) or the heads' (a graph, in darknet's head order); each
+        chain) or the heads' (a graph, in its head order); each
         launch's output put in ``keep`` under the row it makes, where one
         is given."""
         maps: dict[int, torch.Tensor] = {}
@@ -265,18 +322,19 @@ class RegionEngine(DeviceEngine):
         with span("engine.net"):
             i = 0
             while i < len(self._plan):
-                stream = self._plan[i].route == "stream"
-                j = i
-                while j < len(self._plan) and (self._plan[j].route == "stream") == stream:
+                route = self._plan[i].route
+                j = i + 1
+                while route == "stream" and j < len(self._plan) and self._plan[j].route == route:
                     j += 1
-                with span("net.stream") if stream else contextlib.nullcontext():
+                with (span("net.stream") if route == "stream" else span("net.pool")
+                      if route == "pool" else contextlib.nullcontext()):
                     for k in range(i, j):
                         step = self._plan[k]
                         h = x if step.src is None else self._map(step.src, maps, bufs)
-                        out = self._launch(k, step, h, maps, bufs)
-                        maps[step.writes] = out
-                        if keep is not None:
-                            keep[step.writes] = out
+                        for r, out in self._launch(k, step, h, maps, bufs):
+                            maps[r] = out
+                            if keep is not None:
+                                keep[r] = out
                         for r in self._drops[k]:
                             maps.pop(r, None)
                             bufs.pop(r, None)
@@ -307,7 +365,7 @@ class RegionEngine(DeviceEngine):
             with span("head.yolo"):
                 dets, cnt = yolo_head.yolo_detect(
                     h, net.shifts, layers, cfg.anchors, cfg.masks, cfg.num_classes,
-                    cfg.img_size, cfg.thresh, cfg.nms, cfg.max_det)
+                    cfg.img_size, cfg.thresh, cfg.nms, cfg.max_det, cfg.decode)
             count("head.yolo.frames", int(x.shape[0]))
             return None, None, dets, cnt
         with span("head.region"):

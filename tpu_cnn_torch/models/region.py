@@ -23,8 +23,9 @@ at IoU ``nms`` (darknet's ``do_nms_sort``); the ``max_det`` best (box,
 class) pairs by score.
 
 A darknet layer graph (``DarknetConfig``: YOLOv3's convs with stride 2,
-shortcuts, routes, upsamples and three [yolo] heads) is the other family
-of rows; its head is ``ops.yolo_head``'s.
+shortcuts, routes, upsamples and three [yolo] heads; YOLOv7's max-pools
+and routes of up to six maps, its heads' scaled decode) is the other
+family of rows; its head is ``ops.yolo_head``'s.
 
 ``RegionModel`` holds the host (numpy) parameters of either, one kernel,
 bias and shift a conv; ``TorchRegionNet`` the same on one device.
@@ -38,6 +39,8 @@ from typing import Sequence
 import numpy as np
 import torch
 from torch import nn
+
+from tpu_cnn_torch.ops.yolo_head import DECODES
 
 POOLS = (0, 1, 2)
 
@@ -145,7 +148,17 @@ COCO_CLASSES = (
     "cell phone", "microwave", "oven", "toaster", "sink", "refrigerator", "book",
     "clock", "vase", "scissors", "teddy bear", "hair drier", "toothbrush")
 
-ROW_KINDS = ("conv", "shortcut", "route", "upsample", "yolo")
+ROW_KINDS = ("conv", "shortcut", "route", "upsample", "maxpool", "yolo")
+MAX_ROUTE = 6  # the most maps a route concatenates (YOLOv7's ELAN-H blocks)
+# (size, stride) of a ``maxpool`` row: YOLOv7's MP downsampling, and the
+# SPP pools (9 and 13 are 5 twice and three times: ``ops.maxpool``)
+POOL_ROWS = ((2, 2), (5, 1), (9, 1), (13, 1))
+
+# YOLOv7's anchors (cfg/deploy/yolov7.yaml, pixels of the 640 input), its
+# heads fine to coarse: P3 (stride 8), P4, P5
+YOLOV7_ANCHORS = ((12, 16), (19, 36), (40, 28), (36, 75), (76, 55), (72, 146),
+                  (142, 110), (192, 243), (459, 401))
+YOLOV7_MASKS = ((0, 1, 2), (3, 4, 5), (6, 7, 8))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -203,6 +216,135 @@ def yolov3_rows(size: int = 416, classes: int = 80,
     return tuple(rows)
 
 
+def yolov7_rows(size: int = 640, classes: int = 80, width: int = 1) -> tuple[tuple, ...]:
+    """YOLOv7 (``cfg/deploy/yolov7.yaml`` of github.com/WongKinYiu/yolov7,
+    rows 0-104, then ``Detect`` over 102, 103 and 104) as flat darknet rows
+    (``DarknetConfig``): the stem, four E-ELAN stages (a 1x1 pair and four
+    3x3s, their 4-way concatenation and a 1x1), the MP downsampling blocks
+    (a 2x2/2 max-pool and a 1x1 beside a 1x1 and a stride-2 3x3,
+    concatenated), SPPCSPC (pools at 5, 9 and 13 concatenated with their
+    map), the PAN neck of ELAN-H blocks (6-way concatenations) with two
+    upsamples and two MP blocks, the three ``RepConv`` in their deploy form
+    (one 3x3) and each head's linear 1x1 to 3 x (5 + classes) and [yolo]
+    row, fine to coarse (80, 40 and 20 at 640). A conv that reads a row
+    other than the previous one reads it through a one-map route, as
+    darknet's cfgs do; a concatenation is a route of its maps in the
+    yaml's order. Every width is divided by ``width``, to 32 channels at
+    least (the tests' small graphs; the engine's plan takes 1 and 2 only:
+    wider cuts leave an upsampling 1x1 on the layer kernel, which takes
+    no upsample)."""
+    rows: list[tuple] = []
+    at: dict[int, int] = {}  # yaml row -> the darknet row of its map
+    ch: dict[int, int] = {}
+    sz: dict[int, int] = {}
+
+    def add(row) -> int:
+        rows.append(tuple(row))
+        return len(rows) - 1
+
+    def read(y: int) -> None:
+        """Makes yaml row y's map the previous row's."""
+        if at[y] != len(rows) - 1:
+            add(("route", at[y]))
+
+    def cut(c: int) -> int:
+        return c if width == 1 else max(c // width, 32)
+
+    def conv(y, frm, oc, k, stride=1, scale=True):
+        oc = cut(oc) if scale else oc
+        ic = ch[frm] if frm is not None else 3
+        s = sz[frm] if frm is not None else size
+        if frm is not None:
+            read(frm)
+        at[y] = add(("conv", ic, oc, s, k, stride))
+        ch[y], sz[y] = oc, s // stride
+
+    def concat(y, srcs):
+        at[y] = add(("route", *(at[i] for i in srcs)))
+        ch[y], sz[y] = sum(ch[i] for i in srcs), sz[srcs[0]]
+
+    def maxpool(y, frm):
+        read(frm)
+        at[y] = add(("maxpool", 2, 2))
+        ch[y], sz[y] = ch[frm], sz[frm] // 2
+
+    def upsample(y, frm):
+        read(frm)
+        at[y] = add(("upsample", 2))
+        ch[y], sz[y] = ch[frm], 2 * sz[frm]
+
+    def elan(y, c, out, heads=4):
+        """Rows y .. y + 7: E-ELAN (``heads`` 4: concat of 4) or ELAN-H
+        (6: concat of 6); c the 1x1s' width, out the closing 1x1's."""
+        conv(y, y - 1, c, 1)
+        conv(y + 1, y - 1, c, 1)
+        c3 = c if heads == 4 else c // 2
+        for i in range(4):
+            conv(y + 2 + i, y + 1 + i, c3, 3)
+        picks = [5, 3, 1, 0] if heads == 4 else [5, 4, 3, 2, 1, 0]
+        concat(y + 6, [y + p for p in picks])
+        conv(y + 7, y + 6, out, 1)
+
+    def mp(y, c, third=None):
+        """Rows y .. y + 4: the MP block (its concat also reads ``third``)."""
+        maxpool(y, y - 1)
+        conv(y + 1, y, c, 1)
+        conv(y + 2, y - 1, c, 1)
+        conv(y + 3, y + 2, c, 3, 2)
+        concat(y + 4, [y + 3, y + 1] + ([third] if third is not None else []))
+
+    conv(0, None, 32, 3)
+    conv(1, 0, 64, 3, 2)
+    conv(2, 1, 64, 3)
+    conv(3, 2, 128, 3, 2)
+    elan(4, 64, 256)
+    mp(12, 128)
+    elan(17, 128, 512)
+    mp(25, 256)
+    elan(30, 256, 1024)
+    mp(38, 512)
+    elan(43, 256, 1024)
+    # 51: SPPCSPC(512): cv1, cv3, cv4 -> x1; x1 and its pools at 5, 9, 13
+    # concatenated; cv5, cv6 -> y1; cv2 of the input -> y2; cv7 of (y1, y2)
+    c_ = cut(512)
+    conv("cv1", 50, 512, 1)
+    conv("cv3", "cv1", 512, 3)
+    conv("x1", "cv3", 512, 1)
+    pools = []
+    for k in (5, 9, 13):
+        read("x1")
+        pools.append(add(("maxpool", k, 1)))
+    add(("route", at["x1"], *pools))
+    ch["spp"], sz["spp"] = 4 * c_, sz["x1"]
+    at["spp"] = len(rows) - 1
+    conv("cv5", "spp", 512, 1)
+    conv("y1", "cv5", 512, 3)
+    conv("y2", 50, 512, 1)
+    concat("y12", ["y1", "y2"])
+    conv(51, "y12", 512, 1)
+    conv(52, 51, 256, 1)
+    upsample(53, 52)
+    conv(54, 37, 256, 1)
+    concat(55, [54, 53])
+    elan(56, 256, 256, heads=6)
+    conv(64, 63, 128, 1)
+    upsample(65, 64)
+    conv(66, 24, 128, 1)
+    concat(67, [66, 65])
+    elan(68, 128, 128, heads=6)
+    mp(76, 128, third=63)
+    elan(81, 256, 256, heads=6)
+    mp(89, 256, third=51)
+    elan(94, 512, 512, heads=6)
+    out = 3 * (5 + classes)
+    for y, frm, c, mask in ((102, 75, 256, YOLOV7_MASKS[0]), (103, 88, 512, YOLOV7_MASKS[1]),
+                            (104, 101, 1024, YOLOV7_MASKS[2])):
+        conv(y, frm, c, 3)
+        conv(f"det{y}", y, out, 1, scale=False)
+        add(("yolo", *mask))
+    return tuple(rows)
+
+
 @dataclasses.dataclass(frozen=True)
 class DarknetConfig:
     """A darknet layer graph with [yolo] heads (YOLOv3). One flat row a
@@ -215,19 +357,31 @@ class DarknetConfig:
             a conv that a ``yolo`` row reads
         ("shortcut", frm)      u8 = min(a + b, 255): the previous row's map
                                and the map ``frm`` rows back
-        ("route", a[, b])      the maps of rows a (and b), channels
-                               concatenated in that order (negative:
-                               relative; else absolute)
+        ("route", a[, b, ..])  the maps of rows a, b, .. (1 to
+                               ``MAX_ROUTE``), channels concatenated in
+                               that order (negative: relative; else
+                               absolute)
         ("upsample", 2)        out(y, x) = in(y // 2, x // 2)
+        ("maxpool", k, s)      the previous row's map max-pooled, k 2 at s
+                               2 (an even map) or k 5, 9 or 13 at s 1:
+                               out(y, x) = the max of in over rows s y -
+                               (k - 1) // 2 .. + k - 1 and the same
+                               columns, taps outside the map ignored
+                               (darknet's [maxpool]; PyTorch's
+                               MaxPool2d(k, s, k // 2) for the odd k,
+                               MaxPool2d(2, 2) for 2)
         ("yolo", m0, m1, m2)   a head reading the previous (linear 1x1)
                                conv's 3 x (5 + classes) channels, anchors
                                m0..m2 of ``anchors`` (pixels)
 
     A conv reads the previous row's map (the frames for the first). The
     heads' boxes, in darknet's order (head by head, cell-major, anchor
-    inner), are decoded, kept where their objectness passes ``thresh``,
-    scored o x sigmoid(class), and suppressed per class together
-    (``ops.yolo_head``)."""
+    inner), are decoded (``decode``: "darknet", YOLOv3's x = (j +
+    sigmoid(tx)) / g, w = exp(tw) a_w / net; or "scaled", YOLOv7's and
+    darknet's ``new_coords=1, scale_x_y=2``: x = (j + 2 sigmoid(tx) - 0.5)
+    / g, w = (2 sigmoid(tw))**2 a_w / net), kept where their objectness
+    passes ``thresh``, scored o x sigmoid(class), and suppressed per class
+    together (``ops.yolo_head``)."""
 
     layer_configs: tuple[tuple, ...]
     anchors: tuple[tuple[float, float], ...] = COCO_ANCHORS
@@ -235,16 +389,21 @@ class DarknetConfig:
     thresh: float = 0.005
     nms: float = 0.45
     max_det: int = 100
+    decode: str = "darknet"
 
     def __post_init__(self):
+        if self.decode not in DECODES:
+            raise ValueError(f"decode {self.decode!r}: the [yolo] heads decode as one of "
+                             f"{DECODES}")
         self.graph()  # raises on an inconsistent graph
 
     def graph(self) -> list[Node]:
         """The resolved rows; raises ValueError where the graph is not
         consistent (shapes do not chain, a shortcut's maps differ, a
-        route's maps' sides differ, a ``yolo`` row does not follow a linear
-        1x1 conv of 3 x (5 + classes) channels, a row reads past the
-        start)."""
+        route's maps' sides differ or it reads more than ``MAX_ROUTE``, a
+        pool is not one of ``POOL_ROWS`` or halves an odd map, a ``yolo``
+        row does not follow a linear 1x1 conv of 3 x (5 + classes)
+        channels, a row reads past the start)."""
         nodes: list[Node] = []
         prev = None
         for r, row in enumerate(self.layer_configs):
@@ -281,8 +440,8 @@ class DarknetConfig:
                     raise ValueError(f"row {r} {row}: adds maps of different shapes")
                 node = Node("shortcut", (prev, src), nodes[prev].channels, nodes[prev].size)
             elif kind == "route":
-                if len(vals) not in (1, 2):
-                    raise ValueError(f"row {r} {row}: a route reads one or two rows")
+                if not 1 <= len(vals) <= MAX_ROUTE:
+                    raise ValueError(f"row {r} {row}: a route reads 1 to {MAX_ROUTE} rows")
                 srcs = tuple(at(v) for v in vals)
                 if len({nodes[i].size for i in srcs}) != 1:
                     raise ValueError(f"row {r} {row}: concatenates maps of different sides")
@@ -292,6 +451,15 @@ class DarknetConfig:
                 if vals != (2,) or prev is None:
                     raise ValueError(f"row {r} {row}: an upsample is (2,) after a row")
                 node = Node("upsample", (prev,), nodes[prev].channels, 2 * nodes[prev].size)
+            elif kind == "maxpool":
+                if vals not in POOL_ROWS or prev is None:
+                    raise ValueError(f"row {r} {row}: a maxpool is one of (size, stride) "
+                                     f"{POOL_ROWS} after a row")
+                if vals[1] == 2 and nodes[prev].size % 2:
+                    raise ValueError(f"row {r} {row}: a 2x2/2 pool of an odd map "
+                                     f"({nodes[prev].size})")
+                node = Node("maxpool", (prev,), nodes[prev].channels,
+                            nodes[prev].size // vals[1])
             else:
                 if len(vals) != 3 or any(not 0 <= m < len(self.anchors) for m in vals):
                     raise ValueError(f"row {r} {row}: a yolo row names 3 of the "
@@ -326,6 +494,11 @@ class DarknetConfig:
     @property
     def masks(self) -> list[tuple[int, ...]]:
         return [tuple(int(v) for v in self.layer_configs[r][1:]) for r in self.heads]
+
+    @property
+    def pools(self) -> list[int]:
+        """The ``maxpool`` rows."""
+        return [r for r, row in enumerate(self.layer_configs) if row[0] == "maxpool"]
 
     @property
     def linear(self) -> set[int]:

@@ -10,7 +10,8 @@ finds a name in either."""
 from __future__ import annotations
 
 from tpu_cnn_torch.models.cnn import LAYER_CONFIGS, CNNConfig
-from tpu_cnn_torch.models.region import DarknetConfig, RegionConfig, yolov3_rows
+from tpu_cnn_torch.models.region import (YOLOV7_ANCHORS, DarknetConfig, RegionConfig,
+                                         yolov3_rows, yolov7_rows)
 
 REGISTRY: dict[str, CNNConfig] = {
     # the reference hardware network (flagship)
@@ -39,6 +40,12 @@ DETECTORS: dict[str, RegionConfig | DarknetConfig] = {
     # 23 shortcuts, stride-2 downsampling), 4 routes, 2 upsamples and three
     # [yolo] heads over 80 COCO classes
     "yolov3-416": DarknetConfig(layer_configs=yolov3_rows(416, 80)),
+    # YOLOv7 (cfg/deploy/yolov7.yaml) at 640x640x3: 92 convs, 8 max-pools,
+    # routes of up to 6 maps, 2 upsamples, three heads fine to coarse with
+    # the scaled decode; test.py's threshold 0.001, IoU 0.65 and 300
+    # detections
+    "yolov7-640": DarknetConfig(layer_configs=yolov7_rows(640, 80), anchors=YOLOV7_ANCHORS,
+                                thresh=0.001, nms=0.65, max_det=300, decode="scaled"),
 }
 
 

@@ -5,6 +5,11 @@ L0-L3, L5, L7, L10), the same convs unpooled or at stride 2, with a
 residual added after the clip (``region_layer``'s ``out_mode`` and
 ``residual``).
 
+In those unpooled modes the input and the output may be channels of wider
+channels-last maps (YOLOv7's ELAN convs read and write a concatenation in
+place: ``region_layer``'s ``out``, and an input a route's slice), on an
+instantiation of their own.
+
 A layer ``(ic, oc, size, 3, 2)`` with an int32 bias, on u8 maps:
 
     sums = SAME 3x3 conv + bias             (exact s32)
@@ -29,7 +34,7 @@ import functools
 import torch
 
 from tpu_cnn_torch.ops import _build
-from tpu_cnn_torch.ops.conv_stream import graph_layer_reference, region_layer_reference
+from tpu_cnn_torch.ops.conv_stream import graph_layer_reference, pitch, region_layer_reference
 
 MAX_IC = 127  # 128 input channels and more stream (``conv_stream.streams``)
 MAX_OC = 128  # the widest wgmma N the kernel issues
@@ -41,12 +46,16 @@ OUT_MODES = {"pool": 0, "plain": 1, "stride2": 2}
 launches = 0
 
 
-def takes(ic: int, oc: int, height: int, width: int, out_mode: str = "pool") -> bool:
+def takes(ic: int, oc: int, height: int, width: int, out_mode: str = "pool",
+          slice_: bool = False) -> bool:
     """Whether the kernel takes a layer of ``ic`` -> ``oc`` channels on an
     H x W map in ``out_mode`` (``csrc/region_layer_plan.h``'s
     ``make_geometry_ex``: the unpooled modes take oc 18-128, even, and the
-    stride-2 one ic 4 or more)."""
+    stride-2 one ic 4 or more); ``slice_``: its input or output channels of
+    a wider map (the unpooled modes of ic 4 or more)."""
     if out_mode != "pool" and (oc <= 16 or oc % 2 or (out_mode == "stride2" and ic <= 3)):
+        return False
+    if slice_ and (out_mode == "pool" or ic <= 3):
         return False
     return (out_mode in OUT_MODES and 1 <= ic <= MAX_IC and 1 <= oc <= MAX_OC
             and height >= 2 and width >= 2 and height % 2 == 0 and width % 2 == 0
@@ -113,7 +122,8 @@ def pack_layer(kernel: torch.Tensor) -> torch.Tensor:
 def _lib() -> ctypes.CDLL:
     lib = _build.load("region_layer")
     p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.region_layer_forward.argtypes = [p, i, p, p, p, i, p] + [i] * 5 + [q] * 4 + [i, p, i, p]
+    lib.region_layer_forward.argtypes = [p, i, p, p, p, i, p] + [i] * 5 + [q] * 4 + [i, p] + \
+        [i] * 3 + [p]
     lib.region_layer_forward.restype = i
     lib.region_layer_error_string.argtypes = [i]
     lib.region_layer_error_string.restype = ctypes.c_char_p
@@ -159,7 +169,8 @@ def _layout(x: torch.Tensor) -> int:
 def region_layer(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
                  shifts: torch.Tensor, layer: int, *,
                  packed: torch.Tensor | None = None, out_mode: str = "pool",
-                 residual: torch.Tensor | None = None) -> torch.Tensor:
+                 residual: torch.Tensor | None = None,
+                 out: torch.Tensor | None = None) -> torch.Tensor:
     """One layer (the module docstring): (B, ic, H, W) u8 -> (B, oc, H/2,
     W/2) u8, on CUDA in channels-last memory. ``shifts[layer]`` applies
     (read on the device).
@@ -168,7 +179,10 @@ def region_layer(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
     W); a 1x1 kernel too, as its 3x3 ``as_3x3``) or "stride2" (darknet's
     stride-2 3x3 conv: (B, oc, H/2, W/2)), and a ``residual`` map of the
     output's shape, channels-last on CUDA (u8 = min(u8 + residual,
-    255))."""
+    255)); and, in those modes without a residual, ``out``, the map to
+    write (channels of a wider channels-last map on CUDA: a route's
+    slice), which is returned, and an input that is channels of a wider
+    one."""
     global launches
     _check(x, kernel, bias, shifts, layer, packed, out_mode)
     b, ic, h, w = (int(v) for v in x.shape)
@@ -179,25 +193,45 @@ def region_layer(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
                                  or residual.device != x.device):
         raise ValueError(f"residual must be ({b}, {oc}, {oh}, {ow}) uint8 on {x.device} "
                          f"of an unpooled mode")
+    if out is not None and (out_mode == "pool" or residual is not None
+                            or tuple(out.shape) != (b, oc, oh, ow) or out.dtype != torch.uint8
+                            or out.device != x.device):
+        raise ValueError(f"out must be ({b}, {oc}, {oh}, {ow}) uint8 on {x.device} of an "
+                         f"unpooled mode without a residual")
     if x.device.type == "cpu":
         if out_mode == "pool":
             return region_layer_reference(x, kernel, bias, shifts, layer, 2, False)
-        return graph_layer_reference(x, kernel, bias, shifts, layer,
+        made = graph_layer_reference(x, kernel, bias, shifts, layer,
                                      stride=2 if out_mode == "stride2" else 1,
                                      residual=residual)
+        if out is None:
+            return made
+        out.copy_(made)
+        return out
     dev = x.device
     if packed is None:
         packed = pack_layer(kernel)
     if any(t.device != dev for t in (packed, bias, shifts)):
         raise ValueError("x, kernel, bias and shifts must be on one device")
-    out = torch.empty((b, oh, ow, oc), dtype=torch.uint8, device=dev)
+    if out is None:
+        out = torch.empty((b, oh, ow, oc), dtype=torch.uint8, device=dev).permute(0, 3, 1, 2)
+    out_pitch = pitch(out)
+    if out_pitch is None:
+        raise ValueError("out must be a channels-last map or channels of one")
     if residual is not None and not residual.permute(0, 2, 3, 1).is_contiguous():
         raise ValueError("residual must be in channels-last memory")
+    layout, in_pitch = _layout(x), ic
+    if layout == 2 and pitch(x) is not None:  # channels of a wider channels-last map
+        layout, in_pitch = 1, pitch(x)
+    if (in_pitch != ic or out_pitch != oc) and not takes(ic, oc, h, w, out_mode, True):
+        raise ValueError(f"the layer kernel reads and writes a wider map's channels in the "
+                         f"unpooled modes of ic 4 or more, got ic {ic}, {out_mode}")
     lib = _lib()
     err = lib.region_layer_forward(
-        x.data_ptr(), _layout(x), packed.data_ptr(), bias.data_ptr(), shifts.data_ptr(),
+        x.data_ptr(), layout, packed.data_ptr(), bias.data_ptr(), shifts.data_ptr(),
         layer, out.data_ptr(), b, ic, oc, h, w, *(int(s) for s in x.stride()),
         OUT_MODES[out_mode], residual.data_ptr() if residual is not None else None,
+        in_pitch, out_pitch,
         dev.index if dev.index is not None else torch.cuda.current_device(),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
@@ -205,4 +239,4 @@ def region_layer(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
                            f"({lib.region_layer_error_string(err).decode()}) at x "
                            f"{tuple(x.shape)}, oc {oc}")
     launches += 1
-    return out.permute(0, 3, 1, 2)
+    return out

@@ -4,14 +4,17 @@ over every head's pairs together and the best ``max_det`` (box, class)
 pairs.
 
 ``yolo_detect`` takes the three linear layers' int32 sums (B, 3*(5+C), g,
-g), coarsest head first, on the device (on a card in channels-last memory:
+g), in the graph's head order (YOLOv3's coarsest first, YOLOv7's finest
+first), on the device (on a card in channels-last memory:
 the streamed kernel's output as it is) and returns ``dets`` (B, max_det, 6)
 float32 (x, y, w, h, score, class; zero past the count) and ``count`` (B,)
 int32. On a CUDA tensor it launches ``csrc/yolo_head.cu`` once a batch (its
 note says what it computes); on a CPU tensor it runs
 ``yolo_detect_reference``, the same float32 arithmetic in plain torch. Any
 other device, or a geometry the kernel does not take, raises: nothing
-falls back.
+falls back. ``decode`` picks the boxes' form: "darknet" (YOLOv3's) or
+"scaled" (YOLOv7's: x = (j + 2 sigmoid(tx) - 0.5) / g, w = (2
+sigmoid(tw))**2 a_w / net), an instantiation of the kernel each.
 """
 
 from __future__ import annotations
@@ -28,15 +31,22 @@ ANCHORS_A_HEAD = 3
 MAX_BOXES = 1 << 14  # the kernel's keys hold a candidate's number in 14 bits
 MAX_CLASSES = 128
 MAX_DET = 256
+# the scaled decode's instantiation: 15 bits (YOLOv7-640's 25,200 boxes),
+# 320 kept pairs (test.py's 300)
+MAX_BOXES_SCALED = 1 << 15
+MAX_DET_SCALED = 320
+DECODES = ("darknet", "scaled")
 
 # kernel launches made by this wrapper in this process
 launches = 0
 
 
-def decode_reference(sums, shifts, layers, anchors, masks, classes: int, net: int):
+def decode_reference(sums, shifts, layers, anchors, masks, classes: int, net: int,
+                     decode: str = "darknet"):
     """The three heads' sums -> boxes (B, N, 4), objectness (B, N) and class
     sigmoids (B, N, C) in float32, N the boxes of every head in darknet's
-    order (head by head, cell-major, anchor inner)."""
+    order (head by head, cell-major, anchor inner); the boxes by
+    ``decode``."""
     boxes, objs, cls = [], [], []
     for t, layer, mask in zip(sums, layers, masks):
         b, _, g, _ = t.shape
@@ -47,24 +57,32 @@ def decode_reference(sums, shifts, layers, anchors, masks, classes: int, net: in
         col, row = (cell % g).to(torch.float32), (cell // g).to(torch.float32)
         anc = torch.tensor([anchors[m] for m in mask], dtype=torch.float32,
                            device=t.device).repeat(g * g, 1)
-        boxes.append(torch.stack([(col + torch.sigmoid(v[..., 0])) / g,
-                                  (row + torch.sigmoid(v[..., 1])) / g,
-                                  torch.exp(v[..., 2]) * anc[:, 0] / net,
-                                  torch.exp(v[..., 3]) * anc[:, 1] / net], dim=-1))
+        if decode == "scaled":
+            sw, sh = 2.0 * torch.sigmoid(v[..., 2]), 2.0 * torch.sigmoid(v[..., 3])
+            boxes.append(torch.stack([(col + (2.0 * torch.sigmoid(v[..., 0]) - 0.5)) / g,
+                                      (row + (2.0 * torch.sigmoid(v[..., 1]) - 0.5)) / g,
+                                      sw * sw * anc[:, 0] / net,
+                                      sh * sh * anc[:, 1] / net], dim=-1))
+        else:
+            boxes.append(torch.stack([(col + torch.sigmoid(v[..., 0])) / g,
+                                      (row + torch.sigmoid(v[..., 1])) / g,
+                                      torch.exp(v[..., 2]) * anc[:, 0] / net,
+                                      torch.exp(v[..., 3]) * anc[:, 1] / net], dim=-1))
         objs.append(torch.sigmoid(v[..., 4]))
         cls.append(torch.sigmoid(v[..., 5:]))
     return torch.cat(boxes, 1), torch.cat(objs, 1), torch.cat(cls, 1)
 
 
 def yolo_detect_reference(sums, shifts, layers, anchors, masks, classes: int, net: int,
-                          thresh: float, nms: float, max_det: int):
+                          thresh: float, nms: float, max_det: int, decode: str = "darknet"):
     """The plain version, in float32: ``decode_reference``; the boxes whose
     objectness passes ``thresh``, their pairs scoring o x sigmoid(c) above
     it; per frame, the pairs in the answer's order (score descending, then
     box, then class), each kept unless a kept pair of its class overlaps it
     past ``nms``, until ``max_det`` are kept -> dets (B, max_det, 6), count
     (B,) int32."""
-    boxes, obj, cls = decode_reference(sums, shifts, layers, anchors, masks, classes, net)
+    boxes, obj, cls = decode_reference(sums, shifts, layers, anchors, masks, classes, net,
+                                       decode)
     b, n, c = cls.shape
     scores = obj[..., None] * cls
     scores = torch.where((obj[..., None] > thresh) & (scores > thresh), scores,
@@ -98,7 +116,7 @@ def yolo_detect_reference(sums, shifts, layers, anchors, masks, classes: int, ne
 def _lib() -> ctypes.CDLL:
     lib = _build.load("yolo_head")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.yolo_head_forward.argtypes = [p, p, p, p, p, p, p, f, p, p, p, i, i, f, f, i, i, p]
+    lib.yolo_head_forward.argtypes = [p, p, p, p, p, p, p, f, p, p, p, i, i, f, f, i, i, i, p]
     lib.yolo_head_forward.restype = i
     lib.yolo_head_workspace_bytes.argtypes = [i]
     lib.yolo_head_workspace_bytes.restype = ctypes.c_longlong
@@ -108,11 +126,12 @@ def _lib() -> ctypes.CDLL:
 
 
 def yolo_detect(sums, shifts: torch.Tensor, layers, anchors, masks, classes: int,
-                net: int, thresh: float, nms: float, max_det: int):
+                net: int, thresh: float, nms: float, max_det: int, decode: str = "darknet"):
     """The three heads' (B, 3*(5+C), g, g) int32 sums (a sequence, in
-    darknet's head order), the shift vector read at ``layers[h]``, the
+    the graph's head order), the shift vector read at ``layers[h]``, the
     anchors in pixels and each head's ``masks`` -> dets (B, max_det, 6)
-    float32, count (B,) int32 (the module docstring)."""
+    float32, count (B,) int32 (the module docstring); ``decode`` "darknet"
+    or "scaled"."""
     global launches
     sums = list(sums)
     if len(sums) != 3 or len(layers) != 3 or len(masks) != 3:
@@ -124,12 +143,16 @@ def yolo_detect(sums, shifts: torch.Tensor, layers, anchors, masks, classes: int
                 or len(mask) != ANCHORS_A_HEAD):
             raise ValueError(f"a head's sums must be (B, 3*(5+{classes}), g, g) int32 "
                              f"with a mask of 3 anchors, got {tuple(t.shape)} {t.dtype}")
-    if not 1 <= max_det <= MAX_DET:
-        raise ValueError(f"max_det {max_det}: need 1..{MAX_DET}")
+    if decode not in DECODES:
+        raise ValueError(f"decode {decode!r}: one of {DECODES}")
+    scaled = decode == "scaled"
+    most_det, most_boxes = (MAX_DET_SCALED, MAX_BOXES_SCALED) if scaled else (MAX_DET, MAX_BOXES)
+    if not 1 <= max_det <= most_det:
+        raise ValueError(f"max_det {max_det}: need 1..{most_det}")
     dev = sums[0].device
     if dev.type == "cpu":
         return yolo_detect_reference(sums, shifts, layers, anchors, masks, classes, net,
-                                     thresh, nms, max_det)
+                                     thresh, nms, max_det, decode)
     if dev.type != "cuda":
         raise ValueError(f"the [yolo] head runs on CUDA tensors (the kernel) or CPU "
                          f"tensors (its plain version), not on {dev}")
@@ -140,8 +163,8 @@ def yolo_detect(sums, shifts: torch.Tensor, layers, anchors, masks, classes: int
         raise ValueError("the sums must be in channels-last memory (the streamed "
                          "kernel's output)")
     boxes = sum(ANCHORS_A_HEAD * int(t.shape[2]) ** 2 for t in sums)
-    if boxes > MAX_BOXES or classes > MAX_CLASSES:
-        raise ValueError(f"the [yolo] head kernel takes at most {MAX_BOXES} boxes and "
+    if boxes > most_boxes or classes > MAX_CLASSES:
+        raise ValueError(f"the [yolo] head kernel takes at most {most_boxes} boxes and "
                          f"{MAX_CLASSES} classes, got {boxes} and {classes}")
     lib = _lib()
     ws = torch.empty(b * lib.yolo_head_workspace_bytes(boxes), dtype=torch.uint8, device=dev)
@@ -154,7 +177,8 @@ def yolo_detect(sums, shifts: torch.Tensor, layers, anchors, masks, classes: int
     err = lib.yolo_head_forward(
         nhwc[0].data_ptr(), nhwc[1].data_ptr(), nhwc[2].data_ptr(), shifts.data_ptr(), lay,
         grids, anc, float(net), ws.data_ptr(), dets.data_ptr(), count.data_ptr(), b, classes,
-        thresh, nms, max_det, dev.index if dev.index is not None else torch.cuda.current_device(),
+        thresh, nms, max_det, int(scaled),
+        dev.index if dev.index is not None else torch.cuda.current_device(),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"yolo_head_forward failed: cudaError {err} "
